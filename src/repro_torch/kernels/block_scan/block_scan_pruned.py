@@ -1,0 +1,122 @@
+"""Plane-pruned chunked block scan: the wrapper and its rule meta.
+
+``block_scan_pruned_chunk`` replaces the Pallas TPU kernel of the same
+name (``repro/kernels/block_scan/block_scan_pruned.py``), the kernel
+behind the ``"block_scan"`` scan backend.  On CUDA tensors it launches
+the hand-written kernel ``csrc/block_scan.cu`` (memory-bound: it reads
+only the rule's active planes, n_active * W * 4 bytes per lane-block);
+on CPU tensors it runs the plain version ``ref.py``.  There is no
+fallback from one to the other.
+
+Words are int32 tensors with the bits of the reference's uint32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.native import NativeKernel
+
+from .ref import block_scan_pruned_chunk_ref
+
+__all__ = ["block_scan_pruned_chunk", "build_rule_meta", "META_ROWS",
+           "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS"]
+
+META_ROWS = 4          # plane id / term id / step valid / required per term
+MAX_TERMS = 4          # BS_MAX_TERMS in csrc/block_scan.cuh
+MAX_WORDS = 1024       # one thread per word, one CUDA block per lane-block
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+BLOCK_SCAN_KERNEL = NativeKernel(
+    name="block_scan_pruned_chunk",
+    source="block_scan.cu",
+    headers=("block_scan.cuh",),
+    symbol="block_scan_pruned_chunk_launch",
+    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+)
+
+
+def build_rule_meta(
+    allowed: torch.Tensor,       # (B, T, F) bool
+    required: torch.Tensor,      # (B, T) bool
+    term_present: torch.Tensor,  # (B, T) bool
+    block_start: torch.Tensor,   # (B,) int32
+) -> torch.Tensor:
+    """Per-lane meta for ``block_scan_pruned_chunk``; equal to the
+    reference's ``build_rule_meta`` bit for bit.
+
+    Active planes (allowed ∧ present, flattened t*F+f) are listed first
+    in a stable order; the padding steps repeat the LAST active plane
+    with valid = 0.  Column ncols-1 of row 0 holds the block start."""
+    b, t, f = allowed.shape
+    p_steps = t * f
+    act = (allowed & term_present[:, :, None]).reshape(b, p_steps)
+    order = torch.argsort((~act).to(torch.int32), dim=1,
+                          stable=True).to(torch.int32)
+    n_active = act.sum(dim=1, dtype=torch.int32)
+    last = torch.gather(order, 1,
+                        torch.clamp(n_active - 1, min=0)[:, None].long())
+    steps = torch.arange(p_steps, dtype=torch.int32, device=allowed.device)
+    valid = (steps[None, :] < n_active[:, None]).to(torch.int32)
+    plane_ids = torch.where(valid == 1, order, last)
+
+    ncols = max(p_steps + 1, t + 1, 8)
+    meta = torch.zeros((b, META_ROWS, ncols), dtype=torch.int32,
+                       device=allowed.device)
+    meta[:, 0, :p_steps] = plane_ids
+    meta[:, 0, ncols - 1] = block_start.to(torch.int32)
+    meta[:, 1, :p_steps] = torch.div(plane_ids, f, rounding_mode="floor")
+    meta[:, 2, :p_steps] = valid
+    meta[:, 3, :t] = (required & term_present).to(torch.int32)
+    return meta
+
+
+def _check(occ: torch.Tensor, meta: torch.Tensor, chunk: int, n_terms: int):
+    if occ.dim() != 4 or occ.dtype != torch.int32:
+        raise ValueError(f"occ must be (B, nb, T*F, W) int32, got "
+                         f"{tuple(occ.shape)} {occ.dtype}")
+    b, nb, tf_planes, w = occ.shape
+    if meta.dtype != torch.int32 or meta.dim() != 3 or \
+            meta.shape[0] != b or meta.shape[1] != META_ROWS:
+        raise ValueError(f"meta must be (B, {META_ROWS}, ncols) int32, got "
+                         f"{tuple(meta.shape)} {meta.dtype}")
+    if meta.shape[2] < max(tf_planes + 1, n_terms + 1, 8):
+        raise ValueError(f"meta has {meta.shape[2]} columns, too few")
+    if meta.device != occ.device:
+        raise ValueError("occ and meta lie on different devices")
+    if not (1 <= n_terms <= MAX_TERMS) or tf_planes % n_terms:
+        raise ValueError(f"n_terms={n_terms} does not fit {tf_planes} planes "
+                         f"(at most {MAX_TERMS} terms)")
+    if chunk < 1 or b < 1 or nb < 1 or not (1 <= w <= MAX_WORDS):
+        raise ValueError(f"unsupported shape B={b} nb={nb} W={w} chunk={chunk}")
+
+
+def block_scan_pruned_chunk(occ: torch.Tensor, meta: torch.Tensor, *,
+                            chunk: int, n_terms: int):
+    """Evaluate each lane's rule over ``chunk`` consecutive blocks from
+    the lane's block start (meta[:, 0, -1]); blocks past nb-1 are clamped
+    to the last block and masked by the caller.
+
+    occ (B, nb, T*F, W) int32, meta from :func:`build_rule_meta` →
+    (match (B, chunk, W) int32, v_inc (B, chunk) int32,
+    n_match (B, chunk) int32)."""
+    _check(occ, meta, chunk, n_terms)
+    if occ.device.type == "cpu":
+        return block_scan_pruned_chunk_ref(occ, meta, chunk=chunk,
+                                           n_terms=n_terms)
+    if occ.device.type != "cuda":
+        raise ValueError(f"unsupported device {occ.device}")
+    if not (occ.is_contiguous() and meta.is_contiguous()):
+        raise ValueError("occ and meta must be contiguous")
+    b, nb, tf_planes, w = occ.shape
+    match = torch.empty((b, chunk, w), dtype=torch.int32, device=occ.device)
+    v_inc = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
+    n_match = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
+    with torch.cuda.device(occ.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        BLOCK_SCAN_KERNEL.launch(
+            occ.data_ptr(), meta.data_ptr(), match.data_ptr(),
+            v_inc.data_ptr(), n_match.data_ptr(), b, nb, tf_planes, w,
+            meta.shape[2], n_terms, chunk, stream)
+    return match, v_inc, n_match

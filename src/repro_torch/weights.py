@@ -1,0 +1,75 @@
+"""Parameters carried across from the JAX reference.
+
+The reference's trained parameters cannot be re-drawn here (its
+``jax.random`` streams have no torch counterpart), so they cross as
+numpy arrays: ``np.asarray`` of each leaf on the reference side,
+:func:`from_reference` here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.match_plan import MatchPlan
+from repro_torch.core.match_rules import RuleSet
+from repro_torch.core.state_bins import StateBins
+from repro_torch.device import resolve_device
+
+__all__ = ["ReferenceWeights", "from_reference"]
+
+_L1_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
+_RULESET_KEYS = ("allowed", "required", "du_quota", "dv_quota")
+_PLAN_KEYS = ("rule_idx", "reset_before", "du_quota", "dv_quota")
+
+
+@dataclasses.dataclass
+class ReferenceWeights:
+    l1_params: Optional[Dict[str, torch.Tensor]] = None
+    bins: Optional[StateBins] = None
+    q: Optional[torch.Tensor] = None
+    ruleset: Optional[RuleSet] = None
+    plans: Optional[Dict[str, MatchPlan]] = None
+
+
+def _tensor(x, dtype: np.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
+def from_reference(
+    l1_params: Optional[Mapping[str, np.ndarray]] = None,
+    bins: Optional[Mapping[str, np.ndarray]] = None,
+    q: Optional[np.ndarray] = None,
+    ruleset: Optional[Mapping[str, np.ndarray]] = None,
+    plans: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
+    *,
+    device=None,
+) -> ReferenceWeights:
+    """Convert reference parameters (numpy arrays) to the port's objects.
+
+    ``l1_params``: {w1, b1, w2, b2, w3, b3}; ``bins``: {u_edges,
+    v_edges}; ``q``: (p, n_actions); ``ruleset``: {allowed, required,
+    du_quota, dv_quota}; ``plans``: {name: {rule_idx, reset_before,
+    du_quota, dv_quota}}."""
+    dev = resolve_device(device)
+    out = ReferenceWeights()
+    if l1_params is not None:
+        out.l1_params = {k: _tensor(l1_params[k], np.float32, dev)
+                         for k in _L1_KEYS}
+    if bins is not None:
+        out.bins = StateBins(_tensor(bins["u_edges"], np.float32, dev),
+                             _tensor(bins["v_edges"], np.float32, dev))
+    if q is not None:
+        out.q = _tensor(q, np.float32, dev)
+    if ruleset is not None:
+        dt = (bool, bool, np.int32, np.int32)
+        out.ruleset = RuleSet(*(_tensor(ruleset[k], d, dev)
+                                for k, d in zip(_RULESET_KEYS, dt)))
+    if plans is not None:
+        dt = (np.int32, bool, np.int32, np.int32)
+        out.plans = {name: MatchPlan(*(_tensor(p[k], d, dev)
+                                       for k, d in zip(_PLAN_KEYS, dt)))
+                     for name, p in plans.items()}
+    return out

@@ -15,6 +15,11 @@ from repro.index.corpus import CorpusConfig
 from repro.data.querylog import QueryLogConfig
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with CUDA; skipped without one")
+
+
 @pytest.fixture(scope="session")
 def tiny_system() -> RetrievalSystem:
     """Small but fully functional retrieval system shared across tests."""

@@ -1,0 +1,48 @@
+"""The port's two standing rules: it never imports JAX or the JAX
+package, and it never falls back to the CPU quietly."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, check=True)
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 20          # every submodule was imported
+    assert bad.strip() == "[]"
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the no-fallback path is not reachable")
+    from repro_torch.core.match_rules import default_rule_library
+    from repro_torch.index.corpus import CorpusConfig
+    from repro_torch.system import RetrievalSystem, SystemConfig
+
+    cfg = SystemConfig(corpus=CorpusConfig(n_docs=64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RetrievalSystem(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RetrievalSystem(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        default_rule_library()
