@@ -1,0 +1,19 @@
+"""Arch registry: importing this package registers the ported configs
+(the dense GQA LMs so far)."""
+from .base import ArchDef, ShapeSpec, get_arch, list_archs
+
+__all__ = ["ArchDef", "ShapeSpec", "get_arch", "list_archs"]
+
+_LOADED = False
+
+
+def _load_all():
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    from . import (  # noqa: F401
+        mistral_nemo_12b,
+        starcoder2_3b,
+        phi4_mini_3_8b,
+    )

@@ -3,7 +3,8 @@
 The reference's trained parameters cannot be re-drawn here (its
 ``jax.random`` streams have no torch counterpart), so they cross as
 numpy arrays: ``np.asarray`` of each leaf on the reference side,
-:func:`from_reference` here.
+:func:`from_reference` (retrieval system) or
+:func:`lm_params_from_reference` (LM parameter tree) here.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.core.match_rules import RuleSet
 from repro_torch.core.state_bins import StateBins
 from repro_torch.device import resolve_device
 
-__all__ = ["ReferenceWeights", "from_reference"]
+__all__ = ["ReferenceWeights", "from_reference", "lm_params_from_reference"]
 
 _L1_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 _RULESET_KEYS = ("allowed", "required", "du_quota", "dv_quota")
@@ -73,3 +74,18 @@ def from_reference(
                                        for k, d in zip(_PLAN_KEYS, dt)))
                      for name, p in plans.items()}
     return out
+
+
+def lm_params_from_reference(params: Mapping, cfg, device=None) -> Dict:
+    """The reference's LM parameter tree (nested dicts of numpy arrays,
+    layer leaves stacked ``(n_layers, ...)``) as the port's, each leaf in
+    ``cfg.param_dtype`` (a ``TransformerConfig``)."""
+    dev = resolve_device(device)
+
+    def convert(tree):
+        if isinstance(tree, Mapping):
+            return {k: convert(v) for k, v in tree.items()}
+        arr = np.array(tree, dtype=np.float32)       # bf16 leaves too
+        return torch.from_numpy(arr).to(dev, cfg.param_dtype)
+
+    return convert(params)

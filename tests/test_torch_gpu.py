@@ -4,17 +4,27 @@ also runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-The kernels are compared with their plain torch versions, bit for bit.
+The block-scan kernel is compared with its plain torch version bit for
+bit; the flash-attention kernel within 2e-5 (fp32) and 2e-2 (bf16), the
+JAX package's own tolerances (``tests/test_kernels.py``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core.environment import EnvConfig, env_reset
 from repro_torch.core.scan_backends import BlockScanBackend, get_scan_backend
 from repro_torch.kernels.block_scan import (
     BLOCK_SCAN_KERNEL, block_scan_pruned_chunk, block_scan_pruned_chunk_ref,
     build_rule_meta)
+from repro_torch.kernels.flash_attention import (
+    FLASH_ATTENTION_KERNEL, attention_ref, flash_attention)
+from repro_torch.models.attention import gqa_forward
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.transformer import init_params, prefill
 
 T, F = 4, 4
 
@@ -100,3 +110,84 @@ def test_cuda_block_scan_backend_matches_reference(cuda, du, dv):
     for f in ("block_ptr", "u", "v", "matched", "cand", "cand_cnt", "topn",
               "done"):
         assert torch.equal(getattr(states[0], f), getattr(states[1], f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,dtype,bq,bk", [
+    (1, 4, 4, 128, 128, 64, True, "float32", 64, 64),      # 1:1
+    (2, 8, 2, 256, 256, 64, True, "float32", 64, 64),      # 4:1
+    (1, 6, 2, 128, 128, 128, True, "bfloat16", 64, 64),    # 3:1, bf16
+    (1, 2, 2, 128, 384, 64, False, "float32", 64, 64),     # bidirectional
+    (1, 4, 1, 100, 200, 64, True, "float32", 64, 64),      # ragged
+    (2, 32, 8, 300, 300, 128, True, "bfloat16", 64, 64),   # the LM's heads
+    (2, 32, 8, 300, 300, 128, True, "float32", 32, 16),    # small blocks
+    (1, 4, 2, 80, 40, 96, True, "float32", 64, 64),        # rows 0..39 masked
+    (1, 4, 2, 80, 40, 128, True, "bfloat16", 64, 64),
+    (1, 2, 1, 5, 1, 8, True, "float32", 8, 8),             # one key
+])
+def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                            causal, dtype, bq, bk):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(sq + skv + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda, dt)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    before = FLASH_ATTENTION_KERNEL.launches
+    got = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_KERNEL.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    masked = max(sq - skv, 0) if causal else 0
+    assert (got[:, :, :masked] == 0).all() and torch.isfinite(got.float()).all()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_unsupported(cuda):
+    q = torch.zeros((1, 4, 16, 160), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q[:, :2], q[:, :2])
+    q = torch.zeros((1, 4, 16, 64), device=cuda)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="dtypes"):
+            flash_attention(q.to(dt), q[:, :2].to(dt), q[:, :2].to(dt))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                        q[:, :2].contiguous(), q[:, :2].contiguous())
+
+
+@pytest.mark.gpu
+def test_cuda_mistral_nemo_two_layer_prefill_flash_and_plain(cuda):
+    """Mistral-NeMo-12B at full width, 2 layers, random weights: prefill
+    through the flash kernel (one launch per layer) and through the
+    plain chunked attention.  Layer 0's K/V precede any attention and
+    are bit-equal; its attention output agrees within the bf16
+    tolerance 2e-2; the logits, after two layers of bf16 rounding that
+    the two paths round differently (one bf16 ulp is 2**-8 relative, on
+    logits of order 1), within 0.1 + 0.05|logit|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("mistral-nemo-12b").model_cfg(False),
+                              n_layers=2, use_flash=True)
+    plain = dataclasses.replace(cfg, use_flash=False)
+    params = init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 1000))).to(cuda)
+    before = FLASH_ATTENTION_KERNEL.launches
+    logits, cache = prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_KERNEL.launches == before + cfg.n_layers
+    plain_logits, plain_cache = prefill(params, tokens, plain)
+    assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits).all()
+    for f in ("k", "v"):
+        assert cache[f].shape == (2, 2, 1000, 8, 128)
+        assert torch.equal(cache[f][0], plain_cache[f][0])
+    lp = params["layers"]
+    h = rms_norm(params["embed"][tokens], lp["ln1"][0])
+    attn0 = {k: w[0] for k, w in lp["attn"].items()}
+    torch.testing.assert_close(gqa_forward(attn0, h, cfg.attn_cfg()).float(),
+                               gqa_forward(attn0, h, plain.attn_cfg()).float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(logits, plain_logits, atol=0.1, rtol=0.05)

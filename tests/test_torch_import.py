@@ -46,3 +46,24 @@ def test_entry_points_raise_without_cuda():
         RetrievalSystem(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         default_rule_library()
+
+
+def test_lm_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the no-fallback path is not reachable")
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import (decode_step, init_kv_cache,
+                                                init_params, prefill)
+
+    cfg = get_arch("mistral-nemo-12b").model_cfg(True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_kv_cache(cfg, 1, 8)
+    params = init_params(cfg, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prefill(params, tokens, cfg)
+    _, cache = prefill(params, tokens, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_step(params, tokens[:, 0], cache, torch.tensor([8]), cfg)
