@@ -13,13 +13,22 @@ Phases (any failure raises and the script exits non-zero):
 2. Hold every kernel against its plain torch version on the card, at
    the shapes the paths give it, and time both (CUDA events, L2 flushed
    before every launch) beside the least time the card could take (the
-   bound): the block scan bit for bit; flash attention within 2e-5
+   bound) and, where one exists, one PyTorch call that computes the same
+   function: the block scan bit for bit; flash attention within 2e-5
    (fp32) and 2e-2 (bf16), the JAX package's own tolerances, at the LM
    path's shape (B=2, Hq=32, Hkv=8, S=8192, D=128, bf16, causal), the
    five shapes of ``tests/test_kernels.py`` and one case with fully
-   masked rows, beside ``scaled_dot_product_attention``'s time.  This
-   runs before any model is resident: the plain attention materialises
-   the (S, S) scores.
+   masked rows, beside ``scaled_dot_product_attention``; decode
+   attention within the same tolerances at the LM decode path's shape
+   (B=2, Hq=32, Hkv=8, S=8208, D=128, bf16, kv_len 8193, through the
+   transposed view of a (B, S, Hkv, D) cache), the four shapes of
+   ``tests/test_kernels.py``, per-row lengths with a row of length 0,
+   and partials merged across four shards (1e-4), beside SDPA with a
+   length mask; the embedding bag within 1e-5 (fp32) and 3e-2 (bf16)
+   at the Wide&Deep path's shapes (V=40M, E=1, L=40, B=512 and 262,144)
+   and the shapes of ``tests/test_kernels.py``, beside
+   ``F.embedding_bag``.  This runs before any model is resident: the
+   plain attention materialises the (S, S) scores.
 3. Serve: ``RetrievalSystem(device="cuda")`` at the widths of the
    websearch-rl config (block_docs=4096, T=4, F=4, k_rules=6,
    max_candidates=512, n_top=5, t_max=8, u_budget=65536, p_bins=10000,
@@ -40,11 +49,25 @@ Phases (any failure raises and the script exits non-zero):
    131072, bf16), random weights from a seeded CUDA generator.  The
    launch counts are set to 0, then ``prefill`` with ``use_flash=True``
    runs B=2 prompts of 8192 random tokens, the cache is padded to 8208
-   positions and 16 greedy ``decode_step``s follow; the counts are read
-   (the flash kernel: exactly one launch per layer).  Then a timed and
-   a profiled prefill, and the same prefill through the plain chunked
-   attention, whose layer-0 attention output must agree within 2e-2.
-5. Print the kernels' JSON line, the card line, and last
+   positions and 16 greedy ``decode_step``s follow through the decode
+   kernel; the counts are read (flash: one launch per layer per
+   prefill; decode: one per layer per step).  One decode step then runs
+   from copies of one cache through the kernel and through the plain
+   einsums (max |dlogit|, argmax agreement, ms per step), a decode step
+   is profiled, and a timed and a profiled prefill follow, with the
+   same prefill through the plain chunked attention, whose layer-0
+   attention output must agree within 2e-2.
+5. Recsys serve: Wide&Deep, DeepFM, DCN-v2 and BERT4Rec at their full
+   configs (no width cut), random fp32 weights from a seeded CUDA
+   generator, ids uniform per field from a seeded generator.  With the
+   counts set to 0: ``serve_p99`` (batch 512) for every arch,
+   ``serve_bulk`` (batch 262,144) for Wide&Deep and DeepFM, and
+   ``retrieval_cand`` (1 query x 1M items) for BERT4Rec; exactly one
+   embedding-bag launch per Wide&Deep or DeepFM forward.  Each
+   kernel-path forward is held against the same forward with the plain
+   bag (1e-5 + 1e-5|logit|); one ``serve_bulk`` forward of each of the
+   two runs under torch.profiler.
+6. Print the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -57,6 +80,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -83,15 +107,46 @@ SEED = 0
 LM_ARCH = "mistral-nemo-12b"
 LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 2, 8192, 16
 BF16_TOL, FP32_TOL = 2e-2, 2e-5     # tests/test_kernels.py:68
+MERGE_TOL = 1e-4                    # tests/test_kernels.py:122
+# Decode attention's out, row by row: the relative L2 error of each
+# (b, head) row that has a key.  At the LM path's shape a row averages
+# ~3,000 keys, so |out| is ~0.015, below the elementwise 2e-2 above; this
+# scales with the row.  bf16: one rounding of out, 2**-9 relative per
+# element; fp32: sums in another order.
+DECODE_ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+PLANTED_SCALE = 0.9    # a planted fault (out scaled) the check must reject
+BAG_BF16_TOL, BAG_FP32_TOL = 3e-2, 1e-5     # tests/test_kernels.py:141
+
+# Recsys serve path (src/repro/configs/{wide_deep,deepfm,dcn_v2,bert4rec}.py,
+# shapes of configs/recsys_family.py).
+RECSYS_ARCHS = ("wide-deep", "deepfm", "dcn-v2", "bert4rec")
+BAG_ARCHS = ("wide-deep", "deepfm")             # the archs with a bag sum
+# Kernel path against plain bag, one forward: the wide / first-order
+# term is a sum of 40 (39) fp32 terms of ~1e-2 in another order, and the
+# rest of the forward is the same ops on the same inputs.
+RECSYS_TOL = 1e-5
 
 
 def path_kernels():
     """The CUDA kernels of the paths: the websearch serve path's block
-    scan and the LM path's flash attention."""
+    scan, the LM path's flash and decode attention, and the recsys
+    path's embedding bag."""
     from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL
+    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_KERNEL
+    from repro_torch.kernels.embedding_bag import EMBEDDING_BAG_KERNEL
     from repro_torch.kernels.flash_attention import FLASH_ATTENTION_KERNEL
 
-    return [BLOCK_SCAN_KERNEL, FLASH_ATTENTION_KERNEL]
+    return [BLOCK_SCAN_KERNEL, FLASH_ATTENTION_KERNEL,
+            DECODE_ATTENTION_KERNEL, EMBEDDING_BAG_KERNEL]
+
+
+def reset_counts():
+    for k in path_kernels():
+        k.launches = 0
+
+
+def read_counts():
+    return {k.name: k.launches for k in path_kernels()}
 
 
 def build_kernels(kernels):
@@ -336,6 +391,255 @@ def flash_phase(dev, flush):
     return rows
 
 
+# ----------------------------------------------------- phase 2, decode
+# (name, B, Hq, Hkv, S, D, dtype, kv_len, cache view): the LM decode
+# path's first step (kv_len prompt + 1 over the cache padded by the
+# decode steps, read through the transposed (B, S, Hkv, D) cache), the
+# four shapes of tests/test_kernels.py, and per-row lengths with a row
+# of length 0.
+DECODE_CASES = [
+    ("path", LM_BATCH, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
+     [LM_PROMPT + 1] * LM_BATCH, True),
+    ("mha", 2, 8, 8, 512, 64, "float32", None, False),
+    ("gqa4", 2, 8, 2, 1024, 64, "float32", None, False),
+    ("gqa6_bf16", 1, 48, 8, 640, 128, "bfloat16", None, False),
+    ("wide", 1, 16, 16, 300, 64, "float32", None, False),
+    ("ragged", 4, 32, 8, 1000, 128, "bfloat16", [0, 1, 517, 1000], True),
+]
+
+
+def decode_bound_ms(b, hq, hkv, d, lens, dtype):
+    """Least time for one launch: q read, the K and V rows below each
+    sequence's kv_len read once, out, m and l written once, over the
+    memory rate, against QK^T and PV over those keys (2 FLOPs per
+    multiply-add) over the rate for the type."""
+    elt, rate = ((2, BF16_FLOPS_PER_S) if dtype == "bfloat16"
+                 else (4, FP32_FLOPS_PER_S))
+    keys = sum(lens)
+    bytes_moved = elt * (2 * b * hq * d + 2 * hkv * keys * d) + 8 * b * hq
+    flops = 4 * d * hq * keys
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err_rows(got, want):
+    """Largest |got - want| over finite entries, after checking that
+    both sides are infinite at the same places (rows with no key)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError("kernel and plain disagree on empty rows")
+    fin = torch.isfinite(want)
+    diff = (got[fin] - want[fin]).abs()
+    return diff, want[fin]
+
+
+def row_rel_err(got, want):
+    """Largest relative L2 error over the rows (last axis) of ``want``
+    that are not all zero."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    norm = want.norm(dim=-1)
+    keep = norm > 0
+    if not bool(keep.any()):
+        return 0.0
+    return float(((got - want)[keep].norm(dim=-1) / norm[keep]).max())
+
+
+def decode_phase(dev, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_ref, merge_partials, split_plan)
+
+    rows = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, b, hq, hkv, s, d, dtype, lens, view in DECODE_CASES:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + s + d + hq)
+        q = torch.randn((b, hq, d), generator=gen, device=dev).to(dt)
+        kv_shape = (b, s, hkv, d) if view else (b, hkv, s, d)
+        k, v = (torch.randn(kv_shape, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        if view:
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
+        kv_len = None if lens is None else torch.tensor(lens, device=dev)
+        lens = [s] * b if lens is None else lens
+        got = decode_attention(q, k, v, kv_len=kv_len)
+        torch.cuda.synchronize()
+        want = decode_attention_ref(q, k, v, kv_len=kv_len)
+        tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+        for what, g, w in zip(("out", "m", "l"), got, want):
+            diff, ref = max_err_rows(g, w)
+            if not bool((diff <= tol + tol * ref.abs()).all()):
+                raise AssertionError(f"decode {name}: kernel {what} != plain "
+                                     f"(max |d| {float(diff.max())}, tol {tol})")
+            if what == "out":
+                err = float(diff.max())
+        row_tol = DECODE_ROW_TOL[dtype]
+        row_err = row_rel_err(got[0], want[0])
+        if row_err > row_tol:
+            raise AssertionError(f"decode {name}: kernel out != plain (row "
+                                 f"relative error {row_err}, tol {row_tol})")
+        if row_rel_err(got[0] * PLANTED_SCALE, want[0]) <= row_tol:
+            raise AssertionError(f"decode {name}: the row check passes out "
+                                 f"scaled by {PLANTED_SCALE}")
+        empty = torch.tensor(lens, device=dev) == 0
+        if bool(empty.any()) and not (bool((got[0][empty] == 0).all())
+                                      and bool(torch.isinf(got[1][empty]).all())):
+            raise AssertionError(f"decode {name}: empty rows are not 0, -inf")
+
+        reps = 50
+        ms = time_cuda(lambda: decode_attention(q, k, v, kv_len=kv_len), reps,
+                       flush)
+        plain_ms = time_cuda(lambda: decode_attention_ref(q, k, v,
+                                                          kv_len=kv_len),
+                             10, flush)
+        mask = (torch.arange(s, device=dev)[None]
+                < torch.tensor(lens, device=dev)[:, None])[:, None, None]
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps, flush)
+        bound, bound_by = decode_bound_ms(b, hq, hkv, d, lens, dtype)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound,
+                          bound_by=bound_by)
+        print(f"[kernel] decode_attention {name}: B={b} Hq={hq} Hkv={hkv} "
+              f"S={s} D={d} {dtype} kv_len {lens if len(set(lens)) > 1 else lens[0]}"
+              f"{' (cache view)' if view else ''}, "
+              f"{split_plan(b, hkv, s, sms)[0]} slices: max_abs_err={err:.3g} "
+              f"on out (tol {tol}; m and l within it too), row relative "
+              f"error {row_err:.3g} (tol {row_tol}; out x{PLANTED_SCALE} "
+              f"rejected); kernel {ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms, sdpa {library_ms:.6f} ms, bound "
+              f"{bound:.6f} ms ({bound_by}); kernel/bound {ms / bound:.2f}x",
+              flush=True)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    # tests/test_kernels.py:107: four shards' partials, LSE-merged
+    b, h, s, d, shards = 2, 4, 512, 64, 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for shape in ((b, h, d), (b, h, s, d), (b, h, s, d)))
+    cut = [slice(i * s // shards, (i + 1) * s // shards) for i in range(shards)]
+    parts = [decode_attention(q, k[:, :, c], v[:, :, c], return_partial=True)
+             for c in cut]
+    merged = merge_partials(*(list(x) for x in zip(*parts)))
+    full, _, _ = decode_attention_ref(q, k, v)
+    err = float((merged - full).abs().max())
+    if not bool(((merged - full).abs() <= MERGE_TOL + MERGE_TOL * full.abs()).all()):
+        raise AssertionError(f"decode partials merge != full ({err})")
+    rows["merge"] = dict(max_abs_err=err)
+    print(f"[kernel] decode_attention partials of {shards} shards (B={b} H={h} "
+          f"S={s} D={d} fp32), LSE-merged, against the full plain attention: "
+          f"max_abs_err={err:.3g} (tol {MERGE_TOL})", flush=True)
+    return rows
+
+
+# ------------------------------------------------ phase 2, embedding bag
+# (name, V, E, B, L, mode, dtype, weighted, per-field ids): the Wide&Deep
+# path's wide term at serve_p99 and serve_bulk (one id per field, at the
+# field's offset, no padding), and the cases of tests/test_kernels.py
+# (random ids with -1 padding).
+WD_FIELDS, WD_VOCAB = 40, 1_000_000
+BAG_CASES = [
+    ("wd_p99", WD_FIELDS * WD_VOCAB, 1, 512, WD_FIELDS, "sum", "float32",
+     False, True),
+    ("wd_bulk", WD_FIELDS * WD_VOCAB, 1, 262_144, WD_FIELDS, "sum",
+     "float32", False, True),
+    ("t_sum", 64, 8, 4, 6, "sum", "float32", False, False),
+    ("t_mean", 128, 16, 8, 3, "mean", "float32", False, False),
+    ("t_wide", 1000, 32, 16, 10, "sum", "float32", False, False),
+    ("t_bf16_mean", 64, 128, 4, 4, "mean", "bfloat16", False, False),
+    ("t_weighted", 32, 8, 4, 5, "sum", "float32", True, False),
+]
+
+
+def bag_bound_ms(table, idx, weighted):
+    """Least time for one launch: every 32-byte sector of the table that
+    a valid index touches, read once (a random row read moves at least
+    one sector; rows that share a sector share its read), the indices
+    and weights read once and the output written once, over the memory
+    rate; against one multiply-add per (index, column) over the fp32
+    rate."""
+    import torch
+
+    v, e = table.shape
+    row_bytes = e * table.element_size()
+    rows = torch.unique(idx[idx >= 0].long())
+    first = rows * row_bytes // 32
+    last = ((rows + 1) * row_bytes - 1) // 32
+    span = int((last - first).max()) + 1 if rows.numel() else 0
+    sectors = (first[:, None] + torch.arange(span, device=idx.device)[None])
+    sectors = torch.unique(sectors[sectors <= last[:, None]])
+    b, l = idx.shape
+    bytes_moved = (32 * sectors.numel() + 4 * b * l * (2 if weighted else 1)
+                   + b * row_bytes)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * l * e / FP32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            sectors.numel())
+
+
+def bag_phase(dev, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
+
+    rows = {}
+    for name, v, e, b, l, mode, dtype, weighted, per_field in BAG_CASES:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + v + e + b)
+        table = torch.randn((v, e), generator=gen, device=dev).to(dt)
+        if per_field:
+            idx = (torch.randint(0, WD_VOCAB, (b, l), generator=gen, device=dev,
+                                 dtype=torch.int32)
+                   + torch.arange(l, device=dev, dtype=torch.int32) * WD_VOCAB)
+        else:
+            idx = torch.randint(-1, v, (b, l), generator=gen, device=dev,
+                                dtype=torch.int32)
+        w = (torch.randn((b, l), generator=gen, device=dev) if weighted
+             else None)
+        got = embedding_bag(table, idx, w, mode=mode)
+        torch.cuda.synchronize()
+        want = embedding_bag_ref(table, idx, w, mode=mode).float()
+        tol = BAG_BF16_TOL if dtype == "bfloat16" else BAG_FP32_TOL
+        diff = (got.float() - want).abs()
+        err = float(diff.max())
+        if not bool((diff <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"embedding_bag {name}: kernel != plain "
+                                 f"(max_abs_err={err}, tol {tol})")
+        ms = time_cuda(lambda: embedding_bag(table, idx, w, mode=mode), 50,
+                       flush)
+        plain_ms = time_cuda(lambda: embedding_bag_ref(table, idx, w,
+                                                       mode=mode), 10, flush)
+        library_ms = None
+        if per_field:     # no padding: F.embedding_bag computes the same
+            ones = torch.ones((b, l), device=dev)
+            library_ms = time_cuda(lambda: F.embedding_bag(
+                idx, table, mode="sum", per_sample_weights=ones), 50, flush)
+        bound, bound_by, sectors = bag_bound_ms(table, idx, weighted)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound,
+                          bound_by=bound_by)
+        lib = "n/a (padding)" if library_ms is None else f"{library_ms:.6f} ms"
+        print(f"[kernel] embedding_bag {name}: V={v} E={e} B={b} L={l} {mode} "
+              f"{dtype}{' weighted' if weighted else ''}: max_abs_err={err:.3g} "
+              f"(tol {tol}); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"F.embedding_bag {lib}, bound {bound:.6f} ms ({bound_by}; "
+              f"{sectors} distinct 32-byte sectors for {b * l} lookups); "
+              f"kernel/bound {ms / bound:.2f}x", flush=True)
+        del table, idx, w, got, want, diff
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------ phase 3
 def serve_config(n_blocks=N_BLOCKS, n_queries=N_QUERIES):
     from repro_torch.data.querylog import QueryLogConfig
@@ -429,10 +733,9 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
         print(f"[serve] batch inputs (cat {cat}, {len(qids)} queries): "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    kernels = path_kernels()
-    for k in kernels:
-        k.launches = 0
-    counter = kernels[0]
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL as counter
+
+    reset_counts()
     served = []
     for (cat, qids), inp in zip(work, inputs):
         for name, policy in (("plan", sys_.plan_policy(cat)),
@@ -447,7 +750,7 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
                   f"{len(qids) / wall:.0f} queries/s, {chunks} kernel "
                   f"launches (chunks), mean u {out[2].mean():.1f}, mean "
                   f"cand {out[3].mean():.1f}", flush=True)
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_counts()
     print(f"[serve] main path launches: {launches}", flush=True)
 
     # Checks of what came out, by the repo's own means.
@@ -542,13 +845,16 @@ def attention_layer0(params, tokens, cfg):
 def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
              steps=LM_DECODE_STEPS):
     """Prefill through the flash kernel, pad the cache, decode greedily
-    (the main path, between a reset and a read of the launch counts);
-    then a timed and a profiled prefill and the plain chunked one.
-    Returns the kernels' launch counts of the main path."""
+    through the decode kernel (the main path, between a reset and a read
+    of the launch counts); then one decode step through the kernel and
+    the plain einsums from copies of one cache, a profiled decode step, a
+    timed and a profiled prefill and the plain chunked one.  Returns the
+    kernels' launch counts of the main path."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_KERNEL as dec
     from repro_torch.kernels.flash_attention import FLASH_ATTENTION_KERNEL as flash
     from repro_torch.models.transformer import decode_step, init_params, prefill
 
@@ -557,6 +863,7 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     plain_cfg = dataclasses.replace(cfg, use_flash=False)
     on_card = dev.type == "cuda"
     per_prefill = cfg.n_layers if on_card else 0    # one launch per layer
+    per_step = cfg.n_layers if on_card else 0
     print(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads, {cfg.n_kv} kv heads, d_head {cfg.d_head}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}, random "
@@ -592,9 +899,7 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
               f"prompt tokens/s", flush=True)
         return logits, cache
 
-    kernels = path_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts()
     logits, cache = run_prefill("prefill (flash, first call)")
     first_logits = logits
     cache = {f: F.pad(c, (0, 0, 0, 0, 0, steps)) for f, c in cache.items()}
@@ -602,17 +907,24 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     pos = torch.full((batch,), prompt, dtype=torch.int64, device=dev)
     outs, step_ms = [logits], []
     for _ in range(steps):
+        before = dec.launches
         t0 = time.perf_counter()
         logits, cache = decode_step(params, token, cache, pos, cfg, device=dev)
         sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if dec.launches - before != per_step:
+            raise AssertionError(f"decode step: {dec.launches - before} decode "
+                                 f"launches, want {per_step}")
         outs.append(logits)
         token = logits.argmax(dim=-1)
         pos = pos + 1
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_counts()
     print(f"[lm] main path launches: {launches}", flush=True)
     if launches["flash_attention"] != per_prefill:
         raise AssertionError("the LM path's flash launches are not one per layer")
+    if launches["decode_attention"] != per_step * steps:
+        raise AssertionError("the LM path's decode launches are not one per "
+                             "layer per step")
     for out in outs:
         if out.shape != (batch, cfg.vocab) or not bool(torch.isfinite(out).all()):
             raise AssertionError("LM logits are not finite or misshapen")
@@ -621,9 +933,10 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
           f"{step_ms[0]:.2f} ms, then mean {sum(rest) / len(rest):.2f} ms/step "
           f"(min {min(rest):.2f}); {batch * len(rest) / sum(rest) * 1e3:.1f} "
           f"tokens/s", flush=True)
+    decode_both_ways(params, token, cache, pos - 1, cfg, plain_cfg, dev)
     if on_card:     # pos is now past the cache: this step stores nothing
         profile_device("lm decode step", lambda: decode_step(
-            params, token, cache, pos, cfg, device=dev), "flash_attention")
+            params, token, cache, pos, cfg, device=dev), "decode_attention")
     del cache, outs
 
     logits, cache = run_prefill("prefill (flash, steady)")
@@ -662,6 +975,225 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     return launches
 
 
+# ------------------------------------------------------------ phase 5
+def recsys_runs(arch_id):
+    """The (shape name, batch) runs of one arch: serve_p99 for every
+    arch, serve_bulk for the two archs with a bag sum, retrieval_cand for
+    BERT4Rec."""
+    from repro_torch.configs import get_arch
+
+    shapes = get_arch(arch_id).shapes
+    runs = [("serve_p99", shapes["serve_p99"].params["batch"])]
+    if arch_id in BAG_ARCHS:
+        runs.append(("serve_bulk", shapes["serve_bulk"].params["batch"]))
+    if arch_id == "bert4rec":
+        runs.append(("retrieval_cand",
+                     shapes["retrieval_cand"].params["n_candidates"]))
+    return runs
+
+
+def recsys_phase(dev, reduced=False, batch_cap=None, reps=5):
+    """Serve the four recsys archs (the main path between a reset and a
+    read of the launch counts) and check each run's output; then, on the
+    card, profile the serve_bulk forwards, after the read.
+    ``reduced``/``batch_cap`` cut the configs and batches for a rehearsal
+    on the CPU.  Returns the main path's launch counts."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import EMBEDDING_BAG_KERNEL as bag
+    from repro_torch.models import recsys
+
+    on_card = dev.type == "cuda"
+    print("[recsys] traffic cut: serve shapes only (no train_batch); "
+          "retrieval_cand for BERT4Rec only (the CTR archs' 1M-row forward is "
+          "serve_bulk's work at 4x the batch); no width or depth cut",
+          flush=True)
+    inits = {"wide-deep": (recsys.wide_deep_init, recsys.wide_deep_forward),
+             "deepfm": (recsys.deepfm_init, recsys.deepfm_forward),
+             "dcn-v2": (recsys.dcn_init, recsys.dcn_forward),
+             "bert4rec": (recsys.bert4rec_init, None)}
+    to_profile = []         # (name, forward): run after the counts are read
+    reset_counts()
+    for arch_id in RECSYS_ARCHS:
+        cfg = get_arch(arch_id).model_cfg(reduced)
+        init, forward = inits[arch_id]
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)   # kept for to_profile
+        t0 = time.perf_counter()
+        params = init(cfg, seed=SEED, device=dev)
+        sync(dev)
+        n = count_params(params)
+        print(f"[recsys] {arch_id}: {cfg}; {n / 1e6:.1f} M parameters "
+              f"({n * 4 / 1e9:.3f} GB fp32) drawn in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 11)
+        for shape, b in recsys_runs(arch_id):
+            b = min(b, batch_cap or b)
+            if arch_id == "bert4rec":
+                rows = 1 if shape == "retrieval_cand" else b
+                seq = torch.randint(0, cfg.n_items, (rows, cfg.seq_len),
+                                    generator=gen, device=dev)
+
+                def run(seq=seq, shape=shape, b=b):
+                    h = recsys.bert4rec_forward(params, seq, cfg, device=dev)
+                    if shape == "retrieval_cand":
+                        return recsys.retrieval_topk(
+                            h[0, -1], params["item_embed"][:b], k=100)
+                    return torch.topk(
+                        recsys.bert4rec_score_items(params, h[:, -1], cfg), 100)
+            else:
+                ids = torch.randint(0, cfg.vocab_per_field, (b, cfg.n_sparse),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)
+                dense = (torch.randn((b, cfg.n_dense), generator=gen,
+                                     device=dev) if cfg.n_dense else None)
+
+                def run(ids=ids, dense=dense, forward=forward, params=params,
+                        cfg=cfg):
+                    return forward(params, ids, cfg, dense, device=dev)
+            before = bag.launches
+            out = run()
+            sync(dev)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = bag.launches - before
+            want = (reps + 1) if on_card and arch_id in BAG_ARCHS else 0
+            if launches != want:
+                raise AssertionError(f"{arch_id} {shape}: {launches} bag "
+                                     f"launches over {reps + 1} forwards, "
+                                     f"want {want}")
+            ms = statistics.median(times)
+            # this arch's own: earlier archs' tables held for the profile
+            # are left out
+            peak = (f"{(torch.cuda.max_memory_allocated(dev) - held) / 1e9:.2f}"
+                    f" GB" if on_card else "n/a (CPU)")
+            print(f"[recsys] {arch_id} {shape} (batch {b}): median "
+                  f"{ms:.3f} ms/batch over {reps} (min {min(times):.3f}), "
+                  f"{b / ms * 1e3:.0f} examples/s; peak device memory "
+                  f"{peak}; {launches / (reps + 1):g} embedding-bag launches "
+                  f"per forward", flush=True)
+            if arch_id == "bert4rec":
+                bert4rec_check(shape, out, params, cfg, seq, b, recsys, dev)
+            else:
+                ctr_check(arch_id, shape, out, run, recsys, bag)
+            if on_card and shape == "serve_bulk":
+                to_profile.append((f"{arch_id} {shape}", run))
+        del params, run, out    # only to_profile keeps an arch's tables
+    counts = read_counts()
+    for name, run in to_profile:
+        profile_device(name, run, "embedding_bag")
+    return counts
+
+
+def ctr_check(arch_id, shape, out, run, recsys, bag):
+    """Finite logits of the right shape; for the archs with a bag sum,
+    the same forward with the plain bag (``embedding_bag_ref`` on the
+    same device) within ``RECSYS_TOL``."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+
+    if out.dim() != 1 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{arch_id} {shape}: logits not finite or misshapen")
+    if arch_id not in BAG_ARCHS:
+        print(f"[recsys] {arch_id} {shape}: {out.shape[0]} finite logits "
+              f"(no bag sum on this path)", flush=True)
+        return
+    before = bag.launches
+    with mock.patch.object(recsys, "embedding_bag", embedding_bag_ref):
+        want = run()
+    if bag.launches != before:
+        raise AssertionError("the plain-bag forward launched the kernel")
+    diff = (out - want).abs()
+    err = float(diff.max())
+    if not bool((diff <= RECSYS_TOL + RECSYS_TOL * want.abs()).all()):
+        raise AssertionError(f"{arch_id} {shape}: kernel bag != plain bag "
+                             f"({err})")
+    print(f"[recsys] {arch_id} {shape}: kernel-path forward against the plain "
+          f"bag: max |dlogit| {err:.3g} over {out.shape[0]} logits (tol "
+          f"{RECSYS_TOL} + {RECSYS_TOL}|logit|; logits up to "
+          f"{float(want.abs().max()):.3g})", flush=True)
+
+
+def bert4rec_check(shape, out, params, cfg, seq, n_cand, recsys, dev):
+    """A finite, sorted top 100; for retrieval, ``retrieval_topk``'s
+    scores against the top 100 of ``bert4rec_score_items`` over the same
+    candidates (the same dot products, as a matrix-vector and as a
+    vector-matrix product: within 1e-5 + 1e-5|score|)."""
+    import torch
+
+    vals, _ = out
+    if not (bool(torch.isfinite(vals).all()) and vals.shape[-1] == 100
+            and bool((vals[..., :-1] >= vals[..., 1:]).all())):
+        raise AssertionError(f"bert4rec {shape}: top-100 not finite or sorted")
+    note = ""
+    if shape == "retrieval_cand":
+        h = recsys.bert4rec_forward(params, seq, cfg, device=dev)
+        scores = recsys.bert4rec_score_items(params, h[:, -1], cfg)[0, :n_cand]
+        want = torch.topk(scores, 100).values
+        diff = (vals - want).abs()
+        if not bool((diff <= 1e-5 + 1e-5 * want.abs()).all()):
+            raise AssertionError("bert4rec retrieval: retrieval_topk != "
+                                 "bert4rec_score_items top-k")
+        note = (f"; against bert4rec_score_items' top 100: max |d| "
+                f"{float(diff.max()):.3g}")
+    print(f"[recsys] bert4rec {shape}: top-100 finite and sorted, scores "
+          f"{float(vals.min()):.4g}..{float(vals.max()):.4g}{note}", flush=True)
+
+
+def decode_both_ways(params, token, cache, pos, cfg, plain_cfg, dev, reps=3):
+    """One decode step at ``pos`` from two copies of ``cache``: through
+    the decode kernel (``cfg``) and through the plain einsums
+    (``plain_cfg``), in turns (kernel, plain, plain, kernel, ...); prints
+    max |dlogit|, argmax agreement and the median ms per step of each.
+    Every run after the first rewrites the same cache row with the same
+    values, so each copy sees the same step every time."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models.transformer import decode_step
+
+    paths = {"kernel": cfg, "plain": plain_cfg}
+    copies = {name: {f: c.clone() for f, c in cache.items()} for name in paths}
+    logits, times = {}, {name: [] for name in paths}
+    order = ["kernel", "plain"]
+    for _ in range(reps):
+        for name in order:
+            t0 = time.perf_counter()
+            out, _ = decode_step(params, token, copies[name], pos, paths[name],
+                                 device=dev)
+            sync(dev)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            logits.setdefault(name, out)
+        order.reverse()
+    got, want = logits["kernel"], logits["plain"]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("decode kernel path: logits are not finite")
+    for f in ("k", "v"):
+        if not torch.equal(copies["kernel"][f][0], copies["plain"][f][0]):
+            raise AssertionError("decode paths wrote layer 0's cache apart")
+    print(f"[lm] decode step at pos {pos.tolist()}, kernel against plain "
+          f"einsums from copies of one cache: max |dlogit| "
+          f"{float((got - want).abs().max()):.4g} over {got.numel()} logits, "
+          f"argmax agrees on {int((got.argmax(-1) == want.argmax(-1)).sum())} "
+          f"of {got.shape[0]}; median ms/step kernel "
+          f"{statistics.median(times['kernel']):.2f}, plain "
+          f"{statistics.median(times['plain']):.2f} ({reps} runs each, in turns)",
+          flush=True)
+    del copies
+
+
 def profile_batch(exe, name, policy, inp):
     """One served batch under torch.profiler."""
     profile_device(name, lambda: exe.execute(policy, *inp),
@@ -696,8 +1228,9 @@ def profile_device(name, fn, kernel):
     for e in dev_events:
         n, us = per_name.get(e.name, (0, 0.0))
         per_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    # CUDA names a template kernel "void name<T>(...)"
-    kern = [v for k, v in per_name.items() if f"{kernel}_kernel" in k]
+    # CUDA names a template kernel "void name_kernel<T>(...)"; decode
+    # attention launches two (split and merge)
+    kern = [v for k, v in per_name.items() if kernel in k]
     kern_us = sum(us for _, us in kern)
     print(f"[profile] {name}: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
@@ -739,6 +1272,8 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     rows = kernel_phase(dev, flush)
     flash_rows = flash_phase(dev, flush)
+    decode_rows = decode_phase(dev, flush)
+    bag_rows = bag_phase(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -753,26 +1288,38 @@ def main() -> int:
         raise AssertionError("the serve path launched no block_scan kernel")
 
     lm_launches = lm_phase(dev)
-    flash_main = flash_rows["path"]
+    torch.cuda.empty_cache()
+    recsys_launches = recsys_phase(dev)
+    if recsys_launches["embedding_bag"] <= 0:
+        raise AssertionError("the recsys path launched no embedding_bag kernel")
+    print(f"[recsys] main path launches: {recsys_launches}", flush=True)
 
-    main_row = rows[4]      # DEFAULT_CHUNK_BLOCKS: the serve path's chunk
-    kernels = [dict(
-        name="block_scan_pruned_chunk", route="cuda",
-        source="src/repro_torch/csrc/block_scan.cu",
-        replaces="src/repro/kernels/block_scan/block_scan_pruned.py:222",
-        launches=launches["block_scan_pruned_chunk"],
-        max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None), dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:87",
-        launches=lm_launches["flash_attention"],
-        max_abs_err=max(r["max_abs_err"] for r in flash_rows.values()),
-        ms=flash_main["ms"], plain_ms=flash_main["plain_ms"],
-        bound_ms=flash_main["bound_ms"], bound_by=flash_main["bound_by"],
-        library_ms=flash_main["library_ms"])]
+    def row(name, source, replaces, n, r, err):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+                    replaces=replaces, launches=n, max_abs_err=err, ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r.get("library_ms"))
+
+    def worst(rs):
+        return max(r["max_abs_err"] for r in rs.values())
+
+    kernels = [
+        row("block_scan_pruned_chunk", "block_scan.cu",
+            "src/repro/kernels/block_scan/block_scan_pruned.py:222",
+            launches["block_scan_pruned_chunk"],
+            rows[4], worst(rows)),      # C=4: the serve path's chunk
+        row("flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:87",
+            lm_launches["flash_attention"], flash_rows["path"],
+            worst(flash_rows)),
+        row("decode_attention", "decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:74",
+            lm_launches["decode_attention"], decode_rows["path"],
+            worst(decode_rows)),
+        row("embedding_bag", "embedding_bag.cu",
+            "src/repro/kernels/embedding_bag/embedding_bag.py:48",
+            recsys_launches["embedding_bag"], bag_rows["wd_bulk"],
+            worst(bag_rows))]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

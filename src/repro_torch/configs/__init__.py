@@ -1,5 +1,5 @@
 """Arch registry: importing this package registers the ported configs
-(the dense GQA LMs so far)."""
+(the dense GQA LMs and the recsys models so far)."""
 from .base import ArchDef, ShapeSpec, get_arch, list_archs
 
 __all__ = ["ArchDef", "ShapeSpec", "get_arch", "list_archs"]
@@ -16,4 +16,8 @@ def _load_all():
         mistral_nemo_12b,
         starcoder2_3b,
         phi4_mini_3_8b,
+        wide_deep,
+        deepfm,
+        dcn_v2,
+        bert4rec,
     )

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "entry_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,4 +23,16 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def entry_device(param: torch.Tensor, mesh=None, device=None) -> torch.device:
+    """The device of a model entry point (``resolve_device(device)``),
+    checked against a parameter's: raises if they differ, and for a
+    ``mesh`` (the port runs on one device)."""
+    if mesh is not None:
+        raise NotImplementedError("the port runs on one device: mesh must be None")
+    dev = resolve_device(device)
+    if param.device.type != dev.type:
+        raise ValueError(f"parameters lie on {param.device}, not on {dev}")
     return dev

@@ -1,0 +1,91 @@
+"""EmbeddingBag: the public wrapper of the hand-written CUDA kernel.
+
+``embedding_bag`` replaces both of the reference's entry points: its
+jnp ``embedding_bag``, which the recsys models call, and
+``embedding_bag_kernel`` over the Pallas TPU kernel
+``embedding_bag_pallas``; ``embedding_bag_kernel`` is kept as a second
+name.  On CUDA tensors it launches ``csrc/embedding_bag.cu`` (bound by
+the bytes of the random row reads: see the note there); on CPU tensors
+it runs the plain version ``ref.py``.  There is no fallback from one to
+the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.native import NativeKernel
+
+from .ref import embedding_bag_ref
+
+__all__ = ["embedding_bag", "embedding_bag_kernel", "EMBEDDING_BAG_KERNEL"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MODES = {"sum": 0, "mean": 1}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+EMBEDDING_BAG_KERNEL = NativeKernel(
+    name="embedding_bag",
+    source="embedding_bag.cu",
+    headers=("embedding_bag.cuh",),
+    symbol="embedding_bag_launch",
+    argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
+)
+
+
+def _check(table, indices, weights, mode):
+    if mode not in _MODES:
+        raise ValueError(f"mode {mode!r} unsupported (sum or mean)")
+    if table.dim() != 2 or indices.dim() != 2:
+        raise ValueError(f"want table (V, E) and indices (B, L); got "
+                         f"{tuple(table.shape)}, {tuple(indices.shape)}")
+    if table.dtype not in _DTYPES:
+        raise ValueError(f"table dtype {table.dtype} unsupported (fp32 or bf16)")
+    if indices.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"indices dtype {indices.dtype} unsupported")
+    if weights is not None and weights.shape != indices.shape:
+        raise ValueError(f"weights {tuple(weights.shape)} do not match "
+                         f"indices {tuple(indices.shape)}")
+    devices = {table.device, indices.device}
+    if weights is not None:
+        devices.add(weights.device)
+    if len(devices) != 1:
+        raise ValueError("table, indices and weights lie on different devices")
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  weights: torch.Tensor | None = None, mode: str = "sum"
+                  ) -> torch.Tensor:
+    """table (V, E) fp32 or bf16, indices (B, L) int (-1 = padding),
+    weights (B, L) fp32 or None → (B, E) in the table's dtype; fp32
+    accumulation.  ``mode``: "sum", or "mean" (divided by the number of
+    valid indices, at least 1).  On CUDA the indices must be int32 and
+    every tensor contiguous.  An index at or past V is padding on both
+    devices (the kernel never reads outside the table)."""
+    _check(table, indices, weights, mode)
+    if table.device.type == "cpu":
+        return embedding_bag_ref(table, indices, weights, mode=mode)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    if indices.dtype != torch.int32:
+        raise ValueError("indices must be int32 on CUDA")
+    if weights is not None and weights.dtype != torch.float32:
+        raise ValueError("weights must be float32")
+    if not (table.is_contiguous() and indices.is_contiguous()
+            and (weights is None or weights.is_contiguous())):
+        raise ValueError("table, indices and weights must be contiguous")
+    (v, e), (b, l) = table.shape, indices.shape
+    out = torch.empty((b, e), dtype=table.dtype, device=table.device)
+    if b == 0 or e == 0:
+        return out
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        EMBEDDING_BAG_KERNEL.launch(
+            table.data_ptr(), indices.data_ptr(),
+            None if weights is None else weights.data_ptr(), out.data_ptr(),
+            _DTYPES[table.dtype], v, b, l, e, _MODES[mode], stream)
+    return out
+
+
+embedding_bag_kernel = embedding_bag

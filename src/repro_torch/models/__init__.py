@@ -1,1 +1,2 @@
-"""LM models: layers, GQA attention and the dense transformer."""
+"""Models: layers, GQA attention, the dense transformer LM and the
+recsys ranking models."""

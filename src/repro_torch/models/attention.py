@@ -8,8 +8,14 @@ Two prefill paths, as in the reference:
   (``kernels/flash_attention``), which launches the hand-written CUDA
   kernel on CUDA tensors.
 
-Decode keeps a KV cache {"k", "v"}: (B, S, Hkv, D) per layer and computes
-its scores with einsums, as the reference's ``gqa_decode`` does.
+Decode keeps a KV cache {"k", "v"}: (B, S, Hkv, D) per layer.  Two
+decode paths, chosen by the same ``use_flash``:
+- ``use_flash=False``: scores with fp32 einsums over the cache, as the
+  reference's ``gqa_decode`` computes them.
+- ``use_flash=True``: the decode-attention kernel wrapper
+  (``kernels/decode_attention``), which reads the cache in its own dtype
+  through a transposed view, with no copy (the reference names
+  ``kernels/decode_attention`` as its TPU decode path).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.common import NEG_INF
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .layers import apply_rope, dense_init, rope_angles
@@ -35,7 +42,7 @@ class AttnConfig:
     d_head: int
     rope_theta: float = 10000.0
     q_chunk: int = 512           # plain-path query chunk
-    use_flash: bool = False      # flash-attention kernel path
+    use_flash: bool = False      # flash- and decode-attention kernel paths
 
 
 def gqa_init(gen: torch.Generator, cfg: AttnConfig,
@@ -140,13 +147,20 @@ def gqa_decode(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
     v_cache[lanes, row] = torch.where(keep, v_new[:, 0].to(v_cache.dtype),
                                       v_cache[lanes, row])
 
-    group = h // kv
-    q4 = q.reshape(b, kv, group, dh).float()
-    sc = torch.einsum("bkgd,bskd->bkgs", q4, k_cache.float()) * (dh ** -0.5)
-    valid = torch.arange(s_max, device=x_tok.device)[None] <= pos[:, None]
-    sc = sc.masked_fill(~valid[:, None, None], NEG_INF)
-    p = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()).reshape(b, h * dh)
+    if cfg.use_flash:
+        # keys 0..pos are valid; a lane with pos >= S sees all S keys
+        o, _, _ = decode_attention(
+            q.to(k_cache.dtype), k_cache.transpose(1, 2),
+            v_cache.transpose(1, 2), kv_len=(pos + 1).clamp(max=s_max))
+        o = o.reshape(b, h * dh)
+    else:
+        group = h // kv
+        q4 = q.reshape(b, kv, group, dh).float()
+        sc = torch.einsum("bkgd,bskd->bkgs", q4, k_cache.float()) * (dh ** -0.5)
+        valid = torch.arange(s_max, device=x_tok.device)[None] <= pos[:, None]
+        sc = sc.masked_fill(~valid[:, None, None], NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()).reshape(b, h * dh)
 
     out = o.to(x_tok.dtype) @ params["wo"]
     return out, {"k": k_cache, "v": v_cache}

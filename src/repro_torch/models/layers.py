@@ -12,8 +12,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "rms_norm", "rope_angles", "apply_rope", "mlp_init",
-           "mlp_apply"]
+__all__ = ["dense_init", "rms_norm", "layer_norm", "rope_angles", "apply_rope",
+           "mlp_init", "mlp_apply"]
 
 
 def dense_init(gen: torch.Generator, shape, scale=None,
@@ -32,6 +32,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Normalise in float32, cast back to x's dtype, THEN scale and
+    shift, as the reference does."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
 def rope_angles(positions: torch.Tensor, dim: int, theta: float = 10000.0):

@@ -18,7 +18,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import entry_device, resolve_device
 
 from .attention import AttnConfig, gqa_decode, gqa_forward, gqa_init
 from .layers import dense_init, mlp_apply, mlp_init, rms_norm
@@ -48,7 +48,7 @@ class TransformerConfig:
     loss_chunk: int = 2048
     remat: bool = True
     param_dtype: Any = torch.float32
-    use_flash: bool = False           # flash-attention kernel in prefill
+    use_flash: bool = False           # attention kernels in prefill and decode
     sp_carry: bool = True
     microbatch: int = 1
     fsdp: bool = False
@@ -120,16 +120,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Dict:
 
 
 # --------------------------------------------------------------- forward
-def _entry_device(params: Dict, mesh, device) -> torch.device:
-    if mesh is not None:
-        raise NotImplementedError("the port runs on one device: mesh must be None")
-    dev = resolve_device(device)
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"parameters lie on {params['embed'].device}, "
-                         f"not on {dev}")
-    return dev
-
-
 def _layer_fwd(cfg: TransformerConfig, lp: Dict, x: torch.Tensor,
                return_cache: bool = False):
     """One block: pre-norm attn + pre-norm FFN.  x: (B, S, d)."""
@@ -144,7 +134,7 @@ def _layer_fwd(cfg: TransformerConfig, lp: Dict, x: torch.Tensor,
 def forward(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (final hidden (B, S, d), aux_loss = 0)."""
-    dev = _entry_device(params, mesh, device)
+    dev = entry_device(params["embed"], mesh, device)
     x = params["embed"][torch.as_tensor(tokens, device=dev).long()]
     for i in range(cfg.n_layers):
         x, _ = _layer_fwd(cfg, _layer(params["layers"], i), x)
@@ -167,7 +157,7 @@ def prefill(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
     """Run the prompt, returning last-position logits (B, vocab) float32
     and the KV cache (layout of ``init_kv_cache``; the prompt occupies
     positions [0, S))."""
-    dev = _entry_device(params, mesh, device)
+    dev = entry_device(params["embed"], mesh, device)
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape
     x = params["embed"][tokens]
@@ -190,7 +180,7 @@ def decode_step(params: Dict, token, cache: Dict[str, torch.Tensor], pos,
     """One decode step.  token (B,) int; pos (B,) current lengths.
     Returns (logits (B, vocab) float32, cache).  The cache is updated IN
     PLACE and returned (the reference returns a new one)."""
-    dev = _entry_device(params, mesh, device)
+    dev = entry_device(params["embed"], mesh, device)
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev)
     x = params["embed"][token]                                   # (B, d)

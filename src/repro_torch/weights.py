@@ -3,8 +3,9 @@
 The reference's trained parameters cannot be re-drawn here (its
 ``jax.random`` streams have no torch counterpart), so they cross as
 numpy arrays: ``np.asarray`` of each leaf on the reference side,
-:func:`from_reference` (retrieval system) or
-:func:`lm_params_from_reference` (LM parameter tree) here.
+:func:`from_reference` (retrieval system),
+:func:`lm_params_from_reference` (LM parameter tree) or
+:func:`recsys_params_from_reference` (recsys parameter trees) here.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from repro_torch.core.match_rules import RuleSet
 from repro_torch.core.state_bins import StateBins
 from repro_torch.device import resolve_device
 
-__all__ = ["ReferenceWeights", "from_reference", "lm_params_from_reference"]
+__all__ = ["ReferenceWeights", "from_reference", "lm_params_from_reference",
+           "recsys_params_from_reference"]
 
 _L1_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 _RULESET_KEYS = ("allowed", "required", "du_quota", "dv_quota")
@@ -79,7 +81,9 @@ def from_reference(
 def lm_params_from_reference(params: Mapping, cfg, device=None) -> Dict:
     """The reference's LM parameter tree (nested dicts of numpy arrays,
     layer leaves stacked ``(n_layers, ...)``) as the port's, each leaf in
-    ``cfg.param_dtype`` (a ``TransformerConfig``)."""
+    ``cfg.param_dtype`` (a ``TransformerConfig``).  The recsys trees of
+    the four archs (``RecsysConfig``, ``B4RConfig``) convert leaf for
+    leaf the same way: ``recsys_params_from_reference``."""
     dev = resolve_device(device)
 
     def convert(tree):
@@ -89,3 +93,6 @@ def lm_params_from_reference(params: Mapping, cfg, device=None) -> Dict:
         return torch.from_numpy(arr).to(dev, cfg.param_dtype)
 
     return convert(params)
+
+
+recsys_params_from_reference = lm_params_from_reference

@@ -5,8 +5,12 @@ also runs on a machine without JAX:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 The block-scan kernel is compared with its plain torch version bit for
-bit; the flash-attention kernel within 2e-5 (fp32) and 2e-2 (bf16), the
-JAX package's own tolerances (``tests/test_kernels.py``).
+bit; the flash- and decode-attention kernels within 2e-5 (fp32) and 2e-2
+(bf16), the embedding-bag kernel within 1e-5 (fp32) and 3e-2 (bf16): the
+JAX package's own tolerances (``tests/test_kernels.py``).  Decode
+attention's out is also held row by row to a relative L2 error of 1e-2
+(bf16) or 1e-4 (fp32): at the LM path's length a row averages thousands
+of keys and |out| falls below the elementwise 2e-2.
 """
 import dataclasses
 
@@ -20,11 +24,17 @@ from repro_torch.core.scan_backends import BlockScanBackend, get_scan_backend
 from repro_torch.kernels.block_scan import (
     BLOCK_SCAN_KERNEL, block_scan_pruned_chunk, block_scan_pruned_chunk_ref,
     build_rule_meta)
+from repro_torch.kernels.decode_attention import (
+    DECODE_ATTENTION_KERNEL, decode_attention, decode_attention_ref,
+    merge_partials)
+from repro_torch.kernels.embedding_bag import (
+    EMBEDDING_BAG_KERNEL, embedding_bag, embedding_bag_ref)
 from repro_torch.kernels.flash_attention import (
     FLASH_ATTENTION_KERNEL, attention_ref, flash_attention)
+from repro_torch.models import recsys
 from repro_torch.models.attention import gqa_forward
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.transformer import init_params, prefill
+from repro_torch.models.transformer import decode_step, init_params, prefill
 
 T, F = 4, 4
 
@@ -191,3 +201,190 @@ def test_cuda_mistral_nemo_two_layer_prefill_flash_and_plain(cuda):
                                gqa_forward(attn0, h, plain.attn_cfg()).float(),
                                atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(logits, plain_logits, atol=0.1, rtol=0.05)
+
+
+def _assert_rows_close(got, want, tol):
+    """Equal infinities (rows with no valid key), within tol elsewhere."""
+    got, want = got.float(), want.float()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=tol, rtol=tol)
+
+
+def _row_rel_err(got, want):
+    """Largest relative L2 error over the rows (last axis) of ``want``
+    that are not all zero."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    norm = want.norm(dim=-1)
+    keep = norm > 0
+    return float(((got - want)[keep].norm(dim=-1) / norm[keep]).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,s,d,dtype,lens,cache_view", [
+    (2, 8, 8, 512, 64, "float32", None, False),       # test_kernels.py shapes
+    (2, 8, 2, 1024, 64, "float32", None, False),
+    (1, 48, 8, 640, 128, "bfloat16", None, False),
+    (1, 16, 16, 300, 64, "float32", None, False),
+    (2, 32, 8, 8208, 128, "bfloat16", [8193, 8193], True),   # the LM path
+    (4, 32, 8, 1000, 128, "bfloat16", [0, 1, 517, 1000], True),  # ragged
+    (3, 8, 2, 700, 128, "float32", [700, 0, 65], True),
+    (2, 4, 1, 100, 32, "float32", 37, False),         # an int kv_len
+])
+def test_cuda_decode_attention_matches_plain(cuda, b, hq, hkv, s, d, dtype,
+                                             lens, cache_view):
+    rng = np.random.default_rng(s + d + hq)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32)).to(cuda, dt)
+    kv_shape = (b, s, hkv, d) if cache_view else (b, hkv, s, d)
+    k, v = (torch.from_numpy(rng.normal(size=kv_shape).astype(np.float32))
+            .to(cuda, dt) for _ in range(2))
+    if cache_view:      # the (B, S, Hkv, D) cache seen as (B, Hkv, S, D)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    kv_len = torch.tensor(lens, device=cuda) if isinstance(lens, list) else lens
+    before = DECODE_ATTENTION_KERNEL.launches
+    got = decode_attention(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert DECODE_ATTENTION_KERNEL.launches == before + 1
+    want = decode_attention_ref(q, k, v, kv_len=kv_len)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert got[0].dtype == dt and got[0].shape == q.shape
+    for g, w in zip(got, want):
+        _assert_rows_close(g, w, tol)
+    row_tol = 1e-2 if dtype == "bfloat16" else 1e-4
+    assert _row_rel_err(got[0], want[0]) <= row_tol
+    assert _row_rel_err(got[0] * 0.9, want[0]) > row_tol   # a planted fault
+    if isinstance(lens, list):
+        empty = torch.tensor(lens, device=cuda) == 0
+        assert (got[0][empty] == 0).all() and (got[2][empty] == 0).all()
+        assert torch.isinf(got[1][empty]).all()
+
+
+@pytest.mark.gpu
+def test_cuda_decode_partials_merge_to_full(cuda):
+    """tests/test_kernels.py's sequence-sharded decode on the card: the
+    kernel's partials of four shards, LSE-merged, against the plain full
+    attention (1e-4, that test's bound)."""
+    rng = np.random.default_rng(3)
+    b, h, s, d, shards = 2, 4, 512, 64, 4
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(cuda)
+               for sh in ((b, h, d), (b, h, s, d), (b, h, s, d)))
+    parts = [decode_attention(q, k[:, :, i * s // shards:(i + 1) * s // shards],
+                              v[:, :, i * s // shards:(i + 1) * s // shards],
+                              return_partial=True) for i in range(shards)]
+    merged = merge_partials(*(list(x) for x in zip(*parts)))
+    full, _, _ = decode_attention_ref(q, k, v)
+    torch.testing.assert_close(merged, full, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_rejects_unsupported(cuda):
+    q = torch.zeros((1, 4, 36), device=cuda)
+    k = torch.zeros((1, 2, 16, 36), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention(q, k, k)
+    q = torch.zeros((1, 34, 64), device=cuda)
+    k = torch.zeros((1, 2, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="group"):
+        decode_attention(q, k, k)
+    q = torch.zeros((1, 4, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        kt = k.transpose(2, 3).contiguous().transpose(2, 3)
+        decode_attention(q, kt, kt)
+    with pytest.raises(ValueError, match="kv_len"):
+        decode_attention(q, k, k, kv_len=torch.tensor([3, 4], device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v,e,b,l,mode,dtype,weighted", [
+    (64, 8, 4, 6, "sum", "float32", False),          # test_kernels.py
+    (128, 16, 8, 3, "mean", "float32", False),
+    (1000, 32, 16, 10, "sum", "float32", False),
+    (64, 128, 4, 4, "mean", "bfloat16", False),
+    (32, 8, 4, 5, "sum", "float32", True),
+    (40 * 4096, 1, 512, 40, "sum", "float32", False),    # E = 1, the path's
+    (5000, 1, 300, 7, "mean", "bfloat16", True),
+    (300, 37, 33, 9, "mean", "float32", True),
+])
+def test_cuda_embedding_bag_matches_plain(cuda, v, e, b, l, mode, dtype,
+                                          weighted):
+    rng = np.random.default_rng(v + e + b)
+    dt = getattr(torch, dtype)
+    table = torch.from_numpy(rng.normal(size=(v, e)).astype(np.float32)).to(cuda, dt)
+    idx = rng.integers(-1, v, size=(b, l)).astype(np.int32)
+    idx[0] = -1                                       # an all-padding bag
+    idx[1, 0] = v + 3                                 # past the table: padding
+    idx = torch.from_numpy(idx).to(cuda)
+    w = (torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32)).to(cuda)
+         if weighted else None)
+    before = EMBEDDING_BAG_KERNEL.launches
+    got = embedding_bag(table, idx, w, mode=mode)
+    torch.cuda.synchronize()
+    assert EMBEDDING_BAG_KERNEL.launches == before + 1
+    assert got.dtype == dt and got.shape == (b, e) and (got[0] == 0).all()
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(),
+                               embedding_bag_ref(table, idx, w, mode=mode).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_embedding_bag_rejects_unsupported(cuda):
+    table = torch.zeros((8, 4), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag(table, torch.zeros((2, 3), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(table.t().contiguous().t(),
+                      torch.zeros((2, 3), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", ["wide-deep", "deepfm"])
+def test_cuda_recsys_forward_matches_cpu(cuda, arch_id):
+    """A reduced Wide&Deep / DeepFM forward on the card (one embedding-bag
+    launch) against the same weights on the CPU (the plain bag)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch_id).model_cfg(True)
+    init, fwd = {"wide-deep": (recsys.wide_deep_init, recsys.wide_deep_forward),
+                 "deepfm": (recsys.deepfm_init, recsys.deepfm_forward)}[arch_id]
+    params = init(cfg, seed=0, device="cpu")
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_per_field,
+                                            (64, cfg.n_sparse))
+    before = EMBEDDING_BAG_KERNEL.launches
+    on_card = fwd({k: (v.to(cuda) if isinstance(v, torch.Tensor) else
+                       {kk: vv.to(cuda) for kk, vv in v.items()})
+                   for k, v in params.items()}, ids, cfg)
+    torch.cuda.synchronize()
+    assert EMBEDDING_BAG_KERNEL.launches == before + 1
+    torch.testing.assert_close(on_card.cpu(), fwd(params, ids, cfg, device="cpu"),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_mistral_nemo_two_layer_decode_kernel_and_plain(cuda):
+    """Mistral-NeMo-12B at full width, 2 layers, random weights: one
+    decode step from a 700-token prefill cache through the decode kernel
+    (one launch per layer) and through the plain einsums, from copies of
+    the same cache; the logits within the bf16 bound of the prefill test
+    above (0.1 + 0.05|logit|), and the caches written alike."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("mistral-nemo-12b").model_cfg(False),
+                              n_layers=2, use_flash=True)
+    plain = dataclasses.replace(cfg, use_flash=False)
+    params = init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 700))).to(cuda)
+    logits, cache = prefill(params, tokens, cfg)
+    cache = {f: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8))
+             for f, c in cache.items()}
+    other = {f: c.clone() for f, c in cache.items()}
+    token, pos = logits.argmax(-1), torch.tensor([700, 650], device=cuda)
+    before = DECODE_ATTENTION_KERNEL.launches
+    got, cache = decode_step(params, token, cache, pos, cfg)
+    torch.cuda.synchronize()
+    assert DECODE_ATTENTION_KERNEL.launches == before + cfg.n_layers
+    want, other = decode_step(params, token, other, pos, plain)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)
+    for f in ("k", "v"):
+        assert torch.equal(cache[f][0], other[f][0])

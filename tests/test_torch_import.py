@@ -67,3 +67,41 @@ def test_lm_entry_points_raise_without_cuda():
     _, cache = prefill(params, tokens, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         decode_step(params, tokens[:, 0], cache, torch.tensor([8]), cfg)
+
+
+_NEW_MODULES = """
+import importlib, sys
+for name in ("repro_torch.kernels.decode_attention",
+             "repro_torch.kernels.embedding_bag",
+             "repro_torch.models.recsys",
+             "repro_torch.configs.wide_deep", "repro_torch.configs.deepfm",
+             "repro_torch.configs.dcn_v2", "repro_torch.configs.bert4rec"):
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")))
+"""
+
+
+def test_decode_and_recsys_modules_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _NEW_MODULES], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_recsys_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the no-fallback path is not reachable")
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys
+
+    cfg = get_arch("wide-deep").model_cfg(True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recsys.wide_deep_init(cfg)
+    params = recsys.wide_deep_init(cfg, device="cpu")
+    ids = torch.zeros((2, cfg.n_sparse), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recsys.wide_deep_forward(params, ids, cfg)
+    assert recsys.wide_deep_forward(params, ids, cfg, device="cpu").shape == (2,)
+    b4r = get_arch("bert4rec").model_cfg(True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recsys.bert4rec_init(b4r)

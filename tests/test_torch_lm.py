@@ -163,6 +163,34 @@ def test_decode_step_matches(arch_id):
         np.testing.assert_array_equal(got_cache[f][:, 3].numpy(), cache[f][:, 3])
 
 
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_decode_step_kernel_path_matches(arch_id):
+    """``use_flash=True``: decode attention through the decode-attention
+    wrapper (its plain version on the CPU, reading the cache through a
+    transposed view with per-lane lengths pos + 1) against the
+    reference's einsum decode, at positions that differ per lane,
+    including s_max, which sees all s_max keys and stores nothing."""
+    jcfg, tcfg = _cfgs(arch_id)
+    tcfg = dataclasses.replace(tcfg, use_flash=True)
+    jparams, tparams = _params(arch_id, jcfg, tcfg, seed=4)
+    shape = REDUCED_SHAPES["decode"]
+    b, s_max = shape["global_batch"], shape["seq_len"]
+    rng = np.random.default_rng(9)
+    cshape = (jcfg.n_layers, b, s_max, jcfg.n_kv, jcfg.d_head)
+    cache = {f: rng.normal(size=cshape).astype(np.float32) for f in ("k", "v")}
+    token = rng.integers(0, jcfg.vocab, b).astype(np.int32)
+    pos = np.array([3, 40, s_max - 1, s_max], np.int32)
+    want_logits, want_cache = jtf.decode_step(
+        jparams, jnp.asarray(token), {f: jnp.asarray(c) for f, c in cache.items()},
+        jnp.asarray(pos), jcfg)
+    tcache = {f: _t(c) for f, c in cache.items()}
+    logits, got_cache = transformer.decode_step(tparams, token, tcache, pos,
+                                                tcfg, device="cpu")
+    _close(logits, want_logits)
+    for f in ("k", "v"):
+        _close(got_cache[f], want_cache[f])
+
+
 def test_init_params_tree_matches_reference():
     """The port's own random parameters: the reference's tree, leaf
     shapes and dtypes, drawn from a seeded generator (same seed, same
@@ -202,7 +230,8 @@ def test_configs_equal_reference(arch_id, reduced):
 
 
 def test_unported_archs_raise():
-    assert sorted(list_archs()) == sorted(ARCHS)
+    recsys = ["wide-deep", "deepfm", "dcn-v2", "bert4rec"]
+    assert sorted(list_archs()) == sorted(ARCHS + recsys)
     for arch_id in ("deepseek-v2-lite-16b", "grok-1-314b"):
         jax_get_arch(arch_id)                     # the reference has them
         with pytest.raises(NotImplementedError, match="not ported yet"):
