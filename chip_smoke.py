@@ -7,14 +7,24 @@ Run from the root of a checkout, with no arguments::
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Print the card's name and power limit; build every CUDA kernel of
-   the paths from ``src/repro_torch/csrc``, one ``nvcc`` per source, all
-   started together.
+1. Print the card's name and power limit; build the six CUDA kernels
+   of the paths from ``src/repro_torch/csrc``, one ``nvcc`` per source,
+   all started together.
 2. Hold every kernel against its plain torch version on the card, at
    the shapes the paths give it, and time both (CUDA events, L2 flushed
    before every launch) beside the least time the card could take (the
    bound) and, where one exists, one PyTorch call that computes the same
-   function: the block scan bit for bit; flash attention within 2e-5
+   function: the chunked block scan bit for bit; the whole-index scans
+   through ``kernels/block_scan/ops`` (``block_scan_batched`` and
+   ``block_scan`` on the tile kernel, ``block_scan_pruned`` on the
+   static kernel) at the websearch-rl config's full index (Q=256
+   queries x 4096 blocks x 16 planes x 128 words, 8.59 GB of occupancy
+   from a seeded generator on the device) under the deepest rule, a
+   shallow one (2 active planes) and a random rule per query: that path
+   runs between a reset and a read of the launch counts, then every
+   output is held bit for bit against ``block_scan_reference`` in
+   slices of 16 queries, and timed (no PyTorch call computes these
+   scans); flash attention within 2e-5
    (fp32) and 2e-2 (bf16), the JAX package's own tolerances, at the LM
    path's shape (B=2, Hq=32, Hkv=8, S=8192, D=128, bf16, causal), the
    five shapes of ``tests/test_kernels.py`` and one case with fully
@@ -41,6 +51,10 @@ Phases (any failure raises and the script exits non-zero):
    policy over a seeded random Q-table.  The kernels' launch counts are
    set to 0 just before and read just after; one batch must be
    bit-equal between the ``block_scan`` and ``reference`` backends.
+   On that batch's real occupancy, for each of the six rules, the
+   whole-index scans (``block_scan_batched``; ``block_scan_pruned`` on
+   one query) and the chunk kernel with block pointer 0 and chunk = 64
+   must agree bit for bit with ``block_scan_reference``.
    The rule quotas are scaled (du x16, dv x64) so that production rules
    scan several chunks; one batch is also served at the config's own
    quotas for comparison, and two batches run under torch.profiler.
@@ -129,14 +143,18 @@ RECSYS_TOL = 1e-5
 
 def path_kernels():
     """The CUDA kernels of the paths: the websearch serve path's block
-    scan, the LM path's flash and decode attention, and the recsys
-    path's embedding bag."""
-    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL
+    scan, the whole-index block scans behind ``kernels/block_scan/ops``,
+    the LM path's flash and decode attention, and the recsys path's
+    embedding bag."""
+    from repro_torch.kernels.block_scan import (BLOCK_SCAN_KERNEL,
+                                                BLOCK_SCAN_STATIC_KERNEL,
+                                                BLOCK_SCAN_TILE_KERNEL)
     from repro_torch.kernels.decode_attention import DECODE_ATTENTION_KERNEL
     from repro_torch.kernels.embedding_bag import EMBEDDING_BAG_KERNEL
     from repro_torch.kernels.flash_attention import FLASH_ATTENTION_KERNEL
 
-    return [BLOCK_SCAN_KERNEL, FLASH_ATTENTION_KERNEL,
+    return [BLOCK_SCAN_KERNEL, BLOCK_SCAN_TILE_KERNEL,
+            BLOCK_SCAN_STATIC_KERNEL, FLASH_ATTENTION_KERNEL,
             DECODE_ATTENTION_KERNEL, EMBEDDING_BAG_KERNEL]
 
 
@@ -296,6 +314,173 @@ def kernel_phase(dev, flush):
               f"{b * chunk}); kernel/bound {ms / bound:.2f}x",
               flush=True)
     return rows
+
+
+# ---------------------------------------------- phase 2, whole-index scans
+WHOLE_SLICE = 16        # queries per plain-version slice (its temporaries)
+
+
+def whole_index_rules(q, t, f, seed):
+    """(allowed (Q, T, F), required (Q, T), present (Q, T)) bool numpy
+    arrays per rule: the deepest rule (all T*F planes, every term
+    required), a shallow one (one field over two present terms: 2
+    active planes) and a random rule per query, drawn as
+    ``tests/test_kernels.py``'s ``test_block_scan_property`` draws
+    them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    deep = (np.ones((q, t, f), bool), np.ones((q, t), bool),
+            np.ones((q, t), bool))
+    two = np.zeros((q, t), bool)
+    two[:, :2] = True
+    shallow_allowed = np.zeros((q, t, f), bool)
+    shallow_allowed[:, :, f - 1] = True
+    shallow = (shallow_allowed, two, two.copy())
+    rand = (rng.random((q, t, f)) < 0.6, rng.random((q, t)) < 0.6,
+            rng.random((q, t)) < 0.8)
+    return {"deep": deep, "shallow": shallow, "random": rand}
+
+
+def whole_index_bound_ms(n_active, nb, w, rule_bytes):
+    """Least time for one launch over every block of len(n_active)
+    queries: the active planes' words read once, the rule read once,
+    match, v_inc and n_match written once, over the memory rate; against
+    its 32-bit operations (one OR per active word read; per term word a
+    popcount, an AND and an add) over the op rate."""
+    q = len(n_active)
+    words_read = int(n_active.sum()) * nb * w
+    bytes_moved = 4 * (words_read + q * nb * w + 2 * q * nb) + rule_bytes
+    ops = words_read + q * nb * w * 4 * 3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_word_err(got, want):
+    """Largest |got - want| over the outputs, words read as uint32;
+    raises unless they are equal."""
+    import torch
+
+    err = 0
+    for g, r in zip(got, want):
+        diff = ((g.to(torch.int64) & 0xFFFFFFFF)
+                - (r.to(torch.int64) & 0xFFFFFFFF))
+        err = max(err, int(diff.abs().max()))
+        if not torch.equal(g, r):
+            raise AssertionError(f"kernel != plain (max_abs_err={err})")
+    return err
+
+
+def whole_index_phase(dev, flush, q=QUERY_BATCH, nb=FULL_BLOCKS,
+                      w=BLOCK_DOCS // 32):
+    """The whole-index scans through ``kernels/block_scan/ops`` at the
+    websearch-rl config's full index (the path: the launch counts are
+    set to 0 just before and read just after), then every output held
+    bit for bit against the plain version, in slices of queries, and,
+    on the card, cold-L2 times beside the bounds.  Returns the path's
+    counts and the rows of the two kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.block_scan import (block_scan, block_scan_batched,
+                                                block_scan_pruned,
+                                                block_scan_reference)
+
+    t, f = 4, 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    occ = torch.empty((q, nb, t, f, w), dtype=torch.int32, device=dev)
+    for i in range(0, q, WHOLE_SLICE):      # int64 draws, a slice at a time
+        part = occ[i:i + WHOLE_SLICE]
+        part.copy_(torch.randint(-2**31, 2**31, part.shape, generator=gen,
+                                 device=dev, dtype=torch.int64))
+    rules = whole_index_rules(q, t, f, SEED + 15)
+    rules_t = {name: tuple(torch.from_numpy(a).to(dev) for a in r)
+               for name, r in rules.items()}
+    print(f"[whole] index: Q={q} queries x {nb} blocks x T*F={t * f} planes "
+          f"x W={w} words ({occ.numel() * 4 / 1e9:.2f} GB of occupancy from a "
+          f"seeded generator on the device, not a corpus)", flush=True)
+
+    reset_counts()
+    outs = {}
+    for name, (a, r, p) in rules_t.items():
+        host = tuple(x[0] for x in rules[name])
+        outs[name] = (block_scan_batched(occ, a, r, p),
+                      block_scan(occ[0], a[0], r[0], p[0]),
+                      block_scan_pruned(occ[0], *host))
+    sync(dev)
+    counts = read_counts()
+    print(f"[whole] path launches: {counts}", flush=True)
+
+    errs = {"tile": 0, "static": 0}
+    for name, (a, r, p) in rules_t.items():
+        batched, one, static = outs[name]
+        for i in range(0, q, WHOLE_SLICE):
+            s = slice(i, i + WHOLE_SLICE)
+            want = block_scan_reference(occ[s], a[s], r[s], p[s])
+            errs["tile"] = max(errs["tile"], max_word_err(
+                [x[s] for x in batched], want))
+            if i == 0:
+                first = [x[0] for x in want]
+                errs["tile"] = max(errs["tile"], max_word_err(one, first))
+                errs["static"] = max(errs["static"],
+                                     max_word_err(static, first))
+            del want
+        n_active = (rules[name][0] & rules[name][2][:, :, None]).sum(axis=(1, 2))
+        print(f"[whole] {name}: block_scan_batched, block_scan and "
+              f"block_scan_pruned bit-equal to block_scan_reference; "
+              f"{int(n_active.sum())} active planes over {q} queries; "
+              f"{int(batched[2].sum())} matched docs, v {int(batched[1].sum())}",
+              flush=True)
+    if dev.type != "cuda":
+        return counts, {}
+
+    rows = {}
+    for name, (a, r, p) in rules_t.items():
+        host = tuple(x[0] for x in rules[name])
+        n_active = (rules[name][0] & rules[name][2][:, :, None]).sum(axis=(1, 2))
+
+        def plain_all(a=a, r=r, p=p):
+            for i in range(0, q, WHOLE_SLICE):
+                s = slice(i, i + WHOLE_SLICE)
+                block_scan_reference(occ[s], a[s], r[s], p[s])
+
+        def plain_one(a=a, r=r, p=p):
+            block_scan_reference(occ[0], a[0], r[0], p[0])
+
+        # The tile kernel reads each query's rule as bools: allowed
+        # (T*F), required and present (T) bytes.  The static kernel's
+        # rule arrives by value.
+        query_rule_bytes = t * f + 2 * t
+        cases = {
+            "batched": (lambda a=a, r=r, p=p: block_scan_batched(occ, a, r, p),
+                        plain_all, n_active, q * query_rule_bytes, 10, 2),
+            "one": (lambda a=a, r=r, p=p: block_scan(occ[0], a[0], r[0], p[0]),
+                    plain_one, n_active[:1], query_rule_bytes, 50, 10),
+            "static": (lambda host=host: block_scan_pruned(occ[0], *host),
+                       plain_one, n_active[:1], 0, 50, 10),
+        }
+        for case, (kern, plain, act, rule_bytes, reps, plain_reps) in cases.items():
+            ms = time_cuda(kern, reps, flush)
+            plain_ms = time_cuda(plain, plain_reps, flush)
+            bound, bound_by = whole_index_bound_ms(act, nb, w, rule_bytes)
+            kernel = "static" if case == "static" else "tile"
+            rows[(case, name)] = dict(max_abs_err=errs[kernel], ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound,
+                                      bound_by=bound_by, library_ms=None)
+            entry = {"batched": "block_scan_batched", "one": "block_scan",
+                     "static": "block_scan_pruned"}[case]
+            print(f"[kernel] {entry} (block_scan_{kernel}) "
+                  f"{name}: Q={len(act)} nb={nb} W={w}, "
+                  f"{int(act.sum())} active planes: bit-equal to plain; kernel "
+                  f"{ms:.6f} ms (cold L2), plain {plain_ms:.6f} ms, bound "
+                  f"{bound:.6f} ms ({bound_by}); kernel/bound {ms / bound:.2f}x",
+                  flush=True)
+        torch.cuda.empty_cache()
+    del occ, outs
+    torch.cuda.empty_cache()
+    return counts, rows
 
 
 # ------------------------------------------------------ phase 2, flash
@@ -784,6 +969,7 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
     print(f"[serve] cat {cat0} batch bit-equal between 'block_scan' and "
           f"'reference' backends (ids, scores, u, cand_cnt; plan and greedy_q)",
           flush=True)
+    real_data_check(sys_, inputs[0])
     blocks = mean_blocks_per_rule(sys_, cat0, inputs[0])
     print(f"[serve] production plan (cat {cat0}): {blocks:.2f} blocks per "
           f"rule execution (mean over steps that scanned)", flush=True)
@@ -793,6 +979,45 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
                              ("greedy_q", greedy)):
             profile_batch(exe, name, policy, inputs[0])
     return launches
+
+
+def real_data_check(sys_, inp):
+    """The whole-index scans on the served batch's real occupancy, for
+    each rule of the ruleset, against the chunk kernel with block
+    pointer 0 and chunk = n_blocks and against the plain version:
+    ``block_scan_batched`` over the batch, ``block_scan_pruned`` on the
+    query with the most present terms."""
+    import torch
+
+    from repro_torch.kernels.block_scan import (block_scan_batched,
+                                                block_scan_pruned,
+                                                block_scan_pruned_chunk,
+                                                block_scan_reference,
+                                                build_rule_meta)
+
+    occ, _, tp = inp
+    b, nb, t, f, w = occ.shape
+    q0 = int(tp.sum(dim=1).argmax())
+    zeros = torch.zeros(b, dtype=torch.int32, device=occ.device)
+    rs = sys_.ruleset
+    for k in range(rs.k):
+        allowed = rs.allowed[k].expand(b, t, f).contiguous()
+        required = rs.required[k].expand(b, t).contiguous()
+        want = block_scan_reference(occ, allowed, required, tp)
+        meta = build_rule_meta(allowed, required, tp, zeros)
+        chunk = block_scan_pruned_chunk(occ.reshape(b, nb, t * f, w), meta,
+                                        chunk=nb, n_terms=t)
+        max_word_err(block_scan_batched(occ, allowed, required, tp), want)
+        max_word_err(chunk, want)
+        max_word_err(block_scan_pruned(occ[q0], rs.allowed[k].cpu().numpy(),
+                                       rs.required[k].cpu().numpy(),
+                                       tp[q0].cpu().numpy()),
+                     [x[q0] for x in want])
+        print(f"[serve] real occupancy, rule {k}: block_scan_batched, "
+              f"block_scan_pruned (query {q0}) and block_scan_pruned_chunk "
+              f"(block 0, chunk {nb}) bit-equal to block_scan_reference "
+              f"over {b} queries x {nb} blocks; {int(want[2].sum())} matched docs",
+              flush=True)
 
 
 def unscaled_batch(sys_, cat, inp, greedy, counter):
@@ -1271,6 +1496,10 @@ def main() -> int:
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     rows = kernel_phase(dev, flush)
+    whole_launches, whole_rows = whole_index_phase(dev, flush)
+    for name in ("block_scan_tile", "block_scan_static"):
+        if whole_launches[name] <= 0:
+            raise AssertionError(f"the whole-index path launched no {name}")
     flash_rows = flash_phase(dev, flush)
     decode_rows = decode_phase(dev, flush)
     bag_rows = bag_phase(dev, flush)
@@ -1308,6 +1537,15 @@ def main() -> int:
             "src/repro/kernels/block_scan/block_scan_pruned.py:222",
             launches["block_scan_pruned_chunk"],
             rows[4], worst(rows)),      # C=4: the serve path's chunk
+        row("block_scan_tile", "block_scan_tile.cu",
+            "src/repro/kernels/block_scan/block_scan.py:65",
+            whole_launches["block_scan_tile"], whole_rows[("batched", "deep")],
+            whole_rows[("batched", "deep")]["max_abs_err"]),
+        row("block_scan_static", "block_scan_static.cu",
+            "src/repro/kernels/block_scan/block_scan_pruned.py:92",
+            whole_launches["block_scan_static"],
+            whole_rows[("static", "deep")],
+            whole_rows[("static", "deep")]["max_abs_err"]),
         row("flash_attention", "flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:87",
             lm_launches["flash_attention"], flash_rows["path"],

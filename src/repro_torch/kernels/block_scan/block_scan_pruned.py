@@ -1,12 +1,20 @@
-"""Plane-pruned chunked block scan: the wrapper and its rule meta.
+"""Plane-pruned block scans: the wrappers and their rule lists.
 
 ``block_scan_pruned_chunk`` replaces the Pallas TPU kernel of the same
 name (``repro/kernels/block_scan/block_scan_pruned.py``), the kernel
 behind the ``"block_scan"`` scan backend.  On CUDA tensors it launches
 the hand-written kernel ``csrc/block_scan.cu`` (memory-bound: it reads
 only the rule's active planes, n_active * W * 4 bytes per lane-block);
-on CPU tensors it runs the plain version ``ref.py``.  There is no
-fallback from one to the other.
+on CPU tensors it runs the plain version ``ref.py``.
+
+``block_scan_pruned`` replaces ``block_scan_pruned_pallas``: one query,
+every block, a static rule given on the host.  The host turns the rule
+into its active-plane list (``static_plane_list``) and the kernel
+``csrc/block_scan_static.cu`` gets it by value, as a kernel parameter;
+on CPU tensors the plain ``ref.block_scan_pruned_ref`` reads the same
+planes.
+
+There is no fallback from a kernel to its plain version.
 
 Words are int32 tensors with the bits of the reference's uint32.
 """
@@ -14,18 +22,20 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.native import NativeKernel
 
-from .ref import block_scan_pruned_chunk_ref
+from .block_scan import MAX_PLANES, MAX_TERMS, MAX_WORDS, tile_blocks
+from .ref import block_scan_pruned_chunk_ref, block_scan_pruned_ref
 
 __all__ = ["block_scan_pruned_chunk", "build_rule_meta", "META_ROWS",
-           "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS"]
+           "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS",
+           "block_scan_pruned", "static_plane_list",
+           "BLOCK_SCAN_STATIC_KERNEL"]
 
 META_ROWS = 4          # plane id / term id / step valid / required per term
-MAX_TERMS = 4          # BS_MAX_TERMS in csrc/block_scan.cuh
-MAX_WORDS = 1024       # one thread per word, one CUDA block per lane-block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BLOCK_SCAN_KERNEL = NativeKernel(
@@ -34,6 +44,13 @@ BLOCK_SCAN_KERNEL = NativeKernel(
     headers=("block_scan.cuh",),
     symbol="block_scan_pruned_chunk_launch",
     argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+)
+BLOCK_SCAN_STATIC_KERNEL = NativeKernel(
+    name="block_scan_static",
+    source="block_scan_static.cu",
+    headers=("block_scan.cuh",),
+    symbol="block_scan_static_launch",
+    argtypes=[_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -119,4 +136,62 @@ def block_scan_pruned_chunk(occ: torch.Tensor, meta: torch.Tensor, *,
             occ.data_ptr(), meta.data_ptr(), match.data_ptr(),
             v_inc.data_ptr(), n_match.data_ptr(), b, nb, tf_planes, w,
             meta.shape[2], n_terms, chunk, stream)
+    return match, v_inc, n_match
+
+
+# ------------------------------------------------- static whole-index scan
+def static_plane_list(allowed, required, term_present):
+    """A static rule's plane list, on the host, as the reference's
+    ``block_scan_pruned_pallas`` computes it: the active plane ids
+    (allowed ∧ present, flattened t*F + f, ascending), each plane's
+    term, and required ∧ present per term; int32 numpy arrays."""
+    allowed = np.asarray(allowed, dtype=bool)
+    present = np.asarray(term_present, dtype=bool)
+    f = allowed.shape[1]
+    planes = np.argwhere((allowed & present[:, None]).reshape(-1)).ravel()
+    req = np.asarray(required, dtype=bool) & present
+    return (planes.astype(np.int32), (planes // f).astype(np.int32),
+            req.astype(np.int32))
+
+
+def block_scan_pruned(occ: torch.Tensor, allowed, required, term_present):
+    """Evaluate one static rule over every block of one query's index;
+    only the rule's active planes are read.
+
+    occ (nb, T, F, W) int32; allowed (T, F), required (T,) and
+    term_present (T,) bool on the host (numpy arrays, or anything
+    ``np.asarray`` takes) → (match (nb, W) int32, v_inc (nb,) int32,
+    n_match (nb,) int32)."""
+    if occ.dim() != 4 or occ.dtype != torch.int32:
+        raise ValueError(f"occ must be (nb, T, F, W) int32, got "
+                         f"{tuple(occ.shape)} {occ.dtype}")
+    nb, t, f, w = occ.shape
+    shapes = {"allowed": (t, f), "required": (t,), "term_present": (t,)}
+    for name, x in zip(shapes, (allowed, required, term_present)):
+        if np.shape(x) != shapes[name]:
+            raise ValueError(f"{name} must be {shapes[name]}, got "
+                             f"{np.shape(x)}")
+    if t > MAX_TERMS or t * f > MAX_PLANES:
+        raise ValueError(f"T={t}, F={f}: at most {MAX_TERMS} terms and "
+                         f"{MAX_PLANES} planes")
+    if nb < 1 or not (1 <= w <= MAX_WORDS):
+        raise ValueError(f"unsupported shape nb={nb} W={w}")
+    planes, terms, req = static_plane_list(allowed, required, term_present)
+    if occ.device.type == "cpu":
+        return block_scan_pruned_ref(occ, planes.tolist(), terms.tolist(),
+                                     req.tolist())
+    if occ.device.type != "cuda":
+        raise ValueError(f"unsupported device {occ.device}")
+    if not occ.is_contiguous():
+        raise ValueError("occ must be contiguous")
+    match = torch.empty((nb, w), dtype=torch.int32, device=occ.device)
+    v_inc = torch.empty((nb,), dtype=torch.int32, device=occ.device)
+    n_match = torch.empty((nb,), dtype=torch.int32, device=occ.device)
+    with torch.cuda.device(occ.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        BLOCK_SCAN_STATIC_KERNEL.launch(
+            occ.data_ptr(), match.data_ptr(), v_inc.data_ptr(),
+            n_match.data_ptr(), planes.ctypes.data, terms.ctypes.data,
+            len(planes), req.ctypes.data, nb, t * f, w, t,
+            tile_blocks(1, nb), stream)
     return match, v_inc, n_match

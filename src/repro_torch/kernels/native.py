@@ -15,17 +15,29 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Sequence
 
-__all__ = ["NativeKernel", "CSRC_DIR", "BUILD_ROOT"]
+__all__ = ["NativeKernel", "CSRC_DIR", "BUILD_ROOT", "csrc_define"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def csrc_define(header: str, name: str) -> int:
+    """The integer of ``#define name <int>`` in ``csrc/header``, so that a
+    wrapper checks its arguments against the value the kernel is built
+    with, not against a copy of it."""
+    text = (CSRC_DIR / header).read_text()
+    found = re.search(rf"^#define {name} (\d+)\b", text, re.MULTILINE)
+    if found is None:
+        raise KeyError(f"{name} is not defined in {header}")
+    return int(found.group(1))
 
 
 def _nvcc() -> str:

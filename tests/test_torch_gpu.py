@@ -4,10 +4,10 @@ also runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-The block-scan kernel is compared with its plain torch version bit for
-bit; the flash- and decode-attention kernels within 2e-5 (fp32) and 2e-2
-(bf16), the embedding-bag kernel within 1e-5 (fp32) and 3e-2 (bf16): the
-JAX package's own tolerances (``tests/test_kernels.py``).  Decode
+The three block-scan kernels are compared with their plain torch
+versions bit for bit; the flash- and decode-attention kernels within
+2e-5 (fp32) and 2e-2 (bf16), the embedding-bag kernel within 1e-5 (fp32)
+and 3e-2 (bf16): the JAX package's own tolerances (``tests/test_kernels.py``).  Decode
 attention's out is also held row by row to a relative L2 error of 1e-2
 (bf16) or 1e-4 (fp32): at the LM path's length a row averages thousands
 of keys and |out| falls below the elementwise 2e-2.
@@ -22,7 +22,9 @@ from repro_torch.configs import get_arch
 from repro_torch.core.environment import EnvConfig, env_reset
 from repro_torch.core.scan_backends import BlockScanBackend, get_scan_backend
 from repro_torch.kernels.block_scan import (
-    BLOCK_SCAN_KERNEL, block_scan_pruned_chunk, block_scan_pruned_chunk_ref,
+    BLOCK_SCAN_KERNEL, BLOCK_SCAN_STATIC_KERNEL, BLOCK_SCAN_TILE_KERNEL,
+    block_scan, block_scan_batched, block_scan_pruned,
+    block_scan_pruned_chunk, block_scan_pruned_chunk_ref, block_scan_reference,
     build_rule_meta)
 from repro_torch.kernels.decode_attention import (
     DECODE_ATTENTION_KERNEL, decode_attention, decode_attention_ref,
@@ -88,6 +90,83 @@ def test_cuda_wrapper_rejects_non_contiguous(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         block_scan_pruned_chunk(occ.transpose(0, 1).contiguous().transpose(0, 1),
                                 meta, chunk=2, n_terms=T)
+
+
+def _whole_index_case(seed, q, nb, w, dev):
+    """Q queries with a random rule each; with Q >= 3 the first three
+    are degenerate: zero active planes, zero required terms, no term
+    present."""
+    rng = np.random.default_rng(seed)
+    occ = rng.integers(0, 2**32, (q, nb, T, F, w), dtype=np.uint32)
+    allowed = rng.random((q, T, F)) < 0.5
+    required = rng.random((q, T)) < 0.6
+    present = rng.random((q, T)) < 0.8
+    if q >= 3:
+        allowed[0] = False
+        required[1] = False
+        present[2] = False
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (occ.view(np.int32), allowed, required, present))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,nb,w", [(1, 4096, 128), (6, 37, 128), (5, 9, 16),
+                                    (3, 3, 8), (4, 100, 32), (300, 16, 128)])
+def test_cuda_block_scan_tile_matches_plain(cuda, q, nb, w):
+    """The runtime-rule whole-index kernel: one query over the
+    websearch-rl config's 4096 blocks, ragged last tiles, narrow W,
+    degenerate queries; one launch per call."""
+    occ, allowed, required, present = _whole_index_case(q + nb + w, q, nb, w,
+                                                        cuda)
+    before = BLOCK_SCAN_TILE_KERNEL.launches
+    got = block_scan_batched(occ, allowed, required, present)
+    torch.cuda.synchronize()
+    assert BLOCK_SCAN_TILE_KERNEL.launches == before + 1
+    want = block_scan_reference(occ, allowed, required, present)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    one = block_scan(occ[-1], allowed[-1], required[-1], present[-1])
+    for g, r in zip(one, want):
+        assert torch.equal(g, r[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fields,req,pres", [
+    ((0, 1, 2, 3), (1, 1, 1, 1), (1, 1, 1, 1)),      # the deepest rule
+    ((3,), (1, 1, 0, 0), (1, 1, 0, 0)),               # shallow: 2 planes
+    ((1, 2), (1, 0, 1, 1), (1, 1, 1, 0)),
+    ((), (1, 1, 1, 1), (1, 1, 1, 1)),                 # no active plane
+    ((0, 1, 2, 3), (1, 1, 1, 1), (0, 0, 0, 0)),       # no present term
+    ((0, 1), (0, 0, 0, 0), (1, 1, 1, 1)),             # no required term
+])
+@pytest.mark.parametrize("nb,w", [(4096, 128), (7, 16)])
+def test_cuda_block_scan_static_matches_plain(cuda, fields, req, pres, nb, w):
+    """The static-rule whole-index kernel against the plain version,
+    with the degenerate rules of ``tests/test_kernels.py``."""
+    occ = _whole_index_case(nb + w + len(fields), 1, nb, w, cuda)[0][0]
+    allowed = np.zeros((T, F), bool)
+    allowed[:, list(fields)] = True
+    required, present = np.asarray(req, bool), np.asarray(pres, bool)
+    before = BLOCK_SCAN_STATIC_KERNEL.launches
+    got = block_scan_pruned(occ, allowed, required, present)
+    torch.cuda.synchronize()
+    assert BLOCK_SCAN_STATIC_KERNEL.launches == before + 1
+    want = block_scan_reference(occ, *(torch.from_numpy(a).to(cuda)
+                                 for a in (allowed, required, present)))
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+def test_cuda_whole_index_wrappers_reject_non_contiguous(cuda):
+    occ, allowed, required, present = _whole_index_case(4, 3, 8, 16, cuda)
+    strided = occ.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        block_scan_batched(strided, allowed, required, present)
+    with pytest.raises(ValueError, match="contiguous"):
+        block_scan_pruned(strided[0].transpose(0, 1).contiguous().transpose(0, 1),
+                          np.ones((T, F), bool), np.ones(T, bool),
+                          np.ones(T, bool))
 
 
 @pytest.mark.gpu

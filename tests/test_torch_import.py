@@ -105,3 +105,17 @@ def test_recsys_entry_points_raise_without_cuda():
     b4r = get_arch("bert4rec").model_cfg(True)
     with pytest.raises(RuntimeError, match="CUDA"):
         recsys.bert4rec_init(b4r)
+
+
+_BLOCK_SCAN_OPS = """
+import sys
+import repro_torch.kernels.block_scan.ops
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")))
+"""
+
+
+def test_block_scan_ops_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _BLOCK_SCAN_OPS], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
