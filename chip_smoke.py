@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Print the card's name and power limit; build the six CUDA kernels
+1. Print the card's name and power limit; build the seven CUDA kernels
    of the paths from ``src/repro_torch/csrc``, one ``nvcc`` per source,
    all started together.
 2. Hold every kernel against its plain torch version on the card, at
@@ -25,10 +25,15 @@ Phases (any failure raises and the script exits non-zero):
    output is held bit for bit against ``block_scan_reference`` in
    slices of 16 queries, and timed (no PyTorch call computes these
    scans); flash attention within 2e-5
-   (fp32) and 2e-2 (bf16), the JAX package's own tolerances, at the LM
-   path's shape (B=2, Hq=32, Hkv=8, S=8192, D=128, bf16, causal), the
-   five shapes of ``tests/test_kernels.py`` and one case with fully
-   masked rows, beside ``scaled_dot_product_attention``; decode
+   (fp32) and 2e-2 (bf16), the JAX package's own tolerances, on its two
+   routes (bf16 at D 64 or 128: the tensor-core kernel; fp32 and other
+   D: the CUDA-core kernel; each row prints its route): at the LM
+   path's shape (B=2, Hq=32, Hkv=8, S=8192, D=128, bf16, causal), at
+   ``prefill_32k``'s length (B=1, S=32768; held on its first and last
+   512 rows, as the (S, S) plain scores would take 137 GB, so no plain
+   time), at the fp32 route's LM shape (B=2, S=1024, fp32), the five
+   shapes of ``tests/test_kernels.py`` and one case with fully masked
+   rows, beside ``scaled_dot_product_attention``; decode
    attention within the same tolerances at the LM decode path's shape
    (B=2, Hq=32, Hkv=8, S=8208, D=128, bf16, kv_len 8193, through the
    transposed view of a (B, S, Hkv, D) cache), the four shapes of
@@ -64,13 +69,18 @@ Phases (any failure raises and the script exits non-zero):
    launch counts are set to 0, then ``prefill`` with ``use_flash=True``
    runs B=2 prompts of 8192 random tokens, the cache is padded to 8208
    positions and 16 greedy ``decode_step``s follow through the decode
-   kernel; the counts are read (flash: one launch per layer per
-   prefill; decode: one per layer per step).  One decode step then runs
+   kernel; the counts are read (the tensor-core flash kernel: one
+   launch per layer per prefill; decode: one per layer per step).  One
+   decode step then runs
    from copies of one cache through the kernel and through the plain
    einsums (max |dlogit|, argmax agreement, ms per step), a decode step
    is profiled, and a timed and a profiled prefill follow, with the
    same prefill through the plain chunked attention, whose layer-0
-   attention output must agree within 2e-2.
+   attention output must agree within 2e-2.  Then the fp32 route: the
+   same model at full width in fp32, cut to 2 layers, prefills B=2
+   prompts of 1024 tokens between a reset and a read of the counts (the
+   CUDA-core flash kernel: one launch per layer), held against the plain
+   chunked prefill (1e-4 + 1e-4|logit|, the CPU tests' fp32 tolerance).
 5. Recsys serve: Wide&Deep, DeepFM, DCN-v2 and BERT4Rec at their full
    configs (no width cut), random fp32 weights from a seeded CUDA
    generator, ids uniform per field from a seeded generator.  With the
@@ -122,12 +132,13 @@ LM_ARCH = "mistral-nemo-12b"
 LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 2, 8192, 16
 BF16_TOL, FP32_TOL = 2e-2, 2e-5     # tests/test_kernels.py:68
 MERGE_TOL = 1e-4                    # tests/test_kernels.py:122
-# Decode attention's out, row by row: the relative L2 error of each
-# (b, head) row that has a key.  At the LM path's shape a row averages
-# ~3,000 keys, so |out| is ~0.015, below the elementwise 2e-2 above; this
-# scales with the row.  bf16: one rounding of out, 2**-9 relative per
-# element; fp32: sums in another order.
-DECODE_ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# Flash and decode attention's out, row by row: the relative L2 error of
+# each (b, head, query) row that has a key.  A row over n keys has |out|
+# of about sqrt(e / n): ~0.015 at the LM path's lengths, below the
+# elementwise 2e-2 above; this scales with the row.  bf16: one rounding
+# of out and, on the tensor-core route, of P, 2**-9 relative per
+# element or term; fp32: sums in another order.
+ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 PLANTED_SCALE = 0.9    # a planted fault (out scaled) the check must reject
 BAG_BF16_TOL, BAG_FP32_TOL = 3e-2, 1e-5     # tests/test_kernels.py:141
 
@@ -144,18 +155,20 @@ RECSYS_TOL = 1e-5
 def path_kernels():
     """The CUDA kernels of the paths: the websearch serve path's block
     scan, the whole-index block scans behind ``kernels/block_scan/ops``,
-    the LM path's flash and decode attention, and the recsys path's
-    embedding bag."""
+    the LM path's flash attention (both routes) and decode attention,
+    and the recsys path's embedding bag."""
     from repro_torch.kernels.block_scan import (BLOCK_SCAN_KERNEL,
                                                 BLOCK_SCAN_STATIC_KERNEL,
                                                 BLOCK_SCAN_TILE_KERNEL)
     from repro_torch.kernels.decode_attention import DECODE_ATTENTION_KERNEL
     from repro_torch.kernels.embedding_bag import EMBEDDING_BAG_KERNEL
-    from repro_torch.kernels.flash_attention import FLASH_ATTENTION_KERNEL
+    from repro_torch.kernels.flash_attention import (FLASH_ATTENTION_KERNEL,
+                                                     FLASH_ATTENTION_TC_KERNEL)
 
     return [BLOCK_SCAN_KERNEL, BLOCK_SCAN_TILE_KERNEL,
             BLOCK_SCAN_STATIC_KERNEL, FLASH_ATTENTION_KERNEL,
-            DECODE_ATTENTION_KERNEL, EMBEDDING_BAG_KERNEL]
+            FLASH_ATTENTION_TC_KERNEL, DECODE_ATTENTION_KERNEL,
+            EMBEDDING_BAG_KERNEL]
 
 
 def reset_counts():
@@ -485,16 +498,28 @@ def whole_index_phase(dev, flush, q=QUERY_BATCH, nb=FULL_BLOCKS,
 
 # ------------------------------------------------------ phase 2, flash
 # (name, B, Hq, Hkv, Sq, Skv, D, causal, dtype): the LM path's launch,
-# the five shapes of tests/test_kernels.py, and fully masked rows
-# (causal, Sq > Skv: the first Sq - Skv rows see no key).
+# the same at prefill_32k's length, the fp32 route's LM launch (phase
+# 4's fp32 prefill), the five shapes of tests/test_kernels.py, fully
+# masked rows (causal, Sq > Skv: the first Sq - Skv rows see no key), and
+# bf16 at a head dim the tensor-core kernel is not built for (D=96: the
+# CUDA-core route's bf16 loads).
+LM_PROMPT_32K = 32768
+LM_FP32_LAYERS, LM_FP32_PROMPT = 2, 1024
+LM_FP32_TOL = 1e-4                  # tests/test_torch_lm.py:32
+FLASH_SLICE = 512   # rows per check of path32k, whose (S, S) scores are 137 GB
 FLASH_CASES = [
     ("path", LM_BATCH, 32, 8, LM_PROMPT, LM_PROMPT, 128, True, "bfloat16"),
+    ("path32k", 1, 32, 8, LM_PROMPT_32K, LM_PROMPT_32K, 128, True,
+     "bfloat16"),
+    ("path_fp32", LM_BATCH, 32, 8, LM_FP32_PROMPT, LM_FP32_PROMPT, 128, True,
+     "float32"),
     ("mha", 1, 4, 4, 128, 128, 64, True, "float32"),
     ("gqa4", 2, 8, 2, 256, 256, 64, True, "float32"),
     ("gqa3_bf16", 1, 6, 2, 128, 128, 128, True, "bfloat16"),
     ("bidir", 1, 2, 2, 128, 384, 64, False, "float32"),
     ("ragged", 1, 4, 1, 100, 200, 64, True, "float32"),
     ("masked", 1, 32, 8, 1024, 512, 128, True, "bfloat16"),
+    ("bf16_d96", 1, 8, 2, 256, 256, 96, True, "bfloat16"),
 ]
 
 
@@ -519,40 +544,92 @@ def flash_bound_ms(b, hq, hkv, sq, skv, d, causal, dtype):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_check(name, q, k, v, causal, tol, row_tol):
+    """The wrapper's output against ``attention_ref`` within ``tol`` +
+    ``tol``|want| element by element and within ``row_tol`` row by row
+    (``row_rel_err``; out scaled by PLANTED_SCALE must fail that), finite,
+    with rows that see no key exactly 0, through one launch of the
+    route's kernel and none of the other; returns the max abs error.
+    ``path32k`` is held on its first FLASH_SLICE rows (against the first
+    keys alone) and its last ones (against all keys): with the causal
+    offset Skv - Sq those slices are exact."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        FLASH_ATTENTION_KERNEL, FLASH_ATTENTION_TC_KERNEL, attention_ref,
+        flash_attention, tensor_core_route)
+
+    route, other = ((FLASH_ATTENTION_TC_KERNEL, FLASH_ATTENTION_KERNEL)
+                    if tensor_core_route(q.dtype, q.shape[-1]) else
+                    (FLASH_ATTENTION_KERNEL, FLASH_ATTENTION_TC_KERNEL))
+    before, before_other = route.launches, other.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if route.launches != before + 1 or other.launches != before_other:
+        raise AssertionError(f"flash {name}: not one launch of {route.name} "
+                             f"alone")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"flash {name}: output not finite")
+    sq, skv = q.shape[2], k.shape[2]
+    if name == "path32k":
+        n = FLASH_SLICE
+        parts = [(got[:, :, :n], (q[:, :, :n], k[:, :, :n], v[:, :, :n])),
+                 (got[:, :, -n:], (q[:, :, -n:], k, v))]
+    else:
+        parts = [(got, (q, k, v))]
+    err = row_worst = 0.0
+    for out, args in parts:
+        want = attention_ref(*(a.contiguous() for a in args),
+                             causal=causal).float()
+        diff = (out.float() - want).abs()
+        err = max(err, float(diff.max()))
+        if not bool((diff <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"flash {name}: kernel != plain "
+                                 f"(max_abs_err={err}, tol {tol})")
+        row_err = row_rel_err(out, want)
+        row_worst = max(row_worst, row_err)
+        if row_err > row_tol:
+            raise AssertionError(f"flash {name}: kernel != plain (row "
+                                 f"relative error {row_err}, tol {row_tol})")
+        if row_rel_err(out.float() * PLANTED_SCALE, want) <= row_tol:
+            raise AssertionError(f"flash {name}: the row check passes out "
+                                 f"scaled by {PLANTED_SCALE}")
+        del want, diff
+    masked = max(sq - skv, 0) if causal else 0
+    if masked and not bool((got[:, :, :masked] == 0).all()):
+        raise AssertionError(f"flash {name}: fully masked rows are not 0")
+    return err, row_worst
+
+
 def flash_phase(dev, flush):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     tensor_core_route)
 
     rows = {}
     for name, b, hq, hkv, sq, skv, d, causal, dtype in FLASH_CASES:
         dt = getattr(torch, dtype)
+        route = ("flash_attention_tc" if tensor_core_route(dt, d)
+                 else "flash_attention")
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + sq + skv + d)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                    for shape in ((b, hq, sq, d), (b, hkv, skv, d),
                                  (b, hkv, skv, d)))
-        got = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        want = attention_ref(q, k, v, causal=causal).float()
         tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
-        diff = (got.float() - want).abs()
-        err = float(diff.max())
-        if not (bool((diff <= tol + tol * want.abs()).all())
-                and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"flash {name}: kernel != plain "
-                                 f"(max_abs_err={err}, tol {tol})")
+        err, row_err = flash_check(name, q, k, v, causal, tol, ROW_TOL[dtype])
         masked = max(sq - skv, 0) if causal else 0
-        if masked and not bool((got[:, :, :masked] == 0).all()):
-            raise AssertionError(f"flash {name}: fully masked rows are not 0")
-        del want, diff, got
 
-        reps = 3 if name == "path" else 20
+        reps = 3 if name in ("path", "path32k") else 20
         ms = time_cuda(lambda: flash_attention(q, k, v, causal=causal), reps,
                        flush)
-        plain_ms = time_cuda(lambda: attention_ref(q, k, v, causal=causal),
-                             reps, flush)
+        plain_ms = None     # path32k: the plain (S, S) scores would be 137 GB
+        if name != "path32k":
+            plain_ms = time_cuda(lambda: attention_ref(q, k, v, causal=causal),
+                                 reps, flush)
         # SDPA aligns its causal mask top-left: the same function only
         # when Sq == Skv or without a mask.
         library_ms = None
@@ -560,15 +637,21 @@ def flash_phase(dev, flush):
             library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), reps, flush)
         bound, bound_by = flash_bound_ms(b, hq, hkv, sq, skv, d, causal, dtype)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound,
-                          bound_by=bound_by)
+        rows[name] = dict(route=route, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound, bound_by=bound_by)
         lib = "n/a (other mask)" if library_ms is None else f"{library_ms:.6f} ms"
-        print(f"[kernel] flash_attention {name}: B={b} Hq={hq} Hkv={hkv} "
-              f"Sq={sq} Skv={skv} D={d} {'causal' if causal else 'bidir'} "
+        plain = ("n/a (the (S, S) scores would take 137 GB; held on the "
+                 f"first and last {FLASH_SLICE} rows)" if plain_ms is None
+                 else f"{plain_ms:.6f} ms")
+        print(f"[kernel] flash_attention {name} (route {route}): B={b} "
+              f"Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+              f"{'causal' if causal else 'bidir'} "
               f"{dtype}: max_abs_err={err:.3g} (tol {tol}"
-              f"{f', {masked} rows fully masked, all 0' if masked else ''}); "
-              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, sdpa {lib}, "
+              f"{f', {masked} rows fully masked, all 0' if masked else ''}), "
+              f"row relative error {row_err:.3g} (tol {ROW_TOL[dtype]}; out "
+              f"x{PLANTED_SCALE} rejected); "
+              f"kernel {ms:.6f} ms, plain {plain}, sdpa {lib}, "
               f"bound {bound:.6f} ms ({bound_by}); kernel/bound "
               f"{ms / bound:.2f}x", flush=True)
         del q, k, v
@@ -664,7 +747,7 @@ def decode_phase(dev, flush):
                                      f"(max |d| {float(diff.max())}, tol {tol})")
             if what == "out":
                 err = float(diff.max())
-        row_tol = DECODE_ROW_TOL[dtype]
+        row_tol = ROW_TOL[dtype]
         row_err = row_rel_err(got[0], want[0])
         if row_err > row_tol:
             raise AssertionError(f"decode {name}: kernel out != plain (row "
@@ -1080,7 +1163,7 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attention import DECODE_ATTENTION_KERNEL as dec
-    from repro_torch.kernels.flash_attention import FLASH_ATTENTION_KERNEL as flash
+    from repro_torch.kernels.flash_attention import FLASH_ATTENTION_TC_KERNEL as flash
     from repro_torch.models.transformer import decode_step, init_params, prefill
 
     cfg = dataclasses.replace(cfg or get_arch(LM_ARCH).model_cfg(False),
@@ -1096,8 +1179,9 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     print(f"[lm] traffic cut: prefill {batch} x {prompt} tokens instead of "
           f"prefill_32k's 32 x 32768, and decode batch {batch} instead of "
           f"decode_32k's 128 ({steps} steps from a cache padded to "
-          f"{prompt + steps}), so that the simple flash kernel and the plain "
-          f"(S, S) check fit the run's time", flush=True)
+          f"{prompt + steps}), so that the plain chunked prefill's check fits "
+          f"the run's time (phase 2 times the flash kernel at 32768)",
+          flush=True)
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1145,8 +1229,9 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
         pos = pos + 1
     launches = read_counts()
     print(f"[lm] main path launches: {launches}", flush=True)
-    if launches["flash_attention"] != per_prefill:
-        raise AssertionError("the LM path's flash launches are not one per layer")
+    if launches["flash_attention_tc"] != per_prefill:
+        raise AssertionError("the LM path's tensor-core flash launches are not "
+                             "one per layer")
     if launches["decode_attention"] != per_step * steps:
         raise AssertionError("the LM path's decode launches are not one per "
                              "layer per step")
@@ -1172,7 +1257,7 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
         before = flash.launches
         kern_us, busy_us, _ = profile_device(
             "lm prefill", lambda: prefill(params, tokens, cfg, device=dev),
-            "flash_attention")
+            "flash_attention_tc")
         if flash.launches - before != per_prefill:
             raise AssertionError("profiled prefill: flash launches != layers")
         print(f"[lm] flash kernel share of prefill device time: "
@@ -1197,6 +1282,52 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     if on_card:
         print(f"[lm] peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} "
               f"GB (torch.cuda.max_memory_allocated)", flush=True)
+    return launches
+
+
+def lm_fp32_route(dev, cfg=None, layers=LM_FP32_LAYERS, batch=LM_BATCH,
+                  prompt=LM_FP32_PROMPT):
+    """The LM path's fp32 route: the same model (``cfg``, by default
+    Mistral-NeMo-12B) at full width in fp32, cut to ``layers`` layers,
+    one prefill through ``flash_attention`` (fp32 goes to the CUDA-core
+    kernel) between a reset and a read of the launch counts, held
+    against the plain chunked prefill within LM_FP32_TOL.  Returns the
+    counts."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params, prefill
+
+    cfg = dataclasses.replace(cfg or get_arch(LM_ARCH).model_cfg(False),
+                              n_layers=layers, param_dtype=torch.float32,
+                              use_flash=True)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    params = init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, tokens, cfg, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"[lm fp32] {LM_ARCH} at full width in fp32, {layers} layers: "
+          f"prefill {batch} x {prompt} in {secs * 1e3:.1f} ms; launches "
+          f"{launches}", flush=True)
+    want = layers if dev.type == "cuda" else 0    # one per layer on the card
+    if launches["flash_attention"] != want or launches["flash_attention_tc"]:
+        raise AssertionError("the fp32 route's flash launches are not one "
+                             "CUDA-core launch per layer")
+    plain_logits, _ = prefill(params, tokens, plain_cfg, device=dev)
+    diff = (logits - plain_logits).abs()
+    print(f"[lm fp32] flash against plain prefill: max |dlogit| "
+          f"{float(diff.max()):.4g} (tol {LM_FP32_TOL} + {LM_FP32_TOL}|plain|)",
+          flush=True)
+    if not (bool(torch.isfinite(logits).all()) and bool(
+            (diff <= LM_FP32_TOL + LM_FP32_TOL * plain_logits.abs()).all())):
+        raise AssertionError("fp32 prefill: flash != plain within tol")
     return launches
 
 
@@ -1518,6 +1649,8 @@ def main() -> int:
 
     lm_launches = lm_phase(dev)
     torch.cuda.empty_cache()
+    fp32_launches = lm_fp32_route(dev)
+    torch.cuda.empty_cache()
     recsys_launches = recsys_phase(dev)
     if recsys_launches["embedding_bag"] <= 0:
         raise AssertionError("the recsys path launched no embedding_bag kernel")
@@ -1531,6 +1664,9 @@ def main() -> int:
 
     def worst(rs):
         return max(r["max_abs_err"] for r in rs.values())
+
+    def flash_route_rows(route):
+        return {n: r for n, r in flash_rows.items() if r["route"] == route}
 
     kernels = [
         row("block_scan_pruned_chunk", "block_scan.cu",
@@ -1548,8 +1684,12 @@ def main() -> int:
             whole_rows[("static", "deep")]["max_abs_err"]),
         row("flash_attention", "flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:87",
-            lm_launches["flash_attention"], flash_rows["path"],
-            worst(flash_rows)),
+            fp32_launches["flash_attention"], flash_rows["path_fp32"],
+            worst(flash_route_rows("flash_attention"))),
+        row("flash_attention_tc", "flash_attention_tc.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:87",
+            lm_launches["flash_attention_tc"], flash_rows["path"],
+            worst(flash_route_rows("flash_attention_tc"))),
         row("decode_attention", "decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:74",
             lm_launches["decode_attention"], decode_rows["path"],

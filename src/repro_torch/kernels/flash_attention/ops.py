@@ -1,10 +1,11 @@
-"""Flash attention: the public wrapper of the hand-written CUDA kernel.
+"""Flash attention: the public wrapper of the hand-written CUDA kernels.
 
 ``flash_attention`` replaces the reference's ``ops.flash_attention``
 and its Pallas TPU kernel ``flash_attention_pallas``.  On CUDA tensors
-it launches ``csrc/flash_attention.cu`` (bound by operations: see the
-note there); on CPU tensors it runs the plain version ``ref.py``.
-There is no fallback from one to the other.
+it launches one of two kernels, chosen by dtype and head dim alone (see
+``tensor_core_route``; both are bound by operations, see the notes in
+their sources); on CPU tensors it runs the plain version ``ref.py``.
+There is no fallback from one to another.
 
 The reference pads Sq and Skv up to its blocks and masks the padded
 keys by ``kv_len``; the kernel masks the ragged edge itself, so nothing
@@ -18,15 +19,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import cdiv
-from repro_torch.kernels.native import NativeKernel
+from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "FLASH_ATTENTION_KERNEL", "MAX_BLOCK",
-           "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "FLASH_ATTENTION_KERNEL",
+           "FLASH_ATTENTION_TC_KERNEL", "MAX_BLOCK", "MAX_HEAD_DIM",
+           "TC_HEAD_DIMS", "tensor_core_route"]
 
 MAX_BLOCK = 64         # FA_BQ / FA_BK in csrc/flash_attention.cuh
 MAX_HEAD_DIM = 128     # FA_MAX_D
+TC_HEAD_DIMS = (64, 128)   # the head dims flash_attention_tc.cu is built for
+TC_BLOCK = csrc_define("flash_attention_tc.cuh", "FATC_BQ")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,6 +42,21 @@ FLASH_ATTENTION_KERNEL = NativeKernel(
     argtypes=[_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
               ctypes.c_float, _P],
 )
+FLASH_ATTENTION_TC_KERNEL = NativeKernel(
+    name="flash_attention_tc",
+    source="flash_attention_tc.cu",
+    headers=("flash_attention_tc.cuh", "flash_attention.cuh"),
+    symbol="flash_attention_tc_launch",
+    argtypes=[_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+)
+
+
+def tensor_core_route(dtype: torch.dtype, head_dim: int) -> bool:
+    """True where a CUDA call goes to the tensor-core kernel
+    ``csrc/flash_attention_tc.cu``: bf16 with head dim 64 or 128.  fp32
+    (no tensor-core type keeps its 2e-5 tolerance) and bf16 at other
+    head dims go to ``csrc/flash_attention.cu``."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
 def _check(q, k, v):
@@ -67,11 +86,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), fp32 or bf16 →
     (B, Hq, Sq, D) in q's dtype; fp32 accumulation.
 
-    The blocks are chosen as the reference chooses them: ``block_q``
-    (``block_k``) shrunk to the next power of two >= 8 above Sq (Skv).
-    On CUDA a CTA takes one query block and loops over key blocks; at
-    most ``MAX_BLOCK`` each (the kernel's tile).  The result does not
-    depend on the blocks."""
+    On CUDA the kernel is chosen by contract, from dtype and D alone
+    (``tensor_core_route``): bf16 with D in ``TC_HEAD_DIMS`` launches
+    ``FLASH_ATTENTION_TC_KERNEL`` (wgmma on 128 x 128 tiles fed by TMA;
+    P is rounded to bf16 before P V), everything else
+    ``FLASH_ATTENTION_KERNEL``.  If the chosen kernel fails to build or
+    to launch, the call raises; nothing tries the other kernel.
+
+    The blocks are validated as the reference chooses them: ``block_q``
+    (``block_k``) shrunk to the next power of two >= 8 above Sq (Skv),
+    at most ``MAX_BLOCK`` each.  They set the tiles of the CUDA-core
+    kernel (a CTA takes one query block and loops over key blocks); the
+    tensor-core kernel's tiles are fixed at 128 x 128 and do not follow
+    them.  The result does not depend on the blocks."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -86,9 +113,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    out = torch.empty_like(q)
+    if tensor_core_route(q.dtype, d):
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the tensor maps need 16-byte aligned q, k, v")
+        if cdiv(sq, TC_BLOCK) > 65535:
+            raise ValueError(f"Sq={sq} needs more than 65535 query tiles")
+        with torch.cuda.device(q.device):
+            FLASH_ATTENTION_TC_KERNEL.launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hkv, sq, skv, d, int(causal), d ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        return out
     if cdiv(sq, bq) > 65535:
         raise ValueError(f"Sq={sq} needs more than 65535 query blocks")
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         FLASH_ATTENTION_KERNEL.launch(

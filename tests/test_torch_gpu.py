@@ -32,7 +32,8 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.embedding_bag import (
     EMBEDDING_BAG_KERNEL, embedding_bag, embedding_bag_ref)
 from repro_torch.kernels.flash_attention import (
-    FLASH_ATTENTION_KERNEL, attention_ref, flash_attention)
+    FLASH_ATTENTION_KERNEL, FLASH_ATTENTION_TC_KERNEL, attention_ref,
+    flash_attention, tensor_core_route)
 from repro_torch.models import recsys
 from repro_torch.models.attention import gqa_forward
 from repro_torch.models.layers import rms_norm
@@ -213,6 +214,8 @@ def test_cuda_block_scan_backend_matches_reference(cuda, du, dv):
     (1, 4, 2, 80, 40, 96, True, "float32", 64, 64),        # rows 0..39 masked
     (1, 4, 2, 80, 40, 128, True, "bfloat16", 64, 64),
     (1, 2, 1, 5, 1, 8, True, "float32", 8, 8),             # one key
+    (1, 8, 2, 200, 200, 96, True, "bfloat16", 64, 64),     # bf16, CUDA cores
+    (1, 4, 4, 130, 70, 32, False, "bfloat16", 64, 64),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d,
                                             causal, dtype, bq, bk):
@@ -222,14 +225,61 @@ def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d,
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                .to(cuda, dt)
                for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
-    before = FLASH_ATTENTION_KERNEL.launches
+    # the route's kernel, chosen by dtype and D alone, launches once
+    assert tensor_core_route(dt, d) == (dtype == "bfloat16" and d in (64, 128))
+    route, other = ((FLASH_ATTENTION_TC_KERNEL, FLASH_ATTENTION_KERNEL)
+                    if tensor_core_route(dt, d) else
+                    (FLASH_ATTENTION_KERNEL, FLASH_ATTENTION_TC_KERNEL))
+    before, before_other = route.launches, other.launches
     got = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
-    assert FLASH_ATTENTION_KERNEL.launches == before + 1
+    assert route.launches == before + 1 and other.launches == before_other
     assert got.dtype == dt and got.shape == q.shape
     want = attention_ref(q, k, v, causal=causal)
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    masked = max(sq - skv, 0) if causal else 0
+    assert (got[:, :, :masked] == 0).all() and torch.isfinite(got.float()).all()
+
+
+_TC_LENGTHS = (1, 64, 127, 128, 129, 1000)
+_TC_GROUPS = (1, 3, 4, 12)        # Hq / Hkv; 12 is starcoder2's 24 / 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("skv", _TC_LENGTHS)
+@pytest.mark.parametrize("sq", _TC_LENGTHS)
+def test_cuda_flash_attention_tensor_core_route(cuda, sq, skv, d, causal):
+    """bf16 at D in {64, 128}: one launch of the tensor-core kernel and
+    none of the CUDA-core one; within the bf16 tolerance 2e-2 of the
+    plain version, which P's rounding to bf16 (2**-9 per term) keeps, and
+    row by row within a relative L2 error of 1e-2, which out scaled by
+    0.9 fails (over 1000 keys |out| is ~0.05, near the elementwise
+    tolerance); rows that see no key (causal, Sq > Skv) exactly 0.  The
+    GQA group cycles through 1, 3, 4 and 12 over the cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = _TC_GROUPS[(_TC_LENGTHS.index(sq) + _TC_LENGTHS.index(skv)
+                        + d // 64 + int(causal)) % len(_TC_GROUPS)]
+    b, hkv = 1 + (sq + skv) % 2, 2
+    rng = np.random.default_rng(sq * 1009 + skv * 13 + d + int(causal))
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((b, group * hkv, sq, d), (b, hkv, skv, d),
+                         (b, hkv, skv, d)))
+    assert tensor_core_route(q.dtype, d)
+    before = FLASH_ATTENTION_TC_KERNEL.launches
+    before_other = FLASH_ATTENTION_KERNEL.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_TC_KERNEL.launches == before + 1
+    assert FLASH_ATTENTION_KERNEL.launches == before_other
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert _row_rel_err(got, want) <= 1e-2
+    assert _row_rel_err(got.float() * 0.9, want) > 1e-2   # a planted fault
     masked = max(sq - skv, 0) if causal else 0
     assert (got[:, :, :masked] == 0).all() and torch.isfinite(got.float()).all()
 
@@ -246,12 +296,21 @@ def test_cuda_flash_attention_rejects_unsupported(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                         q[:, :2].contiguous(), q[:, :2].contiguous())
+    # the tensor-core route's TMA maps need 16-byte aligned tensors
+    kv = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.bfloat16)
+    off = torch.zeros(4 * 16 * 64 + 1, device=cuda,
+                      dtype=torch.bfloat16)[1:].view(1, 4, 16, 64)
+    before = FLASH_ATTENTION_TC_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(off, kv, kv)
+    assert FLASH_ATTENTION_TC_KERNEL.launches == before
 
 
 @pytest.mark.gpu
 def test_cuda_mistral_nemo_two_layer_prefill_flash_and_plain(cuda):
     """Mistral-NeMo-12B at full width, 2 layers, random weights: prefill
-    through the flash kernel (one launch per layer) and through the
+    through the flash kernel (bf16, d_head 128: the tensor-core route,
+    one launch per layer) and through the
     plain chunked attention.  Layer 0's K/V precede any attention and
     are bit-equal; its attention output agrees within the bf16
     tolerance 2e-2; the logits, after two layers of bf16 rounding that
@@ -264,10 +323,10 @@ def test_cuda_mistral_nemo_two_layer_prefill_flash_and_plain(cuda):
     params = init_params(cfg, seed=0, device=cuda)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 1000))).to(cuda)
-    before = FLASH_ATTENTION_KERNEL.launches
+    before = FLASH_ATTENTION_TC_KERNEL.launches
     logits, cache = prefill(params, tokens, cfg)
     torch.cuda.synchronize()
-    assert FLASH_ATTENTION_KERNEL.launches == before + cfg.n_layers
+    assert FLASH_ATTENTION_TC_KERNEL.launches == before + cfg.n_layers
     plain_logits, plain_cache = prefill(params, tokens, plain)
     assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits).all()
     for f in ("k", "v"):
