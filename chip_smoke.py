@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments::
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Print the card's name and power limit; build the seven CUDA kernels
-   of the paths from ``src/repro_torch/csrc``, one ``nvcc`` per source,
+1. Print the card's name and power limit; build the nine CUDA kernels
+   of the paths from ``src/repro_torch/csrc``, one ``nvcc`` per kernel,
    all started together.
 2. Hold every kernel against its plain torch version on the card, at
    the shapes the paths give it, and time both (CUDA events, L2 flushed
@@ -34,16 +34,22 @@ Phases (any failure raises and the script exits non-zero):
    time), at the fp32 route's LM shape (B=2, S=1024, fp32), the five
    shapes of ``tests/test_kernels.py`` and one case with fully masked
    rows, beside ``scaled_dot_product_attention``; decode
-   attention within the same tolerances at the LM decode path's shape
-   (B=2, Hq=32, Hkv=8, S=8208, D=128, bf16, kv_len 8193, through the
-   transposed view of a (B, S, Hkv, D) cache), the four shapes of
+   attention within the same tolerances, element by element and row by
+   row, on its two routes (bf16 at D 64/128, group <= 16: the
+   tensor-core kernel, every such row also through the CUDA-core kernel;
+   fp32: the CUDA-core kernel) at the LM decode path's shape (B=2,
+   Hq=32, Hkv=8, S=8208, D=128, bf16, kv_len 8193, through the
+   transposed view of a (B, S, Hkv, D) cache; the tensor-core kernel
+   also under two other split plans), the four shapes of
    ``tests/test_kernels.py``, per-row lengths with a row of length 0,
-   and partials merged across four shards (1e-4), beside SDPA with a
-   length mask; the embedding bag within 1e-5 (fp32) and 3e-2 (bf16)
-   at the Wide&Deep path's shapes (V=40M, E=1, L=40, B=512 and 262,144)
-   and the shapes of ``tests/test_kernels.py``, beside
-   ``F.embedding_bag``.  This runs before any model is resident: the
-   plain attention materialises the (S, S) scores.
+   and partials merged across four shards (fp32 1e-4, bf16 2e-2),
+   beside SDPA with a length mask; the embedding bag within 1e-5 (fp32)
+   and 3e-2 (bf16), bags with an id past the table NaN as in the plain
+   version, at the Wide&Deep path's shapes (V=40M, E=1, L=40, B=512,
+   the lane route's largest batch on this card, and 262,144, each
+   through both E = 1 routes) and the shapes of ``tests/test_kernels.py``,
+   beside ``F.embedding_bag``.  This runs before any model is resident:
+   the plain attention materialises the (S, S) scores.
 3. Serve: ``RetrievalSystem(device="cuda")`` at the widths of the
    websearch-rl config (block_docs=4096, T=4, F=4, k_rules=6,
    max_candidates=512, n_top=5, t_max=8, u_budget=65536, p_bins=10000,
@@ -70,24 +76,30 @@ Phases (any failure raises and the script exits non-zero):
    runs B=2 prompts of 8192 random tokens, the cache is padded to 8208
    positions and 16 greedy ``decode_step``s follow through the decode
    kernel; the counts are read (the tensor-core flash kernel: one
-   launch per layer per prefill; decode: one per layer per step).  One
-   decode step then runs
+   launch per layer per prefill; the tensor-core decode kernel: one per
+   layer per step).  One decode step then runs
    from copies of one cache through the kernel and through the plain
    einsums (max |dlogit|, argmax agreement, ms per step), a decode step
-   is profiled, and a timed and a profiled prefill follow, with the
+   is profiled on each decode kernel, and a timed and a profiled
+   prefill follow, with the
    same prefill through the plain chunked attention, whose layer-0
    attention output must agree within 2e-2.  Then the fp32 route: the
    same model at full width in fp32, cut to 2 layers, prefills B=2
-   prompts of 1024 tokens between a reset and a read of the counts (the
-   CUDA-core flash kernel: one launch per layer), held against the plain
-   chunked prefill (1e-4 + 1e-4|logit|, the CPU tests' fp32 tolerance).
+   prompts of 1024 tokens and takes 2 decode steps between a reset and
+   a read of the counts (the CUDA-core flash and decode kernels: one
+   launch per layer per call), held against the plain chunked prefill
+   and the plain decode step (1e-4 + 1e-4|logit|, the CPU tests' fp32
+   tolerance).
 5. Recsys serve: Wide&Deep, DeepFM, DCN-v2 and BERT4Rec at their full
    configs (no width cut), random fp32 weights from a seeded CUDA
    generator, ids uniform per field from a seeded generator.  With the
    counts set to 0: ``serve_p99`` (batch 512) for every arch,
    ``serve_bulk`` (batch 262,144) for Wide&Deep and DeepFM, and
    ``retrieval_cand`` (1 query x 1M items) for BERT4Rec; exactly one
-   embedding-bag launch per Wide&Deep or DeepFM forward.  Each
+   embedding-bag launch per Wide&Deep or DeepFM forward, of the lane
+   route at ``serve_p99`` and of the column route at ``serve_bulk``;
+   ``retrieval_topk``'s indices against a stable sort's, and its time
+   beside ``torch.topk``'s on the same scores.  Each
    kernel-path forward is held against the same forward with the plain
    bag (1e-5 + 1e-5|logit|); one ``serve_bulk`` forward of each of the
    two runs under torch.profiler.
@@ -155,20 +167,24 @@ RECSYS_TOL = 1e-5
 def path_kernels():
     """The CUDA kernels of the paths: the websearch serve path's block
     scan, the whole-index block scans behind ``kernels/block_scan/ops``,
-    the LM path's flash attention (both routes) and decode attention,
-    and the recsys path's embedding bag."""
+    the LM path's flash attention and decode attention (both routes
+    each), and the recsys path's embedding bag (both E = 1 routes; the
+    column kernel also takes E > 1)."""
     from repro_torch.kernels.block_scan import (BLOCK_SCAN_KERNEL,
                                                 BLOCK_SCAN_STATIC_KERNEL,
                                                 BLOCK_SCAN_TILE_KERNEL)
-    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_KERNEL
-    from repro_torch.kernels.embedding_bag import EMBEDDING_BAG_KERNEL
+    from repro_torch.kernels.decode_attention import (
+        DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL)
+    from repro_torch.kernels.embedding_bag import (EMBEDDING_BAG_KERNEL,
+                                                   EMBEDDING_BAG_LANES_KERNEL)
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION_KERNEL,
                                                      FLASH_ATTENTION_TC_KERNEL)
 
     return [BLOCK_SCAN_KERNEL, BLOCK_SCAN_TILE_KERNEL,
             BLOCK_SCAN_STATIC_KERNEL, FLASH_ATTENTION_KERNEL,
             FLASH_ATTENTION_TC_KERNEL, DECODE_ATTENTION_KERNEL,
-            EMBEDDING_BAG_KERNEL]
+            DECODE_ATTENTION_TC_KERNEL, EMBEDDING_BAG_KERNEL,
+            EMBEDDING_BAG_LANES_KERNEL]
 
 
 def reset_counts():
@@ -222,6 +238,23 @@ def time_cuda(fn, reps: int, flush) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def time_warm(fn, reps=20) -> float:
+    """Mean device ms per call over ``reps`` back-to-back calls (CUDA
+    events), after two warm-up calls: L2 left warm."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ------------------------------------------------------------ phase 2
@@ -504,7 +537,7 @@ def whole_index_phase(dev, flush, q=QUERY_BATCH, nb=FULL_BLOCKS,
 # bf16 at a head dim the tensor-core kernel is not built for (D=96: the
 # CUDA-core route's bf16 loads).
 LM_PROMPT_32K = 32768
-LM_FP32_LAYERS, LM_FP32_PROMPT = 2, 1024
+LM_FP32_LAYERS, LM_FP32_PROMPT, LM_FP32_STEPS = 2, 1024, 2
 LM_FP32_TOL = 1e-4                  # tests/test_torch_lm.py:32
 FLASH_SLICE = 512   # rows per check of path32k, whose (S, S) scores are 137 GB
 FLASH_CASES = [
@@ -663,8 +696,9 @@ def flash_phase(dev, flush):
 # (name, B, Hq, Hkv, S, D, dtype, kv_len, cache view): the LM decode
 # path's first step (kv_len prompt + 1 over the cache padded by the
 # decode steps, read through the transposed (B, S, Hkv, D) cache), the
-# four shapes of tests/test_kernels.py, and per-row lengths with a row
-# of length 0.
+# four shapes of tests/test_kernels.py, per-row lengths with a row of
+# length 0, and the path's cache at batch 8 (toward decode_32k's 128),
+# where the fixed cost of a launch weighs less against its bytes.
 DECODE_CASES = [
     ("path", LM_BATCH, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
      [LM_PROMPT + 1] * LM_BATCH, True),
@@ -673,6 +707,8 @@ DECODE_CASES = [
     ("gqa6_bf16", 1, 48, 8, 640, 128, "bfloat16", None, False),
     ("wide", 1, 16, 16, 300, 64, "float32", None, False),
     ("ragged", 4, 32, 8, 1000, 128, "bfloat16", [0, 1, 517, 1000], True),
+    ("path_b8", 8, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
+     [LM_PROMPT - 192] * 8, True),
 ]
 
 
@@ -715,13 +751,75 @@ def row_rel_err(got, want):
     return float(((got - want)[keep].norm(dim=-1) / norm[keep]).max())
 
 
+def decode_route(use_tc):
+    """Force the decode wrapper's route (measurement only): the
+    tensor-core kernel, or the CUDA-core one, whatever the shape."""
+    from repro_torch.kernels.decode_attention import ops
+
+    return mock.patch.object(ops, "tensor_core_route", lambda *a: use_tc)
+
+
+def decode_check(name, q, k, v, kv_len, lens, kernel, other):
+    """One ``decode_attention`` call through one launch of ``kernel`` and
+    none of ``other``, held against ``decode_attention_ref``: out, m and
+    l within the type's tolerance + tol|want| (infinities at the same
+    places), out row by row within ROW_TOL (out x PLANTED_SCALE must
+    fail that), rows with no key 0 and -inf.  Returns (max |d| on out,
+    the row relative error)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+
+    dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    before, before_other = kernel.launches, other.launches
+    got = decode_attention(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1 or other.launches != before_other:
+        raise AssertionError(f"decode {name}: not one launch of {kernel.name} "
+                             f"alone")
+    want = decode_attention_ref(q, k, v, kv_len=kv_len)
+    tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+    for what, g, w in zip(("out", "m", "l"), got, want):
+        diff, ref = max_err_rows(g, w)
+        if not bool((diff <= tol + tol * ref.abs()).all()):
+            raise AssertionError(f"decode {name} ({kernel.name}): kernel {what} "
+                                 f"!= plain (max |d| {float(diff.max())}, tol "
+                                 f"{tol})")
+        if what == "out":
+            err = float(diff.max())
+    row_tol = ROW_TOL[dtype]
+    row_err = row_rel_err(got[0], want[0])
+    if row_err > row_tol:
+        raise AssertionError(f"decode {name} ({kernel.name}): kernel out != "
+                             f"plain (row relative error {row_err}, tol "
+                             f"{row_tol})")
+    if row_rel_err(got[0] * PLANTED_SCALE, want[0]) <= row_tol:
+        raise AssertionError(f"decode {name}: the row check passes out scaled "
+                             f"by {PLANTED_SCALE}")
+    empty = torch.tensor(lens, device=q.device) == 0
+    if bool(empty.any()) and not (bool((got[0][empty] == 0).all())
+                                  and bool(torch.isinf(got[1][empty]).all())):
+        raise AssertionError(f"decode {name}: empty rows are not 0, -inf")
+    return err, row_err
+
+
 def decode_phase(dev, flush):
+    """Every DECODE_CASES row through its route's kernel; the rows the
+    tensor-core route takes also through the CUDA-core kernel, both held
+    and timed; at ``path`` the tensor-core kernel also under two other
+    split plans."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_ref, merge_partials, split_plan)
+        DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL, decode_attention,
+        decode_attention_ref, merge_partials, split_plan, split_plan_tc,
+        tensor_core_route)
+    from repro_torch.kernels.decode_attention import ops as dops
 
+    kernels = {True: (DECODE_ATTENTION_TC_KERNEL, DECODE_ATTENTION_KERNEL),
+               False: (DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL)}
     rows = {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, b, hq, hkv, s, d, dtype, lens, view in DECODE_CASES:
@@ -736,33 +834,20 @@ def decode_phase(dev, flush):
             k, v = k.transpose(1, 2), v.transpose(1, 2)
         kv_len = None if lens is None else torch.tensor(lens, device=dev)
         lens = [s] * b if lens is None else lens
-        got = decode_attention(q, k, v, kv_len=kv_len)
-        torch.cuda.synchronize()
-        want = decode_attention_ref(q, k, v, kv_len=kv_len)
-        tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
-        for what, g, w in zip(("out", "m", "l"), got, want):
-            diff, ref = max_err_rows(g, w)
-            if not bool((diff <= tol + tol * ref.abs()).all()):
-                raise AssertionError(f"decode {name}: kernel {what} != plain "
-                                     f"(max |d| {float(diff.max())}, tol {tol})")
-            if what == "out":
-                err = float(diff.max())
-        row_tol = ROW_TOL[dtype]
-        row_err = row_rel_err(got[0], want[0])
-        if row_err > row_tol:
-            raise AssertionError(f"decode {name}: kernel out != plain (row "
-                                 f"relative error {row_err}, tol {row_tol})")
-        if row_rel_err(got[0] * PLANTED_SCALE, want[0]) <= row_tol:
-            raise AssertionError(f"decode {name}: the row check passes out "
-                                 f"scaled by {PLANTED_SCALE}")
-        empty = torch.tensor(lens, device=dev) == 0
-        if bool(empty.any()) and not (bool((got[0][empty] == 0).all())
-                                      and bool(torch.isinf(got[1][empty]).all())):
-            raise AssertionError(f"decode {name}: empty rows are not 0, -inf")
-
+        tc = tensor_core_route(dt, d, hq // hkv)
         reps = 50
-        ms = time_cuda(lambda: decode_attention(q, k, v, kv_len=kv_len), reps,
-                       flush)
+        res = {}
+        for use_tc in ((True, False) if tc else (False,)):
+            kernel, other = kernels[use_tc]
+            with decode_route(use_tc):
+                err, row_err = decode_check(name, q, k, v, kv_len, lens,
+                                            kernel, other)
+                ms = time_cuda(lambda: decode_attention(q, k, v, kv_len=kv_len),
+                               reps, flush)
+            plan = (split_plan_tc if use_tc else split_plan)(b, hkv, s, sms)
+            res[kernel.name] = (err, row_err, ms, plan)
+        route = "decode_attention_tc" if tc else "decode_attention"
+        err, row_err, ms, plan = res[route]
         plain_ms = time_cuda(lambda: decode_attention_ref(q, k, v,
                                                           kv_len=kv_len),
                              10, flush)
@@ -771,40 +856,78 @@ def decode_phase(dev, flush):
         library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps, flush)
         bound, bound_by = decode_bound_ms(b, hq, hkv, d, lens, dtype)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound,
-                          bound_by=bound_by)
-        print(f"[kernel] decode_attention {name}: B={b} Hq={hq} Hkv={hkv} "
-              f"S={s} D={d} {dtype} kv_len {lens if len(set(lens)) > 1 else lens[0]}"
-              f"{' (cache view)' if view else ''}, "
-              f"{split_plan(b, hkv, s, sms)[0]} slices: max_abs_err={err:.3g} "
-              f"on out (tol {tol}; m and l within it too), row relative "
-              f"error {row_err:.3g} (tol {row_tol}; out x{PLANTED_SCALE} "
-              f"rejected); kernel {ms:.6f} ms, "
-              f"plain {plain_ms:.6f} ms, sdpa {library_ms:.6f} ms, bound "
-              f"{bound:.6f} ms ({bound_by}); kernel/bound {ms / bound:.2f}x",
-              flush=True)
-        del q, k, v, got, want
+        rows[name] = dict(route=route, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound, bound_by=bound_by)
+        if tc:
+            core_err, _, core_ms, _ = res["decode_attention"]
+            rows[name]["cuda_core"] = dict(
+                max_abs_err=core_err, ms=core_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
+        tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+        for kname, (e, r, t, (n_split, per)) in res.items():
+            print(f"[kernel] decode_attention {name} (kernel {kname}"
+                  f"{', the route' if kname == route else ''}): B={b} Hq={hq} "
+                  f"Hkv={hkv} S={s} D={d} {dtype} kv_len "
+                  f"{lens if len(set(lens)) > 1 else lens[0]}"
+                  f"{' (cache view)' if view else ''}, {n_split} slices of "
+                  f"{per} keys: max_abs_err={e:.3g} on out (tol {tol}; m and l "
+                  f"within it too), row relative error {r:.3g} (tol "
+                  f"{ROW_TOL[dtype]}; out x{PLANTED_SCALE} rejected); kernel "
+                  f"{t:.6f} ms, plain {plain_ms:.6f} ms, sdpa {library_ms:.6f} "
+                  f"ms, bound {bound:.6f} ms ({bound_by}); kernel/bound "
+                  f"{t / bound:.2f}x, kernel/sdpa {t / library_ms:.2f}x",
+                  flush=True)
+        if name == "path":      # the plan against two others, in turns
+            n_tiles = -(-s // dops.TC_BLOCK_K)
+            times = {}
+            for n in (plan[0], 15, 33, 33, 15, plan[0]):
+                per = -(-n_tiles // n) * dops.TC_BLOCK_K
+                with mock.patch.object(dops, "split_plan_tc",
+                                       lambda *a, per=per: (-(-s // per), per)):
+                    times.setdefault(-(-s // per), []).append(time_cuda(
+                        lambda: decode_attention(q, k, v, kv_len=kv_len),
+                        reps, flush))
+            print(f"[kernel] decode_attention_tc path, split plans (slices: ms "
+                  f"in two turns; split_plan_tc gives {plan[0]}): "
+                  + "; ".join(f"{n}: {t[0]:.6f} / {t[1]:.6f}"
+                              for n, t in times.items()), flush=True)
+            # the same keys laid out (B, Hkv, S, D): each CTA's rows
+            # contiguous, against the cache view's 2 KB row stride
+            kc, vc = k.contiguous(), v.contiguous()
+            t_view = time_cuda(lambda: decode_attention(q, k, v, kv_len=kv_len),
+                               reps, flush)
+            t_cont = time_cuda(lambda: decode_attention(q, kc, vc,
+                                                        kv_len=kv_len),
+                               reps, flush)
+            print(f"[kernel] decode_attention_tc path, K/V layout: cache view "
+                  f"(B, S, Hkv, D) {t_view:.6f} ms, contiguous (B, Hkv, S, D) "
+                  f"{t_cont:.6f} ms", flush=True)
+            del kc, vc
+        del q, k, v
         torch.cuda.empty_cache()
 
-    # tests/test_kernels.py:107: four shards' partials, LSE-merged
+    # tests/test_kernels.py:107: four shards' partials, LSE-merged, on both
+    # kernels (fp32 here: the CUDA-core kernel; bf16: the tensor-core one)
     b, h, s, d, shards = 2, 4, 512, 64, 4
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
     q, k, v = (torch.randn(shape, generator=gen, device=dev)
                for shape in ((b, h, d), (b, h, s, d), (b, h, s, d)))
     cut = [slice(i * s // shards, (i + 1) * s // shards) for i in range(shards)]
-    parts = [decode_attention(q, k[:, :, c], v[:, :, c], return_partial=True)
-             for c in cut]
-    merged = merge_partials(*(list(x) for x in zip(*parts)))
-    full, _, _ = decode_attention_ref(q, k, v)
-    err = float((merged - full).abs().max())
-    if not bool(((merged - full).abs() <= MERGE_TOL + MERGE_TOL * full.abs()).all()):
-        raise AssertionError(f"decode partials merge != full ({err})")
-    rows["merge"] = dict(max_abs_err=err)
-    print(f"[kernel] decode_attention partials of {shards} shards (B={b} H={h} "
-          f"S={s} D={d} fp32), LSE-merged, against the full plain attention: "
-          f"max_abs_err={err:.3g} (tol {MERGE_TOL})", flush=True)
+    for dt, tol in ((torch.float32, MERGE_TOL), (torch.bfloat16, BF16_TOL)):
+        qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+        parts = [decode_attention(qq, kk[:, :, c], vv[:, :, c],
+                                  return_partial=True) for c in cut]
+        merged = merge_partials(*(list(x) for x in zip(*parts))).float()
+        full = decode_attention_ref(qq, kk, vv)[0].float()
+        err = float((merged - full).abs().max())
+        if not bool(((merged - full).abs() <= tol + tol * full.abs()).all()):
+            raise AssertionError(f"decode partials merge != full ({err}, {dt})")
+        rows[f"merge_{str(dt)[6:]}"] = dict(max_abs_err=err)
+        print(f"[kernel] decode_attention partials of {shards} shards (B={b} "
+              f"H={h} S={s} D={d} {str(dt)[6:]}), LSE-merged, against the full "
+              f"plain attention: max_abs_err={err:.3g} (tol {tol})", flush=True)
     return rows
 
 
@@ -829,7 +952,7 @@ BAG_CASES = [
 
 def bag_bound_ms(table, idx, weighted):
     """Least time for one launch: every 32-byte sector of the table that
-    a valid index touches, read once (a random row read moves at least
+    an index inside the table touches, read once (a random row read moves at least
     one sector; rows that share a sector share its read), the indices
     and weights read once and the output written once, over the memory
     rate; against one multiply-add per (index, column) over the fp32
@@ -838,7 +961,7 @@ def bag_bound_ms(table, idx, weighted):
 
     v, e = table.shape
     row_bytes = e * table.element_size()
-    rows = torch.unique(idx[idx >= 0].long())
+    rows = torch.unique(idx[(idx >= 0) & (idx < v)].long())
     first = rows * row_bytes // 32
     last = ((rows + 1) * row_bytes - 1) // 32
     span = int((last - first).max()) + 1 if rows.numel() else 0
@@ -853,14 +976,64 @@ def bag_bound_ms(table, idx, weighted):
             sectors.numel())
 
 
-def bag_phase(dev, flush):
+def bag_route_forced(route):
+    """Force the bag wrapper's route (measurement only)."""
+    from repro_torch.kernels.embedding_bag import ops
+
+    return mock.patch.object(ops, "bag_route", lambda *a: route)
+
+
+def bag_check(name, table, idx, w, mode, kernel, other):
+    """One ``embedding_bag`` call through one launch of ``kernel`` and
+    none of ``other``, against ``embedding_bag_ref``: NaN rows (bags with
+    an id past the table) at the same places and whole, the rest within
+    the type's tolerance + tol|want|.  Returns the max abs error."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
 
+    before, before_other = kernel.launches, other.launches
+    got = embedding_bag(table, idx, w, mode=mode).float()
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1 or other.launches != before_other:
+        raise AssertionError(f"embedding_bag {name}: not one launch of "
+                             f"{kernel.name} alone")
+    want = embedding_bag_ref(table, idx, w, mode=mode).float()
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(got), nan)
+            and torch.equal(nan.any(1), nan.all(1))):
+        raise AssertionError(f"embedding_bag {name} ({kernel.name}): NaN rows "
+                             f"differ from the plain version's")
+    tol = BAG_BF16_TOL if table.dtype == torch.bfloat16 else BAG_FP32_TOL
+    diff = (got[~nan] - want[~nan]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool((diff <= tol + tol * want[~nan].abs()).all()):
+        raise AssertionError(f"embedding_bag {name} ({kernel.name}): kernel != "
+                             f"plain (max_abs_err={err}, tol {tol})")
+    return err
+
+
+def bag_phase(dev, flush):
+    """Every BAG_CASES row through its route's kernel, and ``wd_edge``
+    (as many bags as the lane route takes at most on this card); the
+    Wide&Deep rows through both E = 1 routes, both held and timed.  The
+    other cases plant ids past the table (a NaN row each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import (
+        EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL, bag_route,
+        embedding_bag, embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag.ops import LANE_BAGS_PER_SM
+
+    kernels = {"lanes": (EMBEDDING_BAG_LANES_KERNEL, EMBEDDING_BAG_KERNEL),
+               "column": (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL),
+               "warp": (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    edge = ("wd_edge", WD_FIELDS * WD_VOCAB, 1, LANE_BAGS_PER_SM * sms,
+            WD_FIELDS, "sum", "float32", False, True)
     rows = {}
-    for name, v, e, b, l, mode, dtype, weighted, per_field in BAG_CASES:
+    for name, v, e, b, l, mode, dtype, weighted, per_field in BAG_CASES + [edge]:
         dt = getattr(torch, dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + v + e + b)
@@ -872,19 +1045,20 @@ def bag_phase(dev, flush):
         else:
             idx = torch.randint(-1, v, (b, l), generator=gen, device=dev,
                                 dtype=torch.int32)
+            idx[1, 0], idx[2, l - 1] = v, 2**31 - 1     # NaN rows 1 and 2
         w = (torch.randn((b, l), generator=gen, device=dev) if weighted
              else None)
-        got = embedding_bag(table, idx, w, mode=mode)
-        torch.cuda.synchronize()
-        want = embedding_bag_ref(table, idx, w, mode=mode).float()
-        tol = BAG_BF16_TOL if dtype == "bfloat16" else BAG_FP32_TOL
-        diff = (got.float() - want).abs()
-        err = float(diff.max())
-        if not bool((diff <= tol + tol * want.abs()).all()):
-            raise AssertionError(f"embedding_bag {name}: kernel != plain "
-                                 f"(max_abs_err={err}, tol {tol})")
-        ms = time_cuda(lambda: embedding_bag(table, idx, w, mode=mode), 50,
-                       flush)
+        route = bag_route(b, e, sms)
+        routes = [route] + ([{"lanes": "column", "column": "lanes"}[route]]
+                            if per_field else [])
+        res = {}
+        for r in routes:
+            kernel, other = kernels[r]
+            with bag_route_forced(r):
+                err = bag_check(name, table, idx, w, mode, kernel, other)
+                ms = time_cuda(lambda: embedding_bag(table, idx, w, mode=mode),
+                               50, flush)
+            res[r] = (kernel.name, err, ms)
         plain_ms = time_cuda(lambda: embedding_bag_ref(table, idx, w,
                                                        mode=mode), 10, flush)
         library_ms = None
@@ -893,17 +1067,25 @@ def bag_phase(dev, flush):
             library_ms = time_cuda(lambda: F.embedding_bag(
                 idx, table, mode="sum", per_sample_weights=ones), 50, flush)
         bound, bound_by, sectors = bag_bound_ms(table, idx, weighted)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound,
-                          bound_by=bound_by)
-        lib = "n/a (padding)" if library_ms is None else f"{library_ms:.6f} ms"
-        print(f"[kernel] embedding_bag {name}: V={v} E={e} B={b} L={l} {mode} "
-              f"{dtype}{' weighted' if weighted else ''}: max_abs_err={err:.3g} "
-              f"(tol {tol}); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"F.embedding_bag {lib}, bound {bound:.6f} ms ({bound_by}; "
-              f"{sectors} distinct 32-byte sectors for {b * l} lookups); "
-              f"kernel/bound {ms / bound:.2f}x", flush=True)
-        del table, idx, w, got, want, diff
+        kname, err, ms = res[route]
+        rows[name] = dict(kernel=kname, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound, bound_by=bound_by,
+                          routes={r: t for r, (_, _, t) in res.items()})
+        lib = ("n/a (padding, ids past the table)" if library_ms is None
+               else f"{library_ms:.6f} ms")
+        for r, (kn, e_r, t) in res.items():
+            print(f"[kernel] embedding_bag {name} (route {r}, kernel {kn}"
+                  f"{', the rule' if r == route else ''}): V={v} E={e} B={b} "
+                  f"L={l} {mode} {dtype}{' weighted' if weighted else ''}: "
+                  f"max_abs_err={e_r:.3g} (tol "
+                  f"{BAG_BF16_TOL if dtype == 'bfloat16' else BAG_FP32_TOL}"
+                  f"{'' if per_field else '; NaN rows 1, 2 as the plain'}); "
+                  f"kernel {t:.6f} ms, plain {plain_ms:.6f} ms, "
+                  f"F.embedding_bag {lib}, bound {bound:.6f} ms ({bound_by}; "
+                  f"{sectors} distinct 32-byte sectors for {b * l} lookups); "
+                  f"kernel/bound {t / bound:.2f}x", flush=True)
+        del table, idx, w
         torch.cuda.empty_cache()
     return rows
 
@@ -1162,7 +1344,7 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_KERNEL as dec
+    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_TC_KERNEL as dec
     from repro_torch.kernels.flash_attention import FLASH_ATTENTION_TC_KERNEL as flash
     from repro_torch.models.transformer import decode_step, init_params, prefill
 
@@ -1232,9 +1414,10 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     if launches["flash_attention_tc"] != per_prefill:
         raise AssertionError("the LM path's tensor-core flash launches are not "
                              "one per layer")
-    if launches["decode_attention"] != per_step * steps:
-        raise AssertionError("the LM path's decode launches are not one per "
-                             "layer per step")
+    if (launches["decode_attention_tc"] != per_step * steps
+            or launches["decode_attention"]):
+        raise AssertionError("the LM path's decode launches are not one "
+                             "tensor-core launch per layer per step")
     for out in outs:
         if out.shape != (batch, cfg.vocab) or not bool(torch.isfinite(out).all()):
             raise AssertionError("LM logits are not finite or misshapen")
@@ -1246,7 +1429,12 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
     decode_both_ways(params, token, cache, pos - 1, cfg, plain_cfg, dev)
     if on_card:     # pos is now past the cache: this step stores nothing
         profile_device("lm decode step", lambda: decode_step(
-            params, token, cache, pos, cfg, device=dev), "decode_attention")
+            params, token, cache, pos, cfg, device=dev), "decode_attention_tc")
+        with decode_route(False):   # the same step on the CUDA-core kernel
+            profile_device("lm decode step (CUDA-core decode kernel)",
+                           lambda: decode_step(params, token, cache, pos, cfg,
+                                               device=dev),
+                           "decode_attention_")
     del cache, outs
 
     logits, cache = run_prefill("prefill (flash, steady)")
@@ -1286,17 +1474,20 @@ def lm_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
 
 
 def lm_fp32_route(dev, cfg=None, layers=LM_FP32_LAYERS, batch=LM_BATCH,
-                  prompt=LM_FP32_PROMPT):
+                  prompt=LM_FP32_PROMPT, steps=LM_FP32_STEPS):
     """The LM path's fp32 route: the same model (``cfg``, by default
     Mistral-NeMo-12B) at full width in fp32, cut to ``layers`` layers,
     one prefill through ``flash_attention`` (fp32 goes to the CUDA-core
-    kernel) between a reset and a read of the launch counts, held
-    against the plain chunked prefill within LM_FP32_TOL.  Returns the
-    counts."""
+    kernel) and ``steps`` greedy decode steps through ``decode_attention``
+    (fp32 goes to the CUDA-core kernel), between a reset and a read of
+    the launch counts; the prefill held against the plain chunked
+    prefill and each step against the plain einsums' step from a copy
+    of the same cache, within LM_FP32_TOL.  Returns the counts."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
-    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.models.transformer import decode_step, init_params, prefill
 
     cfg = dataclasses.replace(cfg or get_arch(LM_ARCH).model_cfg(False),
                               n_layers=layers, param_dtype=torch.float32,
@@ -1309,25 +1500,47 @@ def lm_fp32_route(dev, cfg=None, layers=LM_FP32_LAYERS, batch=LM_BATCH,
                            device=dev)
     reset_counts()
     t0 = time.perf_counter()
-    logits, _ = prefill(params, tokens, cfg, device=dev)
+    logits, cache = prefill(params, tokens, cfg, device=dev)
     sync(dev)
     secs = time.perf_counter() - t0
+    cache = {f: F.pad(c, (0, 0, 0, 0, 0, steps)) for f, c in cache.items()}
+    plain_cache = {f: c.clone() for f, c in cache.items()}
+    token = logits.argmax(dim=-1)
+    pos = torch.full((batch,), prompt, dtype=torch.int64, device=dev)
+    outs = []
+    for _ in range(steps):
+        step_logits, cache = decode_step(params, token, cache, pos, cfg,
+                                         device=dev)
+        outs.append((token, pos, step_logits))
+        token, pos = step_logits.argmax(dim=-1), pos + 1
+    sync(dev)
     launches = read_counts()
     print(f"[lm fp32] {LM_ARCH} at full width in fp32, {layers} layers: "
-          f"prefill {batch} x {prompt} in {secs * 1e3:.1f} ms; launches "
-          f"{launches}", flush=True)
-    want = layers if dev.type == "cuda" else 0    # one per layer on the card
+          f"prefill {batch} x {prompt} in {secs * 1e3:.1f} ms, {steps} decode "
+          f"steps; launches {launches}", flush=True)
+    on_card = dev.type == "cuda"
+    want = layers if on_card else 0    # one per layer on the card
     if launches["flash_attention"] != want or launches["flash_attention_tc"]:
         raise AssertionError("the fp32 route's flash launches are not one "
                              "CUDA-core launch per layer")
+    if (launches["decode_attention"] != want * steps
+            or launches["decode_attention_tc"]):
+        raise AssertionError("the fp32 route's decode launches are not one "
+                             "CUDA-core launch per layer per step")
     plain_logits, _ = prefill(params, tokens, plain_cfg, device=dev)
-    diff = (logits - plain_logits).abs()
-    print(f"[lm fp32] flash against plain prefill: max |dlogit| "
-          f"{float(diff.max()):.4g} (tol {LM_FP32_TOL} + {LM_FP32_TOL}|plain|)",
-          flush=True)
-    if not (bool(torch.isfinite(logits).all()) and bool(
-            (diff <= LM_FP32_TOL + LM_FP32_TOL * plain_logits.abs()).all())):
-        raise AssertionError("fp32 prefill: flash != plain within tol")
+    checks = [("prefill", logits, plain_logits)]
+    for i, (tok, p, got) in enumerate(outs):
+        want_logits, plain_cache = decode_step(params, tok, plain_cache, p,
+                                               plain_cfg, device=dev)
+        checks.append((f"decode step {i}", got, want_logits))
+    for what, got, want_logits in checks:
+        diff = (got - want_logits).abs()
+        print(f"[lm fp32] {what}, kernels against plain: max |dlogit| "
+              f"{float(diff.max()):.4g} (tol {LM_FP32_TOL} + "
+              f"{LM_FP32_TOL}|plain|)", flush=True)
+        if not (bool(torch.isfinite(got).all()) and bool(
+                (diff <= LM_FP32_TOL + LM_FP32_TOL * want_logits.abs()).all())):
+            raise AssertionError(f"fp32 {what}: kernel != plain within tol")
     return launches
 
 
@@ -1359,8 +1572,15 @@ def recsys_phase(dev, reduced=False, batch_cap=None, reps=5):
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.embedding_bag import EMBEDDING_BAG_KERNEL as bag
+    from repro_torch.kernels.embedding_bag import (EMBEDDING_BAG_KERNEL,
+                                                   EMBEDDING_BAG_LANES_KERNEL)
     from repro_torch.models import recsys
+
+    # the bag route each shape must take: lanes at serve_p99's 512 bags,
+    # the column kernel at serve_bulk's 262,144
+    route_of = {"serve_p99": EMBEDDING_BAG_LANES_KERNEL,
+                "serve_bulk": EMBEDDING_BAG_KERNEL}
+    bags = (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)
 
     on_card = dev.type == "cuda"
     print("[recsys] traffic cut: serve shapes only (no train_batch); "
@@ -1413,7 +1633,7 @@ def recsys_phase(dev, reduced=False, batch_cap=None, reps=5):
                 def run(ids=ids, dense=dense, forward=forward, params=params,
                         cfg=cfg):
                     return forward(params, ids, cfg, dense, device=dev)
-            before = bag.launches
+            before = {k.name: k.launches for k in bags}
             out = run()
             sync(dev)
             times = []
@@ -1422,11 +1642,14 @@ def recsys_phase(dev, reduced=False, batch_cap=None, reps=5):
                 run()
                 sync(dev)
                 times.append((time.perf_counter() - t0) * 1e3)
-            launches = bag.launches - before
-            want = (reps + 1) if on_card and arch_id in BAG_ARCHS else 0
-            if launches != want:
-                raise AssertionError(f"{arch_id} {shape}: {launches} bag "
-                                     f"launches over {reps + 1} forwards, "
+            counts = {k.name: k.launches - before[k.name] for k in bags}
+            launches = sum(counts.values())
+            want = {k.name: 0 for k in bags}
+            if on_card and arch_id in BAG_ARCHS:
+                want[route_of[shape].name] = reps + 1
+            if counts != want:
+                raise AssertionError(f"{arch_id} {shape}: bag launches "
+                                     f"{counts} over {reps + 1} forwards, "
                                      f"want {want}")
             ms = statistics.median(times)
             # this arch's own: earlier archs' tables held for the profile
@@ -1437,11 +1660,11 @@ def recsys_phase(dev, reduced=False, batch_cap=None, reps=5):
                   f"{ms:.3f} ms/batch over {reps} (min {min(times):.3f}), "
                   f"{b / ms * 1e3:.0f} examples/s; peak device memory "
                   f"{peak}; {launches / (reps + 1):g} embedding-bag launches "
-                  f"per forward", flush=True)
+                  f"per forward {counts}", flush=True)
             if arch_id == "bert4rec":
                 bert4rec_check(shape, out, params, cfg, seq, b, recsys, dev)
             else:
-                ctr_check(arch_id, shape, out, run, recsys, bag)
+                ctr_check(arch_id, shape, out, run, recsys, bags)
             if on_card and shape == "serve_bulk":
                 to_profile.append((f"{arch_id} {shape}", run))
         del params, run, out    # only to_profile keeps an arch's tables
@@ -1451,7 +1674,7 @@ def recsys_phase(dev, reduced=False, batch_cap=None, reps=5):
     return counts
 
 
-def ctr_check(arch_id, shape, out, run, recsys, bag):
+def ctr_check(arch_id, shape, out, run, recsys, bags):
     """Finite logits of the right shape; for the archs with a bag sum,
     the same forward with the plain bag (``embedding_bag_ref`` on the
     same device) within ``RECSYS_TOL``."""
@@ -1465,11 +1688,11 @@ def ctr_check(arch_id, shape, out, run, recsys, bag):
         print(f"[recsys] {arch_id} {shape}: {out.shape[0]} finite logits "
               f"(no bag sum on this path)", flush=True)
         return
-    before = bag.launches
+    before = [k.launches for k in bags]
     with mock.patch.object(recsys, "embedding_bag", embedding_bag_ref):
         want = run()
-    if bag.launches != before:
-        raise AssertionError("the plain-bag forward launched the kernel")
+    if [k.launches for k in bags] != before:
+        raise AssertionError("the plain-bag forward launched a bag kernel")
     diff = (out - want).abs()
     err = float(diff.max())
     if not bool((diff <= RECSYS_TOL + RECSYS_TOL * want.abs()).all()):
@@ -1503,6 +1726,19 @@ def bert4rec_check(shape, out, params, cfg, seq, n_cand, recsys, dev):
                                  "bert4rec_score_items top-k")
         note = (f"; against bert4rec_score_items' top 100: max |d| "
                 f"{float(diff.max()):.3g}")
+        if dev.type == "cuda":      # the tie-breaking's cost, warm L2
+            user, cand = h[0, -1], params["item_embed"][:n_cand]
+            _, idx = out
+            order = torch.sort(cand @ user, descending=True, stable=True)[1]
+            if not torch.equal(idx, order[:100]):
+                raise AssertionError("bert4rec retrieval: indices differ from "
+                                     "a stable descending sort's")
+            ms = time_warm(lambda: recsys.retrieval_topk(user, cand, k=100))
+            topk_ms = time_warm(lambda: torch.topk(cand @ user, 100))
+            note += (f"; indices equal a stable sort's (ties lower index "
+                     f"first); retrieval_topk {ms:.6f} ms against "
+                     f"torch.topk on the same scores {topk_ms:.6f} ms "
+                     f"(CUDA events, warm L2, {n_cand} candidates)")
     print(f"[recsys] bert4rec {shape}: top-100 finite and sorted, scores "
           f"{float(vals.min()):.4g}..{float(vals.max()):.4g}{note}", flush=True)
 
@@ -1652,8 +1888,9 @@ def main() -> int:
     fp32_launches = lm_fp32_route(dev)
     torch.cuda.empty_cache()
     recsys_launches = recsys_phase(dev)
-    if recsys_launches["embedding_bag"] <= 0:
-        raise AssertionError("the recsys path launched no embedding_bag kernel")
+    for name in ("embedding_bag", "embedding_bag_lanes"):
+        if recsys_launches[name] <= 0:
+            raise AssertionError(f"the recsys path launched no {name} kernel")
     print(f"[recsys] main path launches: {recsys_launches}", flush=True)
 
     def row(name, source, replaces, n, r, err):
@@ -1692,12 +1929,26 @@ def main() -> int:
             worst(flash_route_rows("flash_attention_tc"))),
         row("decode_attention", "decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:74",
-            lm_launches["decode_attention"], decode_rows["path"],
-            worst(decode_rows)),
+            fp32_launches["decode_attention"], decode_rows["path"]["cuda_core"],
+            max([r["max_abs_err"] for r in decode_rows.values()
+                 if r.get("route") == "decode_attention"]
+                + [r["cuda_core"]["max_abs_err"] for r in decode_rows.values()
+                   if "cuda_core" in r])),
+        row("decode_attention_tc", "decode_attention_tc.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:74",
+            lm_launches["decode_attention_tc"], decode_rows["path"],
+            max(r["max_abs_err"] for r in decode_rows.values()
+                if r.get("route") == "decode_attention_tc")),
         row("embedding_bag", "embedding_bag.cu",
             "src/repro/kernels/embedding_bag/embedding_bag.py:48",
             recsys_launches["embedding_bag"], bag_rows["wd_bulk"],
-            worst(bag_rows))]
+            max(r["max_abs_err"] for r in bag_rows.values()
+                if r["kernel"] == "embedding_bag")),
+        row("embedding_bag_lanes", "embedding_bag.cu",
+            "src/repro/kernels/embedding_bag/embedding_bag.py:48",
+            recsys_launches["embedding_bag_lanes"], bag_rows["wd_p99"],
+            max(r["max_abs_err"] for r in bag_rows.values()
+                if r["kernel"] == "embedding_bag_lanes"))]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -2,9 +2,11 @@
 
 ``decode_attention`` replaces the reference's ``ops.decode_attention``
 and its Pallas TPU kernel ``decode_attention_pallas``.  On CUDA tensors
-it launches ``csrc/decode_attention.cu`` (bound by bytes: see the note
-there); on CPU tensors it runs the plain version ``ref.py``.  There is
-no fallback from one to the other.
+it launches one of two kernels, chosen by dtype, head dim and GQA group
+alone (``tensor_core_route``): ``csrc/decode_attention_tc.cu`` (bf16 on
+the tensor cores) or ``csrc/decode_attention.cu`` (both bound by bytes:
+see the notes there); on CPU tensors it runs the plain version
+``ref.py``.  There is no fallback from one to another.
 
 The reference pads S up to its KV block and masks the padded keys by
 ``kv_len``; the kernel masks keys at or past ``kv_len`` itself, so
@@ -15,16 +17,19 @@ decode path.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels.common import cdiv
-from repro_torch.kernels.native import NativeKernel
+from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import decode_attention_ref, merge_partials_ref
 
 __all__ = ["decode_attention", "merge_partials", "split_plan",
-           "DECODE_ATTENTION_KERNEL", "MAX_HEAD_DIM", "MAX_GROUP", "BLOCK_K"]
+           "split_plan_tc", "tensor_core_route", "DECODE_ATTENTION_KERNEL",
+           "DECODE_ATTENTION_TC_KERNEL", "MAX_HEAD_DIM", "MAX_GROUP",
+           "BLOCK_K", "TC_BLOCK_K", "TC_HEAD_DIMS"]
 
 BLOCK_K = 64           # DA_BK in csrc/decode_attention.cuh
 MAX_HEAD_DIM = 128     # DA_MAX_D
@@ -43,7 +48,35 @@ DECODE_ATTENTION_KERNEL = NativeKernel(
               _I, _I, _I, ctypes.c_float, _P],
 )
 
+DECODE_ATTENTION_TC_KERNEL = NativeKernel(
+    name="decode_attention_tc",
+    source="decode_attention_tc.cu",
+    headers=("decode_attention_tc.cuh", "decode_attention.cuh",
+             "flash_attention.cuh"),
+    symbol="decode_attention_tc_launch",
+    argtypes=[_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+              _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+              _I, _I, _I, ctypes.c_float, _P],
+)
+TC_HEAD_DIMS = (64, 128)   # the head dims decode_attention_tc.cu is built for
+TC_BLOCK_K = csrc_define("decode_attention_tc.cuh", "DATC_BK")
+TC_MAX_GROUP = csrc_define("decode_attention_tc.cuh", "DATC_MAX_GROUP")
+TC_MAX_SPLIT = csrc_define("decode_attention_tc.cuh", "DATC_MAX_SPLIT")
+
 merge_partials = merge_partials_ref
+
+# Per (device, stream): B * Hkv int32 counters of the tensor-core kernel's
+# last-CTA merge, zero between launches (the kernel leaves them zero).
+_COUNTERS: dict = {}
+
+
+def tensor_core_route(dtype: torch.dtype, head_dim: int, group: int) -> bool:
+    """True where a CUDA call goes to the tensor-core kernel
+    ``csrc/decode_attention_tc.cu``: bf16 with head dim 64 or 128 and a
+    GQA group of at most 16.  fp32 (no tensor-core type keeps its 2e-5
+    tolerance) and every other shape go to ``csrc/decode_attention.cu``."""
+    return (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            and group <= TC_MAX_GROUP)
 
 
 def _check(q, k, v):
@@ -101,6 +134,31 @@ def split_plan(b: int, hkv: int, s: int, sms: int) -> tuple[int, int]:
     return cdiv(s, per), per
 
 
+@functools.lru_cache(maxsize=None)
+def split_plan_tc(b: int, hkv: int, s: int, sms: int) -> tuple[int, int]:
+    """(n_split, split_keys) for the tensor-core kernel: one wave of one
+    CTA per SM.  The key axis is cut into as many slices as keep the
+    b * hkv * n CTAs within ``sms`` (at least one slice, at most
+    ``TC_MAX_SPLIT``), each slice whole tiles of ``TC_BLOCK_K`` keys, no
+    slice wholly past S.  Longer slices beat more CTAs: at the LM path's
+    decode (b=2, hkv=8, s=8208, 132 SMs) 8 slices of 17 tiles (128 CTAs)
+    ran faster on the H100 than 15 slices (two CTAs on most SMs) or 33
+    (two waves); ``chip_smoke.py`` times all three (PERF.md)."""
+    tiles = cdiv(s, TC_BLOCK_K)
+    want = min(max(sms // (b * hkv), 1), tiles, TC_MAX_SPLIT)
+    per = cdiv(tiles, want)
+    return cdiv(tiles, per), per * TC_BLOCK_K
+
+
+def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    have = _COUNTERS.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = have
+    return have
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float | None = None, kv_len=None,
                      return_partial: bool = False):
@@ -111,7 +169,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's device (one length per sequence; read on the device, no host
     sync).  Lengths are clamped to [0, S]; a row with no valid key gives
     out 0, m = -inf, l = 0.  With ``return_partial``, ``out`` is the
-    unnormalised accumulator for an LSE merge (``merge_partials``)."""
+    unnormalised accumulator for an LSE merge (``merge_partials``).
+
+    On CUDA the kernel is chosen by contract (``tensor_core_route``):
+    bf16 at D 64 or 128 with a group of at most 16 launches
+    ``DECODE_ATTENTION_TC_KERNEL`` (mma.sync on bf16 tiles; P is rounded
+    to bf16 before P.V; the slices merge inside the launch), everything
+    else ``DECODE_ATTENTION_KERNEL``.  If the chosen kernel fails to
+    build or to launch, the call raises; nothing tries the other."""
     _check(q, k, v)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -133,9 +198,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_all = min(max(int(kv_len), 0), s)
 
     group = hq // hkv
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split, split_keys = split_plan(b, hkv, s, sms)
     dev = q.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tc = tensor_core_route(q.dtype, d, group)
+    n_split, split_keys = (split_plan_tc if tc else split_plan)(b, hkv, s, sms)
     acc_part = torch.empty((b * hkv * n_split * group * d,), dtype=torch.float32,
                            device=dev)
     m_part = torch.empty((b * hkv * n_split * group,), dtype=torch.float32,
@@ -146,11 +212,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.empty_like(m)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        DECODE_ATTENTION_KERNEL.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if lens is None else lens.data_ptr(), kv_all,
-            acc_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            out.data_ptr(), m.data_ptr(), l.data_ptr(), _DTYPES[q.dtype],
-            b, hq, hkv, s, d, *k.stride()[:3], *v.stride()[:3], n_split,
-            split_keys, int(return_partial), scale, stream)
+        kv = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              None if lens is None else lens.data_ptr(), kv_all,
+              acc_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr())
+        outs = (out.data_ptr(), m.data_ptr(), l.data_ptr())
+        shape = (b, hq, hkv, s, d, *k.stride()[:3], *v.stride()[:3], n_split,
+                 split_keys, int(return_partial), scale, stream)
+        if tc:
+            DECODE_ATTENTION_TC_KERNEL.launch(
+                *kv, _counters(dev, stream, b * hkv).data_ptr(), *outs, *shape)
+        else:
+            DECODE_ATTENTION_KERNEL.launch(*kv, *outs, _DTYPES[q.dtype], *shape)
     return out, m, l

@@ -4,10 +4,11 @@
 jnp ``embedding_bag``, which the recsys models call, and
 ``embedding_bag_kernel`` over the Pallas TPU kernel
 ``embedding_bag_pallas``; ``embedding_bag_kernel`` is kept as a second
-name.  On CUDA tensors it launches ``csrc/embedding_bag.cu`` (bound by
-the bytes of the random row reads: see the note there); on CPU tensors
-it runs the plain version ``ref.py``.  There is no fallback from one to
-the other.
+name.  On CUDA tensors it launches one of the routes of
+``csrc/embedding_bag.cu``, chosen by ``bag_route`` (bound by the bytes of
+the random row reads, or at few bags by their latency: see the note
+there); on CPU tensors it runs the plain version ``ref.py``.  There is no
+fallback from one to another.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from repro_torch.kernels.native import NativeKernel
 
 from .ref import embedding_bag_ref
 
-__all__ = ["embedding_bag", "embedding_bag_kernel", "EMBEDDING_BAG_KERNEL"]
+__all__ = ["embedding_bag", "embedding_bag_kernel", "bag_route",
+           "EMBEDDING_BAG_KERNEL", "EMBEDDING_BAG_LANES_KERNEL"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"sum": 0, "mean": 1}
@@ -32,6 +34,33 @@ EMBEDDING_BAG_KERNEL = NativeKernel(
     symbol="embedding_bag_launch",
     argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
 )
+# The E = 1 lane route: the same source, its own entry point and count.
+EMBEDDING_BAG_LANES_KERNEL = NativeKernel(
+    name="embedding_bag_lanes",
+    source="embedding_bag.cu",
+    headers=("embedding_bag.cuh",),
+    symbol="embedding_bag_lanes_launch",
+    argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
+)
+# The E = 1 lane route takes batches of up to this many bags per SM: at
+# L = 40 on the H100 it is the faster route up to about here, the column
+# route past it (chip_smoke.py phase 2 times both at 512 bags, at this
+# edge and at 262,144; PERF.md).
+LANE_BAGS_PER_SM = 192
+
+
+def bag_route(b: int, e: int, sms: int) -> str:
+    """The CUDA route for B bags of width E on a card with ``sms`` SMs:
+    "warp" for E > 1 (``EMBEDDING_BAG_KERNEL``); for E = 1, "lanes" (a
+    group of lanes per bag, ``EMBEDDING_BAG_LANES_KERNEL``) up to
+    ``LANE_BAGS_PER_SM`` bags per SM, where one thread per bag would
+    leave most SMs with few bags and each thread with ~L/8 dependent
+    rounds of loads, and "column" (one thread per bag,
+    ``EMBEDDING_BAG_KERNEL``) past it, where every SM holds many bags in
+    flight."""
+    if e != 1:
+        return "warp"
+    return "lanes" if b <= LANE_BAGS_PER_SM * sms else "column"
 
 
 def _check(table, indices, weights, mode):
@@ -60,9 +89,11 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     """table (V, E) fp32 or bf16, indices (B, L) int (-1 = padding),
     weights (B, L) fp32 or None → (B, E) in the table's dtype; fp32
     accumulation.  ``mode``: "sum", or "mean" (divided by the number of
-    valid indices, at least 1).  On CUDA the indices must be int32 and
-    every tensor contiguous.  An index at or past V is padding on both
-    devices (the kernel never reads outside the table)."""
+    indices >= 0, at least 1).  An index at or past V makes its bag's row
+    NaN, as in the reference (whose ``jnp.take`` fills NaN), and counts
+    in the mean's divisor; the kernels never read outside the table.  On
+    CUDA the indices must be int32 and every tensor contiguous; the route
+    is ``bag_route``'s."""
     _check(table, indices, weights, mode)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, indices, weights, mode=mode)
@@ -81,6 +112,14 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
+        sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+        if bag_route(b, e, sms) == "lanes":
+            EMBEDDING_BAG_LANES_KERNEL.launch(
+                table.data_ptr(), indices.data_ptr(),
+                None if weights is None else weights.data_ptr(),
+                out.data_ptr(), _DTYPES[table.dtype], v, b, l, _MODES[mode],
+                stream)
+            return out
         EMBEDDING_BAG_KERNEL.launch(
             table.data_ptr(), indices.data_ptr(),
             None if weights is None else weights.data_ptr(), out.data_ptr(),

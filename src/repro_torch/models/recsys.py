@@ -274,8 +274,16 @@ def bert4rec_score_items(params: Dict, hidden_at_mask: torch.Tensor,
 def retrieval_topk(query_vec: torch.Tensor, cand_emb: torch.Tensor,
                    k: int = 100) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score N candidates (N, E) against one query (E,) with a batched
-    dot and take the top k: (values (k,), indices (k,)).  Among equal
-    scores the order of indices is torch's, which need not be the
-    reference's (lower index first)."""
+    dot and take the top k: (values (k,), indices (k,)), largest first
+    and, among equal scores, lower index first, as the reference's
+    ``jax.lax.top_k``.  ``torch.topk`` leaves the order of ties open, so
+    the top k is taken over unique int64 keys: the score's bits mapped to
+    an order-preserving int32 (with -0.0 read as 0.0), then N - 1 - index
+    below them.  No host sync."""
     scores = (cand_emb @ query_vec[:, None])[:, 0]                      # (N,)
-    return torch.topk(scores, k)
+    bits = (scores + 0.0).view(torch.int32)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    n = scores.shape[0]
+    below = n - 1 - torch.arange(n, device=scores.device)
+    _, idx = torch.topk((bits.long() << 32) + below, k)
+    return scores[idx], idx

@@ -10,7 +10,9 @@ versions bit for bit; the flash- and decode-attention kernels within
 and 3e-2 (bf16): the JAX package's own tolerances (``tests/test_kernels.py``).  Decode
 attention's out is also held row by row to a relative L2 error of 1e-2
 (bf16) or 1e-4 (fp32): at the LM path's length a row averages thousands
-of keys and |out| falls below the elementwise 2e-2.
+of keys and |out| falls below the elementwise 2e-2.  Each call asserts
+one launch of the kernel its route names (decode: ``tensor_core_route``;
+bag: ``bag_route``) and none of the other.
 """
 import dataclasses
 
@@ -27,10 +29,13 @@ from repro_torch.kernels.block_scan import (
     block_scan_pruned_chunk, block_scan_pruned_chunk_ref, block_scan_reference,
     build_rule_meta)
 from repro_torch.kernels.decode_attention import (
-    DECODE_ATTENTION_KERNEL, decode_attention, decode_attention_ref,
-    merge_partials)
+    DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL, decode_attention,
+    decode_attention_ref, merge_partials)
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.embedding_bag import (
-    EMBEDDING_BAG_KERNEL, embedding_bag, embedding_bag_ref)
+    EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL, bag_route, embedding_bag,
+    embedding_bag_ref)
+from repro_torch.kernels.embedding_bag.ops import LANE_BAGS_PER_SM
 from repro_torch.kernels.flash_attention import (
     FLASH_ATTENTION_KERNEL, FLASH_ATTENTION_TC_KERNEL, attention_ref,
     flash_attention, tensor_core_route)
@@ -358,6 +363,52 @@ def _row_rel_err(got, want):
     return float(((got - want)[keep].norm(dim=-1) / norm[keep]).max())
 
 
+def _decode_case(cuda, b, hq, hkv, s, d, dtype, lens, cache_view, seed):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32)).to(cuda, dt)
+    kv_shape = (b, s, hkv, d) if cache_view else (b, hkv, s, d)
+    k, v = (torch.from_numpy(rng.normal(size=kv_shape).astype(np.float32))
+            .to(cuda, dt) for _ in range(2))
+    if cache_view:      # the (B, S, Hkv, D) cache seen as (B, Hkv, S, D)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    kv_len = torch.tensor(lens, device=cuda) if isinstance(lens, list) else lens
+    return q, k, v, kv_len
+
+
+def _assert_decode(q, k, v, kv_len, lens, partial=False):
+    """One launch of the route's kernel and none of the other; out, m, l
+    against the plain version, out row by row (a planted x0.9 fails),
+    rows with no key 0, -inf, 0.  With ``partial`` the unnormalised
+    accumulator is held divided by the plain l, element by element: its
+    own scale is l (hundreds of keys' weight at the LM's lengths), so
+    the bf16 rounding of P and of the output moves it by up to ~4e-2 in
+    absolute terms, ~1e-4 of the normalised value."""
+    tc = decode_ops.tensor_core_route(q.dtype, q.shape[-1],
+                                      q.shape[1] // k.shape[1])
+    kernel, other = ((DECODE_ATTENTION_TC_KERNEL, DECODE_ATTENTION_KERNEL) if tc
+                     else (DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL))
+    before, before_other = kernel.launches, other.launches
+    got = decode_attention(q, k, v, kv_len=kv_len, return_partial=partial)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and other.launches == before_other
+    want = decode_attention_ref(q, k, v, kv_len=kv_len, return_partial=partial)
+    bf16 = q.dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 2e-5
+    assert got[0].dtype == q.dtype and got[0].shape == q.shape
+    scale = want[2].clamp_min(1e-30) if partial else 1.0
+    _assert_rows_close(got[0].float() / scale, want[0].float() / scale, tol)
+    for g, w in zip(got[1:], want[1:]):
+        _assert_rows_close(g, w, tol)
+    row_tol = 1e-2 if bf16 else 1e-4
+    assert _row_rel_err(got[0], want[0]) <= row_tol
+    assert _row_rel_err(got[0] * 0.9, want[0]) > row_tol   # a planted fault
+    if isinstance(lens, list):
+        empty = torch.tensor(lens, device=q.device) == 0
+        assert (got[0][empty] == 0).all() and (got[2][empty] == 0).all()
+        assert torch.isinf(got[1][empty]).all()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,hq,hkv,s,d,dtype,lens,cache_view", [
     (2, 8, 8, 512, 64, "float32", None, False),       # test_kernels.py shapes
@@ -368,51 +419,64 @@ def _row_rel_err(got, want):
     (4, 32, 8, 1000, 128, "bfloat16", [0, 1, 517, 1000], True),  # ragged
     (3, 8, 2, 700, 128, "float32", [700, 0, 65], True),
     (2, 4, 1, 100, 32, "float32", 37, False),         # an int kv_len
+    (2, 8, 2, 300, 96, "bfloat16", [300, 77], True),  # bf16 off the tc route
+    (2, 16, 4, 200, 32, "bfloat16", 150, False),      # bf16 at D 32
 ])
 def test_cuda_decode_attention_matches_plain(cuda, b, hq, hkv, s, d, dtype,
                                              lens, cache_view):
-    rng = np.random.default_rng(s + d + hq)
-    dt = getattr(torch, dtype)
-    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32)).to(cuda, dt)
-    kv_shape = (b, s, hkv, d) if cache_view else (b, hkv, s, d)
-    k, v = (torch.from_numpy(rng.normal(size=kv_shape).astype(np.float32))
-            .to(cuda, dt) for _ in range(2))
-    if cache_view:      # the (B, S, Hkv, D) cache seen as (B, Hkv, S, D)
-        k, v = k.transpose(1, 2), v.transpose(1, 2)
-    kv_len = torch.tensor(lens, device=cuda) if isinstance(lens, list) else lens
-    before = DECODE_ATTENTION_KERNEL.launches
-    got = decode_attention(q, k, v, kv_len=kv_len)
-    torch.cuda.synchronize()
-    assert DECODE_ATTENTION_KERNEL.launches == before + 1
-    want = decode_attention_ref(q, k, v, kv_len=kv_len)
-    tol = 2e-2 if dtype == "bfloat16" else 2e-5
-    assert got[0].dtype == dt and got[0].shape == q.shape
-    for g, w in zip(got, want):
-        _assert_rows_close(g, w, tol)
-    row_tol = 1e-2 if dtype == "bfloat16" else 1e-4
-    assert _row_rel_err(got[0], want[0]) <= row_tol
-    assert _row_rel_err(got[0] * 0.9, want[0]) > row_tol   # a planted fault
-    if isinstance(lens, list):
-        empty = torch.tensor(lens, device=cuda) == 0
-        assert (got[0][empty] == 0).all() and (got[2][empty] == 0).all()
-        assert torch.isinf(got[1][empty]).all()
+    q, k, v, kv_len = _decode_case(cuda, b, hq, hkv, s, d, dtype, lens,
+                                   cache_view, s + d + hq)
+    _assert_decode(q, k, v, kv_len, lens)
 
 
 @pytest.mark.gpu
-def test_cuda_decode_partials_merge_to_full(cuda):
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("b,hq,hkv,s,d,lens,cache_view", [
+    (2, 32, 8, 8208, 128, [8193, 8193], True),        # the LM path
+    (4, 32, 8, 1000, 128, [0, 1, 517, 1000], True),   # ragged
+    (2, 32, 8, 130, 128, [64, 65], True),             # a tile's edge
+    (1, 48, 8, 640, 128, None, False),                # group 6
+    (2, 8, 2, 700, 64, [700, 63], False),             # D 64
+    (2, 32, 2, 300, 128, [300, 17], True),            # group 16: two n8 tiles
+    (1, 24, 2, 129, 64, None, False),                 # group 12 at D 64
+    (3, 4, 4, 64, 128, [1, 0, 64], False),            # MHA, one tile
+    (1, 8, 1, 40000, 128, 39999, True),               # many tiles a slice
+])
+def test_cuda_decode_attention_tensor_core_route(cuda, b, hq, hkv, s, d, lens,
+                                                 cache_view, partial):
+    """bf16 at D 64/128 with a group of at most 16 runs the tensor-core
+    kernel (one launch, the slices merged inside it), against the plain
+    version at 2e-2 and row by row at 1e-2, with the unnormalised
+    accumulator for ``return_partial``; and again on the same counters,
+    which the last CTA of each (b, kv head) must leave at 0."""
+    q, k, v, kv_len = _decode_case(cuda, b, hq, hkv, s, d, "bfloat16", lens,
+                                   cache_view, s + d + hq + partial)
+    if lens is None:
+        lens = [s] * b
+    for _ in range(2):
+        _assert_decode(q, k, v, kv_len, lens if isinstance(lens, list) else
+                       [lens] * b, partial)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_cuda_decode_partials_merge_to_full(cuda, dtype, tol):
     """tests/test_kernels.py's sequence-sharded decode on the card: the
     kernel's partials of four shards, LSE-merged, against the plain full
-    attention (1e-4, that test's bound)."""
+    attention (fp32 through the CUDA-core kernel: 1e-4, that test's
+    bound; bf16 through the tensor-core kernel: 2e-2, as its partials
+    are rounded to bf16)."""
     rng = np.random.default_rng(3)
     b, h, s, d, shards = 2, 4, 512, 64, 4
-    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(cuda)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(cuda, dt)
                for sh in ((b, h, d), (b, h, s, d), (b, h, s, d)))
     parts = [decode_attention(q, k[:, :, i * s // shards:(i + 1) * s // shards],
                               v[:, :, i * s // shards:(i + 1) * s // shards],
                               return_partial=True) for i in range(shards)]
-    merged = merge_partials(*(list(x) for x in zip(*parts)))
+    merged = merge_partials(*(list(x) for x in zip(*parts))).float()
     full, _, _ = decode_attention_ref(q, k, v)
-    torch.testing.assert_close(merged, full, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(merged, full.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu
@@ -433,6 +497,31 @@ def test_cuda_decode_attention_rejects_unsupported(cuda):
         decode_attention(q, k, k, kv_len=torch.tensor([3, 4], device=cuda))
 
 
+def _assert_bag(table, idx, w, mode, nan_rows):
+    """One launch of ``bag_route``'s kernel and none of the other; the
+    bags in ``nan_rows`` (an id past the table) NaN in every column and
+    NaN nowhere else, the rest against the plain version."""
+    b, e = idx.shape[0], table.shape[1]
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    lanes = bag_route(b, e, sms) == "lanes"
+    kernel, other = ((EMBEDDING_BAG_LANES_KERNEL, EMBEDDING_BAG_KERNEL) if lanes
+                     else (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL))
+    before, before_other = kernel.launches, other.launches
+    got = embedding_bag(table, idx, w, mode=mode)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and other.launches == before_other
+    assert got.dtype == table.dtype and got.shape == (b, e)
+    nan = torch.zeros(b, dtype=torch.bool, device=table.device)
+    nan[nan_rows] = True
+    assert torch.isnan(got[nan]).all() and not torch.isnan(got[~nan]).any()
+    tol = 3e-2 if table.dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(
+        got[~nan].float(),
+        embedding_bag_ref(table, idx, w, mode=mode)[~nan].float(),
+        atol=tol, rtol=tol)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("v,e,b,l,mode,dtype,weighted", [
     (64, 8, 4, 6, "sum", "float32", False),          # test_kernels.py
@@ -440,30 +529,47 @@ def test_cuda_decode_attention_rejects_unsupported(cuda):
     (1000, 32, 16, 10, "sum", "float32", False),
     (64, 128, 4, 4, "mean", "bfloat16", False),
     (32, 8, 4, 5, "sum", "float32", True),
-    (40 * 4096, 1, 512, 40, "sum", "float32", False),    # E = 1, the path's
+    (40 * 4096, 1, 512, 40, "sum", "float32", False),    # E = 1, wd_p99's B
     (5000, 1, 300, 7, "mean", "bfloat16", True),
     (300, 37, 33, 9, "mean", "float32", True),
+    (5000, 1, 200_000, 40, "sum", "float32", False),     # the column route
+    (5000, 1, 300, 17, "sum", "float32", True),          # 32-lane groups
+    (5000, 1, 300, 12, "mean", "float32", False),        # 16-lane groups
+    (5000, 1, 300, 5, "sum", "bfloat16", True),          # 8-lane groups
 ])
 def test_cuda_embedding_bag_matches_plain(cuda, v, e, b, l, mode, dtype,
                                           weighted):
+    """Padding, an all-padding bag (0), and an id past the table in bag
+    1 (the bag's row NaN, as the reference's), through the route's
+    kernel."""
     rng = np.random.default_rng(v + e + b)
     dt = getattr(torch, dtype)
     table = torch.from_numpy(rng.normal(size=(v, e)).astype(np.float32)).to(cuda, dt)
     idx = rng.integers(-1, v, size=(b, l)).astype(np.int32)
     idx[0] = -1                                       # an all-padding bag
-    idx[1, 0] = v + 3                                 # past the table: padding
+    idx[1, 0] = v + 3                                 # past the table: NaN
     idx = torch.from_numpy(idx).to(cuda)
     w = (torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32)).to(cuda)
          if weighted else None)
-    before = EMBEDDING_BAG_KERNEL.launches
-    got = embedding_bag(table, idx, w, mode=mode)
-    torch.cuda.synchronize()
-    assert EMBEDDING_BAG_KERNEL.launches == before + 1
-    assert got.dtype == dt and got.shape == (b, e) and (got[0] == 0).all()
-    tol = 3e-2 if dtype == "bfloat16" else 1e-5
-    torch.testing.assert_close(got.float(),
-                               embedding_bag_ref(table, idx, w, mode=mode).float(),
-                               atol=tol, rtol=tol)
+    got = _assert_bag(table, idx, w, mode, [1])
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1])
+def test_cuda_embedding_bag_route_edge(cuda, extra):
+    """At the rule's edge (``LANE_BAGS_PER_SM`` bags per SM: the lane
+    route) and one bag past it (the column route), Wide&Deep's E = 1, L =
+    40, with ids V, 2**31 - 1 and -1 planted."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b, v, l = LANE_BAGS_PER_SM * sms + extra, 40 * 4096, 40
+    assert bag_route(b, 1, sms) == ("lanes", "column")[extra]
+    rng = np.random.default_rng(b)
+    table = torch.from_numpy(rng.normal(size=(v, 1)).astype(np.float32)).to(cuda)
+    idx = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    idx[3, 5], idx[7, 39], idx[b - 1, 0], idx[9, :20] = v, 2**31 - 1, v + 1, -1
+    _assert_bag(table, torch.from_numpy(idx).to(cuda), None, "mean",
+                [3, 7, b - 1])
 
 
 @pytest.mark.gpu
@@ -488,12 +594,12 @@ def test_cuda_recsys_forward_matches_cpu(cuda, arch_id):
     params = init(cfg, seed=0, device="cpu")
     ids = np.random.default_rng(1).integers(0, cfg.vocab_per_field,
                                             (64, cfg.n_sparse))
-    before = EMBEDDING_BAG_KERNEL.launches
+    before = EMBEDDING_BAG_LANES_KERNEL.launches    # 64 bags: the lane route
     on_card = fwd({k: (v.to(cuda) if isinstance(v, torch.Tensor) else
                        {kk: vv.to(cuda) for kk, vv in v.items()})
                    for k, v in params.items()}, ids, cfg)
     torch.cuda.synchronize()
-    assert EMBEDDING_BAG_KERNEL.launches == before + 1
+    assert EMBEDDING_BAG_LANES_KERNEL.launches == before + 1
     torch.testing.assert_close(on_card.cpu(), fwd(params, ids, cfg, device="cpu"),
                                atol=1e-5, rtol=1e-5)
 
@@ -517,10 +623,10 @@ def test_cuda_mistral_nemo_two_layer_decode_kernel_and_plain(cuda):
              for f, c in cache.items()}
     other = {f: c.clone() for f, c in cache.items()}
     token, pos = logits.argmax(-1), torch.tensor([700, 650], device=cuda)
-    before = DECODE_ATTENTION_KERNEL.launches
+    before = DECODE_ATTENTION_TC_KERNEL.launches      # bf16, D 128: the tc route
     got, cache = decode_step(params, token, cache, pos, cfg)
     torch.cuda.synchronize()
-    assert DECODE_ATTENTION_KERNEL.launches == before + cfg.n_layers
+    assert DECODE_ATTENTION_TC_KERNEL.launches == before + cfg.n_layers
     want, other = decode_step(params, token, other, pos, plain)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)

@@ -108,10 +108,10 @@ def test_retrieval_topk_matches():
     """One user state against the item table (the BERT4Rec
     retrieval_cand path).  Scores must agree to the tolerance.  Two
     scores closer than twice the largest difference between the two
-    sides' scores may swap places (and among equal scores torch's order
-    need not be the reference's, lower index first), so the indices must
-    agree wherever a score stands further than that from both of its
-    neighbours."""
+    sides' scores may swap places, so the indices must agree wherever a
+    score stands further than that from both of its neighbours, and
+    wherever two neighbours are exactly equal on both sides (ties go to
+    the lower index on both)."""
     jcfg, tcfg, jparams, tparams, seq = _b4r_case()
     user = recsys.bert4rec_forward(tparams, seq[:1], tcfg, device="cpu")[0, -1]
     juser = jnp.asarray(user.numpy())
@@ -122,12 +122,41 @@ def test_retrieval_topk_matches():
     _close(vals, jvals)
     err = float(np.abs((table @ user).numpy() - np.asarray(jtable @ juser)).max())
     assert err < TOL
-    gaps = np.abs(np.diff(np.asarray(jvals)))
+    jgaps = np.abs(np.diff(np.asarray(jvals)))
+    gaps = np.abs(np.diff(vals.numpy()))
+    near = (jgaps <= 2 * err) & ~((jgaps == 0) & (gaps == 0))
     apart = np.ones(100, bool)
-    apart[:-1] &= gaps > 2 * err
-    apart[1:] &= gaps > 2 * err
+    apart[:-1] &= ~near
+    apart[1:] &= ~near
     assert apart.sum() > 90
     np.testing.assert_array_equal(idx.numpy()[apart], np.asarray(jidx)[apart])
+
+
+@pytest.mark.parametrize("k", [1, 7, 40])
+def test_retrieval_topk_ties_match_reference(k):
+    """Duplicated candidate rows score exactly alike on both sides:
+    ``retrieval_topk`` gives ``jax.lax.top_k``'s indices, lower index
+    first among the ties, values equal; also with every score tied, with
+    ties straddling the k-th place and with -0.0 against 0.0."""
+    rng = np.random.default_rng(k)
+    # small integers: every dot product is exact in fp32, so the ties are
+    # exact on both sides whatever the order of the sums
+    base = rng.integers(-3, 4, size=(12, 8)).astype(np.float32)
+    cand = base[rng.integers(0, 12, size=60)]              # many duplicates
+    query = rng.integers(-3, 4, size=8).astype(np.float32)
+    cases = [cand, np.ones((60, 8), np.float32),
+             np.concatenate([cand[:30], -cand[:30]])]
+    zero = np.zeros((60, 8), np.float32)
+    zero[::2, 0] = -0.0
+    zero[1::3, 0] = 1.0
+    cases.append(zero)
+    for c in cases:
+        vals, idx = recsys.retrieval_topk(torch.from_numpy(query),
+                                          torch.from_numpy(c), k=k)
+        jvals, jidx = jrec.retrieval_topk(jnp.asarray(query), jnp.asarray(c),
+                                          k=k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)
