@@ -14,7 +14,9 @@ Phases (any failure raises and the script exits non-zero):
    the shapes the paths give it, and time both (CUDA events, L2 flushed
    before every launch) beside the least time the card could take (the
    bound) and, where one exists, one PyTorch call that computes the same
-   function: the chunked block scan bit for bit; the whole-index scans
+   function: the chunked block scan bit for bit, beside a launch floor
+   (one launch of a one-element ``add_``, timed the same way); the
+   whole-index scans
    through ``kernels/block_scan/ops`` (``block_scan_batched`` and
    ``block_scan`` on the tile kernel, ``block_scan_pruned`` on the
    static kernel) at the websearch-rl config's full index (Q=256
@@ -24,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
    runs between a reset and a read of the launch counts, then every
    output is held bit for bit against ``block_scan_reference`` in
    slices of 16 queries, and timed (no PyTorch call computes these
-   scans); flash attention within 2e-5
+   scans; every block-scan row prints its GB/s and bound/time); flash
+   attention within 2e-5
    (fp32) and 2e-2 (bf16), the JAX package's own tolerances, on its two
    routes (bf16 at D 64 or 128: the tensor-core kernel; fp32 and other
    D: the CUDA-core kernel; each row prints its route): at the LM
@@ -40,7 +43,8 @@ Phases (any failure raises and the script exits non-zero):
    fp32: the CUDA-core kernel) at the LM decode path's shape (B=2,
    Hq=32, Hkv=8, S=8208, D=128, bf16, kv_len 8193, through the
    transposed view of a (B, S, Hkv, D) cache; the tensor-core kernel
-   also under two other split plans), the four shapes of
+   also under two other split plans), phase 4's fp32-route launch
+   (B=2, S=1026, kv_len 1025, fp32), the four shapes of
    ``tests/test_kernels.py``, per-row lengths with a row of length 0,
    and partials merged across four shards (fp32 1e-4, bf16 2e-2),
    beside SDPA with a length mask; the embedding bag within 1e-5 (fp32)
@@ -296,7 +300,7 @@ def block_scan_bound_ms(n_active, bp, nb, chunk, w, meta_cols):
     words of each lane's DISTINCT blocks read once -- chunk positions
     clamped to block nb-1 reread that block --, the meta read once, the
     outputs written once) over the memory rate, against its 32-bit
-    operations over the op rate."""
+    operations over the op rate.  Returns (ms, what bounds it, bytes)."""
     import numpy as np
 
     b = len(bp)
@@ -308,7 +312,24 @@ def block_scan_bound_ms(n_active, bp, nb, chunk, w, meta_cols):
     ops = words_read + b * chunk * w * 4 * 3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", bytes_moved)
+
+
+def launch_floor_ms(dev, flush) -> float:
+    """One launch of a one-element elementwise op, timed as the kernels
+    are (``time_cuda``): the part of a short kernel's time that is the
+    launch itself."""
+    import torch
+
+    one = torch.zeros(1, device=dev)
+    return time_cuda(lambda: one.add_(1), 50, flush)
+
+
+def rate_text(ms, bound, bytes_moved) -> str:
+    """A block-scan row's achieved rate and share of its bound."""
+    return (f"{bytes_moved / ms / 1e6:.1f} GB/s, bound/time "
+            f"{bound / ms:.2f}")
 
 
 def kernel_phase(dev, flush):
@@ -319,6 +340,9 @@ def kernel_phase(dev, flush):
                                                 block_scan_pruned_chunk_ref)
 
     b, nb, tf_planes, w = QUERY_BATCH, N_BLOCKS, 16, BLOCK_DOCS // 32
+    floor = launch_floor_ms(dev, flush)
+    print(f"[kernel] launch floor: one launch of a one-element add_ "
+          f"{floor:.6f} ms (cold L2, as the rows below)", flush=True)
     rows = {}
     for chunk in (4, 32):
         occ, meta, n_active, bp, t = block_scan_case(dev, b, nb, tf_planes,
@@ -345,8 +369,8 @@ def kernel_phase(dev, flush):
         torch.cuda.synchronize()
         plain_ms = time_cuda(lambda: block_scan_pruned_chunk_ref(
             occ, meta, chunk=chunk, n_terms=t), 10, flush)
-        bound, bound_by = block_scan_bound_ms(n_active, bp, nb, chunk, w,
-                                              meta.shape[2])
+        bound, bound_by, moved = block_scan_bound_ms(n_active, bp, nb, chunk,
+                                                     w, meta.shape[2])
         distinct = int(np.minimum(chunk, nb - bp.astype(np.int64)).sum())
         rows[chunk] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound, bound_by=bound_by)
@@ -357,7 +381,9 @@ def kernel_phase(dev, flush):
               f"{plain_ms:.6f} ms, bound "
               f"{bound:.6f} ms ({bound_by}; {int(n_active.sum())} active "
               f"planes over {b} lanes, {distinct} distinct lane-blocks of "
-              f"{b * chunk}); kernel/bound {ms / bound:.2f}x",
+              f"{b * chunk}); kernel/bound {ms / bound:.2f}x; "
+              f"{rate_text(ms, bound, moved)}; launch floor {floor:.6f} ms "
+              f"({floor / ms:.0%} of the kernel's time)",
               flush=True)
     return rows
 
@@ -393,14 +419,16 @@ def whole_index_bound_ms(n_active, nb, w, rule_bytes):
     queries: the active planes' words read once, the rule read once,
     match, v_inc and n_match written once, over the memory rate; against
     its 32-bit operations (one OR per active word read; per term word a
-    popcount, an AND and an add) over the op rate."""
+    popcount, an AND and an add) over the op rate.  Returns (ms, what
+    bounds it, bytes)."""
     q = len(n_active)
     words_read = int(n_active.sum()) * nb * w
     bytes_moved = 4 * (words_read + q * nb * w + 2 * q * nb) + rule_bytes
     ops = words_read + q * nb * w * 4 * 3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", bytes_moved)
 
 
 def max_word_err(got, want):
@@ -510,7 +538,8 @@ def whole_index_phase(dev, flush, q=QUERY_BATCH, nb=FULL_BLOCKS,
         for case, (kern, plain, act, rule_bytes, reps, plain_reps) in cases.items():
             ms = time_cuda(kern, reps, flush)
             plain_ms = time_cuda(plain, plain_reps, flush)
-            bound, bound_by = whole_index_bound_ms(act, nb, w, rule_bytes)
+            bound, bound_by, moved = whole_index_bound_ms(act, nb, w,
+                                                          rule_bytes)
             kernel = "static" if case == "static" else "tile"
             rows[(case, name)] = dict(max_abs_err=errs[kernel], ms=ms,
                                       plain_ms=plain_ms, bound_ms=bound,
@@ -521,7 +550,8 @@ def whole_index_phase(dev, flush, q=QUERY_BATCH, nb=FULL_BLOCKS,
                   f"{name}: Q={len(act)} nb={nb} W={w}, "
                   f"{int(act.sum())} active planes: bit-equal to plain; kernel "
                   f"{ms:.6f} ms (cold L2), plain {plain_ms:.6f} ms, bound "
-                  f"{bound:.6f} ms ({bound_by}); kernel/bound {ms / bound:.2f}x",
+                  f"{bound:.6f} ms ({bound_by}); kernel/bound {ms / bound:.2f}x; "
+                  f"{rate_text(ms, bound, moved)}",
                   flush=True)
         torch.cuda.empty_cache()
     del occ, outs
@@ -697,8 +727,10 @@ def flash_phase(dev, flush):
 # path's first step (kv_len prompt + 1 over the cache padded by the
 # decode steps, read through the transposed (B, S, Hkv, D) cache), the
 # four shapes of tests/test_kernels.py, per-row lengths with a row of
-# length 0, and the path's cache at batch 8 (toward decode_32k's 128),
-# where the fixed cost of a launch weighs less against its bytes.
+# length 0, the path's cache at batch 8 (toward decode_32k's 128),
+# where the fixed cost of a launch weighs less against its bytes, and
+# phase 4's fp32-route decode launch (its first step: kv_len prompt + 1
+# over the cache padded by its steps), the fp32 kernel's own path.
 DECODE_CASES = [
     ("path", LM_BATCH, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
      [LM_PROMPT + 1] * LM_BATCH, True),
@@ -709,6 +741,8 @@ DECODE_CASES = [
     ("ragged", 4, 32, 8, 1000, 128, "bfloat16", [0, 1, 517, 1000], True),
     ("path_b8", 8, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
      [LM_PROMPT - 192] * 8, True),
+    ("path_fp32", LM_BATCH, 32, 8, LM_FP32_PROMPT + LM_FP32_STEPS, 128,
+     "float32", [LM_FP32_PROMPT + 1] * LM_BATCH, True),
 ]
 
 
@@ -1929,7 +1963,7 @@ def main() -> int:
             worst(flash_route_rows("flash_attention_tc"))),
         row("decode_attention", "decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:74",
-            fp32_launches["decode_attention"], decode_rows["path"]["cuda_core"],
+            fp32_launches["decode_attention"], decode_rows["path_fp32"],
             max([r["max_abs_err"] for r in decode_rows.values()
                  if r.get("route") == "decode_attention"]
                 + [r["cuda_core"]["max_abs_err"] for r in decode_rows.values()

@@ -10,85 +10,75 @@
 //   v_inc[b, c]     = sum of popcounts of the term bitmaps
 //   n_match[b, c]   = popcount(match)
 //
-// What bounds it on an H100: memory.  It does a handful of integer
-// operations per word read, far below the card's op/byte balance, and
-// reads n_active * W * 4 bytes per lane-block: only the rule's active
-// (term, field) planes, so bytes read stay proportional to the paper's
-// cost u, as in the TPU kernel.  Design: one CUDA block per
-// (lane, chunk position); each thread owns one 32-bit word of the
-// block, so every plane is one coalesced W-word row read.  The TPU
-// kernel's sequential plane axis with a VMEM scratch becomes a loop
-// inside the thread over the active planes (stopping at the first
-// invalid step); nothing carries over between blocks.  Popcounts are
-// summed with warp shuffles, then across warps in shared memory.
+// What bounds it on an H100: at the serve path's shapes (B = 256 lanes,
+// C = 4, about 1 µs of bytes) latency, not bandwidth: the launch and
+// the chain of dependent loads.  It reads only the rule's active
+// planes, n_active * W * 4 bytes per lane-block, so bytes read stay
+// proportional to the paper's cost u, as in the TPU kernel.  Design
+// (block_scan_warp.cuh): one warp per (lane, chunk position),
+// BS_CHUNK_WARPS of them per CTA, and two DRAM round trips: first each
+// lane of the warp loads its step of the meta rows (plane id, term,
+// valid flag, required flag) and the block start, all independent
+// loads; n_active and the required terms come from ballots, and a
+// slot's plane and term reach the lanes by shuffles.  Then every active
+// plane's row is loaded at once, 16 bytes a lane, and the popcounts are
+// summed by warp shuffles.  No shared memory, no barrier.  W > 128
+// walks 128-word strips; W % 4 != 0 or a misaligned view takes the
+// scalar path of the same kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block_scan.cuh"
+#include "block_scan_warp.cuh"
 
-__global__ void block_scan_pruned_chunk_kernel(
-    const uint32_t* __restrict__ occ,     // (B, nb, tf_planes, W)
-    const int32_t* __restrict__ meta,     // (B, 4, ncols)
-    uint32_t* __restrict__ match,         // (B, chunk, W)
-    int32_t* __restrict__ v_inc,          // (B, chunk)
-    int32_t* __restrict__ n_match,        // (B, chunk)
-    int nb, int tf_planes, int W, int ncols, int n_terms, int chunk) {
-  const int lane = blockIdx.x / chunk;
-  const int c = blockIdx.x % chunk;
-  const int w = threadIdx.x;
+#define BS_CHUNK_WARPS 4   // (lane, chunk position) pairs per CTA
 
-  const int32_t* meta_lane = meta + (int64_t)lane * BS_META_ROWS * ncols;
-  const int bp = meta_lane[ncols - 1];
-  const int blk = min(bp + c, nb - 1);
-  const uint32_t* occ_block =
-      occ + ((int64_t)lane * nb + blk) * tf_planes * W;
+template <bool VEC>
+__global__ void __launch_bounds__(BS_CHUNK_WARPS * BS_WARP)
+    block_scan_pruned_chunk_kernel(
+        const uint32_t* __restrict__ occ,     // (B, nb, tf_planes, W)
+        const int32_t* __restrict__ meta,     // (B, 4, ncols)
+        uint32_t* __restrict__ match,         // (B, chunk, W)
+        int32_t* __restrict__ v_inc,          // (B, chunk)
+        int32_t* __restrict__ n_match,        // (B, chunk)
+        int batch, int nb, int tf_planes, int W, int ncols, int n_terms,
+        int chunk) {
+  const int g = blockIdx.x * BS_CHUNK_WARPS + threadIdx.x / BS_WARP;
+  if (g >= batch * chunk) return;          // a whole warp
+  const int lane = threadIdx.x % BS_WARP;
+  const int b = g / chunk;
 
-  int v_pop = 0, m_pop = 0;
-  if (w < W) {
-    const BsWord r =
-        bs_eval_word(occ_block, meta_lane, ncols, tf_planes, W, w, n_terms);
-    match[(int64_t)blockIdx.x * W + w] = r.match;
-    v_pop = r.v_pop;
-    m_pop = r.match_pop;
-  }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v_pop += __shfl_down_sync(0xFFFFFFFFu, v_pop, off);
-    m_pop += __shfl_down_sync(0xFFFFFFFFu, m_pop, off);
-  }
-  __shared__ int s_v[32];
-  __shared__ int s_m[32];
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s_v[warp] = v_pop;
-    s_m[warp] = m_pop;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int tv = 0, tm = 0;
-    const int n_warps = blockDim.x >> 5;
-    for (int i = 0; i < n_warps; ++i) {
-      tv += s_v[i];
-      tm += s_m[i];
-    }
-    v_inc[blockIdx.x] = tv;
-    n_match[blockIdx.x] = tm;
-  }
+  const BsMetaLane r = bs_meta_lane(meta + (int64_t)b * BS_META_ROWS * ncols,
+                                    ncols, tf_planes, n_terms, lane);
+  const int n_active = bs_leading_ones(__ballot_sync(BS_FULL_MASK, r.valid));
+  const uint32_t req_mask = __ballot_sync(BS_FULL_MASK, r.req);
+  const int blk = bs_chunk_block(r.start, g % chunk, nb);
+  // One block a warp: one round of all 16 slots (no slot-width
+  // dispatch, so the launch runs one small body of code).
+  bs_warp_blocks<BS_SLOTS, VEC>(
+      occ + ((int64_t)b * nb + blk) * tf_planes * W, match + (int64_t)g * W,
+      0, 1, tf_planes, W, lane, BsShfl{r.plane * W}, BsShfl{r.term}, n_active,
+      req_mask, n_terms, BsWarpFinish{v_inc + g, n_match + g, lane});
 }
 
-// Plain C entry point for ctypes.  Launches on the given stream and
-// returns cudaGetLastError() (0 on success).
+// Plain C entry point for ctypes.  vec selects the 16-byte path, which
+// needs W % 4 == 0 and 16-byte aligned occ and match.  Launches on the
+// given stream and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a 16-byte path the arguments do not allow.
 extern "C" int block_scan_pruned_chunk_launch(
     const void* occ, const void* meta, void* match, void* v_inc,
     void* n_match, int batch, int nb, int tf_planes, int W, int ncols,
-    int n_terms, int chunk, void* stream) {
-  const int threads = ((W + 31) / 32) * 32;
-  const unsigned blocks = (unsigned)batch * (unsigned)chunk;
-  block_scan_pruned_chunk_kernel<<<blocks, threads, 0,
-                                   (cudaStream_t)stream>>>(
+    int n_terms, int chunk, int vec, void* stream) {
+  if (vec && (W % 4 != 0 || ((uintptr_t)occ | (uintptr_t)match) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long pairs = (long long)batch * chunk;
+  const unsigned blocks =
+      (unsigned)((pairs + BS_CHUNK_WARPS - 1) / BS_CHUNK_WARPS);
+  const int threads = BS_CHUNK_WARPS * BS_WARP;
+  auto kernel = vec ? block_scan_pruned_chunk_kernel<true>
+                    : block_scan_pruned_chunk_kernel<false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)occ, (const int32_t*)meta, (uint32_t*)match,
-      (int32_t*)v_inc, (int32_t*)n_match, nb, tf_planes, W, ncols, n_terms,
-      chunk);
+      (int32_t*)v_inc, (int32_t*)n_match, batch, nb, tf_planes, W, ncols,
+      n_terms, chunk);
   return (int)cudaGetLastError();
 }

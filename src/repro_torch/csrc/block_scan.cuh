@@ -1,20 +1,23 @@
-// Per-word core of the three block-scan kernels.
+// Per-word core of the static whole-index block scan, and the
+// constants and meta layout all three block scans share.
 //
-// Shared by the CUDA kernels (block_scan.cu, block_scan_tile.cu,
-// block_scan_static.cu) and by host harnesses built with g++ in the CPU
-// tests, so the arithmetic is checked bit for bit on a machine without
-// a GPU.  Only the launches, the grids and the reductions across
+// Shared by the CUDA kernels and by host harnesses built with g++ in the
+// CPU tests, so the arithmetic is checked bit for bit on a machine
+// without a GPU.  Only the launches, the grids and the reductions across
 // threads are CUDA-only.
 //
-// A rule reaches the core as a plane list: the ids (t*F + f) of its
+// A rule reaches a kernel as a plane list: the ids (t*F + f) of its
 // active planes (allowed AND present), each plane's term id, their
 // count n_active, and one required flag (required AND present) per
 // term.  Each kernel builds that list its own way:
-//   block_scan.cu         from its meta rows (below), per lane
+//   block_scan.cu         from its meta rows (below), per lane, by
+//                         ballots and shuffles (block_scan_warp.cuh)
 //   block_scan_tile.cu    from the query's bool rule tensors, per CTA,
-//                         in shared memory (bs_planes_from_rule)
+//                         by ballots into shared memory
+//                         (block_scan_warp.cuh)
 //   block_scan_static.cu  on the host, passed by value as a kernel
-//                         parameter (BsStaticRule)
+//                         parameter (BsStaticRule); its CTAs run
+//                         bs_scan_blocks over bs_eval_planes below
 //
 // Chunk-kernel meta layout (int32, one row block of 4 x ncols per lane,
 // as build_rule_meta writes it):
@@ -36,7 +39,7 @@
 #define BS_MAX_TERMS 4
 #define BS_MAX_PLANES 16   // T*F at T = F = 4
 #define BS_PLANE_GROUP 4   // a word's plane loads in flight together
-#define BS_MAX_BB 8        // index blocks per CTA in the whole-index scans
+#define BS_MAX_BB 8        // index blocks per CTA in the static scan
 
 __host__ __device__ inline int bs_popc(uint32_t x) {
 #ifdef __CUDA_ARCH__
@@ -109,41 +112,6 @@ __host__ __device__ inline BsWord bs_eval_planes(const uint32_t* occ_block,
   return out;
 }
 
-// The chunk kernel's word: one lane's rule read from its meta rows.
-__host__ __device__ inline BsWord bs_eval_word(const uint32_t* occ_block,
-                                               const int32_t* meta_lane,
-                                               int ncols, int tf_planes,
-                                               int W, int w, int n_terms) {
-  const int32_t* valid = meta_lane + 2 * ncols;
-  int n_active = 0;
-  while (n_active < tf_planes && valid[n_active] != 0) ++n_active;
-  return bs_eval_planes(occ_block, W, w, meta_lane, meta_lane + ncols,
-                        n_active, meta_lane + 3 * ncols, n_terms);
-}
-
-// The tile kernel's plane list, from one query's rule as bytes (the
-// 0/1 of torch bool tensors): allowed (T*F), required (T), present (T).
-// Writes the active planes (allowed AND present) in ascending order
-// and required AND present per term; returns n_active.
-__host__ __device__ inline int bs_planes_from_rule(const uint8_t* allowed,
-                                                   const uint8_t* required,
-                                                   const uint8_t* present,
-                                                   int n_terms, int F,
-                                                   int32_t* plane_ids,
-                                                   int32_t* term_ids,
-                                                   int32_t* req) {
-  int n = 0;
-  for (int p = 0; p < n_terms * F; ++p) {
-    if (allowed[p] != 0 && present[p / F] != 0) {
-      plane_ids[n] = p;
-      term_ids[n] = p / F;
-      ++n;
-    }
-  }
-  for (int t = 0; t < n_terms; ++t) req[t] = required[t] != 0 && present[t] != 0;
-  return n;
-}
-
 // The static kernel's rule, passed by value as a kernel parameter: no
 // device tensor and no host-to-device copy.
 struct BsStaticRule {
@@ -168,8 +136,8 @@ __host__ __device__ inline BsStaticRule bs_static_rule(
 }
 
 #ifdef __CUDACC__
-// One CTA of the whole-index scans (block_scan_tile.cu,
-// block_scan_static.cu): blocks [b0, b0 + n_blk) of one query's
+// One CTA of the static whole-index scan (block_scan_static.cu):
+// blocks [b0, b0 + n_blk) of one query's
 // (nb, T*F, W) occupancy under one plane list held in shared memory.
 // Thread w owns word w of every block; per block the popcounts are
 // summed with warp shuffles, each warp's sum is kept in shared memory,

@@ -13,81 +13,111 @@
 //
 // The rule arrives as the caller's bool tensors on the device, one rule
 // per query: allowed (Q, T, F), required (Q, T), present (Q, T).  Each
-// CTA ANDs them itself (the TPU kernel's masks rows 0 and 1), so a
-// launch needs no host sync and no tensor op before it.
+// CTA reads them itself, so a launch needs no host sync and no tensor
+// op before it.
 //
 // What bounds it on an H100: memory.  It does a handful of integer
 // operations per word read and reads n_active * W * 4 bytes per block:
 // the TPU kernel reads the full T*F tile and masks it in VMEM, but here
-// a plane whose mask is 0 is never read (the plane list is the same for
-// the whole CTA, so the skip costs no divergence).  Design: one CTA per
-// (query, tile of bb consecutive blocks), bb the wrapper's choice (the
-// TPU kernel's block_bb axis; nothing carries over between tiles, so
-// the grid has no order).  The CTA stages the query's rule in shared
-// memory and thread 0 turns it into a plane list there; then each
-// thread owns one 32-bit word of every block of the tile, so every
-// plane is one coalesced W-word row read, and the active planes of a
-// word are loaded together (block_scan.cuh).  The last tile's missing
-// blocks are skipped, not padded.
+// a plane whose mask is 0 is never read.  Design (block_scan_warp.cuh):
+// one CTA of BS_TILE_WARPS warps per (query, tile of bb consecutive
+// blocks), bb the wrapper's choice (nothing carries over between tiles,
+// so the grid has no order).  Warp 0 turns the query's rule into a
+// plane list by two ballots (no serial walk) in shared memory, behind
+// the kernel's only __syncthreads.  Then each warp owns a contiguous run
+// of the tile's blocks, a whole block at a time: a lane moves 16 bytes
+// of each plane row per load, so one warp instruction reads a 512-byte
+// row at W = 128; every active plane of a round's blocks is loaded
+// before the first is used (a shallow rule keeps several blocks in
+// flight per warp); the popcount sums are warp shuffles and match
+// leaves in 16-byte streaming stores.  No shared memory and no barrier
+// sits in the block loop.  The last tile's missing blocks are skipped.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block_scan.cuh"
+#include "block_scan_warp.cuh"
 
-__global__ void block_scan_tile_kernel(
-    const uint32_t* __restrict__ occ,     // (Q, nb, tf_planes, W)
-    const uint8_t* __restrict__ allowed,  // (Q, T, F) bool
-    const uint8_t* __restrict__ required, // (Q, T) bool
-    const uint8_t* __restrict__ present,  // (Q, T) bool
-    uint32_t* __restrict__ match,         // (Q, nb, W)
-    int32_t* __restrict__ v_inc,          // (Q, nb)
-    int32_t* __restrict__ n_match,        // (Q, nb)
-    int nb, int tf_planes, int F, int W, int n_terms, int bb, int n_tiles) {
+#define BS_TILE_WARPS 4          // warps per CTA
+#define BS_TILE_MAX_BLOCKS 64    // blocks per CTA: a full round of 16 a warp
+
+template <bool VEC>
+__global__ void __launch_bounds__(BS_TILE_WARPS * BS_WARP)
+    block_scan_tile_kernel(
+        const uint32_t* __restrict__ occ,     // (Q, nb, tf_planes, W)
+        const uint8_t* __restrict__ allowed,  // (Q, T, F) bool
+        const uint8_t* __restrict__ required, // (Q, T) bool
+        const uint8_t* __restrict__ present,  // (Q, T) bool
+        uint32_t* __restrict__ match,         // (Q, nb, W)
+        int32_t* __restrict__ v_inc,          // (Q, nb)
+        int32_t* __restrict__ n_match,        // (Q, nb)
+        int nb, int tf_planes, int F, int W, int n_terms, int bb,
+        int n_tiles) {
   const int q = blockIdx.x / n_tiles;
   const int b0 = (blockIdx.x % n_tiles) * bb;
+  const int warp = threadIdx.x / BS_WARP;
+  const int lane = threadIdx.x % BS_WARP;
 
-  // The rule is staged in one parallel load, so that thread 0's walk
-  // over it reads shared memory, not a chain of global loads.
-  __shared__ uint8_t s_rule[BS_MAX_PLANES + 2 * BS_MAX_TERMS];
-  __shared__ int32_t s_plane[BS_MAX_PLANES];
-  __shared__ int32_t s_term[BS_MAX_PLANES];
-  __shared__ int32_t s_req[BS_MAX_TERMS];
-  __shared__ int s_n;
-  const int i = threadIdx.x;
-  if (i < tf_planes) s_rule[i] = allowed[(int64_t)q * tf_planes + i];
-  if (i < n_terms) {
-    s_rule[BS_MAX_PLANES + i] = required[(int64_t)q * n_terms + i];
-    s_rule[BS_MAX_PLANES + BS_MAX_TERMS + i] =
-        present[(int64_t)q * n_terms + i];
+  // The plane list: slot s holds the s-th active plane's word offset in
+  // a block and its term; slots past n_active stay 0 (never read).
+  __shared__ int32_t s_off[BS_SLOTS];
+  __shared__ int32_t s_term[BS_SLOTS];
+  __shared__ uint32_t s_mask[2];   // active planes, required terms
+  if (warp == 0) {
+    const uint8_t* p = present + (int64_t)q * n_terms;
+    const bool vote = bs_plane_vote(allowed + (int64_t)q * tf_planes, p,
+                                    tf_planes, F, lane);
+    const bool req = bs_req_vote(required + (int64_t)q * n_terms, p, n_terms,
+                                 lane);
+    const uint32_t mask = __ballot_sync(BS_FULL_MASK, vote);
+    const uint32_t req_mask = __ballot_sync(BS_FULL_MASK, req);
+    if (lane < BS_SLOTS) {
+      s_off[lane] = 0;
+      s_term[lane] = 0;
+    }
+    __syncwarp();
+    if (vote) {
+      const int s = bs_rank(mask, lane);
+      s_off[s] = lane * W;
+      s_term[s] = lane / F;
+    }
+    if (lane == 0) {
+      s_mask[0] = mask;
+      s_mask[1] = req_mask;
+    }
   }
   __syncthreads();
-  if (i == 0)
-    s_n = bs_planes_from_rule(s_rule, s_rule + BS_MAX_PLANES,
-                              s_rule + BS_MAX_PLANES + BS_MAX_TERMS, n_terms,
-                              F, s_plane, s_term, s_req);
-  __syncthreads();
 
+  int first, count;
+  bs_warp_span(min(bb, nb - b0), warp, BS_TILE_WARPS, &first, &count);
+  if (count == 0) return;
   const int64_t q_blocks = (int64_t)q * nb;
-  bs_scan_blocks(occ + q_blocks * tf_planes * W, match + q_blocks * W,
-                 v_inc + q_blocks, n_match + q_blocks, b0, min(bb, nb - b0),
-                 tf_planes, W, s_plane, s_term, s_n, s_req, n_terms);
+  bs_warp_scan<VEC>(occ + q_blocks * tf_planes * W, match + q_blocks * W,
+                    b0 + first, count, tf_planes, W, lane, s_off, s_term,
+                    bs_popc(s_mask[0]), s_mask[1], n_terms,
+                    BsWarpFinish{v_inc + q_blocks, n_match + q_blocks, lane});
 }
 
-// Plain C entry point for ctypes.  Launches on the given stream and
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
-// for a tile outside [1, BS_MAX_BB].
+// Plain C entry point for ctypes.  vec selects the 16-byte path, which
+// needs W % 4 == 0 and 16-byte aligned occ and match.  Launches on the
+// given stream and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a tile outside [1, BS_TILE_MAX_BLOCKS] or a
+// 16-byte path the arguments do not allow.
 extern "C" int block_scan_tile_launch(const void* occ, const void* allowed,
                                       const void* required,
                                       const void* present, void* match,
                                       void* v_inc, void* n_match,
                                       int n_queries, int nb, int tf_planes,
                                       int F, int W, int n_terms, int bb,
-                                      void* stream) {
-  if (bb < 1 || bb > BS_MAX_BB) return (int)cudaErrorInvalidValue;
-  const int threads = ((W + 31) / 32) * 32;
+                                      int vec, void* stream) {
+  if (bb < 1 || bb > BS_TILE_MAX_BLOCKS) return (int)cudaErrorInvalidValue;
+  if (vec && (W % 4 != 0 || ((uintptr_t)occ | (uintptr_t)match) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = (nb + bb - 1) / bb;
   const unsigned blocks = (unsigned)n_queries * (unsigned)n_tiles;
-  block_scan_tile_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int threads = BS_TILE_WARPS * BS_WARP;
+  auto kernel = vec ? block_scan_tile_kernel<true>
+                    : block_scan_tile_kernel<false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)occ, (const uint8_t*)allowed,
       (const uint8_t*)required, (const uint8_t*)present, (uint32_t*)match,
       (int32_t*)v_inc, (int32_t*)n_match, nb, tf_planes, F, W, n_terms, bb,

@@ -3,9 +3,11 @@
 ``block_scan_pruned_chunk`` replaces the Pallas TPU kernel of the same
 name (``repro/kernels/block_scan/block_scan_pruned.py``), the kernel
 behind the ``"block_scan"`` scan backend.  On CUDA tensors it launches
-the hand-written kernel ``csrc/block_scan.cu`` (memory-bound: it reads
-only the rule's active planes, n_active * W * 4 bytes per lane-block);
-on CPU tensors it runs the plain version ``ref.py``.
+the hand-written kernel ``csrc/block_scan.cu`` (a warp per lane-block,
+two dependent round trips: meta, then occupancy; it reads only the
+rule's active planes, n_active * W * 4 bytes per lane-block), on its
+16-byte or scalar path as ``block_scan.vector_path`` chooses; on CPU
+tensors it runs the plain version ``ref.py``.
 
 ``block_scan_pruned`` replaces ``block_scan_pruned_pallas``: one query,
 every block, a static rule given on the host.  The host turns the rule
@@ -25,25 +27,31 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels.native import NativeKernel
+from repro_torch.kernels.native import NativeKernel, csrc_define
 
-from .block_scan import MAX_PLANES, MAX_TERMS, MAX_WORDS, tile_blocks
+from .block_scan import MAX_PLANES, MAX_TERMS, MAX_WORDS, vector_path
 from .ref import block_scan_pruned_chunk_ref, block_scan_pruned_ref
 
 __all__ = ["block_scan_pruned_chunk", "build_rule_meta", "META_ROWS",
            "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS",
-           "block_scan_pruned", "static_plane_list",
+           "block_scan_pruned", "static_plane_list", "static_tile_blocks",
            "BLOCK_SCAN_STATIC_KERNEL"]
 
 META_ROWS = 4          # plane id / term id / step valid / required per term
+# The static kernel's tile (block_scan_static.cu, bs_scan_blocks): at
+# most BS_MAX_BB blocks per CTA, halved while one query's grid would
+# hold fewer than STATIC_MIN_CTAS CTAs of 128 threads (~16 on each of
+# 132 SMs).
+STATIC_MAX_BB = csrc_define("block_scan.cuh", "BS_MAX_BB")
+STATIC_MIN_CTAS = 2048
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BLOCK_SCAN_KERNEL = NativeKernel(
     name="block_scan_pruned_chunk",
     source="block_scan.cu",
-    headers=("block_scan.cuh",),
+    headers=("block_scan.cuh", "block_scan_warp.cuh"),
     symbol="block_scan_pruned_chunk_launch",
-    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 BLOCK_SCAN_STATIC_KERNEL = NativeKernel(
     name="block_scan_static",
@@ -52,6 +60,15 @@ BLOCK_SCAN_STATIC_KERNEL = NativeKernel(
     symbol="block_scan_static_launch",
     argtypes=[_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 )
+
+
+def static_tile_blocks(nb: int) -> int:
+    """Blocks per CTA of the static kernel for one query over nb
+    blocks."""
+    bb = STATIC_MAX_BB
+    while bb > 1 and -(-nb // bb) < STATIC_MIN_CTAS:
+        bb //= 2
+    return bb
 
 
 def build_rule_meta(
@@ -105,7 +122,8 @@ def _check(occ: torch.Tensor, meta: torch.Tensor, chunk: int, n_terms: int):
     if not (1 <= n_terms <= MAX_TERMS) or tf_planes % n_terms:
         raise ValueError(f"n_terms={n_terms} does not fit {tf_planes} planes "
                          f"(at most {MAX_TERMS} terms)")
-    if chunk < 1 or b < 1 or nb < 1 or not (1 <= w <= MAX_WORDS):
+    if chunk < 1 or b < 1 or nb < 1 or not (1 <= w <= MAX_WORDS) \
+            or b * chunk >= 2**31:
         raise ValueError(f"unsupported shape B={b} nb={nb} W={w} chunk={chunk}")
 
 
@@ -130,12 +148,13 @@ def block_scan_pruned_chunk(occ: torch.Tensor, meta: torch.Tensor, *,
     match = torch.empty((b, chunk, w), dtype=torch.int32, device=occ.device)
     v_inc = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
     n_match = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
+    vec = vector_path(w, occ, match)
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream().cuda_stream
         BLOCK_SCAN_KERNEL.launch(
             occ.data_ptr(), meta.data_ptr(), match.data_ptr(),
             v_inc.data_ptr(), n_match.data_ptr(), b, nb, tf_planes, w,
-            meta.shape[2], n_terms, chunk, stream)
+            meta.shape[2], n_terms, chunk, int(vec), stream)
     return match, v_inc, n_match
 
 
@@ -193,5 +212,5 @@ def block_scan_pruned(occ: torch.Tensor, allowed, required, term_present):
             occ.data_ptr(), match.data_ptr(), v_inc.data_ptr(),
             n_match.data_ptr(), planes.ctypes.data, terms.ctypes.data,
             len(planes), req.ctypes.data, nb, t * f, w, t,
-            tile_blocks(1, nb), stream)
+            static_tile_blocks(nb), stream)
     return match, v_inc, n_match

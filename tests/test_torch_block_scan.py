@@ -3,9 +3,10 @@
 ``build_rule_meta`` and the plain torch version of the chunked
 plane-pruned scan are held bit for bit against the reference's
 ``build_rule_meta`` and ``block_scan_pruned_chunk`` (Pallas, interpret
-mode on the CPU), degenerate lanes included.  The CUDA kernel's
-per-word core (``csrc/block_scan.cuh``) is compiled with g++ into a
-host harness and held bit for bit against the plain version.  The CUDA
+mode on the CPU), degenerate lanes included.  The CUDA kernel's grid
+(``csrc/block_scan_warp.cuh``: word ownership, ballots, slots, strips)
+is compiled with g++ into a host harness that replays it warp by warp
+and is held bit for bit against the plain version.  The CUDA
 kernel itself is held against the plain version on a GPU by
 ``tests/test_torch_gpu.py``.
 """
@@ -23,6 +24,7 @@ from repro.kernels.block_scan.block_scan_pruned import (
     block_scan_pruned_chunk as jax_chunk, build_rule_meta as jax_meta)
 from repro_torch.kernels.block_scan import (
     block_scan_pruned_chunk, block_scan_pruned_chunk_ref, build_rule_meta)
+from repro_torch.kernels.block_scan.block_scan import vector_path
 from repro_torch.kernels.native import CSRC_DIR
 
 T, F = 4, 4
@@ -124,30 +126,61 @@ def test_wrapper_rejects_bad_inputs():
 
 
 _HARNESS = r"""
-#include "block_scan.cuh"
-// Host replay of the CUDA grid: one (lane, chunk position) per step,
-// one word per inner iteration, popcounts summed per lane-block.
+#include "block_scan_warp.cuh"
+
+// A warp sum as the harness sees it: every replayed lane adds its share;
+// lane 0 counts the call, so each lane-block must be finished once.
+struct HostFinish {
+  int32_t* v;
+  int32_t* n;
+  int32_t* calls;
+  int lane;
+  void operator()(int blk, int v_pop, int m_pop) const {
+    v[blk] += v_pop;
+    n[blk] += m_pop;
+    if (lane == 0) ++calls[blk];
+  }
+};
+
+// Host replay of block_scan.cu's grid: one warp per (lane, chunk
+// position), its 32 lanes one after another.  A ballot is the OR of the
+// lanes' votes; a shuffle from lane s reads lane s's value.
 extern "C" void bs_host_chunk(const uint32_t* occ, const int32_t* meta,
                               uint32_t* match, int32_t* v_inc,
-                              int32_t* n_match, int batch, int nb,
-                              int tf_planes, int W, int ncols, int n_terms,
-                              int chunk) {
+                              int32_t* n_match, int32_t* calls, int batch,
+                              int nb, int tf_planes, int W, int ncols,
+                              int n_terms, int chunk, int vec) {
   for (int g = 0; g < batch * chunk; ++g) {
-    const int lane = g / chunk, c = g % chunk;
-    const int32_t* ml = meta + (int64_t)lane * BS_META_ROWS * ncols;
-    const int bp = ml[ncols - 1];
-    const int blk = bp + c < nb - 1 ? bp + c : nb - 1;
-    const uint32_t* ob = occ + ((int64_t)lane * nb + blk) * tf_planes * W;
-    int tv = 0, tm = 0;
-    for (int w = 0; w < W; ++w) {
-      BsWord r = bs_eval_word(ob, ml, ncols, tf_planes, W, w, n_terms);
-      match[(int64_t)g * W + w] = r.match;
-      tv += r.v_pop;
-      tm += r.match_pop;
+    const int b = g / chunk;
+    BsMetaLane r[BS_WARP];
+    int32_t off[BS_WARP], term[BS_WARP];
+    uint32_t valid = 0u, req = 0u;
+    for (int l = 0; l < BS_WARP; ++l) {
+      r[l] = bs_meta_lane(meta + (int64_t)b * BS_META_ROWS * ncols, ncols,
+                          tf_planes, n_terms, l);
+      valid |= (uint32_t)r[l].valid << l;
+      req |= (uint32_t)r[l].req << l;
+      off[l] = r[l].plane * W;
+      term[l] = r[l].term;
     }
-    v_inc[g] = tv;
-    n_match[g] = tm;
+    const int n_active = bs_leading_ones(valid);
+    v_inc[g] = n_match[g] = calls[g] = 0;
+    for (int l = 0; l < BS_WARP; ++l) {
+      const int blk = bs_chunk_block(r[l].start, g % chunk, nb);
+      const uint32_t* ob = occ + ((int64_t)b * nb + blk) * tf_planes * W;
+      const HostFinish fin{v_inc + g, n_match + g, calls + g, l};
+      if (vec)
+        bs_warp_blocks<BS_SLOTS, true>(ob, match + (int64_t)g * W, 0, 1, tf_planes, W,
+                           l, off, term, n_active, req, n_terms, fin);
+      else
+        bs_warp_blocks<BS_SLOTS, false>(ob, match + (int64_t)g * W, 0, 1, tf_planes, W,
+                            l, off, term, n_active, req, n_terms, fin);
+    }
   }
+}
+
+extern "C" int bs_host_leading_ones(uint32_t mask) {
+  return bs_leading_ones(mask);
 }
 """
 
@@ -163,30 +196,67 @@ def host_core(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-w",
                     "-I", str(CSRC_DIR), "-o", str(lib), str(d / "harness.cpp")],
                    check=True)
-    fn = ctypes.CDLL(str(lib)).bs_host_chunk
+    so = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I]
-    fn.restype = None
-    return fn
+    so.bs_host_chunk.argtypes = [P] * 6 + [I] * 8
+    so.bs_host_chunk.restype = None
+    so.bs_host_leading_ones.argtypes = [ctypes.c_uint32]
+    so.bs_host_leading_ones.restype = I
+    return so
 
 
-@pytest.mark.parametrize("w,chunk", [(16, 4), (128, 3)])
-def test_host_core_matches_plain(host_core, w, chunk):
-    """The kernel's per-word arithmetic (csrc/block_scan.cuh), built by
-    g++, against the plain version on random words and degenerate rules."""
+@pytest.mark.parametrize("w,chunk,vec", [
+    (16, 4, 1), (128, 3, 1), (128, 3, 0), (128, 1, 1), (33, 4, 0),
+    (1024, 2, 1), (1024, 3, 0), (8, 32, 1)])
+def test_host_core_matches_plain(host_core, w, chunk, vec):
+    """The chunk kernel's grid (csrc/block_scan_warp.cuh), built by g++
+    and replayed warp by warp, lane by lane, on its 16-byte or scalar
+    word ownership (W = 33: scalar only; W = 1024: eight strips), with
+    the ballot-based n_active, random words, the degenerate lanes and
+    chunk positions clamped to the last block (a start near the end and
+    one past it), against the plain version bit for bit."""
     nb = 5
-    occ, allowed, required, present, bp = _case(11 + w, 9, nb, w, chunk)
+    occ, allowed, required, present, bp = _case(11 + w + chunk, 9, nb, w,
+                                                chunk)
+    bp[4] = nb                         # an exhausted lane's block pointer
     occ_t = _t(occ)
     meta = build_rule_meta(_t(allowed), _t(required), _t(present), _t(bp))
     b = occ.shape[0]
-    match = torch.empty((b, chunk, w), dtype=torch.int32)
+    match = torch.full((b, chunk, w), 0x5A5A5A5A, dtype=torch.int32)
     v = torch.empty((b, chunk), dtype=torch.int32)
     c = torch.empty((b, chunk), dtype=torch.int32)
-    host_core(occ_t.data_ptr(), meta.data_ptr(), match.data_ptr(),
-              v.data_ptr(), c.data_ptr(), b, nb, T * F, w, meta.shape[2], T,
-              chunk)
+    calls = torch.empty((b, chunk), dtype=torch.int32)
+    host_core.bs_host_chunk(occ_t.data_ptr(), meta.data_ptr(),
+                            match.data_ptr(), v.data_ptr(), c.data_ptr(),
+                            calls.data_ptr(), b, nb, T * F, w, meta.shape[2],
+                            T, chunk, vec)
     m_ref, v_ref, c_ref = block_scan_pruned_chunk_ref(occ_t, meta,
                                                       chunk=chunk, n_terms=T)
     assert torch.equal(match, m_ref)
     assert torch.equal(v, v_ref)
     assert torch.equal(c, c_ref)
+    assert (calls == 1).all()
+
+
+@pytest.mark.parametrize("mask,want", [
+    (0x0, 0), (0x1, 1), (0x7, 3), (0xFFFF, 16), (0xFFFFFFFF, 32),
+    (0b1011, 2), (0xFFFE, 0)])
+def test_host_leading_ones(host_core, mask, want):
+    """n_active from the valid row's ballot: the steps before the first
+    invalid one, as the old per-thread loop counted them."""
+    assert host_core.bs_host_leading_ones(mask) == want
+
+
+def test_vector_path_choice():
+    """The 16-byte path by contract: W % 4 == 0 and 16-byte aligned
+    occupancy and match; a view at an offset of a multiple of 4 words
+    keeps it, any other offset or W % 4 != 0 takes the scalar path."""
+    base = torch.zeros(4 * 1024 + 8, dtype=torch.int32)
+    assert base.data_ptr() % 16 == 0
+    whole = base[:4096].view(4, 1024)
+    assert vector_path(1024, whole, whole)
+    assert vector_path(1024, base[4:4100].view(4, 1024), whole)
+    assert not vector_path(1024, base[1:4097].view(4, 1024), whole)
+    assert not vector_path(1024, whole, base[2:4098].view(4, 1024))
+    assert not vector_path(33, base[:33 * 4].view(4, 33), whole)
+    assert not vector_path(6, base[:24].view(4, 6))

@@ -5,10 +5,11 @@
 they are held bit for bit against the JAX package's ``block_scan``,
 ``block_scan_batched`` (Pallas ``block_scan_pallas`` in interpret mode)
 and ``block_scan_pruned_pallas`` at the shapes and rules of
-``tests/test_kernels.py``, degenerate rules included.  The kernels'
-per-word core and plane lists (``csrc/block_scan.cuh``) are compiled
-with g++ into a host replay of both grids and held bit for bit against
-the plain version.  The CUDA kernels themselves are held against the
+``tests/test_kernels.py``, degenerate rules included.  The tile
+kernel's grid (``csrc/block_scan_warp.cuh``: ballots, slots, warps'
+runs, word ownership, strips) and the static kernel's per-word core
+(``csrc/block_scan.cuh``) are compiled with g++ into host replays of
+both grids and held bit for bit against the plain version.  The CUDA kernels themselves are held against the
 plain version on a GPU by ``tests/test_torch_gpu.py``.
 """
 import ctypes
@@ -29,11 +30,14 @@ from repro_torch.kernels.block_scan import (
     BLOCK_SCAN_STATIC_KERNEL, BLOCK_SCAN_TILE_KERNEL, block_scan_pruned_ref,
     block_scan_reference, static_plane_list)
 from repro_torch.kernels.block_scan import ops
-from repro_torch.kernels.block_scan.block_scan import (MAX_BB, MAX_PLANES,
-                                                       MAX_TERMS, tile_blocks)
+from repro_torch.kernels.block_scan.block_scan import (MAX_PLANES, MAX_TERMS,
+                                                       MAX_TILE, tile_blocks)
+from repro_torch.kernels.block_scan.block_scan_pruned import (
+    STATIC_MAX_BB, static_tile_blocks)
 from repro_torch.kernels.native import CSRC_DIR, csrc_define
 
 T, F = 4, 4
+TILE_WARPS = csrc_define("block_scan_tile.cu", "BS_TILE_WARPS")
 
 
 def _t(a):
@@ -224,22 +228,31 @@ def test_static_plane_list():
 
 # ------------------------------------------------------------ wrappers
 def test_tile_blocks():
-    """The TPU kernel's 8 blocks per CTA at the batched shape; fewer
-    for one query, so that its grid still fills the card."""
-    assert tile_blocks(256, 4096) == 8
-    assert tile_blocks(1, 4096) == 2
+    """The tile kernel's 64 blocks per CTA (16 a warp) at the batched
+    shape; fewer for one query, so that its grid still fills the card
+    (512 CTAs of 4 warps at 4096 blocks).  The static kernel keeps its
+    own tile: 8, halved to 2048 CTAs for one query."""
+    assert tile_blocks(256, 4096) == 64
+    assert tile_blocks(1, 4096) == 8
     assert tile_blocks(1, 5) == 1
+    assert static_tile_blocks(4096) == 2
+    assert static_tile_blocks(5) == 1
+    assert static_tile_blocks(10**6) == 8
 
 
 def test_tile_cap_is_the_headers():
-    """The wrappers' tile cap and plane limits are the values the
-    kernels are built with (block_scan.cuh), and no tile exceeds the
-    cap that sizes the kernels' shared arrays."""
-    assert MAX_BB == csrc_define("block_scan.cuh", "BS_MAX_BB")
+    """The wrappers' tile caps, warps and plane limits are the values
+    the kernels are built with, and no tile exceeds the cap that the
+    launch entry points enforce."""
+    assert MAX_TILE == csrc_define("block_scan_tile.cu", "BS_TILE_MAX_BLOCKS")
+    assert STATIC_MAX_BB == csrc_define("block_scan.cuh", "BS_MAX_BB")
     assert MAX_PLANES == csrc_define("block_scan.cuh", "BS_MAX_PLANES")
     assert MAX_TERMS == csrc_define("block_scan.cuh", "BS_MAX_TERMS")
-    assert all(1 <= tile_blocks(q, nb) <= MAX_BB
+    assert TILE_WARPS == 4
+    assert all(1 <= tile_blocks(q, nb) <= MAX_TILE
                for q in (1, 3, 256) for nb in (1, 5, 64, 4096))
+    assert all(1 <= static_tile_blocks(nb) <= STATIC_MAX_BB
+               for nb in (1, 5, 64, 4096))
     with pytest.raises(KeyError, match="BS_NO_SUCH"):
         csrc_define("block_scan.cuh", "BS_NO_SUCH")
 
@@ -295,15 +308,79 @@ def test_wrappers_reject_bad_inputs():
 
 # ------------------------------------------------- g++ replay of the grids
 _HARNESS = r"""
-#include "block_scan.cuh"
-// Host replay of one CTA of either whole-index kernel: blocks
-// [b0, b0 + n_blk) of one query, one word per inner iteration,
-// popcounts summed per block.
-static void replay_tile(const uint32_t* occ_q, uint32_t* match_q,
-                        int32_t* v_q, int32_t* n_q, int b0, int n_blk,
-                        int tf_planes, int W, const int32_t* plane,
-                        const int32_t* term, int n_active,
-                        const int32_t* req, int n_terms) {
+#include "block_scan_warp.cuh"
+
+// A warp sum as the harness sees it: every replayed lane adds its share;
+// lane 0 counts the call, so each block must be finished once.
+struct HostFinish {
+  int32_t* v;
+  int32_t* n;
+  int32_t* calls;
+  int lane;
+  void operator()(int blk, int v_pop, int m_pop) const {
+    v[blk] += v_pop;
+    n[blk] += m_pop;
+    if (lane == 0) ++calls[blk];
+  }
+};
+
+// Host replay of block_scan_tile.cu's grid: per CTA (query, tile of bb
+// blocks), warp 0's two ballots and the plane list they give, then
+// every warp's run of blocks, its 32 lanes one after another.
+extern "C" void bs_host_tile(const uint32_t* occ, const uint8_t* allowed,
+                             const uint8_t* required, const uint8_t* present,
+                             uint32_t* match, int32_t* v_inc,
+                             int32_t* n_match, int32_t* calls, int n_queries,
+                             int nb, int tf_planes, int F, int W, int n_terms,
+                             int bb, int n_warps, int vec) {
+  for (int64_t i = 0; i < (int64_t)n_queries * nb; ++i)
+    v_inc[i] = n_match[i] = calls[i] = 0;
+  const int n_tiles = (nb + bb - 1) / bb;
+  for (int g = 0; g < n_queries * n_tiles; ++g) {
+    const int q = g / n_tiles, b0 = (g % n_tiles) * bb;
+    const uint8_t* p = present + (int64_t)q * n_terms;
+    uint32_t mask = 0u, req = 0u;
+    for (int l = 0; l < BS_WARP; ++l) {
+      mask |= (uint32_t)bs_plane_vote(allowed + (int64_t)q * tf_planes, p,
+                                      tf_planes, F, l) << l;
+      req |= (uint32_t)bs_req_vote(required + (int64_t)q * n_terms, p,
+                                   n_terms, l) << l;
+    }
+    int32_t off[BS_SLOTS] = {0}, term[BS_SLOTS] = {0};
+    for (int l = 0; l < BS_WARP; ++l) {
+      if ((mask >> l) & 1u) {
+        off[bs_rank(mask, l)] = l * W;
+        term[bs_rank(mask, l)] = l / F;
+      }
+    }
+    const int64_t qb = (int64_t)q * nb;
+    const int n_blk = nb - b0 < bb ? nb - b0 : bb;
+    for (int warp = 0; warp < n_warps; ++warp) {
+      int first, count;
+      bs_warp_span(n_blk, warp, n_warps, &first, &count);
+      if (count == 0) continue;
+      for (int l = 0; l < BS_WARP; ++l) {
+        const HostFinish fin{v_inc + qb, n_match + qb, calls + qb, l};
+        if (vec)
+          bs_warp_scan<true>(occ + qb * tf_planes * W, match + qb * W,
+                             b0 + first, count, tf_planes, W, l, off, term,
+                             bs_popc(mask), req, n_terms, fin);
+        else
+          bs_warp_scan<false>(occ + qb * tf_planes * W, match + qb * W,
+                              b0 + first, count, tf_planes, W, l, off, term,
+                              bs_popc(mask), req, n_terms, fin);
+      }
+    }
+  }
+}
+
+// The static kernel's CTA, one word per inner iteration over
+// bs_eval_planes: blocks [b0, b0 + n_blk) of one query.
+static void replay_static_tile(const uint32_t* occ_q, uint32_t* match_q,
+                               int32_t* v_q, int32_t* n_q, int b0, int n_blk,
+                               int tf_planes, int W, const int32_t* plane,
+                               const int32_t* term, int n_active,
+                               const int32_t* req, int n_terms) {
   for (int i = 0; i < n_blk; ++i) {
     const int64_t blk = b0 + i;
     int tv = 0, tm = 0;
@@ -319,28 +396,6 @@ static void replay_tile(const uint32_t* occ_q, uint32_t* match_q,
   }
 }
 
-// block_scan_tile.cu: a plane list per (query, tile) from the query's
-// bool rule.
-extern "C" void bs_host_tile(const uint32_t* occ, const uint8_t* allowed,
-                             const uint8_t* required, const uint8_t* present,
-                             uint32_t* match, int32_t* v_inc,
-                             int32_t* n_match, int n_queries, int nb,
-                             int tf_planes, int F, int W, int n_terms,
-                             int bb) {
-  const int n_tiles = (nb + bb - 1) / bb;
-  for (int g = 0; g < n_queries * n_tiles; ++g) {
-    const int q = g / n_tiles, b0 = (g % n_tiles) * bb;
-    int32_t plane[BS_MAX_PLANES], term[BS_MAX_PLANES], req[BS_MAX_TERMS];
-    const int n = bs_planes_from_rule(
-        allowed + (int64_t)q * tf_planes, required + (int64_t)q * n_terms,
-        present + (int64_t)q * n_terms, n_terms, F, plane, term, req);
-    const int64_t qb = (int64_t)q * nb;
-    replay_tile(occ + qb * tf_planes * W, match + qb * W, v_inc + qb,
-                n_match + qb, b0, nb - b0 < bb ? nb - b0 : bb, tf_planes,
-                W, plane, term, n, req, n_terms);
-  }
-}
-
 // block_scan_static.cu: the rule struct built from the host arrays.
 extern "C" void bs_host_static(const uint32_t* occ, uint32_t* match,
                                int32_t* v_inc, int32_t* n_match,
@@ -351,9 +406,19 @@ extern "C" void bs_host_static(const uint32_t* occ, uint32_t* match,
   const BsStaticRule rule =
       bs_static_rule(plane_ids, term_ids, n_active, req, n_terms);
   for (int b0 = 0; b0 < nb; b0 += bb)
-    replay_tile(occ, match, v_inc, n_match, b0, nb - b0 < bb ? nb - b0 : bb,
-                tf_planes, W, rule.plane_ids, rule.term_ids, rule.n_active,
-                rule.req, n_terms);
+    replay_static_tile(occ, match, v_inc, n_match, b0,
+                       nb - b0 < bb ? nb - b0 : bb, tf_planes, W,
+                       rule.plane_ids, rule.term_ids, rule.n_active, rule.req,
+                       n_terms);
+}
+
+extern "C" int bs_host_slot_width(int n_active) {
+  return bs_slot_width(n_active);
+}
+
+extern "C" void bs_host_warp_span(int n_blk, int warp, int n_warps,
+                                  int* first, int* count) {
+  bs_warp_span(n_blk, warp, n_warps, first, count);
 }
 """
 
@@ -371,9 +436,13 @@ def host_core(tmp_path_factory):
                    check=True)
     so = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    so.bs_host_tile.argtypes = [P] * 7 + [I] * 7
+    so.bs_host_tile.argtypes = [P] * 8 + [I] * 9
     so.bs_host_static.argtypes = [P, P, P, P, P, P, I, P] + [I] * 5
+    so.bs_host_warp_span.argtypes = [I, I, I, P, P]
+    so.bs_host_slot_width.argtypes = [I]
+    so.bs_host_slot_width.restype = I
     so.bs_host_tile.restype = so.bs_host_static.restype = None
+    so.bs_host_warp_span.restype = None
     return so
 
 
@@ -383,20 +452,84 @@ def _outputs(*lead, w):
             torch.empty(lead, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("q,nb,w,bb", [(5, 9, 16, 4), (4, 16, 128, 8),
-                                       (3, 3, 8, 8), (4, 7, 32, 1)])
-def test_host_tile_core_matches_plain(host_core, q, nb, w, bb):
-    """The tile kernel's plane lists from the bool rules and its
-    per-word arithmetic, built by g++, with a ragged last tile and the
-    degenerate queries, against the plain version."""
-    occ, allowed, required, present = _batch(20 + w, q, nb, w)
-    o, a, r, p = _t(occ), _t(allowed), _t(required), _t(present)
+def _replay_tile(so, o, a, r, p, bb, vec):
+    """The tile kernel's grid replayed by the harness: (match, v_inc,
+    n_match), each block finished exactly once, no match word left
+    unwritten (match starts as a fill pattern)."""
+    q, nb, t, f, w = o.shape
     got = _outputs(q, nb, w=w)
-    host_core.bs_host_tile(o.data_ptr(), a.data_ptr(), r.data_ptr(),
-                           p.data_ptr(), *(x.data_ptr() for x in got), q, nb,
-                           T * F, F, w, T, bb)
+    got[0].fill_(0x5A5A5A5A)
+    calls = torch.empty((q, nb), dtype=torch.int32)
+    so.bs_host_tile(o.data_ptr(), a.data_ptr(), r.data_ptr(), p.data_ptr(),
+                    *(x.data_ptr() for x in got), calls.data_ptr(), q, nb,
+                    t * f, f, w, t, bb, TILE_WARPS, vec)
+    assert (calls == 1).all()
+    return got
+
+
+@pytest.mark.parametrize("q,nb,w,bb,vec", [
+    (5, 9, 16, 4, 1), (4, 16, 128, 8, 1), (3, 3, 8, 8, 1), (4, 7, 32, 1, 1),
+    (4, 16, 128, 8, 0), (3, 70, 128, 64, 1), (3, 9, 33, 4, 0),
+    (3, 6, 1024, 2, 1), (3, 6, 1024, 8, 0)])
+def test_host_tile_core_matches_plain(host_core, q, nb, w, bb, vec):
+    """The tile kernel's grid (csrc/block_scan_warp.cuh), built by g++
+    and replayed warp by warp and lane by lane: the plane lists from the
+    ballots, the 16-byte or scalar word ownership (W = 33: scalar only;
+    W = 1024: eight strips a block), the warps' runs, ragged last tiles
+    and the degenerate queries, against the plain version."""
+    occ, allowed, required, present = _batch(20 + w + bb, q, nb, w)
+    o, a, r, p = _t(occ), _t(allowed), _t(required), _t(present)
+    got = _replay_tile(host_core, o, a, r, p, bb, vec)
     for g, want in zip(got, block_scan_reference(o, a, r, p)):
         assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 2, 3, 4, 5, 8, 9, 16])
+def test_host_tile_slot_widths(host_core, n_active):
+    """Every slot width (1, 2, 4, 8, 16 plane rows a block; 16 to 1
+    blocks a round), through full and partial rounds: n_active planes
+    spread over the four terms, 70 blocks in tiles of 64 (a warp's run
+    of 16, a ragged tile of 6), both word paths."""
+    q, nb, w = 2, 70, 16
+    rng = np.random.default_rng(n_active)
+    occ = _t(rng.integers(0, 2**32, (q, nb, T, F, w), dtype=np.uint32))
+    allowed = np.zeros((q, T * F), bool)
+    for i in range(q):
+        allowed[i, rng.permutation(T * F)[:n_active]] = True
+    allowed = _t(allowed.reshape(q, T, F))
+    required, present = _t(np.ones((q, T), bool)), _t(np.ones((q, T), bool))
+    want = block_scan_reference(occ, allowed, required, present)
+    for vec in (1, 0):
+        got = _replay_tile(host_core, occ, allowed, required, present, 64,
+                           vec)
+        for g, ref in zip(got, want):
+            assert torch.equal(g, ref)
+
+
+@pytest.mark.parametrize("n_active,width", [(0, 1), (1, 1), (2, 2), (3, 4),
+                                            (4, 4), (5, 8), (9, 16),
+                                            (16, 16)])
+def test_host_slot_width(host_core, n_active, width):
+    """Slots per block: the smallest power of two >= n_active, at least
+    one, so that a round holds BS_SLOTS / width blocks."""
+    assert host_core.bs_host_slot_width(n_active) == width
+
+
+@pytest.mark.parametrize("n_blk,spans", [
+    (64, [(0, 16), (16, 16), (32, 16), (48, 16)]),
+    (6, [(0, 2), (2, 2), (4, 2), (6, 0)]),
+    (1, [(0, 1), (1, 0), (2, 0), (3, 0)]),
+    (9, [(0, 3), (3, 3), (6, 3), (9, 0)])])
+def test_host_warp_span(host_core, n_blk, spans):
+    """A tile's blocks split among the CTA's warps: contiguous runs that
+    cover the tile once; warps past a ragged tile get none."""
+    first, count = ctypes.c_int(), ctypes.c_int()
+    got = []
+    for warp in range(TILE_WARPS):
+        host_core.bs_host_warp_span(n_blk, warp, TILE_WARPS,
+                                    ctypes.byref(first), ctypes.byref(count))
+        got.append((first.value, count.value))
+    assert got == spans
 
 
 @pytest.mark.parametrize("fields,required,present", [

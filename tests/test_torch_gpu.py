@@ -28,6 +28,7 @@ from repro_torch.kernels.block_scan import (
     block_scan, block_scan_batched, block_scan_pruned,
     block_scan_pruned_chunk, block_scan_pruned_chunk_ref, block_scan_reference,
     build_rule_meta)
+from repro_torch.kernels.block_scan.block_scan import vector_path
 from repro_torch.kernels.decode_attention import (
     DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL, decode_attention,
     decode_attention_ref, merge_partials)
@@ -56,8 +57,9 @@ def cuda():
 
 def _case(seed, b, nb, w, dev):
     """Random per-lane rules plus the degenerate lanes: zero active
-    planes, zero required terms, no term present, and a block start
-    that runs off the end of the index."""
+    planes, zero required terms, no term present, a block start that
+    runs off the end of the index and one past its last block (an
+    exhausted lane's pointer)."""
     rng = np.random.default_rng(seed)
     occ = rng.integers(0, 2**32, (b, nb, T * F, w), dtype=np.uint32)
     allowed = rng.random((b, T, F)) < 0.5
@@ -68,6 +70,7 @@ def _case(seed, b, nb, w, dev):
     required[1] = False
     present[2] = False
     bp[3] = nb - 2
+    bp[4] = nb
     allowed[3], required[3], present[3] = True, True, True
 
     def tt(a):
@@ -77,10 +80,26 @@ def _case(seed, b, nb, w, dev):
     return tt(occ.view(np.int32)), meta
 
 
+def _at_offset(x, words):
+    """x copied into a view that starts ``words`` int32 words into its
+    storage: contiguous, but 16-byte aligned only if words % 4 == 0."""
+    flat = torch.empty(x.numel() + words, dtype=x.dtype, device=x.device)
+    view = flat[words:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("w,chunk", [(128, 4), (128, 32), (16, 3), (8, 1)])
-def test_cuda_kernel_matches_plain(cuda, w, chunk):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w,chunk", [(128, 4), (128, 32), (16, 3), (8, 1),
+                                     (128, 1), (33, 4), (1024, 3)])
+def test_cuda_kernel_matches_plain(cuda, w, chunk, offset):
+    """The chunk kernel on its 16-byte path and, for W % 4 != 0 or an
+    occupancy view one word off alignment, its scalar path; C from 1 to
+    32 with lanes whose chunk runs past the last block."""
     occ, meta = _case(21 + chunk, 64, 64, w, cuda)
+    occ = _at_offset(occ, offset)
+    assert vector_path(w, occ) == (w % 4 == 0 and offset == 0)
     before = BLOCK_SCAN_KERNEL.launches
     got = block_scan_pruned_chunk(occ, meta, chunk=chunk, n_terms=T)
     torch.cuda.synchronize()
@@ -116,14 +135,20 @@ def _whole_index_case(seed, q, nb, w, dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("q,nb,w", [(1, 4096, 128), (6, 37, 128), (5, 9, 16),
-                                    (3, 3, 8), (4, 100, 32), (300, 16, 128)])
-def test_cuda_block_scan_tile_matches_plain(cuda, q, nb, w):
+                                    (3, 3, 8), (4, 100, 32), (300, 16, 128),
+                                    (3, 9, 33), (3, 7, 1024), (4, 70, 128)])
+def test_cuda_block_scan_tile_matches_plain(cuda, q, nb, w, offset):
     """The runtime-rule whole-index kernel: one query over the
     websearch-rl config's 4096 blocks, ragged last tiles, narrow W,
-    degenerate queries; one launch per call."""
+    W % 4 != 0 and W = 1024 (eight strips), degenerate queries, an
+    occupancy view one word off alignment (the scalar path); one launch
+    per call.  ``block_scan(occ[-1])`` is a view at an offset too."""
     occ, allowed, required, present = _whole_index_case(q + nb + w, q, nb, w,
                                                         cuda)
+    occ = _at_offset(occ, offset)
+    assert vector_path(w, occ) == (w % 4 == 0 and offset == 0)
     before = BLOCK_SCAN_TILE_KERNEL.launches
     got = block_scan_batched(occ, allowed, required, present)
     torch.cuda.synchronize()
