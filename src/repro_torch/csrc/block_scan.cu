@@ -21,10 +21,11 @@
 // valid flag, required flag) and the block start, all independent
 // loads; n_active and the required terms come from ballots, and a
 // slot's plane and term reach the lanes by shuffles.  Then every active
-// plane's row is loaded at once, 16 bytes a lane, and the popcounts are
-// summed by warp shuffles.  No shared memory, no barrier.  W > 128
-// walks 128-word strips; W % 4 != 0 or a misaligned view takes the
-// scalar path of the same kernel.
+// plane's row is loaded at once, 16 bytes a lane (a rule of more than
+// BS_SLOTS active planes loads them in groups of BS_SLOTS), and the
+// popcounts are summed by warp shuffles.  No shared memory, no barrier.
+// W > 128 walks 128-word strips; W % 4 != 0 or a misaligned view takes
+// the scalar path of the same kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,7 +33,7 @@
 
 #define BS_CHUNK_WARPS 4   // (lane, chunk position) pairs per CTA
 
-template <bool VEC>
+template <bool VEC, bool MANY>
 __global__ void __launch_bounds__(BS_CHUNK_WARPS * BS_WARP)
     block_scan_pruned_chunk_kernel(
         const uint32_t* __restrict__ occ,     // (B, nb, tf_planes, W)
@@ -47,35 +48,50 @@ __global__ void __launch_bounds__(BS_CHUNK_WARPS * BS_WARP)
   const int lane = threadIdx.x % BS_WARP;
   const int b = g / chunk;
 
-  const BsMetaLane r = bs_meta_lane(meta + (int64_t)b * BS_META_ROWS * ncols,
-                                    ncols, tf_planes, n_terms, lane);
-  const int n_active = bs_leading_ones(__ballot_sync(BS_FULL_MASK, r.valid));
+  const int32_t* meta_lane = meta + (int64_t)b * BS_META_ROWS * ncols;
+  const BsMetaLane r = bs_meta_lane(meta_lane, ncols, tf_planes, n_terms,
+                                    lane);
+  const uint32_t valid = __ballot_sync(BS_FULL_MASK, r.valid);
   const uint32_t req_mask = __ballot_sync(BS_FULL_MASK, r.req);
   const int blk = bs_chunk_block(r.start, g % chunk, nb);
-  // One block a warp: one round of all 16 slots (no slot-width
-  // dispatch, so the launch runs one small body of code).
-  bs_warp_blocks<BS_SLOTS, VEC>(
-      occ + ((int64_t)b * nb + blk) * tf_planes * W, match + (int64_t)g * W,
-      0, 1, tf_planes, W, lane, BsShfl{r.plane * W}, BsShfl{r.term}, n_active,
-      req_mask, n_terms, BsWarpFinish{v_inc + g, n_match + g, lane});
+  const uint32_t* occ_blk = occ + ((int64_t)b * nb + blk) * tf_planes * W;
+  const BsWarpFinish finish{v_inc + g, n_match + g, lane};
+  if (MANY) {
+    const int n_active = bs_count_active(valid, tf_planes, [&](int s0) {
+      return __ballot_sync(
+          BS_FULL_MASK, bs_step_valid(meta_lane, ncols, tf_planes, s0 + lane));
+    });
+    bs_warp_block<VEC>(occ_blk, match + (int64_t)g * W, W, lane,
+                       BsStep{r.plane, meta_lane, tf_planes, W},
+                       BsStep{r.term, meta_lane + ncols, tf_planes, 1},
+                       n_active, req_mask, n_terms, finish);
+  } else {
+    // One block a warp: one round of all 16 slots.
+    bs_warp_blocks<BS_SLOTS, VEC>(occ_blk, match + (int64_t)g * W, 0, 1,
+                                  tf_planes, W, lane, BsShfl{r.plane * W},
+                                  BsShfl{r.term}, bs_leading_ones(valid),
+                                  req_mask, n_terms, finish);
+  }
 }
 
-// Plain C entry point for ctypes.  vec selects the 16-byte path, which
-// needs W % 4 == 0 and 16-byte aligned occ and match.  Launches on the
-// given stream and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a 16-byte path the arguments do not allow.
+// Plain C entry point for ctypes.  Takes the 16-byte path where
+// bs_vector_path allows it, else the scalar path, and the plane-group
+// loop only where T*F asks for it (bs_many_planes).  Launches on the
+// given stream and returns cudaGetLastError() (0 on success).
 extern "C" int block_scan_pruned_chunk_launch(
     const void* occ, const void* meta, void* match, void* v_inc,
     void* n_match, int batch, int nb, int tf_planes, int W, int ncols,
-    int n_terms, int chunk, int vec, void* stream) {
-  if (vec && (W % 4 != 0 || ((uintptr_t)occ | (uintptr_t)match) % 16 != 0))
-    return (int)cudaErrorInvalidValue;
+    int n_terms, int chunk, void* stream) {
   const long long pairs = (long long)batch * chunk;
   const unsigned blocks =
       (unsigned)((pairs + BS_CHUNK_WARPS - 1) / BS_CHUNK_WARPS);
   const int threads = BS_CHUNK_WARPS * BS_WARP;
-  auto kernel = vec ? block_scan_pruned_chunk_kernel<true>
-                    : block_scan_pruned_chunk_kernel<false>;
+  const bool vec = bs_vector_path(W, (uintptr_t)occ, (uintptr_t)match);
+  auto kernel = bs_many_planes(tf_planes)
+                    ? (vec ? block_scan_pruned_chunk_kernel<true, true>
+                           : block_scan_pruned_chunk_kernel<false, true>)
+                    : (vec ? block_scan_pruned_chunk_kernel<true, false>
+                           : block_scan_pruned_chunk_kernel<false, false>);
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)occ, (const int32_t*)meta, (uint32_t*)match,
       (int32_t*)v_inc, (int32_t*)n_match, batch, nb, tf_planes, W, ncols,

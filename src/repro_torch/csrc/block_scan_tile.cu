@@ -97,25 +97,23 @@ __global__ void __launch_bounds__(BS_TILE_WARPS * BS_WARP)
                     BsWarpFinish{v_inc + q_blocks, n_match + q_blocks, lane});
 }
 
-// Plain C entry point for ctypes.  vec selects the 16-byte path, which
-// needs W % 4 == 0 and 16-byte aligned occ and match.  Launches on the
+// Plain C entry point for ctypes.  Takes the 16-byte path where
+// bs_vector_path allows it, else the scalar path.  Launches on the
 // given stream and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a tile outside [1, BS_TILE_MAX_BLOCKS] or a
-// 16-byte path the arguments do not allow.
+// cudaErrorInvalidValue for a tile outside [1, BS_TILE_MAX_BLOCKS].
 extern "C" int block_scan_tile_launch(const void* occ, const void* allowed,
                                       const void* required,
                                       const void* present, void* match,
                                       void* v_inc, void* n_match,
                                       int n_queries, int nb, int tf_planes,
                                       int F, int W, int n_terms, int bb,
-                                      int vec, void* stream) {
+                                      void* stream) {
   if (bb < 1 || bb > BS_TILE_MAX_BLOCKS) return (int)cudaErrorInvalidValue;
-  if (vec && (W % 4 != 0 || ((uintptr_t)occ | (uintptr_t)match) % 16 != 0))
-    return (int)cudaErrorInvalidValue;
   const int n_tiles = (nb + bb - 1) / bb;
   const unsigned blocks = (unsigned)n_queries * (unsigned)n_tiles;
   const int threads = BS_TILE_WARPS * BS_WARP;
-  auto kernel = vec ? block_scan_tile_kernel<true>
+  auto kernel = bs_vector_path(W, (uintptr_t)occ, (uintptr_t)match)
+                    ? block_scan_tile_kernel<true>
                     : block_scan_tile_kernel<false>;
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)occ, (const uint8_t*)allowed,

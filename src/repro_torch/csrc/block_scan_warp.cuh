@@ -17,7 +17,7 @@
 //   scalar path:  lane l owns words l, l+32, l+64, l+96, each a
 //                 coalesced 128-byte warp load; taken for W % 4 != 0 or
 //                 an occupancy or match pointer that is not 16-byte
-//                 aligned (the wrapper's choice, checked at launch).
+//                 aligned (bs_vector_path, the launch entries' choice).
 // Words at or past W are neither read nor written.
 //
 // Plane slots.  A lane holds BS_SLOTS plane rows of its words in
@@ -34,8 +34,12 @@
 
 #define BS_WARP 32
 #define BS_STRIP_WORDS 128  // words of a block a warp covers per step
-#ifndef BS_SLOTS
 #define BS_SLOTS 16         // plane rows in flight per lane (4 words each)
+
+// A host harness may define BS_HOST_READ(p) to see every occupancy word
+// the replayed lanes read (the card's loads are the same words).
+#ifndef BS_HOST_READ
+#define BS_HOST_READ(p)
 #endif
 
 #ifdef __CUDACC__
@@ -117,11 +121,41 @@ __host__ __device__ inline void bs_warp_span(int n_blk, int warp,
   *count = left < 0 ? 0 : (left < per ? left : per);
 }
 
+// The 16-byte path's contract: W a multiple of 4 words and the
+// occupancy and match pointers 16-byte aligned (a view at an offset
+// need not be).  Else the scalar path of the same kernel runs.
+__host__ __device__ inline bool bs_vector_path(int W, uintptr_t occ,
+                                               uintptr_t match) {
+  return W % 4 == 0 && (occ | match) % 16 == 0;
+}
+
 // ---------------------------------------------- the chunk kernel's meta
-// Lane l's share of one query lane's meta rows (build_rule_meta's
-// layout, block_scan.cuh): step l's plane id, term and valid flag, term
-// l's required flag, and the block start.  Every load is independent of
-// the others, so the whole meta block arrives in one round trip.
+// Step s's valid flag in one query lane's meta rows (build_rule_meta's
+// layout, block_scan.cuh); false past the tf_planes steps.
+__host__ __device__ inline bool bs_step_valid(const int32_t* meta_lane,
+                                              int ncols, int tf_planes,
+                                              int s) {
+  return s < tf_planes && meta_lane[2 * ncols + s] != 0;
+}
+
+// n_active from the valid row: the leading ones of its first 32 steps'
+// ballot (`first`), and for a rule of more than 32 planes of the next
+// 32 steps' ballots (ballot(s0): the ballot of step s0 + lane's valid
+// flag) until one is clear.
+BS_HD_TEMPLATE
+template <class Ballot>
+__host__ __device__ inline int bs_count_active(uint32_t first, int tf_planes,
+                                               const Ballot& ballot) {
+  int n_active = bs_leading_ones(first);
+  for (int s0 = BS_WARP; n_active == s0 && s0 < tf_planes; s0 += BS_WARP)
+    n_active += bs_leading_ones(ballot(s0));
+  return n_active;
+}
+
+// Lane l's share of one query lane's meta rows: step l's plane id, term
+// and valid flag, term l's required flag, and the block start.  Every
+// load is independent of the others, so the whole meta block arrives in
+// one round trip.
 struct BsMetaLane {
   int32_t plane, term, start;
   bool valid, req;
@@ -134,10 +168,21 @@ __host__ __device__ inline BsMetaLane bs_meta_lane(const int32_t* meta_lane,
   BsMetaLane r;
   r.plane = step ? meta_lane[lane] : 0;
   r.term = step ? meta_lane[ncols + lane] : 0;
-  r.valid = step && meta_lane[2 * ncols + lane] != 0;
+  r.valid = bs_step_valid(meta_lane, ncols, tf_planes, lane);
   r.req = lane < n_terms && meta_lane[3 * ncols + lane] != 0;
   r.start = meta_lane[ncols - 1];
   return r;
+}
+
+// Step s of a meta row (row 0: plane ids, row 1: terms) as the chunk
+// kernel reads it: steps below BS_WARP come from lane s, which loaded
+// them in the meta round (`shuffled`, the value of a shuffle from lane
+// s % BS_WARP); a rule of more than BS_WARP planes reads the rest from
+// the row itself; 0 past the tf_planes steps.
+__host__ __device__ inline int bs_step_value(const int32_t* row, int tf_planes,
+                                             int s, int shuffled) {
+  if (s < BS_WARP) return shuffled;
+  return s < tf_planes ? row[s] : 0;
 }
 
 // Chunk position c's block: the start plus c, clamped to the last block.
@@ -150,6 +195,7 @@ __host__ __device__ inline uint32_t bs_ld(const uint32_t* p) {
 #ifdef __CUDA_ARCH__
   return __ldg(p);
 #else
+  BS_HOST_READ(p);
   return *p;
 #endif
 }
@@ -170,7 +216,7 @@ __host__ __device__ inline BsLane bs_load_lane(const uint32_t* row, int strip,
       x.w[2] = v.z;
       x.w[3] = v.w;
 #else
-      for (int j = 0; j < 4; ++j) x.w[j] = row[w0 + j];
+      for (int j = 0; j < 4; ++j) x.w[j] = bs_ld(row + w0 + j);
 #endif
     }
   } else {
@@ -208,26 +254,17 @@ __host__ __device__ inline void bs_store_lane(uint32_t* row, int strip,
   }
 }
 
-// One lane's words of one strip of one block under NP plane slots: x[s]
-// holds slot s's words (zeros past n_active and past W), term[s] its
-// term.  Writes the lane's match words (the AND of the required terms'
-// words, 0 if none is required) and adds the popcounts of the first
-// n_terms term words to *v_pop and of match to *m_pop.  Bit k of
-// req_mask is term k's required-and-present flag (k < n_terms).
+// OR-s one lane's words of one strip under NP plane slots into its term
+// words: x[s] holds slot s's words (zeros past n_active and past W),
+// term[first + s] its term; tf[k] is term k's four words.
 BS_HD_TEMPLATE
 template <int NP, class Term>
-__host__ __device__ inline void bs_lane_eval(const BsLane* x, const Term& term,
-                                             uint32_t req_mask, int n_terms,
-                                             BsLane* match, int* v_pop,
-                                             int* m_pop) {
-  uint32_t tf[BS_MAX_TERMS][4];
-#pragma unroll
-  for (int k = 0; k < BS_MAX_TERMS; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) tf[k][j] = 0u;
+__host__ __device__ inline void bs_lane_or(const BsLane* x, const Term& term,
+                                           int first,
+                                           uint32_t (*tf)[4]) {
 #pragma unroll
   for (int s = 0; s < NP; ++s) {
-    const int t = term[s];
+    const int t = term[first + s];
 #pragma unroll
     for (int k = 0; k < BS_MAX_TERMS; ++k) {
       if (k == t) {
@@ -236,6 +273,16 @@ __host__ __device__ inline void bs_lane_eval(const BsLane* x, const Term& term,
       }
     }
   }
+}
+
+// One lane's match words from its term words: the AND of the required
+// terms' words, 0 if none is required.  Adds the popcounts of the first
+// n_terms term words to *v_pop and of match to *m_pop.  Bit k of
+// req_mask is term k's required-and-present flag (k < n_terms).
+__host__ __device__ inline void bs_lane_match(const uint32_t (*tf)[4],
+                                              uint32_t req_mask, int n_terms,
+                                              BsLane* match, int* v_pop,
+                                              int* m_pop) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     uint32_t m = 0xFFFFFFFFu;
@@ -292,8 +339,10 @@ __host__ __device__ inline void bs_warp_blocks(
 #pragma unroll
     for (int k = 0; k < kStrips; ++k) {
       if (u0 + k >= n_units) break;        // the same for the whole warp
+      uint32_t tf[BS_MAX_TERMS][4] = {};
+      bs_lane_or<NP>(x[k], term, 0, tf);
       BsLane m;
-      bs_lane_eval<NP>(x[k], term, req_mask, n_terms, &m, &v_acc, &m_acc);
+      bs_lane_match(tf, req_mask, n_terms, &m, &v_acc, &m_acc);
       bs_store_lane<VEC>(match_q + (int64_t)blk * W, strip, lane, W, m);
       if (++strip == n_strips) {
         finish(blk, v_acc, m_acc);
@@ -336,6 +385,48 @@ __host__ __device__ inline void bs_warp_scan(
   }
 }
 
+// Whether the chunk kernel may meet a rule of more than BS_SLOTS active
+// planes: T*F > BS_SLOTS.  Then it walks its block with bs_warp_block's
+// plane groups; else (the serve path's T*F = 16) with one round of
+// bs_warp_blocks<BS_SLOTS>, whose slots are compile-time constants.
+__host__ __device__ inline bool bs_many_planes(int tf_planes) {
+  return tf_planes > BS_SLOTS;
+}
+
+// One warp's block of the chunk kernel at T*F > BS_SLOTS, seen by lane
+// `lane`: strip by strip, the active planes in groups of BS_SLOTS rows,
+// every row of a group loaded before the first is used, the term words
+// OR-ed across groups.  off[s] / term[s] are step s's word offset in the
+// block and term, for any s < n_active + BS_SLOTS (0 past the rule's
+// steps).  finish(0, v, m) gets this lane's share of the block's
+// popcount sums.
+BS_HD_TEMPLATE
+template <bool VEC, class Off, class Term, class Finish>
+__host__ __device__ inline void bs_warp_block(
+    const uint32_t* occ_blk, uint32_t* match_row, int W, int lane,
+    const Off& off, const Term& term, int n_active, uint32_t req_mask,
+    int n_terms, const Finish& finish) {
+  const int n_strips = bs_n_strips(W);
+  int v_acc = 0, m_acc = 0;
+  for (int st = 0; st < n_strips; ++st) {
+    uint32_t tf[BS_MAX_TERMS][4] = {};
+    int g = 0;
+    do {
+      BsLane x[BS_SLOTS];
+#pragma unroll
+      for (int s = 0; s < BS_SLOTS; ++s)
+        x[s] = bs_load_lane<VEC>(occ_blk + off[g + s], st, lane, W,
+                                 g + s < n_active);
+      bs_lane_or<BS_SLOTS>(x, term, g, tf);
+      g += BS_SLOTS;
+    } while (g < n_active);
+    BsLane m;
+    bs_lane_match(tf, req_mask, n_terms, &m, &v_acc, &m_acc);
+    bs_store_lane<VEC>(match_row, st, lane, W, m);
+  }
+  finish(0, v_acc, m_acc);
+}
+
 #ifdef __CUDACC__
 __device__ inline int bs_warp_sum(int v) {
 #pragma unroll
@@ -361,11 +452,25 @@ struct BsWarpFinish {
 };
 
 // Slot s's value from lane s of the warp: the chunk kernel's plane
-// offsets and terms, kept in the lanes that loaded them.
+// offsets and terms at T*F <= BS_SLOTS, kept in the lanes that loaded
+// them.
 struct BsShfl {
   int value;
   __device__ int operator[](int s) const {
     return __shfl_sync(BS_FULL_MASK, value, s);
+  }
+};
+
+// Step s of a meta row, as bs_step_value reads it, times `scale`: the
+// chunk kernel's plane offsets (scale W) and terms (scale 1) at
+// T*F > BS_SLOTS.
+struct BsStep {
+  int value;             // this lane's step of the row
+  const int32_t* row;
+  int tf_planes, scale;
+  __device__ int operator[](int s) const {
+    const int v = __shfl_sync(BS_FULL_MASK, value, s % BS_WARP);
+    return bs_step_value(row, tf_planes, s, v) * scale;
   }
 };
 #endif  // __CUDACC__

@@ -8,9 +8,10 @@ bytes per block; a warp per block, 16 bytes a lane); on CPU tensors it
 runs the plain version ``ref.block_scan_ref``.  There is no fallback
 from one to the other.
 
-The kernel has a 16-byte path and a scalar path; ``vector_path``
-chooses by contract (W % 4 == 0 and 16-byte aligned pointers, which a
-view at an offset need not have).  Both are the hand-written kernel.
+The kernel has a 16-byte path and a scalar path; its launch entry
+chooses by contract (``bs_vector_path`` in ``csrc/block_scan_warp.cuh``:
+W % 4 == 0 and 16-byte aligned pointers, which a view at an offset need
+not have).  Both are the hand-written kernel.
 
 The rules stay on the device: the kernel reads the caller's bool
 tensors and each CTA ANDs them itself, so a launch needs no host sync
@@ -27,8 +28,7 @@ from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import block_scan_ref
 
-__all__ = ["block_scan_tile", "tile_blocks", "vector_path",
-           "BLOCK_SCAN_TILE_KERNEL"]
+__all__ = ["block_scan_tile", "tile_blocks", "BLOCK_SCAN_TILE_KERNEL"]
 
 MAX_TERMS = csrc_define("block_scan.cuh", "BS_MAX_TERMS")
 MAX_PLANES = csrc_define("block_scan.cuh", "BS_MAX_PLANES")
@@ -44,28 +44,20 @@ BLOCK_SCAN_TILE_KERNEL = NativeKernel(
     source="block_scan_tile.cu",
     headers=("block_scan.cuh", "block_scan_warp.cuh"),
     symbol="block_scan_tile_launch",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-              _P],
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
-def tile_blocks(n_queries: int, nb: int) -> int:
-    """Blocks per CTA: MAX_TILE, halved while the grid would hold fewer
-    than MIN_CTAS CTAs (one query over a few thousand blocks: 8 blocks,
-    2 a warp, 512 CTAs at 4096 blocks), so that a small scan still
-    spreads over every SM."""
-    bb = MAX_TILE
-    while bb > 1 and n_queries * -(-nb // bb) < MIN_CTAS:
+def tile_blocks(n_queries: int, nb: int, cap: int = MAX_TILE,
+                min_ctas: int = MIN_CTAS) -> int:
+    """Blocks per CTA: ``cap``, halved while the grid would hold fewer
+    than ``min_ctas`` CTAs, so that a small scan still spreads over
+    every SM.  The tile kernel's defaults give one query over a few
+    thousand blocks 8 blocks, 2 a warp (512 CTAs at 4096 blocks)."""
+    bb = cap
+    while bb > 1 and n_queries * -(-nb // bb) < min_ctas:
         bb //= 2
     return bb
-
-
-def vector_path(w: int, *tensors: torch.Tensor) -> bool:
-    """Whether a block-scan kernel may take its 16-byte path: W a
-    multiple of 4 words and every pointer it moves 16 bytes through
-    (occupancy, match) 16-byte aligned.  Else the same kernel's scalar
-    path runs."""
-    return w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check(occ, allowed, required, term_present):
@@ -110,11 +102,10 @@ def block_scan_tile(occ: torch.Tensor, allowed: torch.Tensor,
     match = torch.empty((q, nb, w), dtype=torch.int32, device=occ.device)
     v_inc = torch.empty((q, nb), dtype=torch.int32, device=occ.device)
     n_match = torch.empty((q, nb), dtype=torch.int32, device=occ.device)
-    vec = vector_path(w, occ, match)
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream().cuda_stream
         BLOCK_SCAN_TILE_KERNEL.launch(
             occ.data_ptr(), *(x.data_ptr() for x in rule), match.data_ptr(),
             v_inc.data_ptr(), n_match.data_ptr(), q, nb, t * f, f, w, t, bb,
-            int(vec), stream)
+            stream)
     return match, v_inc, n_match

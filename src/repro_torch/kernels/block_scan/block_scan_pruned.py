@@ -6,8 +6,8 @@ behind the ``"block_scan"`` scan backend.  On CUDA tensors it launches
 the hand-written kernel ``csrc/block_scan.cu`` (a warp per lane-block,
 two dependent round trips: meta, then occupancy; it reads only the
 rule's active planes, n_active * W * 4 bytes per lane-block), on its
-16-byte or scalar path as ``block_scan.vector_path`` chooses; on CPU
-tensors it runs the plain version ``ref.py``.
+16-byte or scalar path as its launch entry chooses (``bs_vector_path``);
+on CPU tensors it runs the plain version ``ref.py``.
 
 ``block_scan_pruned`` replaces ``block_scan_pruned_pallas``: one query,
 every block, a static rule given on the host.  The host turns the rule
@@ -29,19 +29,19 @@ import torch
 
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
-from .block_scan import MAX_PLANES, MAX_TERMS, MAX_WORDS, vector_path
+from .block_scan import MAX_PLANES, MAX_TERMS, MAX_WORDS, tile_blocks
 from .ref import block_scan_pruned_chunk_ref, block_scan_pruned_ref
 
 __all__ = ["block_scan_pruned_chunk", "build_rule_meta", "META_ROWS",
            "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS",
-           "block_scan_pruned", "static_plane_list", "static_tile_blocks",
+           "block_scan_pruned", "static_plane_list",
            "BLOCK_SCAN_STATIC_KERNEL"]
 
 META_ROWS = 4          # plane id / term id / step valid / required per term
-# The static kernel's tile (block_scan_static.cu, bs_scan_blocks): at
-# most BS_MAX_BB blocks per CTA, halved while one query's grid would
-# hold fewer than STATIC_MIN_CTAS CTAs of 128 threads (~16 on each of
-# 132 SMs).
+# The static kernel's tile (block_scan_static.cu, bs_scan_blocks), for
+# tile_blocks: at most BS_MAX_BB blocks per CTA, halved while one
+# query's grid would hold fewer than STATIC_MIN_CTAS CTAs of 128
+# threads (~16 on each of 132 SMs).
 STATIC_MAX_BB = csrc_define("block_scan.cuh", "BS_MAX_BB")
 STATIC_MIN_CTAS = 2048
 
@@ -51,7 +51,7 @@ BLOCK_SCAN_KERNEL = NativeKernel(
     source="block_scan.cu",
     headers=("block_scan.cuh", "block_scan_warp.cuh"),
     symbol="block_scan_pruned_chunk_launch",
-    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 BLOCK_SCAN_STATIC_KERNEL = NativeKernel(
     name="block_scan_static",
@@ -60,15 +60,6 @@ BLOCK_SCAN_STATIC_KERNEL = NativeKernel(
     symbol="block_scan_static_launch",
     argtypes=[_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 )
-
-
-def static_tile_blocks(nb: int) -> int:
-    """Blocks per CTA of the static kernel for one query over nb
-    blocks."""
-    bb = STATIC_MAX_BB
-    while bb > 1 and -(-nb // bb) < STATIC_MIN_CTAS:
-        bb //= 2
-    return bb
 
 
 def build_rule_meta(
@@ -148,13 +139,12 @@ def block_scan_pruned_chunk(occ: torch.Tensor, meta: torch.Tensor, *,
     match = torch.empty((b, chunk, w), dtype=torch.int32, device=occ.device)
     v_inc = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
     n_match = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
-    vec = vector_path(w, occ, match)
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream().cuda_stream
         BLOCK_SCAN_KERNEL.launch(
             occ.data_ptr(), meta.data_ptr(), match.data_ptr(),
             v_inc.data_ptr(), n_match.data_ptr(), b, nb, tf_planes, w,
-            meta.shape[2], n_terms, chunk, int(vec), stream)
+            meta.shape[2], n_terms, chunk, stream)
     return match, v_inc, n_match
 
 
@@ -212,5 +202,5 @@ def block_scan_pruned(occ: torch.Tensor, allowed, required, term_present):
             occ.data_ptr(), match.data_ptr(), v_inc.data_ptr(),
             n_match.data_ptr(), planes.ctypes.data, terms.ctypes.data,
             len(planes), req.ctypes.data, nb, t * f, w, t,
-            static_tile_blocks(nb), stream)
+            tile_blocks(1, nb, STATIC_MAX_BB, STATIC_MIN_CTAS), stream)
     return match, v_inc, n_match

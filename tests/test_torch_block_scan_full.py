@@ -33,7 +33,7 @@ from repro_torch.kernels.block_scan import ops
 from repro_torch.kernels.block_scan.block_scan import (MAX_PLANES, MAX_TERMS,
                                                        MAX_TILE, tile_blocks)
 from repro_torch.kernels.block_scan.block_scan_pruned import (
-    STATIC_MAX_BB, static_tile_blocks)
+    STATIC_MAX_BB, STATIC_MIN_CTAS)
 from repro_torch.kernels.native import CSRC_DIR, csrc_define
 
 T, F = 4, 4
@@ -235,9 +235,9 @@ def test_tile_blocks():
     assert tile_blocks(256, 4096) == 64
     assert tile_blocks(1, 4096) == 8
     assert tile_blocks(1, 5) == 1
-    assert static_tile_blocks(4096) == 2
-    assert static_tile_blocks(5) == 1
-    assert static_tile_blocks(10**6) == 8
+    assert tile_blocks(1, 4096, STATIC_MAX_BB, STATIC_MIN_CTAS) == 2
+    assert tile_blocks(1, 5, STATIC_MAX_BB, STATIC_MIN_CTAS) == 1
+    assert tile_blocks(1, 10**6, STATIC_MAX_BB, STATIC_MIN_CTAS) == 8
 
 
 def test_tile_cap_is_the_headers():
@@ -251,7 +251,8 @@ def test_tile_cap_is_the_headers():
     assert TILE_WARPS == 4
     assert all(1 <= tile_blocks(q, nb) <= MAX_TILE
                for q in (1, 3, 256) for nb in (1, 5, 64, 4096))
-    assert all(1 <= static_tile_blocks(nb) <= STATIC_MAX_BB
+    assert all(1 <= tile_blocks(1, nb, STATIC_MAX_BB, STATIC_MIN_CTAS)
+               <= STATIC_MAX_BB
                for nb in (1, 5, 64, 4096))
     with pytest.raises(KeyError, match="BS_NO_SUCH"):
         csrc_define("block_scan.cuh", "BS_NO_SUCH")
@@ -308,7 +309,26 @@ def test_wrappers_reject_bad_inputs():
 
 # ------------------------------------------------- g++ replay of the grids
 _HARNESS = r"""
+#include <stdint.h>
+// Every occupancy word a replayed lane reads: counted, and counted again
+// if it lies outside the occupancy array.
+static const uint32_t* g_lo;
+static const uint32_t* g_hi;
+static int64_t g_reads, g_outside;
+#define BS_HOST_READ(p) \
+  do { ++g_reads; if ((p) < g_lo || (p) >= g_hi) ++g_outside; } while (0)
 #include "block_scan_warp.cuh"
+
+static void reads_begin(const uint32_t* occ, int64_t words) {
+  g_lo = occ;
+  g_hi = occ + words;
+  g_reads = g_outside = 0;
+}
+
+static void reads_end(int64_t* reads) {
+  reads[0] = g_reads;
+  reads[1] = g_outside;
+}
 
 // A warp sum as the harness sees it: every replayed lane adds its share;
 // lane 0 counts the call, so each block must be finished once.
@@ -330,9 +350,11 @@ struct HostFinish {
 extern "C" void bs_host_tile(const uint32_t* occ, const uint8_t* allowed,
                              const uint8_t* required, const uint8_t* present,
                              uint32_t* match, int32_t* v_inc,
-                             int32_t* n_match, int32_t* calls, int n_queries,
-                             int nb, int tf_planes, int F, int W, int n_terms,
-                             int bb, int n_warps, int vec) {
+                             int32_t* n_match, int32_t* calls,
+                             int64_t* reads, int n_queries, int nb,
+                             int tf_planes, int F, int W, int n_terms, int bb,
+                             int n_warps, int vec) {
+  reads_begin(occ, (int64_t)n_queries * nb * tf_planes * W);
   for (int64_t i = 0; i < (int64_t)n_queries * nb; ++i)
     v_inc[i] = n_match[i] = calls[i] = 0;
   const int n_tiles = (nb + bb - 1) / bb;
@@ -372,6 +394,7 @@ extern "C" void bs_host_tile(const uint32_t* occ, const uint8_t* allowed,
       }
     }
   }
+  reads_end(reads);
 }
 
 // The static kernel's CTA, one word per inner iteration over
@@ -436,7 +459,7 @@ def host_core(tmp_path_factory):
                    check=True)
     so = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    so.bs_host_tile.argtypes = [P] * 8 + [I] * 9
+    so.bs_host_tile.argtypes = [P] * 9 + [I] * 9
     so.bs_host_static.argtypes = [P, P, P, P, P, P, I, P] + [I] * 5
     so.bs_host_warp_span.argtypes = [I, I, I, P, P]
     so.bs_host_slot_width.argtypes = [I]
@@ -455,15 +478,20 @@ def _outputs(*lead, w):
 def _replay_tile(so, o, a, r, p, bb, vec):
     """The tile kernel's grid replayed by the harness: (match, v_inc,
     n_match), each block finished exactly once, no match word left
-    unwritten (match starts as a fill pattern)."""
+    unwritten (match starts as a fill pattern), and exactly the active
+    planes' words of every block read, nothing outside the occupancy."""
     q, nb, t, f, w = o.shape
     got = _outputs(q, nb, w=w)
     got[0].fill_(0x5A5A5A5A)
     calls = torch.empty((q, nb), dtype=torch.int32)
+    reads = torch.empty(2, dtype=torch.int64)
     so.bs_host_tile(o.data_ptr(), a.data_ptr(), r.data_ptr(), p.data_ptr(),
-                    *(x.data_ptr() for x in got), calls.data_ptr(), q, nb,
-                    t * f, f, w, t, bb, TILE_WARPS, vec)
+                    *(x.data_ptr() for x in got), calls.data_ptr(),
+                    reads.data_ptr(), q, nb, t * f, f, w, t, bb, TILE_WARPS,
+                    vec)
     assert (calls == 1).all()
+    n_active = int((a & p[:, :, None]).sum())
+    assert reads.tolist() == [n_active * nb * w, 0]
     return got
 
 
@@ -477,7 +505,7 @@ def test_host_tile_core_matches_plain(host_core, q, nb, w, bb, vec):
     ballots, the 16-byte or scalar word ownership (W = 33: scalar only;
     W = 1024: eight strips a block), the warps' runs, ragged last tiles
     and the degenerate queries, against the plain version."""
-    occ, allowed, required, present = _batch(20 + w + bb, q, nb, w)
+    occ, allowed, required, present = _batch(20 + w, q, nb, w)
     o, a, r, p = _t(occ), _t(allowed), _t(required), _t(present)
     got = _replay_tile(host_core, o, a, r, p, bb, vec)
     for g, want in zip(got, block_scan_reference(o, a, r, p)):

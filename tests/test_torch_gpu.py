@@ -28,7 +28,6 @@ from repro_torch.kernels.block_scan import (
     block_scan, block_scan_batched, block_scan_pruned,
     block_scan_pruned_chunk, block_scan_pruned_chunk_ref, block_scan_reference,
     build_rule_meta)
-from repro_torch.kernels.block_scan.block_scan import vector_path
 from repro_torch.kernels.decode_attention import (
     DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL, decode_attention,
     decode_attention_ref, merge_partials)
@@ -55,16 +54,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(seed, b, nb, w, dev):
+def _case(seed, b, nb, w, dev, t=T, f=F):
     """Random per-lane rules plus the degenerate lanes: zero active
     planes, zero required terms, no term present, a block start that
     runs off the end of the index and one past its last block (an
-    exhausted lane's pointer)."""
+    exhausted lane's pointer).  At T*F > 16 lanes 5-9 have every plane,
+    16, 17, 32 and 33 planes active (as far as T*F allows)."""
     rng = np.random.default_rng(seed)
-    occ = rng.integers(0, 2**32, (b, nb, T * F, w), dtype=np.uint32)
-    allowed = rng.random((b, T, F)) < 0.5
-    required = rng.random((b, T)) < 0.6
-    present = rng.random((b, T)) < 0.8
+    occ = rng.integers(0, 2**32, (b, nb, t * f, w), dtype=np.uint32)
+    allowed = rng.random((b, t, f)) < 0.5
+    required = rng.random((b, t)) < 0.6
+    present = rng.random((b, t)) < 0.8
+    if t * f > 16:
+        present[5:10] = True
+        for lane, n in zip(range(5, 10), (t * f, 16, 17, 32, 33)):
+            allowed[lane] = (np.arange(t * f) < min(n, t * f)).reshape(t, f)
     bp = rng.integers(0, nb, b).astype(np.int32)
     allowed[0] = False
     required[1] = False
@@ -99,12 +103,30 @@ def test_cuda_kernel_matches_plain(cuda, w, chunk, offset):
     32 with lanes whose chunk runs past the last block."""
     occ, meta = _case(21 + chunk, 64, 64, w, cuda)
     occ = _at_offset(occ, offset)
-    assert vector_path(w, occ) == (w % 4 == 0 and offset == 0)
     before = BLOCK_SCAN_KERNEL.launches
     got = block_scan_pruned_chunk(occ, meta, chunk=chunk, n_terms=T)
     torch.cuda.synchronize()
     assert BLOCK_SCAN_KERNEL.launches == before + 1
     want = block_scan_pruned_chunk_ref(occ, meta, chunk=chunk, n_terms=T)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("t,f,w", [(4, 8, 128), (2, 24, 33), (4, 16, 256)])
+def test_cuda_kernel_many_planes(cuda, t, f, w, offset):
+    """The chunk kernel at T*F > 16 planes, which the contract allows:
+    rules of more than 16 active planes load in groups of 16, and past
+    32 planes n_active and the plane list come from further meta reads;
+    one launch, bit-equal to the plain version."""
+    occ, meta = _case(t * f + w, 64, 16, w, cuda, t, f)
+    occ = _at_offset(occ, offset)
+    before = BLOCK_SCAN_KERNEL.launches
+    got = block_scan_pruned_chunk(occ, meta, chunk=3, n_terms=t)
+    torch.cuda.synchronize()
+    assert BLOCK_SCAN_KERNEL.launches == before + 1
+    want = block_scan_pruned_chunk_ref(occ, meta, chunk=3, n_terms=t)
     for g, r in zip(got, want):
         assert torch.equal(g, r)
 
@@ -148,7 +170,6 @@ def test_cuda_block_scan_tile_matches_plain(cuda, q, nb, w, offset):
     occ, allowed, required, present = _whole_index_case(q + nb + w, q, nb, w,
                                                         cuda)
     occ = _at_offset(occ, offset)
-    assert vector_path(w, occ) == (w % 4 == 0 and offset == 0)
     before = BLOCK_SCAN_TILE_KERNEL.launches
     got = block_scan_batched(occ, allowed, required, present)
     torch.cuda.synchronize()
