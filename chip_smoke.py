@@ -50,9 +50,12 @@ Phases (any failure raises and the script exits non-zero):
    beside SDPA with a length mask; the embedding bag within 1e-5 (fp32)
    and 3e-2 (bf16), bags with an id past the table NaN as in the plain
    version, at the Wide&Deep path's shapes (V=40M, E=1, L=40, B=512,
-   the lane route's largest batch on this card, and 262,144, each
-   through both E = 1 routes) and the shapes of ``tests/test_kernels.py``,
-   beside ``F.embedding_bag``.  This runs before any model is resident:
+   the lane and batched routes' largest batches on this card with half
+   and twice as many, and 262,144, each through all three E = 1 routes,
+   the batched and column routes also bit for bit against the warp
+   route's ``eb_bag_column``) and the shapes of ``tests/test_kernels.py``,
+   beside ``F.embedding_bag``.
+   This runs before any model is resident:
    the plain attention materialises the (S, S) scores.
 3. Serve: ``RetrievalSystem(device="cuda")`` at the widths of the
    websearch-rl config (block_docs=4096, T=4, F=4, k_rules=6,
@@ -1048,26 +1051,34 @@ def bag_check(name, table, idx, w, mode, kernel, other):
 
 
 def bag_phase(dev, flush):
-    """Every BAG_CASES row through its route's kernel, and ``wd_edge``
-    (as many bags as the lane route takes at most on this card); the
-    Wide&Deep rows through both E = 1 routes, both held and timed.  The
-    other cases plant ids past the table (a NaN row each)."""
+    """Every BAG_CASES row through its route's kernel, and the rule's two
+    E = 1 edges on this card (``wd_edge``: as many bags as the lane route
+    takes at most; ``wd_batched_edge``: as many as the batched route
+    takes), each with half and twice as many bags; the Wide&Deep rows
+    through all three E = 1 routes, each held and timed, the batched and
+    column routes' outputs also bit for bit against the warp route's at
+    E = 1 (``eb_bag_column``).  The other cases plant ids past the table
+    (a NaN row each)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import (
         EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL, bag_route,
         embedding_bag, embedding_bag_ref)
-    from repro_torch.kernels.embedding_bag.ops import LANE_BAGS_PER_SM
+    from repro_torch.kernels.embedding_bag.ops import (BATCHED_BAGS_PER_SM,
+                                                       LANE_BAGS_PER_SM)
 
+    thread = (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)
     kernels = {"lanes": (EMBEDDING_BAG_LANES_KERNEL, EMBEDDING_BAG_KERNEL),
-               "column": (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL),
-               "warp": (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)}
+               "batched": thread, "column": thread, "warp": thread}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    edge = ("wd_edge", WD_FIELDS * WD_VOCAB, 1, LANE_BAGS_PER_SM * sms,
-            WD_FIELDS, "sum", "float32", False, True)
+    edges = [(f"{name}{suffix}", WD_FIELDS * WD_VOCAB, 1, int(per_sm * f * sms),
+              WD_FIELDS, "sum", "float32", False, True)
+             for name, per_sm in (("wd_edge", LANE_BAGS_PER_SM),
+                                  ("wd_batched_edge", BATCHED_BAGS_PER_SM))
+             for suffix, f in (("_half", 0.5), ("", 1), ("_2x", 2))]
     rows = {}
-    for name, v, e, b, l, mode, dtype, weighted, per_field in BAG_CASES + [edge]:
+    for name, v, e, b, l, mode, dtype, weighted, per_field in BAG_CASES + edges:
         dt = getattr(torch, dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + v + e + b)
@@ -1083,8 +1094,8 @@ def bag_phase(dev, flush):
         w = (torch.randn((b, l), generator=gen, device=dev) if weighted
              else None)
         route = bag_route(b, e, sms)
-        routes = [route] + ([{"lanes": "column", "column": "lanes"}[route]]
-                            if per_field else [])
+        routes = [route] + ([r for r in ("lanes", "batched", "column")
+                             if r != route] if per_field else [])
         res = {}
         for r in routes:
             kernel, other = kernels[r]
@@ -1093,6 +1104,16 @@ def bag_phase(dev, flush):
                 ms = time_cuda(lambda: embedding_bag(table, idx, w, mode=mode),
                                50, flush)
             res[r] = (kernel.name, err, ms)
+            if r in ("batched", "column"):
+                with bag_route_forced(r):
+                    col = embedding_bag(table, idx, w, mode=mode)
+                with bag_route_forced("warp"):
+                    warp = embedding_bag(table, idx, w, mode=mode)
+                if not torch.equal(col.view(torch.int32),
+                                   warp.view(torch.int32)):
+                    raise AssertionError(f"embedding_bag {name}: the {r} "
+                                         f"route != eb_bag_column bit for bit")
+                del col, warp
         plain_ms = time_cuda(lambda: embedding_bag_ref(table, idx, w,
                                                        mode=mode), 10, flush)
         library_ms = None
@@ -1114,7 +1135,8 @@ def bag_phase(dev, flush):
                   f"L={l} {mode} {dtype}{' weighted' if weighted else ''}: "
                   f"max_abs_err={e_r:.3g} (tol "
                   f"{BAG_BF16_TOL if dtype == 'bfloat16' else BAG_FP32_TOL}"
-                  f"{'' if per_field else '; NaN rows 1, 2 as the plain'}); "
+                  f"{'' if per_field else '; NaN rows 1, 2 as the plain'}"
+                  f"{'; bit-equal to eb_bag_column' if r in ('batched', 'column') else ''}); "
                   f"kernel {t:.6f} ms, plain {plain_ms:.6f} ms, "
                   f"F.embedding_bag {lib}, bound {bound:.6f} ms ({bound_by}; "
                   f"{sectors} distinct 32-byte sectors for {b * l} lookups); "

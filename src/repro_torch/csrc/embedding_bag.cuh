@@ -1,14 +1,15 @@
 // Per-bag core of the EmbeddingBag kernels: one output column of one
-// bag (the thread-per-bag and warp-per-bag routes), and one lane's share
+// bag (the column and warp routes), the E = 1 batched route's per-bag
+// sum in the same order and its choice of id loads, and one lane's share
 // of a bag plus the fixed order in which a group of lanes adds its
 // shares (the E = 1 lane route).
 //
 // Shared by the CUDA kernels (embedding_bag.cu) and by a host harness
 // built with g++ in the CPU tests, so the padding rule, the weights, the
-// ids past the table, the fp32 accumulation, the mean's divisor and the
-// lane route's summation order are checked on a machine without a GPU.
-// Only the launch, the mapping of bags and columns onto threads and the
-// shuffles stay CUDA-only.
+// ids past the table, the fp32 accumulation, the mean's divisor, the
+// batched route's reads and bits and the lane route's summation order
+// are checked on a machine without a GPU.  Only the launch, the mapping
+// of bags onto threads and the shuffles stay CUDA-only.
 //
 // For bag b and column e, as the reference (jnp.take fills NaN past V):
 //   valid_i = idx_i >= 0                       (-1, or any id < 0, is padding)
@@ -29,10 +30,27 @@
 #define __device__
 #endif
 
+#define EB_THREADS 256        // threads of a column- or warp-route CTA
 #define EB_LANE_THREADS 128   // threads of a lane-route CTA
+#define EB_BATCH_ROWS 8       // table loads of a batched-route thread in flight
 #define EB_BATCH 8            // ids whose rows a thread loads at once
 
-__host__ __device__ inline float eb_load(const float* p) { return *p; }
+// A host harness may define EB_HOST_READ(p) to see every table value
+// the replayed threads read (the card's loads are the same).
+#ifndef EB_HOST_READ
+#define EB_HOST_READ(p)
+#endif
+// ... and EB_HOST_IDS(p, n) every read of n ids at p by the batched route.
+#ifndef EB_HOST_IDS
+#define EB_HOST_IDS(p, n)
+#endif
+
+__host__ __device__ inline float eb_load(const float* p) {
+#ifndef __CUDA_ARCH__
+  EB_HOST_READ(p);
+#endif
+  return *p;
+}
 
 __host__ __device__ inline float eb_nan() {
 #ifdef __CUDA_ARCH__
@@ -102,11 +120,12 @@ __host__ __device__ inline EbPart eb_sum_strided(const T* table, int64_t V,
 }
 
 // The column and warp routes' per-bag loop: the ids in order, the loop
-// unrolled by 8 on the card.  It counts the ids past the table apart
-// (past, branch-free) and keeps the loop's form from before ids past V
-// gave NaN, whose loads the compiler schedules best at serve_bulk's
-// 262,144 bags of all the forms tried (a batched loop like
-// eb_sum_strided's was slower there; PERF.md).
+// unrolled by 8 on the card (8 id loads, then each row load and its
+// add: one row in flight a thread, which at serve_bulk's 262,144 bags
+// keeps the card's memory system busier than any form with more rows in
+// flight; PERF.md).  It counts the ids past the table apart (past,
+// branch-free).  The batched route adds in the same order with the same
+// expression (eb_batched_bag), so its sums equal this loop's bit for bit.
 template <typename T>
 __host__ __device__ inline float eb_bag_column(
     const T* table, int64_t V, int E, const int* idx, const float* w, int L,
@@ -123,6 +142,90 @@ __host__ __device__ inline float eb_bag_column(
       ++count;
     }
     past += r >= V;
+  }
+  const EbPart s = {sum, count + past, past};
+  return eb_finish(s, mean);
+}
+
+// The E = 1 batched route: one thread per bag, for batches too small to
+// give every SM many bags.  A thread reads its own row of ids,
+// EB_BATCH_ROWS at a time, then issues those ids' table loads, all in
+// flight before the first add, and adds in ascending id order with
+// eb_bag_column's expression, so that both give the same bits.
+//   vector path (eb_batched_vector_path): the ids as 16-byte loads of 4;
+//   scalar path: one id a load.
+// Either way a thread reads only its own bag's ids and weights.
+__host__ __device__ inline bool eb_batched_vector_path(uint64_t idx,
+                                                       uint64_t w, int L) {
+  return L % 4 == 0 && idx % 16 == 0 && w % 16 == 0;   // w: 0 if none
+}
+
+// Ids i0 .. i0 + EB_BATCH_ROWS - 1 of a bag's row (-1 past L).
+template <bool VEC>
+__host__ __device__ inline void eb_batched_ids(const int* id, int i0, int L,
+                                               int (&r)[EB_BATCH_ROWS]) {
+  if (VEC) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int h = 0; h < EB_BATCH_ROWS; h += 4) {   // L % 4 == 0
+      if (i0 + h < L) {
+#ifdef __CUDA_ARCH__
+        const int4 q = __ldg(reinterpret_cast<const int4*>(id + i0 + h));
+        r[h] = q.x, r[h + 1] = q.y, r[h + 2] = q.z, r[h + 3] = q.w;
+#else
+        EB_HOST_IDS(id + i0 + h, 4);
+        for (int j = 0; j < 4; ++j) r[h + j] = id[i0 + h + j];
+#endif
+      } else {
+        r[h] = r[h + 1] = r[h + 2] = r[h + 3] = -1;
+      }
+    }
+  } else {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int u = 0; u < EB_BATCH_ROWS; ++u) {
+      if (i0 + u < L) {
+#ifdef __CUDA_ARCH__
+        r[u] = __ldg(id + i0 + u);
+#else
+        EB_HOST_IDS(id + i0 + u, 1);
+        r[u] = id[i0 + u];
+#endif
+      } else {
+        r[u] = -1;
+      }
+    }
+  }
+}
+
+// One bag of the batched route (ids id[0 .. L), weights w or null).
+template <typename T, bool VEC>
+__host__ __device__ inline float eb_batched_bag(const T* table, int64_t V,
+                                                const int* id, const float* w,
+                                                int L, int mean) {
+  float sum = 0.0f;
+  int count = 0, past = 0;
+  for (int i0 = 0; i0 < L; i0 += EB_BATCH_ROWS) {
+    int r[EB_BATCH_ROWS];
+    float x[EB_BATCH_ROWS];
+    eb_batched_ids<VEC>(id, i0, L, r);
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int u = 0; u < EB_BATCH_ROWS; ++u)
+      x[u] = r[u] >= 0 && r[u] < V ? eb_load(table + r[u]) : 0.0f;
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int u = 0; u < EB_BATCH_ROWS; ++u) {   // ids past L are -1: no-ops
+      if (r[u] >= 0 && r[u] < V) {
+        sum += (w ? w[i0 + u] : 1.0f) * x[u];
+        ++count;
+      }
+      past += r[u] >= V;
+    }
   }
   const EbPart s = {sum, count + past, past};
   return eb_finish(s, mean);

@@ -1,47 +1,60 @@
-// Causal / bidirectional GQA flash attention (forward) for Hopper (sm_90a).
+// Causal / bidirectional GQA flash attention (forward) on the CUDA cores,
+// for Hopper (sm_90a): the fp32 route, and bf16 at the head dims the
+// tensor-core kernel (flash_attention_tc.cu) is not built for.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention/flash_attention.py, _kernel).
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), fp32 or bf16, contiguous;
-// query head h reads KV head h / (Hq / Hkv), and K/V are never repeated
-// in memory.  Causal rows see keys up to their position + Skv - Sq; keys
-// past Skv are masked; a row that sees no key gives 0.  Scores, the
-// softmax and the accumulator are fp32; the output has q's type.
+// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), fp32 or bf16, contiguous,
+// D <= 128; query head h reads KV head h / (Hq / Hkv), and K/V are never
+// repeated in memory.  Causal rows see keys up to their position + Skv -
+// Sq; keys past Skv are masked; a row that sees no key gives 0.  Scores,
+// the softmax and the accumulator are fp32; the output has q's type.
 //
-// What bounds it on an H100: operations.  At the LM path's shape
-// (Hq=32, Hkv=8, S=8192, D=128, causal, B=2) it does ~1.1 TFLOP, about
-// 1.1 ms at the 989 TFLOP/s bf16 tensor rate, against ~0.1 ms to move
-// q, k, v and o once at 3.35 TB/s.
+// What bounds it on an H100: operations, at the fp32 rate (67 TFLOP/s
+// outside the tensor cores; no tensor-core type keeps fp32's 2e-5
+// tolerance).  At the fp32 LM route's shape (B=2, Hq=32, Hkv=8, S=1024,
+// D=128, causal) it does 17.2 GFLOP, 0.26 ms at that rate, against
+// 0.03 ms to move q, k, v and o once at 3.35 TB/s.
 //
-// Design (simple and right first): one CTA of 256 threads per
-// (b * Hq, query tile of block_q <= 64 rows).  The TPU kernel's
-// sequential ("arbitrary") KV grid axis with VMEM scratch becomes a loop
-// inside the CTA over KV tiles of block_k <= 64 keys, staged in shared
-// memory as fp32; tiles wholly above the diagonal are never visited, and
-// the longest (last) query tiles are scheduled first.  Nothing carries
-// between CTAs.  Each thread owns 4 query rows (a group of 16 threads
-// shares them): a 4x4 block of the score tile and a 4x8 block of the
-// accumulator, with the running max and sum, all in registers; a row's
-// max and sum are reduced over its 16 threads with warp shuffles.  The
-// per-row update lives in flash_attention.cuh, which the CPU tests
-// compile with g++.
-//
-// What it leaves on the table: both products run on the fp32 CUDA cores
-// (67 TFLOP/s peak), not the tensor cores (wgmma / mma.sync on bf16,
-// ~15x the rate); tiles are loaded synchronously by every thread with no
-// cp.async or TMA pipeline, so load latency is not hidden; 118 KB of
-// shared memory leaves one CTA (8 warps) per SM.
+// Design: an SGEMM-like pair of products per K/V tile, fed from shared
+// memory so that the FMA units, not the loads, set the pace.  One CTA of
+// 256 threads (8 warps, one CTA an SM) per (b * Hq, tile of FA_BQ = 128
+// query rows), the longest (last) query tiles scheduled first; a loop
+// over K/V tiles of FA_BK = 64 keys, as the TPU kernel's sequential KV
+// grid axis, with the tiles wholly above the diagonal skipped.
+//   - Q (128 x D) is copied into shared memory once; K and V tiles come
+//     through a two-slot ring: tile j + 1 is copied while tile j is used.
+//     On the vector path (fp32, D % 4 == 0, 16-byte aligned q, k, v:
+//     fa_vector_path, chosen once per launch) the copies are 16-byte
+//     cp.async, zero-filled past the keys and rows; otherwise every
+//     thread loads through registers (bf16 converted to fp32).
+//   - Each thread owns an 8 x 4 micro-tile of S (8 rows, keys 16 apart)
+//     and an 8 x 8 micro-tile of O (flash_attention.cuh's fa_row, fa_key,
+//     fa_dcol): one 16-byte read of Q feeds 16 FMAs of S = Q K^T, and
+//     one of P or V feeds 32 of O += P V.
+//   - Online softmax in base 2 (flash_attention_tc.cuh's fatc_rescale,
+//     fatc_prob: the scale times log2(e) folded into one FMA before
+//     ex2), a row's max and sum over its 16 lanes by xor shuffles; masks
+//     only on tiles that cross the diagonal or the end of the keys.
+//   - P goes through shared memory, but only within a warp: a row's 16
+//     lanes are one half warp, and they alone write and read its P row.
+//     So one barrier a tile (the K/V ring's) is all the CTA shares; Q
+//     (unpadded: its reads are broadcasts), the ring and P take 226 KB.
+// The maps, the tile plan, the mask and the path choice are the
+// __host__ __device__ functions of flash_attention.cuh, which the CPU
+// tests replay thread by thread with g++.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_attention.cuh"
+#include "flash_attention_tc.cuh"
 
-#define FA_QK_STRIDE (FA_MAX_D + 4)  // sQ, sK row stride: float4 reads of
-                                     // 8 rows hit 32 distinct banks
-#define FA_P_STRIDE (FA_BK + 4)
+#define FA_K_STRIDE (FA_MAX_D + 4)  // sK row stride: 16-byte reads of 8
+                                    // key rows hit 8 distinct bank groups
+#define FA_K_SLOT (FA_BK * FA_K_STRIDE)
+#define FA_V_SLOT (FA_BK * FA_MAX_D)
 #define FA_SMEM_FLOATS \
-  ((FA_BQ + FA_BK) * FA_QK_STRIDE + FA_BK * FA_MAX_D + FA_BQ * FA_P_STRIDE)
+  (FA_BQ * FA_MAX_D + 2 * FA_K_SLOT + 2 * FA_V_SLOT + FA_BQ * FA_BK)
 
 __device__ __forceinline__ float fa_load(const float* p) { return *p; }
 __device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
@@ -52,22 +65,59 @@ __device__ __forceinline__ void fa_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
+// 16-byte asynchronous copy, zero-filled when `bytes` is 0.
+__device__ __forceinline__ void fa_cp16(float* dst, const void* src,
+                                        int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Rows [0, n) of a (rows x D) block at src into shared memory rows of
+// `stride` floats; rows at or past `valid` are zeros, and so are the
+// columns D .. (D + 3) & ~3 on the register path.
+template <typename T, bool VEC>
+__device__ __forceinline__ void fa_stage(float* dst, const T* src, int n,
+                                         int valid, int D, int stride) {
+  if (VEC) {
+    const int per = D / 4;
+    for (int u = threadIdx.x; u < n * per; u += FA_THREADS) {
+      const int r = u / per, c = 4 * (u - r * per);
+      const bool in = r < valid;
+      fa_cp16(dst + r * stride + c, in ? src + (int64_t)r * D + c : src,
+              in ? 16 : 0);
+    }
+  } else {
+    const int d4 = (D + 3) & ~3;
+    for (int u = threadIdx.x; u < n * d4; u += FA_THREADS) {
+      const int r = u / d4, c = u - r * d4;
+      dst[r * stride + c] =
+          r < valid && c < D ? fa_load(src + (int64_t)r * D + c) : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ void fa_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fa_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv, int Sq,
-    int Skv, int D, int bq, int bk, int causal, float scale) {
+    int Skv, int D, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                          // FA_BQ x FA_QK_STRIDE
-  float* sK = sQ + FA_BQ * FA_QK_STRIDE;     // FA_BK x FA_QK_STRIDE
-  float* sV = sK + FA_BK * FA_QK_STRIDE;     // FA_BK x FA_MAX_D
-  float* sP = sV + FA_BK * FA_MAX_D;         // FA_BQ x FA_P_STRIDE
+  float* sQ = smem;                      // FA_BQ x FA_MAX_D
+  float* sK = sQ + FA_BQ * FA_MAX_D;     // 2 slots of FA_BK x FA_K_STRIDE
+  float* sV = sK + 2 * FA_K_SLOT;        // 2 slots of FA_BK x FA_MAX_D
+  float* sP = sV + 2 * FA_V_SLOT;        // FA_BQ x FA_BK
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;   // row group: tile rows 4*ty .. 4*ty + 3
-  const int tx = tid & 15;   // score columns tx + 16 j; acc columns
-                             // 4 tx + e and 64 + 4 tx + e
-
+  const int tid = threadIdx.x, tx = tid & 15;
   const int bh = blockIdx.x;                        // b * Hq + h
   const int qt = gridDim.y - 1 - blockIdx.y;        // longest tiles first
   const int b = bh / Hq, h = bh % Hq;
@@ -77,118 +127,136 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   const T* vb = v + kv_head * Skv * D;
   T* ob = o + (int64_t)bh * Sq * D;
 
-  const int q0 = qt * bq;
-  const int rows = min(bq, Sq - q0);
+  const int q0 = qt * FA_BQ;
+  const int rows = min(FA_BQ, Sq - q0);
   const int offset = Skv - Sq;
-  const int kv_end = fa_kv_end(q0, rows, Skv, causal, offset);
-  const int d4 = (D + 3) & ~3;   // float4 steps; smem columns D..d4 are 0
+  const int n_tiles = fa_n_tiles(q0, rows, Skv, causal, offset);
+  const int d4 = (D + 3) & ~3;
+  const float sl2 = scale * FATC_LOG2E;
 
-  for (int e = tid; e < FA_BQ * d4; e += FA_THREADS) {
-    const int r = e / d4, c = e - r * d4;
-    sQ[r * FA_QK_STRIDE + c] =
-        (r < rows && c < D) ? fa_load(qb + (int64_t)(q0 + r) * D + c) : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][8];
+  float m[FA_ROWS], l[FA_ROWS], acc[FA_ROWS][FA_DCOLS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < FA_ROWS; ++i) {
     m[i] = fa_neg_inf();
     l[i] = 0.0f;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.0f;
+    for (int e = 0; e < FA_DCOLS; ++e) acc[i][e] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < kv_end; k0 += bk) {
-    const int keys = min(bk, Skv - k0);
-    __syncthreads();   // sQ staged; the last tile's sK, sV, sP reads done
-    for (int e = tid; e < FA_BK * d4; e += FA_THREADS) {
-      const int r = e / d4, c = e - r * d4;
-      const bool in = r < keys && c < D;
-      const int64_t g = (int64_t)(k0 + r) * D + c;
-      sK[r * FA_QK_STRIDE + c] = in ? fa_load(kb + g) : 0.0f;
-      sV[r * FA_MAX_D + c] = in ? fa_load(vb + g) : 0.0f;
-    }
-    __syncthreads();
+  if (n_tiles > 0) {
+    fa_stage<T, VEC>(sQ, qb + (int64_t)q0 * D, FA_BQ, rows, D, FA_MAX_D);
+    const int keys = min(FA_BK, Skv);
+    fa_stage<T, VEC>(sK, kb, FA_BK, keys, D, FA_K_STRIDE);
+    fa_stage<T, VEC>(sV, vb, FA_BK, keys, D, FA_MAX_D);
+    fa_commit();
+  }
 
-    float s[4][4];
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * FA_BK;
+    fa_wait_all();
+    // tile j is in its slot for every thread, and every thread is done
+    // with tile j - 1, whose slot takes tile j + 1
+    __syncthreads();
+    if (j + 1 < n_tiles) {
+      const int k1 = k0 + FA_BK, nxt = (j + 1) & 1;
+      const int keys = min(FA_BK, Skv - k1);
+      fa_stage<T, VEC>(sK + nxt * FA_K_SLOT, kb + (int64_t)k1 * D, FA_BK,
+                       keys, D, FA_K_STRIDE);
+      fa_stage<T, VEC>(sV + nxt * FA_V_SLOT, vb + (int64_t)k1 * D, FA_BK,
+                       keys, D, FA_MAX_D);
+      fa_commit();
+    }
+    const float* sKj = sK + (j & 1) * FA_K_SLOT;
+    const float* sVj = sV + (j & 1) * FA_V_SLOT;
+
+    // S = Q K^T over the thread's 8 x 4 micro-tile (raw dot products)
+    float s[FA_ROWS][FA_KEYS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < FA_ROWS; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int c = 0; c < FA_KEYS; ++c) s[i][c] = 0.0f;
 #pragma unroll 2
     for (int d = 0; d < d4; d += 4) {
-      float4 qv[4], kv[4];
+      float4 kv[FA_KEYS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(
-            &sQ[(4 * ty + i) * FA_QK_STRIDE + d]);
+      for (int c = 0; c < FA_KEYS; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(
+            &sKj[fa_key(tid, c) * FA_K_STRIDE + d]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(
-            &sK[(tx + 16 * j) * FA_QK_STRIDE + d]);
+      for (int i = 0; i < FA_ROWS; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            &sQ[fa_row(tid, i) * FA_MAX_D + d]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
+        for (int c = 0; c < FA_KEYS; ++c) {
+          float a = s[i][c];
+          a = fmaf(qv.x, kv[c].x, a);
+          a = fmaf(qv.y, kv[c].y, a);
+          a = fmaf(qv.z, kv[c].z, a);
+          a = fmaf(qv.w, kv[c].w, a);
+          s[i][c] = a;
         }
+      }
     }
 
-    // Online softmax, one row at a time; the 16 threads of a row group
-    // are 16 consecutive lanes of one warp, so xor shuffles of 8..1 stay
-    // inside the group.
+    // Online softmax, row by row; a row's 16 lanes are one half warp,
+    // so xor shuffles of 8 .. 1 stay inside it.
+    const bool masked = fa_tile_needs_mask(k0, q0, Skv, causal, offset);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
+    for (int i = 0; i < FA_ROWS; ++i) {
       float mc = fa_neg_inf();
+      if (masked) {
+        const int lim =
+            fatc_row_limit(q0 + fa_row(tid, i), k0, Skv, causal, offset);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool vis = r < rows && c < keys &&
-                         fa_visible(q0 + r, k0 + c, Skv, causal, offset);
-        s[i][j] = fa_score(s[i][j], scale, vis);
-        mc = fmaxf(mc, s[i][j]);
+        for (int c = 0; c < FA_KEYS; ++c)
+          s[i][c] = fatc_score(s[i][c], fa_key(tid, c) < lim);
       }
+#pragma unroll
+      for (int c = 0; c < FA_KEYS; ++c) mc = fmaxf(mc, s[i][c]);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         mc = fmaxf(mc, __shfl_xor_sync(0xFFFFFFFFu, mc, off));
-      const FaRescale rs = fa_rescale(m[i], mc);
+      const FatcRescale rs = fatc_rescale(m[i], mc, sl2);
       float ps = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = fa_prob(s[i][j], rs.m_safe);
-        sP[r * FA_P_STRIDE + tx + 16 * j] = p;
-        ps += p;
+      for (int c = 0; c < FA_KEYS; ++c) {
+        s[i][c] = fatc_prob(s[i][c], rs.m_neg, sl2);
+        ps += s[i][c];
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         ps += __shfl_xor_sync(0xFFFFFFFFu, ps, off);
       l[i] = rs.alpha * l[i] + ps;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= rs.alpha;
+      for (int e = 0; e < FA_DCOLS; ++e) acc[i][e] *= rs.alpha;
       m[i] = rs.m_new;
     }
-    __syncthreads();
-
-    const int keys4 = (keys + 3) & ~3;   // P is 0 and V rows are 0 past keys
-    for (int kk = 0; kk < keys4; kk += 4) {
-      float4 p4[4];
+    // P's rows: written and read by the same half warp (the last tile's
+    // reads of them came before these writes in every lane's order)
+    __syncwarp();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < FA_ROWS; ++i)
+#pragma unroll
+      for (int c = 0; c < FA_KEYS; ++c)
+        sP[fa_row(tid, i) * FA_BK + fa_key(tid, c)] = s[i][c];
+    __syncwarp();
+
+    // O += P V over the thread's 8 x 8 micro-tile; past the keys P is 0
+    // and the V rows are zeros.
+#pragma unroll 2
+    for (int kk = 0; kk < FA_BK; kk += 4) {
+      float4 p4[FA_ROWS];
+#pragma unroll
+      for (int i = 0; i < FA_ROWS; ++i)
         p4[i] = *reinterpret_cast<const float4*>(
-            &sP[(4 * ty + i) * FA_P_STRIDE + kk]);
+            &sP[fa_row(tid, i) * FA_BK + kk]);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const float* vrow = &sV[(kk + t) * FA_MAX_D];
-        const float4 va = *reinterpret_cast<const float4*>(&vrow[4 * tx]);
-        const float4 vc = *reinterpret_cast<const float4*>(&vrow[64 + 4 * tx]);
+        const float* vrow = &sVj[(kk + t) * FA_MAX_D];
+        const float4 va = *reinterpret_cast<const float4*>(&vrow[fa_dcol(tid, 0)]);
+        const float4 vc = *reinterpret_cast<const float4*>(&vrow[fa_dcol(tid, 4)]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < FA_ROWS; ++i) {
           const float p = t == 0 ? p4[i].x
                         : t == 1 ? p4[i].y
                         : t == 2 ? p4[i].z
@@ -207,31 +275,31 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
+  for (int i = 0; i < FA_ROWS; ++i) {
+    const int r = fa_row(tid, i);
     if (r >= rows) continue;
     T* orow = ob + (int64_t)(q0 + r) * D;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = (jj < 4 ? 4 * tx : 64 + 4 * tx - 4) + jj;
-      if (col < D) fa_store(orow + col, fa_finalize(acc[i][jj], l[i]));
+    for (int e = 0; e < FA_DCOLS; ++e) {
+      const int col = fa_dcol(tid, e);
+      if (col < D) fa_store(orow + col, fa_finalize(acc[i][e], l[i]));
     }
   }
 }
 
-template <typename T>
+template <typename T, bool VEC>
 static int fa_launch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Hq, int Hkv, int Sq, int Skv, int D, int bq,
-                     int bk, int causal, float scale, cudaStream_t stream) {
+                     int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                     int causal, float scale, cudaStream_t stream) {
   const int smem = FA_SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_attention_kernel<T, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + bq - 1) / bq));
-  flash_attention_kernel<T><<<grid, FA_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Sq, Skv, D, bq,
-      bk, causal, scale);
+  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + FA_BQ - 1) / FA_BQ));
+  flash_attention_kernel<T, VEC><<<grid, FA_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Sq, Skv, D,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -240,12 +308,15 @@ static int fa_launch(const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int Hq, int Hkv, int Sq,
-                                      int Skv, int D, int bq, int bk,
-                                      int causal, float scale,
+                                      int Skv, int D, int causal, float scale,
                                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return fa_launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, bq,
-                                    bk, causal, scale, (cudaStream_t)stream);
-  return fa_launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, bq, bk, causal,
-                          scale, (cudaStream_t)stream);
+    return fa_launch<__nv_bfloat16, false>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                           D, causal, scale, st);
+  if (fa_vector_path(1, D, (uint64_t)q, (uint64_t)k, (uint64_t)v))
+    return fa_launch<float, true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+                                  scale, st);
+  return fa_launch<float, false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+                                 scale, st);
 }

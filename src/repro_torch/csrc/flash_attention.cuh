@@ -1,10 +1,14 @@
-// Per-row online-softmax update of the flash-attention kernel.
+// Per-row online-softmax update of the attention kernels, and the tile
+// plan and register micro-tiles of the CUDA-core flash-attention kernel.
 //
-// Shared by the CUDA kernel (flash_attention.cu) and by a host harness
-// built with g++ in the CPU tests, so masking, rescaling, the guards of
-// fully masked rows and finalisation are checked on a machine without
-// a GPU.  Only the launch, the shared-memory staging and the reductions
-// across the threads that share a row stay CUDA-only.
+// Shared by the CUDA kernels (flash_attention.cu; the row functions also
+// by the tensor-core and decode kernels) and by host harnesses built
+// with g++ in the CPU tests, so masking, rescaling, the guards of fully
+// masked rows, finalisation, the ownership of every score and output
+// element and the choice of the staging path are checked on a machine
+// without a GPU.  Only the launch, the copies into shared memory, the
+// barriers and the reductions across the threads that share a row stay
+// CUDA-only.
 //
 // One query row's state over the KV tiles it visits: the running max m
 // (-inf until a key is seen), the running sum l and the fp32
@@ -27,10 +31,15 @@
 #define __device__
 #endif
 
-#define FA_BQ 64          // query rows of a CTA's tile (largest block_q)
-#define FA_BK 64          // keys of a KV tile (largest block_k)
+#include <stdint.h>
+
+#define FA_BQ 128         // query rows of a CUDA-core kernel's CTA
+#define FA_BK 64          // keys of a K/V tile
 #define FA_MAX_D 128      // largest head dim
 #define FA_THREADS 256    // 16 row groups x 16 lanes
+#define FA_ROWS 8         // query rows of a thread (of S and of O)
+#define FA_KEYS 4         // S columns of a thread, per row
+#define FA_DCOLS 8        // O columns of a thread, per row
 
 __host__ __device__ inline bool fa_finite(float x) {
 #ifdef __CUDA_ARCH__
@@ -93,4 +102,46 @@ __host__ __device__ inline float fa_prob(float s, float m_safe) {
 
 __host__ __device__ inline float fa_finalize(float acc, float l) {
   return acc / (l == 0.0f ? 1.0f : l);
+}
+
+// The CUDA-core kernel's register micro-tiles.  Thread t of a CTA: its
+// row group t / 16 owns query rows 8 (t / 16) .. + 7 of the tile, in S
+// and in O, so a row's max and sum reduce over the 16 lanes of one half
+// warp; lane t % 16 owns the tile's keys t % 16 + 16 j (j < FA_KEYS) of
+// S, 16 apart so that eight lanes reading 16 bytes of eight key rows hit
+// eight bank groups, and the head-dim columns 4 (t % 16) + e and
+// 64 + 4 (t % 16) + e (e < 4) of O, two 16-byte reads of a V row.
+__host__ __device__ inline int fa_row(int t, int i) {
+  return FA_ROWS * (t >> 4) + i;
+}
+
+__host__ __device__ inline int fa_key(int t, int j) { return (t & 15) + 16 * j; }
+
+__host__ __device__ inline int fa_dcol(int t, int e) {
+  return (e < 4 ? 0 : 64) + 4 * (t & 15) + (e & 3);
+}
+
+// K/V tiles a CTA of query rows [q0, q0 + rows) visits.
+__host__ __device__ inline int fa_n_tiles(int q0, int rows, int kv_len,
+                                          int causal, int offset) {
+  const int end = fa_kv_end(q0, rows, kv_len, causal, offset);
+  return end <= 0 ? 0 : (end + FA_BK - 1) / FA_BK;
+}
+
+// Does the tile of keys [k0, k0 + FA_BK) need the per-element mask for a
+// CTA whose first row is q0?  Only if it runs past the keys or, when
+// causal, past the diagonal of that row, the one that sees fewest keys.
+__host__ __device__ inline bool fa_tile_needs_mask(int k0, int q0,
+                                                   int kv_len, int causal,
+                                                   int offset) {
+  return k0 + FA_BK > kv_len || (causal && k0 + FA_BK - 1 > q0 + offset);
+}
+
+// The launch's one choice of staging path: 16-byte cp.async copies of
+// fp32 rows straight into shared memory where D % 4 == 0 and q, k, v are
+// 16-byte aligned; loads through registers (bf16 converted to fp32, any
+// D) otherwise.
+__host__ __device__ inline bool fa_vector_path(int fp32, int D, uint64_t q,
+                                               uint64_t k, uint64_t v) {
+  return fp32 && D % 4 == 0 && q % 16 == 0 && k % 16 == 0 && v % 16 == 0;
 }

@@ -21,10 +21,13 @@ from repro_torch.kernels.native import NativeKernel
 from .ref import embedding_bag_ref
 
 __all__ = ["embedding_bag", "embedding_bag_kernel", "bag_route",
-           "EMBEDDING_BAG_KERNEL", "EMBEDDING_BAG_LANES_KERNEL"]
+           "EMBEDDING_BAG_KERNEL", "EMBEDDING_BAG_LANES_KERNEL",
+           "LANE_BAGS_PER_SM", "BATCHED_BAGS_PER_SM"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"sum": 0, "mean": 1}
+
+_ROUTES = {"column": 0, "warp": 1, "batched": 2}   # embedding_bag_launch's
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 EMBEDDING_BAG_KERNEL = NativeKernel(
@@ -32,7 +35,7 @@ EMBEDDING_BAG_KERNEL = NativeKernel(
     source="embedding_bag.cu",
     headers=("embedding_bag.cuh",),
     symbol="embedding_bag_launch",
-    argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P],
 )
 # The E = 1 lane route: the same source, its own entry point and count.
 EMBEDDING_BAG_LANES_KERNEL = NativeKernel(
@@ -42,11 +45,13 @@ EMBEDDING_BAG_LANES_KERNEL = NativeKernel(
     symbol="embedding_bag_lanes_launch",
     argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
 )
-# The E = 1 lane route takes batches of up to this many bags per SM: at
-# L = 40 on the H100 it is the faster route up to about here, the column
-# route past it (chip_smoke.py phase 2 times both at 512 bags, at this
-# edge and at 262,144; PERF.md).
-LANE_BAGS_PER_SM = 192
+# The E = 1 routes by bags per SM: the lane route up to LANE_BAGS_PER_SM,
+# the batched route up to BATCHED_BAGS_PER_SM, the column route past it.
+# At L = 40 on the H100 each is the fastest of the three about there
+# (chip_smoke.py phase 2 times all three at half, once and twice each
+# edge, at 512 bags and at 262,144; PERF.md).
+LANE_BAGS_PER_SM = 96
+BATCHED_BAGS_PER_SM = 256
 
 
 def bag_route(b: int, e: int, sms: int) -> str:
@@ -54,13 +59,17 @@ def bag_route(b: int, e: int, sms: int) -> str:
     "warp" for E > 1 (``EMBEDDING_BAG_KERNEL``); for E = 1, "lanes" (a
     group of lanes per bag, ``EMBEDDING_BAG_LANES_KERNEL``) up to
     ``LANE_BAGS_PER_SM`` bags per SM, where one thread per bag would
-    leave most SMs with few bags and each thread with ~L/8 dependent
-    rounds of loads, and "column" (one thread per bag,
-    ``EMBEDDING_BAG_KERNEL``) past it, where every SM holds many bags in
-    flight."""
+    leave each SM few threads, each with ~L/8 dependent rounds of loads;
+    "batched" (one thread per bag, 8 row loads in flight,
+    ``EMBEDDING_BAG_KERNEL``) up to ``BATCHED_BAGS_PER_SM``; "column"
+    (one thread per bag, one row load in flight, ``EMBEDDING_BAG_KERNEL``)
+    past it, where the SMs hold so many bags that more loads in flight
+    only slow the memory system."""
     if e != 1:
         return "warp"
-    return "lanes" if b <= LANE_BAGS_PER_SM * sms else "column"
+    if b <= LANE_BAGS_PER_SM * sms:
+        return "lanes"
+    return "batched" if b <= BATCHED_BAGS_PER_SM * sms else "column"
 
 
 def _check(table, indices, weights, mode):
@@ -113,17 +122,21 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         sms = torch.cuda.get_device_properties(table.device).multi_processor_count
-        if bag_route(b, e, sms) == "lanes":
+        route = bag_route(b, e, sms)
+        if route == "lanes":
             EMBEDDING_BAG_LANES_KERNEL.launch(
                 table.data_ptr(), indices.data_ptr(),
                 None if weights is None else weights.data_ptr(),
                 out.data_ptr(), _DTYPES[table.dtype], v, b, l, _MODES[mode],
                 stream)
             return out
+        if route != "warp" and e != 1:
+            raise ValueError(f"the {route} route takes E = 1, not {e}")
         EMBEDDING_BAG_KERNEL.launch(
             table.data_ptr(), indices.data_ptr(),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
-            _DTYPES[table.dtype], v, b, l, e, _MODES[mode], stream)
+            _DTYPES[table.dtype], v, b, l, e, _MODES[mode], _ROUTES[route],
+            stream)
     return out
 
 

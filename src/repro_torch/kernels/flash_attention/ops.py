@@ -27,8 +27,9 @@ __all__ = ["flash_attention", "FLASH_ATTENTION_KERNEL",
            "FLASH_ATTENTION_TC_KERNEL", "MAX_BLOCK", "MAX_HEAD_DIM",
            "TC_HEAD_DIMS", "tensor_core_route"]
 
-MAX_BLOCK = 64         # FA_BQ / FA_BK in csrc/flash_attention.cuh
+MAX_BLOCK = 64         # the largest block_q / block_k the wrapper takes
 MAX_HEAD_DIM = 128     # FA_MAX_D
+CC_BLOCK = csrc_define("flash_attention.cuh", "FA_BQ")   # CUDA-core tile rows
 TC_HEAD_DIMS = (64, 128)   # the head dims flash_attention_tc.cu is built for
 TC_BLOCK = csrc_define("flash_attention_tc.cuh", "FATC_BQ")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,9 +38,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 FLASH_ATTENTION_KERNEL = NativeKernel(
     name="flash_attention",
     source="flash_attention.cu",
-    headers=("flash_attention.cuh",),
+    headers=("flash_attention.cuh", "flash_attention_tc.cuh"),
     symbol="flash_attention_launch",
-    argtypes=[_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    argtypes=[_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
               ctypes.c_float, _P],
 )
 FLASH_ATTENTION_TC_KERNEL = NativeKernel(
@@ -90,15 +91,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``tensor_core_route``): bf16 with D in ``TC_HEAD_DIMS`` launches
     ``FLASH_ATTENTION_TC_KERNEL`` (wgmma on 128 x 128 tiles fed by TMA;
     P is rounded to bf16 before P V), everything else
-    ``FLASH_ATTENTION_KERNEL``.  If the chosen kernel fails to build or
-    to launch, the call raises; nothing tries the other kernel.
+    ``FLASH_ATTENTION_KERNEL`` (CUDA cores, 128 x 64 tiles through a
+    cp.async ring on fp32 rows of 16-byte multiples, register loads
+    otherwise).  If the chosen kernel fails to build or to launch, the
+    call raises; nothing tries the other kernel.
 
     The blocks are validated as the reference chooses them: ``block_q``
     (``block_k``) shrunk to the next power of two >= 8 above Sq (Skv),
-    at most ``MAX_BLOCK`` each.  They set the tiles of the CUDA-core
-    kernel (a CTA takes one query block and loops over key blocks); the
-    tensor-core kernel's tiles are fixed at 128 x 128 and do not follow
-    them.  The result does not depend on the blocks."""
+    at most ``MAX_BLOCK`` each.  Neither kernel's tiles follow them, and
+    the result does not depend on them."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -125,12 +126,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 hq, hkv, sq, skv, d, int(causal), d ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
         return out
-    if cdiv(sq, bq) > 65535:
-        raise ValueError(f"Sq={sq} needs more than 65535 query blocks")
+    if cdiv(sq, CC_BLOCK) > 65535:
+        raise ValueError(f"Sq={sq} needs more than 65535 query tiles")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         FLASH_ATTENTION_KERNEL.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, skv, d, bq, bk, int(causal),
+            _DTYPES[q.dtype], b, hq, hkv, sq, skv, d, int(causal),
             d ** -0.5, stream)
     return out

@@ -101,77 +101,172 @@ def test_wrapper_rejects_unsupported_inputs():
 
 _HARNESS = r"""
 #include <vector>
-#include "flash_attention.cuh"
-// Host replay of the CUDA kernel's tiles: per (b*Hq, query block) the
-// same kv_end, per row the same per-tile update; the sums that the
-// kernel reduces across threads are plain loops here.
+#include "flash_attention_tc.cuh"
+// Host replay of the CUDA-core kernel (csrc/flash_attention.cu): per
+// (b * Hq, tile of FA_BQ query rows) the same tile plan, and per K/V tile
+// the shared-memory tiles (zeros past the rows, keys and D), every
+// thread's 8 x 4 S micro-tile and 8 x 8 O micro-tile through fa_row,
+// fa_key and fa_dcol, the masks of the tiles that need them, the base-2
+// online softmax, a row's max and sum over its 16 lanes in the
+// shuffles' xor order (8, 4, 2, 1), P through its shared-memory tile,
+// and 1/l at the end.
 extern "C" void fa_host(const float* q, const float* k, const float* v,
                         float* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                        int D, int bq, int bk, int causal, float scale) {
-  const int offset = Skv - Sq;
-  std::vector<float> s(bk), acc(D);
+                        int D, int causal, float scale) {
+  const int T = FA_THREADS, offset = Skv - Sq;
+  const float sl2 = scale * FATC_LOG2E;
+  std::vector<float> sQ(FA_BQ * FA_MAX_D), sK(FA_BK * FA_MAX_D),
+      sV(FA_BK * FA_MAX_D), sP(FA_BQ * FA_BK);
+  std::vector<float> acc(T * FA_ROWS * FA_DCOLS), m(T * FA_ROWS),
+      l(T * FA_ROWS), s(T * FA_ROWS * FA_KEYS), x(T), y(T), alpha(T),
+      m_neg(T);
   for (int bh = 0; bh < B * Hq; ++bh) {
-    const int b = bh / Hq, h = bh % Hq;
-    const long kvh = (long)b * Hkv + h / (Hq / Hkv);
-    for (int q0 = 0; q0 < Sq; q0 += bq) {
-      const int rows = bq < Sq - q0 ? bq : Sq - q0;
-      const int kv_end = fa_kv_end(q0, rows, Skv, causal, offset);
-      for (int r = 0; r < rows; ++r) {
-        const int qpos = q0 + r;
-        const float* qr = q + ((long)bh * Sq + qpos) * D;
-        float m = fa_neg_inf(), l = 0.0f;
-        for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-        for (int k0 = 0; k0 < kv_end; k0 += bk) {
-          const int keys = bk < Skv - k0 ? bk : Skv - k0;
-          float mc = fa_neg_inf();
-          for (int j = 0; j < keys; ++j) {
-            const float* kr = k + (kvh * Skv + k0 + j) * D;
-            float dot = 0.0f;
-            for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
-            s[j] = fa_score(dot, scale,
-                            fa_visible(qpos, k0 + j, Skv, causal, offset));
-            mc = s[j] > mc ? s[j] : mc;
+    const long kvh = (long)(bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+    for (int q0 = 0; q0 < Sq; q0 += FA_BQ) {
+      const int rows = FA_BQ < Sq - q0 ? FA_BQ : Sq - q0;
+      const int n_tiles = fa_n_tiles(q0, rows, Skv, causal, offset);
+      std::fill(acc.begin(), acc.end(), 0.0f);
+      std::fill(m.begin(), m.end(), fa_neg_inf());
+      std::fill(l.begin(), l.end(), 0.0f);
+      for (int r = 0; r < FA_BQ; ++r)
+        for (int c = 0; c < FA_MAX_D; ++c)
+          sQ[r * FA_MAX_D + c] =
+              r < rows && c < D ? q[((long)bh * Sq + q0 + r) * D + c] : 0.0f;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int k0 = j * FA_BK;
+        const int keys = FA_BK < Skv - k0 ? FA_BK : Skv - k0;
+        for (int r = 0; r < FA_BK; ++r)
+          for (int c = 0; c < FA_MAX_D; ++c) {
+            const bool in = r < keys && c < D;
+            const long g = (kvh * Skv + k0 + r) * D + c;
+            sK[r * FA_MAX_D + c] = in ? k[g] : 0.0f;
+            sV[r * FA_MAX_D + c] = in ? v[g] : 0.0f;
           }
-          const FaRescale rs = fa_rescale(m, mc);
-          float ps = 0.0f;
-          for (int j = 0; j < keys; ++j) {
-            s[j] = fa_prob(s[j], rs.m_safe);
-            ps += s[j];
+        for (int t = 0; t < T; ++t)
+          for (int i = 0; i < FA_ROWS; ++i)
+            for (int c = 0; c < FA_KEYS; ++c) {
+              float a = 0.0f;
+              for (int d = 0; d < D; ++d)
+                a += sQ[fa_row(t, i) * FA_MAX_D + d] *
+                     sK[fa_key(t, c) * FA_MAX_D + d];
+              s[(t * FA_ROWS + i) * FA_KEYS + c] = a;
+            }
+        const bool masked = fa_tile_needs_mask(k0, q0, Skv, causal, offset);
+        for (int i = 0; i < FA_ROWS; ++i) {
+          for (int t = 0; t < T; ++t) {
+            float* st = &s[(t * FA_ROWS + i) * FA_KEYS];
+            float mc = fa_neg_inf();
+            const int lim = fatc_row_limit(q0 + fa_row(t, i), k0, Skv,
+                                           causal, offset);
+            for (int c = 0; c < FA_KEYS; ++c) {
+              if (masked) st[c] = fatc_score(st[c], fa_key(t, c) < lim);
+              mc = st[c] > mc ? st[c] : mc;
+            }
+            x[t] = mc;
           }
-          l = rs.alpha * l + ps;
-          for (int d = 0; d < D; ++d) {
-            float a = rs.alpha * acc[d];
-            for (int j = 0; j < keys; ++j)
-              a += s[j] * v[(kvh * Skv + k0 + j) * D + d];
-            acc[d] = a;
+          for (int off = 8; off > 0; off >>= 1) {
+            y = x;
+            for (int t = 0; t < T; ++t)
+              x[t] = y[t] > y[t ^ off] ? y[t] : y[t ^ off];
           }
-          m = rs.m_new;
+          for (int t = 0; t < T; ++t) {
+            const FatcRescale rs = fatc_rescale(m[t * FA_ROWS + i], x[t], sl2);
+            m[t * FA_ROWS + i] = rs.m_new;
+            m_neg[t] = rs.m_neg;
+            alpha[t] = rs.alpha;
+            float* st = &s[(t * FA_ROWS + i) * FA_KEYS];
+            float ps = 0.0f;
+            for (int c = 0; c < FA_KEYS; ++c) {
+              st[c] = fatc_prob(st[c], m_neg[t], sl2);
+              ps += st[c];
+            }
+            x[t] = ps;
+          }
+          for (int off = 8; off > 0; off >>= 1) {
+            y = x;
+            for (int t = 0; t < T; ++t) x[t] = y[t] + y[t ^ off];
+          }
+          for (int t = 0; t < T; ++t) {
+            l[t * FA_ROWS + i] = alpha[t] * l[t * FA_ROWS + i] + x[t];
+            for (int e = 0; e < FA_DCOLS; ++e)
+              acc[(t * FA_ROWS + i) * FA_DCOLS + e] *= alpha[t];
+          }
         }
-        float* orow = o + ((long)bh * Sq + qpos) * D;
-        for (int d = 0; d < D; ++d) orow[d] = fa_finalize(acc[d], l);
+        for (int t = 0; t < T; ++t)
+          for (int i = 0; i < FA_ROWS; ++i)
+            for (int c = 0; c < FA_KEYS; ++c)
+              sP[fa_row(t, i) * FA_BK + fa_key(t, c)] =
+                  s[(t * FA_ROWS + i) * FA_KEYS + c];
+        for (int t = 0; t < T; ++t)
+          for (int i = 0; i < FA_ROWS; ++i)
+            for (int e = 0; e < FA_DCOLS; ++e) {
+              float a = acc[(t * FA_ROWS + i) * FA_DCOLS + e];
+              for (int kk = 0; kk < FA_BK; ++kk)
+                a += sP[fa_row(t, i) * FA_BK + kk] *
+                     sV[kk * FA_MAX_D + fa_dcol(t, e)];
+              acc[(t * FA_ROWS + i) * FA_DCOLS + e] = a;
+            }
       }
+      for (int t = 0; t < T; ++t)
+        for (int i = 0; i < FA_ROWS; ++i)
+          for (int e = 0; e < FA_DCOLS; ++e) {
+            const int r = fa_row(t, i), col = fa_dcol(t, e);
+            if (r < rows && col < D)
+              o[((long)bh * Sq + q0 + r) * D + col] = fa_finalize(
+                  acc[(t * FA_ROWS + i) * FA_DCOLS + e], l[t * FA_ROWS + i]);
+          }
     }
   }
+}
+
+// The micro-tile maps of every thread: S (row, key) and O (row, column).
+extern "C" void fa_maps(int* s_rows, int* s_keys, int* o_cols) {
+  for (int t = 0; t < FA_THREADS; ++t) {
+    for (int i = 0; i < FA_ROWS; ++i) s_rows[t * FA_ROWS + i] = fa_row(t, i);
+    for (int c = 0; c < FA_KEYS; ++c) s_keys[t * FA_KEYS + c] = fa_key(t, c);
+    for (int e = 0; e < FA_DCOLS; ++e) o_cols[t * FA_DCOLS + e] = fa_dcol(t, e);
+  }
+}
+
+extern "C" int fa_path(int fp32, int D, unsigned long q, unsigned long k,
+                       unsigned long v) {
+  return fa_vector_path(fp32, D, q, k, v);
+}
+
+extern "C" int fa_tiles(int q0, int rows, int kv_len, int causal,
+                        int offset) {
+  return fa_n_tiles(q0, rows, kv_len, causal, offset);
 }
 """
 
 
 @pytest.fixture(scope="module")
-def host_update(tmp_path_factory):
+def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ is not on PATH: the per-row update is not checked")
+        pytest.skip("g++ is not on PATH: the CUDA-core kernel is not checked")
     d = tmp_path_factory.mktemp("fa_host")
     (d / "harness.cpp").write_text(_HARNESS)
     lib = d / "libfa_host.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-w",
                     "-I", str(CSRC_DIR), "-o", str(lib), str(d / "harness.cpp")],
                    check=True)
-    fn = ctypes.CDLL(str(lib)).fa_host
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P] + [I] * 9 + [ctypes.c_float]
-    fn.restype = None
-    return fn
+    lib = ctypes.CDLL(str(lib))
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulong
+    lib.fa_host.argtypes = [P, P, P, P] + [I] * 7 + [ctypes.c_float]
+    lib.fa_host.restype = None
+    lib.fa_maps.argtypes = [P, P, P]
+    lib.fa_maps.restype = None
+    lib.fa_path.argtypes = [I, I, U, U, U]
+    lib.fa_path.restype = I
+    lib.fa_tiles.argtypes = [I] * 5
+    lib.fa_tiles.restype = I
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_update(host_lib):
+    return host_lib.fa_host
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,bq,bk", [
@@ -180,21 +275,84 @@ def host_update(tmp_path_factory):
     (1, 2, 2, 48, 130, 40, False, 32, 64),    # bidirectional, ragged keys
     (1, 4, 2, 80, 40, 16, True, 64, 32),      # rows 0..39 fully masked
     (1, 2, 1, 5, 1, 8, True, 8, 8),           # one key; rows 0..3 masked
+    (1, 4, 2, 256, 256, 96, True, 64, 64),    # 2 query tiles, 4 key tiles
+    (1, 2, 2, 256, 256, 128, True, 64, 64),   # the fp32 LM route's D
 ])
 def test_host_update_matches_plain(host_update, b, hq, hkv, sq, skv, d,
                                    causal, bq, bk):
-    """The kernel's per-row online softmax (csrc/flash_attention.cuh),
-    built by g++ and run tile by tile, against the plain version; fp32
-    on both sides, 2e-5 as above."""
+    """The CUDA-core kernel (csrc/flash_attention.cu), its tile plan,
+    micro-tiles, masks and base-2 online softmax built by g++ and replayed
+    thread by thread, against the plain version; fp32 on both sides, 2e-5
+    as above.  ``bq`` and ``bk`` are blocks the wrapper takes: the kernel's
+    tiles do not follow them, and the wrapper's result with them is the
+    same plain version."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(7 + sq, b, hq, hkv, sq, skv, d))
-    out = torch.empty_like(q)
+    out = torch.full_like(q, float("nan"))
     host_update(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, skv, d, bq, bk, int(causal), d ** -0.5)
+                b, hq, hkv, sq, skv, d, int(causal), d ** -0.5)
     want = attention_ref(q, k, v, causal=causal)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk), want,
+        atol=0, rtol=0)
     masked = max(sq - skv, 0) if causal else 0
     assert (out[:, :, :masked] == 0).all()
+
+
+def test_host_micro_tiles_own_each_element_once(host_lib):
+    """Every element of a CTA's 128 x 64 S tile and 128 x 128 O tile has
+    exactly one owning thread; a row's S owners are the 16 lanes of one
+    half warp, the same threads that own the row in O, so a row's max and
+    sum reduce by xor shuffles of 8 .. 1 inside that half warp."""
+    t_n, rows_n, keys_n, cols_n = 256, 8, 4, 8
+    s_rows = np.zeros((t_n, rows_n), np.int32)
+    s_keys = np.zeros((t_n, keys_n), np.int32)
+    o_cols = np.zeros((t_n, cols_n), np.int32)
+    host_lib.fa_maps(s_rows.ctypes.data, s_keys.ctypes.data,
+                     o_cols.ctypes.data)
+    s_own = np.zeros((128, 64), np.int32)
+    o_own = np.zeros((128, 128), np.int32)
+    for t in range(t_n):
+        for r in s_rows[t]:
+            s_own[r, s_keys[t]] += 1
+            o_own[r, o_cols[t]] += 1
+    assert (s_own == 1).all() and (o_own == 1).all()
+    for r in range(128):
+        owners = np.nonzero((s_rows == r).any(1))[0]
+        assert len(owners) == 16 and owners[0] % 16 == 0
+        assert (owners == owners[0] + np.arange(16)).all()
+    # 16-byte reads: a thread's O columns come in two runs of 4
+    assert (o_cols[:, :4] % 4 == np.arange(4)).all()
+    assert (o_cols[:, 4:] - o_cols[:, :4] == 64).all()
+
+
+@pytest.mark.parametrize("sq,skv,causal,want", [
+    (1024, 1024, True, [2, 4, 6, 8, 10, 12, 14, 16]),
+    (300, 300, True, [2, 4, 5]),
+    (80, 40, True, [1]),          # the first 40 rows see no key
+    (200, 70, True, [0, 2]),      # the first tile (rows 0..127) sees none
+    (100, 200, False, [4]),
+])
+def test_host_tile_plan(host_lib, sq, skv, causal, want):
+    """K/V tiles of 64 keys each 128-row query tile visits: up to the
+    diagonal of its last row (causal, offset Skv - Sq), or all of them."""
+    got = [host_lib.fa_tiles(q0, min(128, sq - q0), skv, int(causal),
+                             skv - sq) for q0 in range(0, sq, 128)]
+    assert got == want
+
+
+@pytest.mark.parametrize("fp32,d,offsets,want", [
+    (1, 128, (0, 0, 0), 1), (1, 40, (0, 0, 0), 1), (1, 8, (0, 0, 0), 1),
+    (1, 33, (0, 0, 0), 0), (1, 128, (4, 0, 0), 0), (1, 128, (0, 0, 8), 0),
+    (0, 128, (0, 0, 0), 0), (0, 96, (0, 0, 0), 0),
+])
+def test_host_vector_path_choice(host_lib, fp32, d, offsets, want):
+    """The launch copies rows by 16-byte cp.async only for fp32 with
+    D % 4 == 0 and q, k, v 16-byte aligned; everything else (bf16, odd D,
+    a view off 16 bytes) loads through registers."""
+    base = 1 << 20
+    assert host_lib.fa_path(fp32, d, *(base + o for o in offsets)) == want
 
 
 # ---------------------------------------------------------------------

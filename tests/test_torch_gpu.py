@@ -15,6 +15,7 @@ one launch of the kernel its route names (decode: ``tensor_core_route``;
 bag: ``bag_route``) and none of the other.
 """
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -35,7 +36,9 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.embedding_bag import (
     EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL, bag_route, embedding_bag,
     embedding_bag_ref)
-from repro_torch.kernels.embedding_bag.ops import LANE_BAGS_PER_SM
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag.ops import (BATCHED_BAGS_PER_SM,
+                                                   LANE_BAGS_PER_SM)
 from repro_torch.kernels.flash_attention import (
     FLASH_ATTENTION_KERNEL, FLASH_ATTENTION_TC_KERNEL, attention_ref,
     flash_attention, tensor_core_route)
@@ -291,6 +294,40 @@ def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     masked = max(sq - skv, 0) if causal else 0
     assert (got[:, :, :masked] == 0).all() and torch.isfinite(got.float()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (2, 8, 2, 300, 200, 40, True),        # GQA 4:1, rows 0..99 see no key
+    (1, 8, 2, 130, 390, 96, True),        # Sq < Skv, causal offset 260
+    (2, 32, 8, 1024, 1024, 128, True),    # the fp32 LM route's launch
+    (1, 8, 2, 200, 333, 128, False),      # bidirectional, ragged keys
+    (1, 4, 1, 70, 30, 128, True),         # rows 0..39 see no key
+])
+def test_cuda_flash_attention_fp32_route(cuda, b, hq, hkv, sq, skv, d,
+                                         causal, offset):
+    """fp32 on the CUDA-core kernel: one launch of ``flash_attention`` and
+    none of the tensor-core kernel, within 2e-5 of the plain version,
+    fully masked rows exactly 0; ``offset`` 1 puts q 4 bytes off 16-byte
+    alignment, so that the launch takes the register path instead of the
+    16-byte cp.async copies."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(sq + skv + d + offset)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    q = _at_offset(q, offset)
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
+    before = FLASH_ATTENTION_KERNEL.launches
+    before_other = FLASH_ATTENTION_TC_KERNEL.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_KERNEL.launches == before + 1
+    assert FLASH_ATTENTION_TC_KERNEL.launches == before_other
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    masked = max(sq - skv, 0) if causal else 0
+    assert (got[:, :, :masked] == 0).all() and torch.isfinite(got).all()
 
 
 _TC_LENGTHS = (1, 64, 127, 128, 129, 1000)
@@ -605,17 +642,57 @@ def test_cuda_embedding_bag_matches_plain(cuda, v, e, b, l, mode, dtype,
 @pytest.mark.parametrize("extra", [0, 1])
 def test_cuda_embedding_bag_route_edge(cuda, extra):
     """At the rule's edge (``LANE_BAGS_PER_SM`` bags per SM: the lane
-    route) and one bag past it (the column route), Wide&Deep's E = 1, L =
+    route) and one bag past it (the batched route), Wide&Deep's E = 1, L =
     40, with ids V, 2**31 - 1 and -1 planted."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     b, v, l = LANE_BAGS_PER_SM * sms + extra, 40 * 4096, 40
-    assert bag_route(b, 1, sms) == ("lanes", "column")[extra]
+    assert bag_route(b, 1, sms) == ("lanes", "batched")[extra]
     rng = np.random.default_rng(b)
     table = torch.from_numpy(rng.normal(size=(v, 1)).astype(np.float32)).to(cuda)
     idx = rng.integers(0, v, size=(b, l)).astype(np.int32)
     idx[3, 5], idx[7, 39], idx[b - 1, 0], idx[9, :20] = v, 2**31 - 1, v + 1, -1
     _assert_bag(table, torch.from_numpy(idx).to(cuda), None, "mean",
                 [3, 7, b - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["batched", "column"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("l", [40, 41])
+@pytest.mark.parametrize("mode,weighted", [("sum", True), ("mean", False),
+                                           ("mean", True)])
+def test_cuda_embedding_bag_thread_per_bag_routes(cuda, l, mode, weighted,
+                                                  offset, route):
+    """Past the lane route's edge at E = 1 (the batched route) and past
+    the batched route's (the column route): one launch of
+    ``embedding_bag`` and none of ``embedding_bag_lanes``, with ids past
+    the table (NaN rows) and padding planted, against the plain version;
+    and bit for bit equal to the warp route at E = 1, which runs
+    eb_bag_column, the loop whose order the batched route keeps.
+    ``offset`` 1 puts the ids (and weights) 4 bytes off 16-byte
+    alignment: the batched route then loads them one id at a time (as it
+    does at L = 41)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edge = {"batched": LANE_BAGS_PER_SM, "column": BATCHED_BAGS_PER_SM}[route]
+    b, v = edge * sms + 1000, 40 * 4096
+    assert bag_route(b, 1, sms) == route
+    rng = np.random.default_rng(l + offset)
+    table = torch.from_numpy(rng.normal(size=(v, 1)).astype(np.float32)).to(cuda)
+    idx = rng.integers(-1, v, size=(b, l)).astype(np.int32)
+    idx[0] = -1
+    idx[3, 5], idx[7, l - 1], idx[b - 1, 0] = v, 2**31 - 1, v + 1
+    idx = _at_offset(torch.from_numpy(idx).to(cuda), offset)
+    w = (_at_offset(torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32))
+                    .to(cuda), offset) if weighted else None)
+    assert (idx.data_ptr() % 16 == 0) == (offset == 0)
+    got = _assert_bag(table, idx, w, mode, [3, 7, b - 1])
+    assert (got[0] == 0).all()
+    before = EMBEDDING_BAG_KERNEL.launches
+    with mock.patch.object(bag_ops, "bag_route", lambda *a: "warp"):
+        warp = embedding_bag(table, idx, w, mode=mode)
+    torch.cuda.synchronize()
+    assert EMBEDDING_BAG_KERNEL.launches == before + 1
+    assert torch.equal(got.view(torch.int32), warp.view(torch.int32))
 
 
 @pytest.mark.gpu
