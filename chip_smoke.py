@@ -50,11 +50,12 @@ Phases (any failure raises and the script exits non-zero):
    beside SDPA with a length mask; the embedding bag within 1e-5 (fp32)
    and 3e-2 (bf16), bags with an id past the table NaN as in the plain
    version, at the Wide&Deep path's shapes (V=40M, E=1, L=40, B=512,
-   the lane and batched routes' largest batches on this card with half
-   and twice as many, and 262,144, each through all three E = 1 routes,
-   the batched and column routes also bit for bit against the warp
-   route's ``eb_bag_column``) and the shapes of ``tests/test_kernels.py``,
-   beside ``F.embedding_bag``.
+   the lane route's largest batch on this card with half and twice as
+   many, and 262,144, each through both E = 1 routes, the column route
+   also bit for bit against the warp route's ``eb_bag_column``) and the
+   shapes of ``tests/test_kernels.py``, beside ``F.embedding_bag``; at
+   262,144 bags also a plain gather of the same ids (``index_select``, in
+   bag and in field order), the card's rate for these random sectors.
    This runs before any model is resident:
    the plain attention materialises the (S, S) scores.
 3. Serve: ``RetrievalSystem(device="cuda")`` at the widths of the
@@ -1051,31 +1052,30 @@ def bag_check(name, table, idx, w, mode, kernel, other):
 
 
 def bag_phase(dev, flush):
-    """Every BAG_CASES row through its route's kernel, and the rule's two
-    E = 1 edges on this card (``wd_edge``: as many bags as the lane route
-    takes at most; ``wd_batched_edge``: as many as the batched route
-    takes), each with half and twice as many bags; the Wide&Deep rows
-    through all three E = 1 routes, each held and timed, the batched and
-    column routes' outputs also bit for bit against the warp route's at
-    E = 1 (``eb_bag_column``).  The other cases plant ids past the table
-    (a NaN row each)."""
+    """Every BAG_CASES row through its route's kernel, and the rule's E = 1
+    edge on this card (``wd_edge``: as many bags as the lane route takes
+    at most) with half and twice as many bags; the Wide&Deep rows through
+    both E = 1 routes, each held and timed, the column route's output
+    also bit for bit against the warp route's loop (``eb_bag_column``,
+    over column 0 of a two-column table that holds the table there).
+    At ``wd_bulk`` a plain gather of the same ids, in bag order and in
+    field order, gives the card's rate for these random sectors.  The
+    other cases plant ids past the table (a NaN row each)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import (
         EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL, bag_route,
         embedding_bag, embedding_bag_ref)
-    from repro_torch.kernels.embedding_bag.ops import (BATCHED_BAGS_PER_SM,
-                                                       LANE_BAGS_PER_SM)
+    from repro_torch.kernels.embedding_bag.ops import LANE_BAGS_PER_SM
 
-    thread = (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)
     kernels = {"lanes": (EMBEDDING_BAG_LANES_KERNEL, EMBEDDING_BAG_KERNEL),
-               "batched": thread, "column": thread, "warp": thread}
+               "column": (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL),
+               "warp": (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    edges = [(f"{name}{suffix}", WD_FIELDS * WD_VOCAB, 1, int(per_sm * f * sms),
-              WD_FIELDS, "sum", "float32", False, True)
-             for name, per_sm in (("wd_edge", LANE_BAGS_PER_SM),
-                                  ("wd_batched_edge", BATCHED_BAGS_PER_SM))
+    edges = [(f"wd_edge{suffix}", WD_FIELDS * WD_VOCAB, 1,
+              int(LANE_BAGS_PER_SM * f * sms), WD_FIELDS, "sum", "float32",
+              False, True)
              for suffix, f in (("_half", 0.5), ("", 1), ("_2x", 2))]
     rows = {}
     for name, v, e, b, l, mode, dtype, weighted, per_field in BAG_CASES + edges:
@@ -1094,8 +1094,8 @@ def bag_phase(dev, flush):
         w = (torch.randn((b, l), generator=gen, device=dev) if weighted
              else None)
         route = bag_route(b, e, sms)
-        routes = [route] + ([r for r in ("lanes", "batched", "column")
-                             if r != route] if per_field else [])
+        routes = [route] + ([{"lanes": "column", "column": "lanes"}[route]]
+                            if per_field else [])
         res = {}
         for r in routes:
             kernel, other = kernels[r]
@@ -1104,16 +1104,17 @@ def bag_phase(dev, flush):
                 ms = time_cuda(lambda: embedding_bag(table, idx, w, mode=mode),
                                50, flush)
             res[r] = (kernel.name, err, ms)
-            if r in ("batched", "column"):
+            if r == "column":
                 with bag_route_forced(r):
                     col = embedding_bag(table, idx, w, mode=mode)
-                with bag_route_forced("warp"):
-                    warp = embedding_bag(table, idx, w, mode=mode)
-                if not torch.equal(col.view(torch.int32),
-                                   warp.view(torch.int32)):
-                    raise AssertionError(f"embedding_bag {name}: the {r} "
+                wide = torch.zeros((v, 2), device=dev, dtype=dt)
+                wide[:, 0] = table[:, 0]
+                warp = embedding_bag(wide, idx, w,
+                                     mode=mode)[:, :1].contiguous()
+                if not torch.equal(col.view(torch.int16), warp.view(torch.int16)):
+                    raise AssertionError(f"embedding_bag {name}: the column "
                                          f"route != eb_bag_column bit for bit")
-                del col, warp
+                del col, wide, warp
         plain_ms = time_cuda(lambda: embedding_bag_ref(table, idx, w,
                                                        mode=mode), 10, flush)
         library_ms = None
@@ -1136,11 +1137,23 @@ def bag_phase(dev, flush):
                   f"max_abs_err={e_r:.3g} (tol "
                   f"{BAG_BF16_TOL if dtype == 'bfloat16' else BAG_FP32_TOL}"
                   f"{'' if per_field else '; NaN rows 1, 2 as the plain'}"
-                  f"{'; bit-equal to eb_bag_column' if r in ('batched', 'column') else ''}); "
+                  f"{'; bit-equal to eb_bag_column' if r == 'column' else ''}); "
                   f"kernel {t:.6f} ms, plain {plain_ms:.6f} ms, "
                   f"F.embedding_bag {lib}, bound {bound:.6f} ms ({bound_by}; "
                   f"{sectors} distinct 32-byte sectors for {b * l} lookups); "
                   f"kernel/bound {t / bound:.2f}x", flush=True)
+        if name == "wd_bulk":
+            flat = table.view(-1)
+            for order, ids in (("bag", idx.view(-1)),
+                               ("field", idx.t().contiguous().view(-1))):
+                g_ms = time_cuda(lambda: flat.index_select(0, ids), 50, flush)
+                rows[name][f"gather_{order}_ms"] = g_ms
+                print(f"[kernel] embedding_bag {name}: plain gather of the same "
+                      f"{b * l} ids in {order} order (index_select, writes "
+                      f"{4 * b * l} bytes more): {g_ms:.6f} ms, "
+                      f"{32 * sectors / g_ms / 1e9:.3f} TB/s of distinct "
+                      f"sectors; the rule's route {ms / g_ms:.2f}x its time",
+                      flush=True)
         del table, idx, w
         torch.cuda.empty_cache()
     return rows

@@ -21,21 +21,18 @@
 // Three routes, chosen by the wrapper (kernels/embedding_bag/ops.py,
 // bag_route):
 //   E = 1, many bags (embedding_bag_launch, column route): one thread per
-//     bag, its loop over L unrolled by 8 (eb_bag_column): 8 id loads, then
-//     the rows one at a time.  At serve_bulk's 262,144 bags the card holds
-//     every bag's thread at once, and the table's random sectors come as
-//     fast as the memory system serves them: every form tried with more
-//     rows in flight a thread (batches of 2 to 20, ids staged in shared
-//     memory by cp.async, L2 prefetches) or fewer threads an SM was slower
-//     there on the H100 (PERF.md).
-//   E = 1, mid-size batches (embedding_bag_launch, batched route): too
-//     few bags to fill the SMs' threads, so a thread's loads must
-//     overlap: it reads its ids as 16-byte loads where they are 16-byte
-//     aligned and L % 4 == 0 (eb_batched_vector_path, chosen once per
-//     launch; one id a load otherwise), EB_BATCH_ROWS = 8 at a time, and
-//     issues their 8 row loads before the first add.  It adds in
-//     ascending id order with eb_bag_column's expression, so both routes
-//     give the same bits.
+//     bag, its loop unrolled by 8 (eb_bag_range: 8 id loads, then the rows
+//     one at a time), in passes of EB_PASS_IDS ids, one launch a pass,
+//     each bag's running sum kept in global memory between passes.  At
+//     serve_bulk's 262,144 bags the card holds every bag's thread at
+//     once.  In one pass over all 40 ids those threads drift apart, so
+//     the rows they want at once lie all over the table; in passes they
+//     all want rows of the same 16 ids, which in Wide&Deep's and DeepFM's
+//     bags are 16 fields, each with its own rows (PERF.md: 0.199 ms in
+//     one pass, 0.157 in passes, as fast as a plain gather of the same
+//     ids in field order).  More rows in flight a thread, ids staged in
+//     shared memory, L2 prefetches and fewer threads an SM were all
+//     slower there.
 //   E = 1, few bags (embedding_bag_lanes_launch, lane route): one thread
 //     per bag would put 512 bags on 2 of 132 SMs, each thread walking ~5
 //     dependent rounds of (index load, row load).  Instead a group of G
@@ -57,6 +54,8 @@
 
 #include "embedding_bag.cuh"
 
+#define EB_THREADS 256
+
 __host__ __device__ inline float eb_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
@@ -65,30 +64,21 @@ __device__ __forceinline__ void eb_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// E = 1: one thread per bag.
+// E = 1, column route: one thread per bag, ids [i0, i1) of every bag
+// (eb_column_pass; between passes a bag's running state waits in
+// run_sum and run_n).
 template <typename T>
 __global__ void __launch_bounds__(EB_THREADS) embedding_bag_column_kernel(
     const T* __restrict__ table, const int* __restrict__ idx,
-    const float* __restrict__ w, T* __restrict__ out, int64_t V, int B,
-    int L, int mean) {
+    const float* __restrict__ w, T* __restrict__ out,
+    float* __restrict__ run_sum, int* __restrict__ run_n, int64_t V, int B,
+    int L, int i0, int i1, int mean) {
   const int b = blockIdx.x * EB_THREADS + threadIdx.x;
   if (b >= B) return;
-  const int64_t o = (int64_t)b * L;
-  eb_store(out + b, eb_bag_column(table, V, 1, idx + o, w ? w + o : nullptr,
-                                  L, 0, mean));
-}
-
-// E = 1, batched route: one thread per bag, EB_BATCH_ROWS rows in flight.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(EB_THREADS) embedding_bag_batched_kernel(
-    const T* __restrict__ table, const int* __restrict__ idx,
-    const float* __restrict__ w, T* __restrict__ out, int64_t V, int B,
-    int L, int mean) {
-  const int b = blockIdx.x * EB_THREADS + threadIdx.x;
-  if (b >= B) return;
-  const int64_t o = (int64_t)b * L;
-  eb_store(out + b, eb_batched_bag<T, VEC>(table, V, idx + o,
-                                           w ? w + o : nullptr, L, mean));
+  float x;
+  if (eb_column_pass(table, V, idx, w, run_sum, run_n, B, L, i0, i1, b, mean,
+                     &x))
+    eb_store(out + b, x);
 }
 
 // E > 1: one warp per bag, lane e takes columns e, e + 32, ...
@@ -131,33 +121,22 @@ __global__ void __launch_bounds__(EB_LANE_THREADS) embedding_bag_lanes_kernel(
   if (lane == 0) eb_store(out + b, eb_finish(s, mean));
 }
 
-template <typename T, bool VEC>
-static int eb_batched_launch(const void* table, const int* idx,
-                             const float* w, void* out, int64_t V, int B,
-                             int L, int mean, cudaStream_t stream) {
-  const int grid = (B + EB_THREADS - 1) / EB_THREADS;
-  embedding_bag_batched_kernel<T, VEC><<<grid, EB_THREADS, 0, stream>>>(
-      (const T*)table, idx, w, (T*)out, V, B, L, mean);
-  return (int)cudaGetLastError();
-}
-
-// route 0: the column route, 1: the warp route, 2: the batched route;
-// the column and batched routes take E = 1 only.
 template <typename T>
 static int eb_launch(const void* table, const int* idx, const float* w,
                      void* out, int64_t V, int B, int L, int E, int mean,
-                     int route, cudaStream_t stream) {
-  if (route != 1 && E != 1) return (int)cudaErrorInvalidValue;
-  if (route == 2)
-    return eb_batched_vector_path((uint64_t)idx, (uint64_t)w, L)
-               ? eb_batched_launch<T, true>(table, idx, w, out, V, B, L,
-                                            mean, stream)
-               : eb_batched_launch<T, false>(table, idx, w, out, V, B, L,
-                                             mean, stream);
-  if (route == 0) {
+                     void* run, cudaStream_t stream) {
+  if (E == 1) {
+    if (eb_passes(L) > 1 && run == nullptr) return (int)cudaErrorInvalidValue;
     const int grid = (B + EB_THREADS - 1) / EB_THREADS;
-    embedding_bag_column_kernel<T><<<grid, EB_THREADS, 0, stream>>>(
-        (const T*)table, idx, w, (T*)out, V, B, L, mean);
+    for (int p = 0; p < eb_passes(L); ++p) {
+      const int i0 = p * EB_PASS_IDS;
+      const int i1 = i0 + EB_PASS_IDS < L ? i0 + EB_PASS_IDS : L;
+      embedding_bag_column_kernel<T><<<grid, EB_THREADS, 0, stream>>>(
+          (const T*)table, idx, w, (T*)out, (float*)run, (int*)run + B, V, B,
+          L, i0, i1, mean);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   } else {
     const int per = EB_THREADS / 32;
     const int grid = (B + per - 1) / per;
@@ -192,19 +171,20 @@ static int eb_lanes_launch(const void* table, const int* idx, const float* w,
 // Plain C entry points for ctypes.  dtype: 0 = fp32, 1 = bf16; weights
 // may be null; mean: 0 = sum, 1 = mean.  Each launches on the given
 // stream and returns the CUDA error code (0 on success).
-// embedding_bag_launch: route 0, the column route, 1, the warp route (any
-// E), or 2, the batched route; at E = 1 all three give the same bits.
+// embedding_bag_launch: the column route (E = 1; run: 3 B words of
+// scratch for the running state, null only where eb_passes(L) is 1) or
+// the warp route (E > 1).
 extern "C" int embedding_bag_launch(const void* table, const void* idx,
                                     const void* weights, void* out,
                                     int dtype, int64_t V, int B, int L,
-                                    int E, int mean, int route,
+                                    int E, int mean, void* run,
                                     void* stream) {
   if (dtype == 1)
     return eb_launch<__nv_bfloat16>(table, (const int*)idx,
                                     (const float*)weights, out, V, B, L, E,
-                                    mean, route, (cudaStream_t)stream);
+                                    mean, run, (cudaStream_t)stream);
   return eb_launch<float>(table, (const int*)idx, (const float*)weights, out,
-                          V, B, L, E, mean, route, (cudaStream_t)stream);
+                          V, B, L, E, mean, run, (cudaStream_t)stream);
 }
 
 // embedding_bag_lanes_launch: the lane route, E = 1 only.

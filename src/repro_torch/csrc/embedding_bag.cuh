@@ -1,15 +1,15 @@
 // Per-bag core of the EmbeddingBag kernels: one output column of one
-// bag (the column and warp routes), the E = 1 batched route's per-bag
-// sum in the same order and its choice of id loads, and one lane's share
-// of a bag plus the fixed order in which a group of lanes adds its
-// shares (the E = 1 lane route).
+// bag, whole (the warp route) or a pass over a range of its ids at a
+// time (the E = 1 column route), and one lane's share of a bag plus the
+// fixed order in which a group of lanes adds its shares (the E = 1 lane
+// route).
 //
 // Shared by the CUDA kernels (embedding_bag.cu) and by a host harness
 // built with g++ in the CPU tests, so the padding rule, the weights, the
 // ids past the table, the fp32 accumulation, the mean's divisor, the
-// batched route's reads and bits and the lane route's summation order
-// are checked on a machine without a GPU.  Only the launch, the mapping
-// of bags onto threads and the shuffles stay CUDA-only.
+// column route's passes and the lane route's summation order are
+// checked on a machine without a GPU.  Only the launch, the mapping of
+// bags and columns onto threads and the shuffles stay CUDA-only.
 //
 // For bag b and column e, as the reference (jnp.take fills NaN past V):
 //   valid_i = idx_i >= 0                       (-1, or any id < 0, is padding)
@@ -30,19 +30,14 @@
 #define __device__
 #endif
 
-#define EB_THREADS 256        // threads of a column- or warp-route CTA
 #define EB_LANE_THREADS 128   // threads of a lane-route CTA
-#define EB_BATCH_ROWS 8       // table loads of a batched-route thread in flight
 #define EB_BATCH 8            // ids whose rows a thread loads at once
+#define EB_PASS_IDS 16        // ids of every bag a column-route launch adds
 
 // A host harness may define EB_HOST_READ(p) to see every table value
 // the replayed threads read (the card's loads are the same).
 #ifndef EB_HOST_READ
 #define EB_HOST_READ(p)
-#endif
-// ... and EB_HOST_IDS(p, n) every read of n ids at p by the batched route.
-#ifndef EB_HOST_IDS
-#define EB_HOST_IDS(p, n)
 #endif
 
 __host__ __device__ inline float eb_load(const float* p) {
@@ -119,23 +114,33 @@ __host__ __device__ inline EbPart eb_sum_strided(const T* table, int64_t V,
   return s;
 }
 
-// The column and warp routes' per-bag loop: the ids in order, the loop
-// unrolled by 8 on the card (8 id loads, then each row load and its
-// add: one row in flight a thread, which at serve_bulk's 262,144 bags
-// keeps the card's memory system busier than any form with more rows in
-// flight; PERF.md).  It counts the ids past the table apart (past,
-// branch-free).  The batched route adds in the same order with the same
-// expression (eb_batched_bag), so its sums equal this loop's bit for bit.
+// The column and warp routes' running state of a bag: the weighted sum,
+// the ids inside the table and the ids past it (counted apart,
+// branch-free).  The column route keeps it in global memory between its
+// passes: the same float, so the same bits.
+struct EbRun {
+  float sum;
+  int count;
+  int past;
+};
+
+// The column and warp routes' per-bag loop over ids [i0, i1), in order,
+// unrolled by 8 on the card: 8 id loads, then each row load and its add,
+// one row in flight a thread.  It keeps the loop's form from before ids
+// past V gave NaN, whose loads the compiler schedules best at
+// serve_bulk's 262,144 bags of all the forms tried (more rows in flight
+// a thread were slower there; PERF.md).
 template <typename T>
-__host__ __device__ inline float eb_bag_column(
-    const T* table, int64_t V, int E, const int* idx, const float* w, int L,
-    int e, int mean) {
-  float sum = 0.0f;
-  int count = 0, past = 0;
+__host__ __device__ inline void eb_bag_range(const T* table, int64_t V,
+                                             int E, const int* idx,
+                                             const float* w, int i0, int i1,
+                                             int e, EbRun& s) {
+  float sum = s.sum;
+  int count = s.count, past = s.past;
 #ifdef __CUDA_ARCH__
 #pragma unroll 8
 #endif
-  for (int i = 0; i < L; ++i) {
+  for (int i = i0; i < i1; ++i) {
     const int r = idx[i];
     if (r >= 0 && r < V) {
       sum += (w ? w[i] : 1.0f) * eb_load(table + (int64_t)r * E + e);
@@ -143,92 +148,52 @@ __host__ __device__ inline float eb_bag_column(
     }
     past += r >= V;
   }
-  const EbPart s = {sum, count + past, past};
-  return eb_finish(s, mean);
+  s.sum = sum, s.count = count, s.past = past;
 }
 
-// The E = 1 batched route: one thread per bag, for batches too small to
-// give every SM many bags.  A thread reads its own row of ids,
-// EB_BATCH_ROWS at a time, then issues those ids' table loads, all in
-// flight before the first add, and adds in ascending id order with
-// eb_bag_column's expression, so that both give the same bits.
-//   vector path (eb_batched_vector_path): the ids as 16-byte loads of 4;
-//   scalar path: one id a load.
-// Either way a thread reads only its own bag's ids and weights.
-__host__ __device__ inline bool eb_batched_vector_path(uint64_t idx,
-                                                       uint64_t w, int L) {
-  return L % 4 == 0 && idx % 16 == 0 && w % 16 == 0;   // w: 0 if none
+__host__ __device__ inline float eb_run_finish(const EbRun& s, int mean) {
+  const EbPart p = {s.sum, s.count + s.past, s.past};
+  return eb_finish(p, mean);
 }
 
-// Ids i0 .. i0 + EB_BATCH_ROWS - 1 of a bag's row (-1 past L).
-template <bool VEC>
-__host__ __device__ inline void eb_batched_ids(const int* id, int i0, int L,
-                                               int (&r)[EB_BATCH_ROWS]) {
-  if (VEC) {
-#ifdef __CUDA_ARCH__
-#pragma unroll
-#endif
-    for (int h = 0; h < EB_BATCH_ROWS; h += 4) {   // L % 4 == 0
-      if (i0 + h < L) {
-#ifdef __CUDA_ARCH__
-        const int4 q = __ldg(reinterpret_cast<const int4*>(id + i0 + h));
-        r[h] = q.x, r[h + 1] = q.y, r[h + 2] = q.z, r[h + 3] = q.w;
-#else
-        EB_HOST_IDS(id + i0 + h, 4);
-        for (int j = 0; j < 4; ++j) r[h + j] = id[i0 + h + j];
-#endif
-      } else {
-        r[h] = r[h + 1] = r[h + 2] = r[h + 3] = -1;
-      }
-    }
-  } else {
-#ifdef __CUDA_ARCH__
-#pragma unroll
-#endif
-    for (int u = 0; u < EB_BATCH_ROWS; ++u) {
-      if (i0 + u < L) {
-#ifdef __CUDA_ARCH__
-        r[u] = __ldg(id + i0 + u);
-#else
-        EB_HOST_IDS(id + i0 + u, 1);
-        r[u] = id[i0 + u];
-#endif
-      } else {
-        r[u] = -1;
-      }
-    }
+// A whole bag through the loop (the warp route, column e).
+template <typename T>
+__host__ __device__ inline float eb_bag_column(
+    const T* table, int64_t V, int E, const int* idx, const float* w, int L,
+    int e, int mean) {
+  EbRun s = {0.0f, 0, 0};
+  eb_bag_range(table, V, E, idx, w, 0, L, e, s);
+  return eb_run_finish(s, mean);
+}
+
+// The column route's passes over bags of L ids, one launch each: pass p
+// adds ids [p EB_PASS_IDS, min(L, (p + 1) EB_PASS_IDS)) of every bag (at
+// L = 0 one pass, which only writes the 0s).
+__host__ __device__ inline int eb_passes(int L) {
+  return L > 0 ? (L + EB_PASS_IDS - 1) / EB_PASS_IDS : 1;
+}
+
+// Bag b's part of the column route's pass over ids [i0, i1) (E = 1): its
+// running state from run_sum[b], run_n[b] and run_n[B + b] (none at
+// i0 = 0), those ids added, then either the state put back, or, at
+// i1 = L, the bag's output in *value and true returned.
+template <typename T>
+__host__ __device__ inline bool eb_column_pass(
+    const T* table, int64_t V, const int* idx, const float* w,
+    float* run_sum, int* run_n, int B, int L, int i0, int i1, int b,
+    int mean, float* value) {
+  const int64_t o = (int64_t)b * L;
+  EbRun s = {0.0f, 0, 0};
+  if (i0 > 0) s = {run_sum[b], run_n[b], run_n[B + b]};
+  eb_bag_range(table, V, 1, idx + o, w ? w + o : nullptr, i0, i1, 0, s);
+  if (i1 == L) {
+    *value = eb_run_finish(s, mean);
+    return true;
   }
-}
-
-// One bag of the batched route (ids id[0 .. L), weights w or null).
-template <typename T, bool VEC>
-__host__ __device__ inline float eb_batched_bag(const T* table, int64_t V,
-                                                const int* id, const float* w,
-                                                int L, int mean) {
-  float sum = 0.0f;
-  int count = 0, past = 0;
-  for (int i0 = 0; i0 < L; i0 += EB_BATCH_ROWS) {
-    int r[EB_BATCH_ROWS];
-    float x[EB_BATCH_ROWS];
-    eb_batched_ids<VEC>(id, i0, L, r);
-#ifdef __CUDA_ARCH__
-#pragma unroll
-#endif
-    for (int u = 0; u < EB_BATCH_ROWS; ++u)
-      x[u] = r[u] >= 0 && r[u] < V ? eb_load(table + r[u]) : 0.0f;
-#ifdef __CUDA_ARCH__
-#pragma unroll
-#endif
-    for (int u = 0; u < EB_BATCH_ROWS; ++u) {   // ids past L are -1: no-ops
-      if (r[u] >= 0 && r[u] < V) {
-        sum += (w ? w[i0 + u] : 1.0f) * x[u];
-        ++count;
-      }
-      past += r[u] >= V;
-    }
-  }
-  const EbPart s = {sum, count + past, past};
-  return eb_finish(s, mean);
+  run_sum[b] = s.sum;
+  run_n[b] = s.count;
+  run_n[B + b] = s.past;
+  return false;
 }
 
 // The E = 1 lane route: a group of G lanes (8, 16 or 32) takes one bag.

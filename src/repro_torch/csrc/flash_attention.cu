@@ -19,15 +19,18 @@
 // Design: an SGEMM-like pair of products per K/V tile, fed from shared
 // memory so that the FMA units, not the loads, set the pace.  One CTA of
 // 256 threads (8 warps, one CTA an SM) per (b * Hq, tile of FA_BQ = 128
-// query rows), the longest (last) query tiles scheduled first; a loop
-// over K/V tiles of FA_BK = 64 keys, as the TPU kernel's sequential KV
-// grid axis, with the tiles wholly above the diagonal skipped.
-//   - Q (128 x D) is copied into shared memory once; K and V tiles come
+// query rows), or of 128 threads and 64 rows where 128-row tiles would
+// leave SMs idle (fa_tile_rows, chosen per launch), the longest (last)
+// query tiles scheduled first; a loop over K/V tiles of FA_BK = 64 keys,
+// as the TPU kernel's sequential KV grid axis, with the tiles wholly
+// above the diagonal skipped.
+//   - Q's tile is copied into shared memory once; K and V tiles come
 //     through a two-slot ring: tile j + 1 is copied while tile j is used.
-//     On the vector path (fp32, D % 4 == 0, 16-byte aligned q, k, v:
-//     fa_vector_path, chosen once per launch) the copies are 16-byte
-//     cp.async, zero-filled past the keys and rows; otherwise every
-//     thread loads through registers (bf16 converted to fp32).
+//     Where rows are whole 16-byte units and q, k, v 16-byte aligned
+//     (fa_vector_path, chosen once per launch), fp32 rows come by 16-byte
+//     cp.async, zero-filled past the keys and rows, and bf16 rows by
+//     16-byte loads of 8 through registers, converted to fp32; otherwise
+//     every thread loads element by element.
 //   - Each thread owns an 8 x 4 micro-tile of S (8 rows, keys 16 apart)
 //     and an 8 x 8 micro-tile of O (flash_attention.cuh's fa_row, fa_key,
 //     fa_dcol): one 16-byte read of Q feeds 16 FMAs of S = Q K^T, and
@@ -39,7 +42,8 @@
 //   - P goes through shared memory, but only within a warp: a row's 16
 //     lanes are one half warp, and they alone write and read its P row.
 //     So one barrier a tile (the K/V ring's) is all the CTA shares; Q
-//     (unpadded: its reads are broadcasts), the ring and P take 226 KB.
+//     (unpadded: its reads are broadcasts), the ring and P take 226 KB
+//     with 128-row tiles.
 // The maps, the tile plan, the mask and the path choice are the
 // __host__ __device__ functions of flash_attention.cuh, which the CPU
 // tests replay thread by thread with g++.
@@ -49,12 +53,10 @@
 
 #include "flash_attention_tc.cuh"
 
-#define FA_K_STRIDE (FA_MAX_D + 4)  // sK row stride: 16-byte reads of 8
-                                    // key rows hit 8 distinct bank groups
 #define FA_K_SLOT (FA_BK * FA_K_STRIDE)
 #define FA_V_SLOT (FA_BK * FA_MAX_D)
-#define FA_SMEM_FLOATS \
-  (FA_BQ * FA_MAX_D + 2 * FA_K_SLOT + 2 * FA_V_SLOT + FA_BQ * FA_BK)
+#define FA_SMEM_FLOATS(BQ) \
+  ((BQ) * FA_MAX_D + 2 * FA_K_SLOT + 2 * FA_V_SLOT + (BQ) * FA_BK)
 
 __device__ __forceinline__ float fa_load(const float* p) { return *p; }
 __device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
@@ -63,6 +65,11 @@ __device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
 __device__ __forceinline__ void fa_store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void fa_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// Two bf16 (the low half first) as two floats.
+__device__ __forceinline__ float2 fa_bf16x2(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xFFFF0000u));
 }
 
 // 16-byte asynchronous copy, zero-filled when `bytes` is 0.
@@ -75,22 +82,40 @@ __device__ __forceinline__ void fa_cp16(float* dst, const void* src,
 }
 
 // Rows [0, n) of a (rows x D) block at src into shared memory rows of
-// `stride` floats; rows at or past `valid` are zeros, and so are the
-// columns D .. (D + 3) & ~3 on the register path.
-template <typename T, bool VEC>
+// `stride` floats, by the CTA's NT threads; rows at or past `valid` are
+// zeros, and so are the columns D .. (D + 3) & ~3 on the element path.
+// VEC: fp32 by 16-byte cp.async; WIDE: bf16 by 16-byte loads; neither:
+// element by element.
+template <typename T, bool VEC, bool WIDE, int NT>
 __device__ __forceinline__ void fa_stage(float* dst, const T* src, int n,
                                          int valid, int D, int stride) {
-  if (VEC) {
+  if (VEC) {   // T is float
     const int per = D / 4;
-    for (int u = threadIdx.x; u < n * per; u += FA_THREADS) {
+    for (int u = threadIdx.x; u < n * per; u += NT) {
       const int r = u / per, c = 4 * (u - r * per);
       const bool in = r < valid;
       fa_cp16(dst + r * stride + c, in ? src + (int64_t)r * D + c : src,
               in ? 16 : 0);
     }
+  } else if (WIDE) {   // bf16 rows by 16-byte loads of 8
+    const int per = D / 8;
+    for (int u = threadIdx.x; u < n * per; u += NT) {
+      const int r = u / per, c = 8 * (u - r * per);
+      float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+      if (r < valid) {
+        const uint4 w =
+            *reinterpret_cast<const uint4*>(src + (int64_t)r * D + c);
+        const float2 a = fa_bf16x2(w.x), b = fa_bf16x2(w.y),
+                     e = fa_bf16x2(w.z), f = fa_bf16x2(w.w);
+        lo = make_float4(a.x, a.y, b.x, b.y);
+        hi = make_float4(e.x, e.y, f.x, f.y);
+      }
+      *reinterpret_cast<float4*>(dst + r * stride + c) = lo;
+      *reinterpret_cast<float4*>(dst + r * stride + c + 4) = hi;
+    }
   } else {
     const int d4 = (D + 3) & ~3;
-    for (int u = threadIdx.x; u < n * d4; u += FA_THREADS) {
+    for (int u = threadIdx.x; u < n * d4; u += NT) {
       const int r = u / d4, c = u - r * d4;
       dst[r * stride + c] =
           r < valid && c < D ? fa_load(src + (int64_t)r * D + c) : 0.0f;
@@ -106,16 +131,18 @@ __device__ __forceinline__ void fa_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_kernel(
+// BQ query rows a CTA, 2 BQ threads.
+template <typename T, bool VEC, bool WIDE, int BQ>
+__global__ void __launch_bounds__(2 * BQ, 1) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv, int Sq,
     int Skv, int D, int causal, float scale) {
+  constexpr int NT = 2 * BQ;
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                      // FA_BQ x FA_MAX_D
-  float* sK = sQ + FA_BQ * FA_MAX_D;     // 2 slots of FA_BK x FA_K_STRIDE
+  float* sQ = smem;                      // BQ x FA_MAX_D
+  float* sK = sQ + BQ * FA_MAX_D;        // 2 slots of FA_BK x FA_K_STRIDE
   float* sV = sK + 2 * FA_K_SLOT;        // 2 slots of FA_BK x FA_MAX_D
-  float* sP = sV + 2 * FA_V_SLOT;        // FA_BQ x FA_BK
+  float* sP = sV + 2 * FA_V_SLOT;        // BQ x FA_BK
 
   const int tid = threadIdx.x, tx = tid & 15;
   const int bh = blockIdx.x;                        // b * Hq + h
@@ -127,8 +154,8 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_kernel(
   const T* vb = v + kv_head * Skv * D;
   T* ob = o + (int64_t)bh * Sq * D;
 
-  const int q0 = qt * FA_BQ;
-  const int rows = min(FA_BQ, Sq - q0);
+  const int q0 = qt * BQ;
+  const int rows = min(BQ, Sq - q0);
   const int offset = Skv - Sq;
   const int n_tiles = fa_n_tiles(q0, rows, Skv, causal, offset);
   const int d4 = (D + 3) & ~3;
@@ -144,10 +171,10 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_kernel(
   }
 
   if (n_tiles > 0) {
-    fa_stage<T, VEC>(sQ, qb + (int64_t)q0 * D, FA_BQ, rows, D, FA_MAX_D);
+    fa_stage<T, VEC, WIDE, NT>(sQ, qb + (int64_t)q0 * D, BQ, rows, D, FA_MAX_D);
     const int keys = min(FA_BK, Skv);
-    fa_stage<T, VEC>(sK, kb, FA_BK, keys, D, FA_K_STRIDE);
-    fa_stage<T, VEC>(sV, vb, FA_BK, keys, D, FA_MAX_D);
+    fa_stage<T, VEC, WIDE, NT>(sK, kb, FA_BK, keys, D, FA_K_STRIDE);
+    fa_stage<T, VEC, WIDE, NT>(sV, vb, FA_BK, keys, D, FA_MAX_D);
     fa_commit();
   }
 
@@ -160,10 +187,10 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_kernel(
     if (j + 1 < n_tiles) {
       const int k1 = k0 + FA_BK, nxt = (j + 1) & 1;
       const int keys = min(FA_BK, Skv - k1);
-      fa_stage<T, VEC>(sK + nxt * FA_K_SLOT, kb + (int64_t)k1 * D, FA_BK,
-                       keys, D, FA_K_STRIDE);
-      fa_stage<T, VEC>(sV + nxt * FA_V_SLOT, vb + (int64_t)k1 * D, FA_BK,
-                       keys, D, FA_MAX_D);
+      fa_stage<T, VEC, WIDE, NT>(sK + nxt * FA_K_SLOT, kb + (int64_t)k1 * D,
+                           FA_BK, keys, D, FA_K_STRIDE);
+      fa_stage<T, VEC, WIDE, NT>(sV + nxt * FA_V_SLOT, vb + (int64_t)k1 * D,
+                           FA_BK, keys, D, FA_MAX_D);
       fa_commit();
     }
     const float* sKj = sK + (j & 1) * FA_K_SLOT;
@@ -287,20 +314,36 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_kernel(
   }
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool WIDE, int BQ>
 static int fa_launch(const void* q, const void* k, const void* v, void* o,
                      int B, int Hq, int Hkv, int Sq, int Skv, int D,
                      int causal, float scale, cudaStream_t stream) {
-  const int smem = FA_SMEM_FLOATS * (int)sizeof(float);
+  const int smem = FA_SMEM_FLOATS(BQ) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, VEC>,
+      flash_attention_kernel<T, VEC, WIDE, BQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + FA_BQ - 1) / FA_BQ));
-  flash_attention_kernel<T, VEC><<<grid, FA_THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + BQ - 1) / BQ));
+  flash_attention_kernel<T, VEC, WIDE, BQ><<<grid, 2 * BQ, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Sq, Skv, D,
       causal, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC, bool WIDE>
+static int fa_launch_rows(const void* q, const void* k, const void* v,
+                          void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                          int D, int causal, float scale,
+                          cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  auto launch = fa_tile_rows(B * Hq, Sq, sms) == FA_BQ
+                    ? fa_launch<T, VEC, WIDE, FA_BQ>
+                    : fa_launch<T, VEC, WIDE, FA_BQ_SHORT>;
+  return launch(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, stream);
 }
 
 // Plain C entry point for ctypes.  dtype: 0 = fp32, 1 = bf16.  Launches
@@ -311,12 +354,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Skv, int D, int causal, float scale,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int elt = dtype == 1 ? 2 : 4;
+  const bool wide =
+      fa_vector_path(elt, D, (uint64_t)q, (uint64_t)k, (uint64_t)v);
   if (dtype == 1)
-    return fa_launch<__nv_bfloat16, false>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                           D, causal, scale, st);
-  if (fa_vector_path(1, D, (uint64_t)q, (uint64_t)k, (uint64_t)v))
-    return fa_launch<float, true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
-                                  scale, st);
-  return fa_launch<float, false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
-                                 scale, st);
+    return wide ? fa_launch_rows<__nv_bfloat16, false, true>(
+                      q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, st)
+                : fa_launch_rows<__nv_bfloat16, false, false>(
+                      q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, st);
+  return wide ? fa_launch_rows<float, true, false>(q, k, v, o, B, Hq, Hkv, Sq,
+                                                   Skv, D, causal, scale, st)
+              : fa_launch_rows<float, false, false>(q, k, v, o, B, Hq, Hkv,
+                                                    Sq, Skv, D, causal, scale,
+                                                    st);
 }

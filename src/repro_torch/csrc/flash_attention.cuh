@@ -33,10 +33,13 @@
 
 #include <stdint.h>
 
-#define FA_BQ 128         // query rows of a CUDA-core kernel's CTA
+#define FA_BQ 128         // query rows of a CUDA-core kernel's CTA (tall)
+#define FA_BQ_SHORT 64    // ... where tall tiles leave SMs without a CTA
 #define FA_BK 64          // keys of a K/V tile
 #define FA_MAX_D 128      // largest head dim
-#define FA_THREADS 256    // 16 row groups x 16 lanes
+#define FA_K_STRIDE (FA_MAX_D + 4)  // K tile's row stride in shared memory:
+                                    // 16-byte reads of 8 key rows hit 8
+                                    // distinct bank groups
 #define FA_ROWS 8         // query rows of a thread (of S and of O)
 #define FA_KEYS 4         // S columns of a thread, per row
 #define FA_DCOLS 8        // O columns of a thread, per row
@@ -104,6 +107,15 @@ __host__ __device__ inline float fa_finalize(float acc, float l) {
   return acc / (l == 0.0f ? 1.0f : l);
 }
 
+// Query rows a CUDA-core CTA takes, for bh = B * Hq heads of Sq rows on
+// a card with `sms` SMs: FA_BQ, or FA_BQ_SHORT where FA_BQ-row tiles
+// would give fewer CTAs than SMs (one CTA an SM fits, so such a grid
+// leaves SMs idle and gives the others twice the rows).  A CTA has 2
+// threads a row: 16-lane row groups of FA_ROWS rows.
+__host__ __device__ inline int fa_tile_rows(int bh, int Sq, int sms) {
+  return bh * ((Sq + FA_BQ - 1) / FA_BQ) >= sms ? FA_BQ : FA_BQ_SHORT;
+}
+
 // The CUDA-core kernel's register micro-tiles.  Thread t of a CTA: its
 // row group t / 16 owns query rows 8 (t / 16) .. + 7 of the tile, in S
 // and in O, so a row's max and sum reduce over the 16 lanes of one half
@@ -137,11 +149,11 @@ __host__ __device__ inline bool fa_tile_needs_mask(int k0, int q0,
   return k0 + FA_BK > kv_len || (causal && k0 + FA_BK - 1 > q0 + offset);
 }
 
-// The launch's one choice of staging path: 16-byte cp.async copies of
-// fp32 rows straight into shared memory where D % 4 == 0 and q, k, v are
-// 16-byte aligned; loads through registers (bf16 converted to fp32, any
-// D) otherwise.
-__host__ __device__ inline bool fa_vector_path(int fp32, int D, uint64_t q,
+// The launch's one choice of copy path, for elements of `elt` bytes:
+// 16-byte units (cp.async for fp32, loads of 8 for bf16) where a row is
+// whole 16-byte units and q, k, v are 16-byte aligned; element by
+// element otherwise.
+__host__ __device__ inline bool fa_vector_path(int elt, int D, uint64_t q,
                                                uint64_t k, uint64_t v) {
-  return fp32 && D % 4 == 0 && q % 16 == 0 && k % 16 == 0 && v % 16 == 0;
+  return D * elt % 16 == 0 && q % 16 == 0 && k % 16 == 0 && v % 16 == 0;
 }

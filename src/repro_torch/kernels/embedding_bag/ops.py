@@ -16,18 +16,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.native import NativeKernel
+from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import embedding_bag_ref
 
 __all__ = ["embedding_bag", "embedding_bag_kernel", "bag_route",
-           "EMBEDDING_BAG_KERNEL", "EMBEDDING_BAG_LANES_KERNEL",
-           "LANE_BAGS_PER_SM", "BATCHED_BAGS_PER_SM"]
+           "EMBEDDING_BAG_KERNEL", "EMBEDDING_BAG_LANES_KERNEL"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"sum": 0, "mean": 1}
-
-_ROUTES = {"column": 0, "warp": 1, "batched": 2}   # embedding_bag_launch's
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 EMBEDDING_BAG_KERNEL = NativeKernel(
@@ -35,8 +33,11 @@ EMBEDDING_BAG_KERNEL = NativeKernel(
     source="embedding_bag.cu",
     headers=("embedding_bag.cuh",),
     symbol="embedding_bag_launch",
-    argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],
 )
+# The E = 1 column route adds this many ids of every bag a launch, the
+# running sums waiting in a scratch tensor between launches.
+PASS_IDS = csrc_define("embedding_bag.cuh", "EB_PASS_IDS")
 # The E = 1 lane route: the same source, its own entry point and count.
 EMBEDDING_BAG_LANES_KERNEL = NativeKernel(
     name="embedding_bag_lanes",
@@ -45,13 +46,11 @@ EMBEDDING_BAG_LANES_KERNEL = NativeKernel(
     symbol="embedding_bag_lanes_launch",
     argtypes=[_P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
 )
-# The E = 1 routes by bags per SM: the lane route up to LANE_BAGS_PER_SM,
-# the batched route up to BATCHED_BAGS_PER_SM, the column route past it.
-# At L = 40 on the H100 each is the fastest of the three about there
-# (chip_smoke.py phase 2 times all three at half, once and twice each
-# edge, at 512 bags and at 262,144; PERF.md).
-LANE_BAGS_PER_SM = 96
-BATCHED_BAGS_PER_SM = 256
+# The E = 1 lane route takes batches of up to this many bags per SM: at
+# L = 40 on the H100 it is the faster route up to about here, the column
+# route past it (chip_smoke.py phase 2 times both at 512 bags, at half,
+# once and twice this edge and at 262,144; PERF.md).
+LANE_BAGS_PER_SM = 192
 
 
 def bag_route(b: int, e: int, sms: int) -> str:
@@ -59,17 +58,13 @@ def bag_route(b: int, e: int, sms: int) -> str:
     "warp" for E > 1 (``EMBEDDING_BAG_KERNEL``); for E = 1, "lanes" (a
     group of lanes per bag, ``EMBEDDING_BAG_LANES_KERNEL``) up to
     ``LANE_BAGS_PER_SM`` bags per SM, where one thread per bag would
-    leave each SM few threads, each with ~L/8 dependent rounds of loads;
-    "batched" (one thread per bag, 8 row loads in flight,
-    ``EMBEDDING_BAG_KERNEL``) up to ``BATCHED_BAGS_PER_SM``; "column"
-    (one thread per bag, one row load in flight, ``EMBEDDING_BAG_KERNEL``)
-    past it, where the SMs hold so many bags that more loads in flight
-    only slow the memory system."""
+    leave most SMs with few bags and each thread with ~L/8 dependent
+    rounds of loads, and "column" (one thread per bag, ``PASS_IDS`` ids
+    of every bag a launch, ``EMBEDDING_BAG_KERNEL``) past it, where every
+    SM holds many bags in flight."""
     if e != 1:
         return "warp"
-    if b <= LANE_BAGS_PER_SM * sms:
-        return "lanes"
-    return "batched" if b <= BATCHED_BAGS_PER_SM * sms else "column"
+    return "lanes" if b <= LANE_BAGS_PER_SM * sms else "column"
 
 
 def _check(table, indices, weights, mode):
@@ -122,21 +117,21 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         sms = torch.cuda.get_device_properties(table.device).multi_processor_count
-        route = bag_route(b, e, sms)
-        if route == "lanes":
+        if bag_route(b, e, sms) == "lanes":
             EMBEDDING_BAG_LANES_KERNEL.launch(
                 table.data_ptr(), indices.data_ptr(),
                 None if weights is None else weights.data_ptr(),
                 out.data_ptr(), _DTYPES[table.dtype], v, b, l, _MODES[mode],
                 stream)
             return out
-        if route != "warp" and e != 1:
-            raise ValueError(f"the {route} route takes E = 1, not {e}")
+        # the column route's running sums, counts and ids past the table
+        run = (torch.empty(3 * b, dtype=torch.int32, device=table.device)
+               if e == 1 and cdiv(l, PASS_IDS) > 1 else None)
         EMBEDDING_BAG_KERNEL.launch(
             table.data_ptr(), indices.data_ptr(),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
-            _DTYPES[table.dtype], v, b, l, e, _MODES[mode], _ROUTES[route],
-            stream)
+            _DTYPES[table.dtype], v, b, l, e, _MODES[mode],
+            None if run is None else run.data_ptr(), stream)
     return out
 
 

@@ -29,7 +29,8 @@ __all__ = ["flash_attention", "FLASH_ATTENTION_KERNEL",
 
 MAX_BLOCK = 64         # the largest block_q / block_k the wrapper takes
 MAX_HEAD_DIM = 128     # FA_MAX_D
-CC_BLOCK = csrc_define("flash_attention.cuh", "FA_BQ")   # CUDA-core tile rows
+CC_BLOCK = csrc_define("flash_attention.cuh", "FA_BQ_SHORT")   # fewest CUDA-
+                                                               # core tile rows
 TC_HEAD_DIMS = (64, 128)   # the head dims flash_attention_tc.cu is built for
 TC_BLOCK = csrc_define("flash_attention_tc.cuh", "FATC_BQ")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,10 +92,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``tensor_core_route``): bf16 with D in ``TC_HEAD_DIMS`` launches
     ``FLASH_ATTENTION_TC_KERNEL`` (wgmma on 128 x 128 tiles fed by TMA;
     P is rounded to bf16 before P V), everything else
-    ``FLASH_ATTENTION_KERNEL`` (CUDA cores, 128 x 64 tiles through a
-    cp.async ring on fp32 rows of 16-byte multiples, register loads
-    otherwise).  If the chosen kernel fails to build or to launch, the
-    call raises; nothing tries the other kernel.
+    ``FLASH_ATTENTION_KERNEL`` (CUDA cores, 128 x 64 tiles, or 64 x 64
+    where 128-row tiles would leave SMs idle, through a cp.async ring on
+    fp32 rows of 16-byte multiples, register loads otherwise).  If the
+    chosen kernel fails to build or to launch, the call raises; nothing
+    tries the other kernel.
 
     The blocks are validated as the reference chooses them: ``block_q``
     (``block_k``) shrunk to the next power of two >= 8 above Sq (Skv),

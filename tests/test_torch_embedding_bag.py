@@ -141,17 +141,12 @@ def test_index_past_table_counts_in_mean():
 @pytest.mark.parametrize("sms", [132, 114, 1])
 def test_bag_route_rule(sms):
     """E > 1 takes the warp route; E = 1 the lane route up to
-    LANE_BAGS_PER_SM bags per SM, the batched route up to
-    BATCHED_BAGS_PER_SM, and the column route past it."""
-    from repro_torch.kernels.embedding_bag.ops import (BATCHED_BAGS_PER_SM,
-                                                       LANE_BAGS_PER_SM)
-    edge, batched_edge = LANE_BAGS_PER_SM * sms, BATCHED_BAGS_PER_SM * sms
-    assert LANE_BAGS_PER_SM < BATCHED_BAGS_PER_SM
+    LANE_BAGS_PER_SM bags per SM, and the column route past it."""
+    from repro_torch.kernels.embedding_bag.ops import LANE_BAGS_PER_SM
+    edge = LANE_BAGS_PER_SM * sms
     assert bag_route(512, 8, sms) == "warp"
     assert bag_route(edge, 1, sms) == "lanes"
-    assert bag_route(edge + 1, 1, sms) == "batched"
-    assert bag_route(batched_edge, 1, sms) == "batched"
-    assert bag_route(batched_edge + 1, 1, sms) == "column"
+    assert bag_route(edge + 1, 1, sms) == "column"
     assert bag_route(1, 1, sms) == "lanes"
     assert bag_route(262_144, 1, sms) == "column"
     assert bag_route(512, 1, 132) == "lanes"      # serve_p99 on an H100
@@ -174,25 +169,15 @@ def test_wrapper_rejects_unsupported_inputs():
 
 
 _HARNESS = r"""
-#include <vector>
-// Every table value the replayed threads read (EB_HOST_READ), how many
-// of them lie outside the table's V rows, and every read of ids by the
-// batched route (EB_HOST_IDS): outside the replayed bag's own row, or a
-// 16-byte read off 16-byte alignment.
+// Every table value the replayed threads read (EB_HOST_READ), and how
+// many of them lie outside the table's V rows.
 static const float* g_table = nullptr;
-static const int* g_row = nullptr;
-static long g_V = 0, g_L = 0, g_table_reads = 0, g_table_outside = 0,
-            g_ids_outside = 0, g_misaligned = 0;
+static long g_V = 0, g_table_reads = 0, g_table_outside = 0;
 static void eb_host_read(const float* p) {
   ++g_table_reads;
   g_table_outside += p < g_table || p >= g_table + g_V;
 }
-static void eb_host_ids(const int* p, int n) {
-  g_ids_outside += p < g_row || p + n > g_row + g_L;
-  g_misaligned += n == 4 && (unsigned long)p % 16;
-}
 #define EB_HOST_READ(p) eb_host_read(p)
-#define EB_HOST_IDS(p, n) eb_host_ids(p, n)
 #include "embedding_bag.cuh"
 // Host replay of the CUDA kernels: every (bag, column) through the same
 // per-bag core (column and warp routes) ...
@@ -224,28 +209,36 @@ extern "C" int eb_host_lanes(const float* table, const int* idx,
   }
   return G;
 }
-// ... and the E = 1 batched route: every bag through eb_batched_bag on
-// the path the launch entry picks (eb_batched_vector_path).  counts: {path
-// (1 = 16-byte id loads), table values read, of them outside the table,
-// id reads outside the bag's own row, misaligned 16-byte id reads}.
-extern "C" void eb_host_batched(const float* table, const int* idx,
+// ... and the E = 1 column route: its launches in order, every bag of
+// each through eb_column_pass, the running state in one scratch block of
+// 3 B words as the wrapper gives it (filled with NaN bits first, so a
+// pass that read a state no pass wrote would show).  counts: {launches,
+// table values read, of them outside the table, outputs written before
+// the last launch, outputs written twice}.
+#include <vector>
+extern "C" void eb_host_column(const float* table, const int* idx,
                                const float* w, float* out, long V, int B,
                                int L, int mean, long* counts) {
-  g_table = table, g_V = V, g_L = L;
-  g_table_reads = g_table_outside = g_ids_outside = g_misaligned = 0;
-  const bool vec = eb_batched_vector_path((uint64_t)idx, (uint64_t)w, L);
-  for (int b = 0; b < B; ++b) {
-    g_row = idx + (long)b * L;
-    const float* wb = w ? w + (long)b * L : nullptr;
-    out[b] = vec ? eb_batched_bag<float, true>(table, V, g_row, wb, L, mean)
-                 : eb_batched_bag<float, false>(table, V, g_row, wb, L, mean);
+  g_table = table, g_V = V, g_table_reads = g_table_outside = 0;
+  std::vector<int> run(3 * (size_t)B, 0x7fc00001);
+  std::vector<int> written(B, 0);
+  long early = 0, twice = 0;
+  const int passes = eb_passes(L);
+  for (int p = 0; p < passes; ++p) {
+    const int i0 = p * EB_PASS_IDS;
+    const int i1 = i0 + EB_PASS_IDS < L ? i0 + EB_PASS_IDS : L;
+    for (int b = 0; b < B; ++b) {
+      float x;
+      if (eb_column_pass(table, V, idx, w, (float*)run.data(),
+                         run.data() + B, B, L, i0, i1, b, mean, &x)) {
+        out[b] = x;
+        early += p != passes - 1;
+        twice += written[b]++ > 0;
+      }
+    }
   }
-  counts[0] = vec, counts[1] = g_table_reads, counts[2] = g_table_outside;
-  counts[3] = g_ids_outside, counts[4] = g_misaligned;
-}
-
-extern "C" int eb_host_path(unsigned long idx, unsigned long w, int L) {
-  return eb_batched_vector_path(idx, w, L);
+  counts[0] = passes, counts[1] = g_table_reads, counts[2] = g_table_outside;
+  counts[3] = early, counts[4] = twice;
 }
 """
 
@@ -349,71 +342,41 @@ def test_host_lane_route_matches_plain(host_lanes, l, group, mode, weighted):
 
 
 @pytest.fixture(scope="module")
-def host_batched(host_lib):
-    fn = host_lib.eb_host_batched
+def host_column(host_lib):
+    fn = host_lib.eb_host_column
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [P, P, P, P, ctypes.c_long, I, I, I, P]
     fn.restype = None
-    host_lib.eb_host_path.argtypes = [ctypes.c_ulong, ctypes.c_ulong, I]
-    host_lib.eb_host_path.restype = I
     return fn
 
 
-def _offset_copy(x, words):
-    """x copied into a view ``words`` elements into a 64-byte aligned
-    buffer: contiguous, 16-byte aligned only if words % 4 == 0."""
-    flat = torch.empty(x.numel() + 16, dtype=x.dtype)
-    start = (-flat.data_ptr() // x.element_size()) % 16 + words
-    view = flat[start:start + x.numel()].view(x.shape)
-    view.copy_(x)
-    assert view.data_ptr() % 16 == (4 * words) % 16
-    return view
-
-
-@pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("l", [1, 17, 40, 41, 44, 100])
+@pytest.mark.parametrize("l", [1, 16, 17, 33, 40, 41])
 @pytest.mark.parametrize("mode,weighted", [("sum", False), ("mean", True)])
-def test_host_batched_route_bit_equal(host_bag, host_batched, l, offset,
-                                      mode, weighted):
-    """The E = 1 batched route (csrc/embedding_bag.cuh, eb_batched_bag),
-    replayed bag by bag by g++ on the path the launch entry picks: equal
-    bit for bit to eb_bag_column (the column and warp routes' loop), on bags with
-    padding, an all-padding bag and ids past V (NaN rows); B = 300 is not
-    a multiple of the 256-bag CTA.  The 16-byte id loads are taken only
-    for L % 4 == 0 on a 16-byte aligned index base (and weights):
-    ``offset`` puts both 4 bytes off.  A thread reads ids only from its
-    own bag's row, its 16-byte reads aligned, and every table value read
-    is one of an id inside the table, read once."""
+def test_host_column_passes_bit_equal(host_bag, host_column, l, mode,
+                                      weighted):
+    """The E = 1 column route's passes (eb_column_pass over ids of
+    ``PASS_IDS`` at a time, the running state carried between launches,
+    csrc/embedding_bag.cuh), replayed launch by launch by g++: equal bit
+    for bit to eb_bag_column (the whole bag in one loop, as the warp
+    route runs it), on 300 bags (not a multiple of the 256-thread CTA)
+    with padding, an all-padding bag and ids past V (NaN rows), L in one
+    pass, at a pass's end and past it; one launch per ``PASS_IDS`` ids,
+    each output written once, by the last; every table value read is
+    one of an id inside the table, read once."""
+    from repro_torch.kernels.embedding_bag.ops import PASS_IDS
     b, v = 300, 5000
-    table, idx, w = _bag_case(l * 7 + offset, v, 1, b, l, weighted)
-    idx = _offset_copy(idx, offset)
-    w = None if w is None else _offset_copy(w, offset)
+    table, idx, w = _bag_case(l * 7, v, 1, b, l, weighted)
     want = torch.empty((b, 1))
     host_bag(table.data_ptr(), idx.data_ptr(),
              None if w is None else w.data_ptr(), want.data_ptr(), v, b, l, 1,
              int(mode == "mean"))
     got = torch.full((b, 1), 7.0)
     counts = np.zeros(5, np.int64)
-    host_batched(table.data_ptr(), idx.data_ptr(),
+    host_column(table.data_ptr(), idx.data_ptr(),
                 None if w is None else w.data_ptr(), got.data_ptr(), v, b, l,
                 int(mode == "mean"), counts.ctypes.data)
-    vec, reads, outside, ids_outside, misaligned = counts
-    assert vec == (l % 4 == 0 and offset == 0)
-    assert outside == 0 and ids_outside == 0 and misaligned == 0
-    assert reads == int(((idx >= 0) & (idx < v)).sum())
+    passes, reads, outside, early, twice = counts
+    assert passes == -(-l // PASS_IDS) and early == 0 and twice == 0
+    assert outside == 0 and reads == int(((idx >= 0) & (idx < v)).sum())
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     _assert_rows(got, embedding_bag_ref(table, idx, w, mode=mode))
-
-
-@pytest.mark.parametrize("idx_off,w_off,l,want", [
-    (0, None, 40, 1), (4, None, 40, 0), (8, None, 40, 0), (0, None, 39, 0),
-    (0, 0, 40, 1), (0, 4, 40, 0), (16, 32, 44, 1), (0, None, 1, 0),
-])
-def test_batched_vector_path_choice(host_lib, host_batched, idx_off, w_off,
-                                    l, want):
-    """The launch takes 16-byte id loads only for L % 4 == 0 with the ids
-    (and the weights, if any) 16-byte aligned; a view 4 or 8 bytes off,
-    or an odd L, loads one id at a time."""
-    base = 1 << 20
-    w = 0 if w_off is None else base + (1 << 16) + w_off
-    assert host_lib.eb_host_path(base + idx_off, w, l) == want

@@ -100,10 +100,11 @@ def test_wrapper_rejects_unsupported_inputs():
 
 
 _HARNESS = r"""
+#include <cmath>
 #include <vector>
 #include "flash_attention_tc.cuh"
 // Host replay of the CUDA-core kernel (csrc/flash_attention.cu): per
-// (b * Hq, tile of FA_BQ query rows) the same tile plan, and per K/V tile
+// (b * Hq, tile of BQ query rows, 2 BQ threads) the same tile plan, and per K/V tile
 // the shared-memory tiles (zeros past the rows, keys and D), every
 // thread's 8 x 4 S micro-tile and 8 x 8 O micro-tile through fa_row,
 // fa_key and fa_dcol, the masks of the tiles that need them, the base-2
@@ -112,43 +113,53 @@ _HARNESS = r"""
 // and 1/l at the end.
 extern "C" void fa_host(const float* q, const float* k, const float* v,
                         float* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                        int D, int causal, float scale) {
-  const int T = FA_THREADS, offset = Skv - Sq;
+                        int D, int causal, float scale, int BQ) {
+  const int T = 2 * BQ, offset = Skv - Sq;
   const float sl2 = scale * FATC_LOG2E;
-  std::vector<float> sQ(FA_BQ * FA_MAX_D), sK(FA_BK * FA_MAX_D),
-      sV(FA_BK * FA_MAX_D), sP(FA_BQ * FA_BK);
+  std::vector<float> sQ(BQ * FA_MAX_D), sK(FA_BK * FA_K_STRIDE),
+      sV(FA_BK * FA_MAX_D), sP(BQ * FA_BK);
+  // columns D .. d4 - 1 are zeros as the kernel stages them; past d4 the
+  // kernel leaves shared memory unwritten: NaN here, which no stored
+  // output may reach
+  const int d4 = (D + 3) & ~3;
+  const float unset = std::nanf("");
   std::vector<float> acc(T * FA_ROWS * FA_DCOLS), m(T * FA_ROWS),
       l(T * FA_ROWS), s(T * FA_ROWS * FA_KEYS), x(T), y(T), alpha(T),
       m_neg(T);
   for (int bh = 0; bh < B * Hq; ++bh) {
     const long kvh = (long)(bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-    for (int q0 = 0; q0 < Sq; q0 += FA_BQ) {
-      const int rows = FA_BQ < Sq - q0 ? FA_BQ : Sq - q0;
+    for (int q0 = 0; q0 < Sq; q0 += BQ) {
+      const int rows = BQ < Sq - q0 ? BQ : Sq - q0;
       const int n_tiles = fa_n_tiles(q0, rows, Skv, causal, offset);
       std::fill(acc.begin(), acc.end(), 0.0f);
       std::fill(m.begin(), m.end(), fa_neg_inf());
       std::fill(l.begin(), l.end(), 0.0f);
-      for (int r = 0; r < FA_BQ; ++r)
+      for (int r = 0; r < BQ; ++r)
         for (int c = 0; c < FA_MAX_D; ++c)
           sQ[r * FA_MAX_D + c] =
-              r < rows && c < D ? q[((long)bh * Sq + q0 + r) * D + c] : 0.0f;
+              c >= d4 ? unset
+              : r < rows && c < D ? q[((long)bh * Sq + q0 + r) * D + c]
+                                  : 0.0f;
       for (int j = 0; j < n_tiles; ++j) {
         const int k0 = j * FA_BK;
         const int keys = FA_BK < Skv - k0 ? FA_BK : Skv - k0;
-        for (int r = 0; r < FA_BK; ++r)
-          for (int c = 0; c < FA_MAX_D; ++c) {
-            const bool in = r < keys && c < D;
+        for (int r = 0; r < FA_BK; ++r) {
+          for (int c = 0; c < FA_K_STRIDE; ++c) {
             const long g = (kvh * Skv + k0 + r) * D + c;
-            sK[r * FA_MAX_D + c] = in ? k[g] : 0.0f;
-            sV[r * FA_MAX_D + c] = in ? v[g] : 0.0f;
+            sK[r * FA_K_STRIDE + c] =
+                c >= d4 ? unset : r < keys && c < D ? k[g] : 0.0f;
+            if (c < FA_MAX_D)
+              sV[r * FA_MAX_D + c] =
+                  c >= d4 ? unset : r < keys && c < D ? v[g] : 0.0f;
           }
+        }
         for (int t = 0; t < T; ++t)
           for (int i = 0; i < FA_ROWS; ++i)
             for (int c = 0; c < FA_KEYS; ++c) {
               float a = 0.0f;
-              for (int d = 0; d < D; ++d)
+              for (int d = 0; d < d4; ++d)
                 a += sQ[fa_row(t, i) * FA_MAX_D + d] *
-                     sK[fa_key(t, c) * FA_MAX_D + d];
+                     sK[fa_key(t, c) * FA_K_STRIDE + d];
               s[(t * FA_ROWS + i) * FA_KEYS + c] = a;
             }
         const bool masked = fa_tile_needs_mask(k0, q0, Skv, causal, offset);
@@ -219,23 +230,28 @@ extern "C" void fa_host(const float* q, const float* k, const float* v,
   }
 }
 
-// The micro-tile maps of every thread: S (row, key) and O (row, column).
-extern "C" void fa_maps(int* s_rows, int* s_keys, int* o_cols) {
-  for (int t = 0; t < FA_THREADS; ++t) {
+// The micro-tile maps of every thread of a CTA of 2 BQ threads: S (row,
+// key) and O (row, column).
+extern "C" void fa_maps(int BQ, int* s_rows, int* s_keys, int* o_cols) {
+  for (int t = 0; t < 2 * BQ; ++t) {
     for (int i = 0; i < FA_ROWS; ++i) s_rows[t * FA_ROWS + i] = fa_row(t, i);
     for (int c = 0; c < FA_KEYS; ++c) s_keys[t * FA_KEYS + c] = fa_key(t, c);
     for (int e = 0; e < FA_DCOLS; ++e) o_cols[t * FA_DCOLS + e] = fa_dcol(t, e);
   }
 }
 
-extern "C" int fa_path(int fp32, int D, unsigned long q, unsigned long k,
+extern "C" int fa_path(int elt, int D, unsigned long q, unsigned long k,
                        unsigned long v) {
-  return fa_vector_path(fp32, D, q, k, v);
+  return fa_vector_path(elt, D, q, k, v);
 }
 
 extern "C" int fa_tiles(int q0, int rows, int kv_len, int causal,
                         int offset) {
   return fa_n_tiles(q0, rows, kv_len, causal, offset);
+}
+
+extern "C" int fa_rows(int bh, int Sq, int sms) {
+  return fa_tile_rows(bh, Sq, sms);
 }
 """
 
@@ -253,14 +269,16 @@ def host_lib(tmp_path_factory):
                    check=True)
     lib = ctypes.CDLL(str(lib))
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulong
-    lib.fa_host.argtypes = [P, P, P, P] + [I] * 7 + [ctypes.c_float]
+    lib.fa_host.argtypes = [P, P, P, P] + [I] * 7 + [ctypes.c_float, I]
     lib.fa_host.restype = None
-    lib.fa_maps.argtypes = [P, P, P]
+    lib.fa_maps.argtypes = [I, P, P, P]
     lib.fa_maps.restype = None
     lib.fa_path.argtypes = [I, I, U, U, U]
     lib.fa_path.restype = I
     lib.fa_tiles.argtypes = [I] * 5
     lib.fa_tiles.restype = I
+    lib.fa_rows.argtypes = [I] * 3
+    lib.fa_rows.restype = I
     return lib
 
 
@@ -281,44 +299,48 @@ def host_update(host_lib):
 def test_host_update_matches_plain(host_update, b, hq, hkv, sq, skv, d,
                                    causal, bq, bk):
     """The CUDA-core kernel (csrc/flash_attention.cu), its tile plan,
-    micro-tiles, masks and base-2 online softmax built by g++ and replayed
-    thread by thread, against the plain version; fp32 on both sides, 2e-5
-    as above.  ``bq`` and ``bk`` are blocks the wrapper takes: the kernel's
-    tiles do not follow them, and the wrapper's result with them is the
-    same plain version."""
+    micro-tiles, shared-memory strides, masks and base-2 online softmax
+    built by g++ and replayed thread by thread with both tile heights (64
+    and 128 rows), against the plain version and against the Pallas
+    kernel at blocks ``bq`` x ``bk`` (interpret mode; the CUDA kernel's
+    tiles do not follow the blocks, so its result must not depend on
+    them); fp32 on all sides, 2e-5 as above."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(7 + sq, b, hq, hkv, sq, skv, d))
-    out = torch.full_like(q, float("nan"))
-    host_update(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, skv, d, int(causal), d ** -0.5)
     want = attention_ref(q, k, v, causal=causal)
-    assert torch.isfinite(out).all()
-    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
-    torch.testing.assert_close(
-        flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk), want,
-        atol=0, rtol=0)
+    pallas = _f32(jax_flash(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                            causal=causal, block_q=bq, block_k=bk))
     masked = max(sq - skv, 0) if causal else 0
-    assert (out[:, :, :masked] == 0).all()
+    for rows in (64, 128):
+        out = torch.full_like(q, float("nan"))
+        host_update(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, hq, hkv, sq, skv, d, int(causal), d ** -0.5, rows)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(out.numpy(), pallas, atol=2e-5, rtol=2e-5)
+        assert (out[:, :, :masked] == 0).all()
 
 
-def test_host_micro_tiles_own_each_element_once(host_lib):
-    """Every element of a CTA's 128 x 64 S tile and 128 x 128 O tile has
-    exactly one owning thread; a row's S owners are the 16 lanes of one
-    half warp, the same threads that own the row in O, so a row's max and
-    sum reduce by xor shuffles of 8 .. 1 inside that half warp."""
-    t_n, rows_n, keys_n, cols_n = 256, 8, 4, 8
+@pytest.mark.parametrize("bq", [64, 128])
+def test_host_micro_tiles_own_each_element_once(host_lib, bq):
+    """Every element of a CTA's bq x 64 S tile and bq x 128 O tile has
+    exactly one owning thread of its 2 bq; a row's S owners are the 16
+    lanes of one half warp, the same threads that own the row in O, so a
+    row's max and sum reduce by xor shuffles of 8 .. 1 inside that half
+    warp."""
+    t_n, rows_n, keys_n, cols_n = 2 * bq, 8, 4, 8
     s_rows = np.zeros((t_n, rows_n), np.int32)
     s_keys = np.zeros((t_n, keys_n), np.int32)
     o_cols = np.zeros((t_n, cols_n), np.int32)
-    host_lib.fa_maps(s_rows.ctypes.data, s_keys.ctypes.data,
+    host_lib.fa_maps(bq, s_rows.ctypes.data, s_keys.ctypes.data,
                      o_cols.ctypes.data)
-    s_own = np.zeros((128, 64), np.int32)
-    o_own = np.zeros((128, 128), np.int32)
+    s_own = np.zeros((bq, 64), np.int32)
+    o_own = np.zeros((bq, 128), np.int32)
     for t in range(t_n):
         for r in s_rows[t]:
             s_own[r, s_keys[t]] += 1
             o_own[r, o_cols[t]] += 1
     assert (s_own == 1).all() and (o_own == 1).all()
-    for r in range(128):
+    for r in range(bq):
         owners = np.nonzero((s_rows == r).any(1))[0]
         assert len(owners) == 16 and owners[0] % 16 == 0
         assert (owners == owners[0] + np.arange(16)).all()
@@ -342,17 +364,33 @@ def test_host_tile_plan(host_lib, sq, skv, causal, want):
     assert got == want
 
 
-@pytest.mark.parametrize("fp32,d,offsets,want", [
-    (1, 128, (0, 0, 0), 1), (1, 40, (0, 0, 0), 1), (1, 8, (0, 0, 0), 1),
-    (1, 33, (0, 0, 0), 0), (1, 128, (4, 0, 0), 0), (1, 128, (0, 0, 8), 0),
-    (0, 128, (0, 0, 0), 0), (0, 96, (0, 0, 0), 0),
+@pytest.mark.parametrize("bh,sq,sms,want", [
+    (64, 1024, 132, 128),   # path_fp32: 512 tall tiles
+    (4, 128, 132, 64),      # mha: 4 tall tiles for 132 SMs
+    (8, 256, 132, 64),      # bf16_d96
+    (66, 256, 132, 128),    # exactly one tall tile an SM
+    (65, 256, 132, 64),
+    (4, 128, 1, 128),
 ])
-def test_host_vector_path_choice(host_lib, fp32, d, offsets, want):
-    """The launch copies rows by 16-byte cp.async only for fp32 with
-    D % 4 == 0 and q, k, v 16-byte aligned; everything else (bf16, odd D,
-    a view off 16 bytes) loads through registers."""
+def test_host_tile_rows(host_lib, bh, sq, sms, want):
+    """128-row tiles unless they give fewer CTAs than the card has SMs;
+    then 64-row tiles (twice the CTAs, half the rows each)."""
+    assert host_lib.fa_rows(bh, sq, sms) == want
+
+
+@pytest.mark.parametrize("elt,d,offsets,want", [
+    (4, 128, (0, 0, 0), 1), (4, 40, (0, 0, 0), 1), (4, 8, (0, 0, 0), 1),
+    (4, 33, (0, 0, 0), 0), (4, 128, (4, 0, 0), 0), (4, 128, (0, 4, 0), 0),
+    (4, 128, (0, 0, 8), 0), (2, 96, (0, 0, 0), 1), (2, 40, (0, 0, 0), 1),
+    (2, 36, (0, 0, 0), 0), (2, 96, (0, 2, 0), 0),
+])
+def test_host_vector_path_choice(host_lib, elt, d, offsets, want):
+    """A launch copies rows in 16-byte units (fp32 by cp.async, bf16 by
+    loads of 8) only where a row is whole 16-byte units and q, k and v
+    are 16-byte aligned; an odd D or a view off 16 bytes goes element by
+    element."""
     base = 1 << 20
-    assert host_lib.fa_path(fp32, d, *(base + o for o in offsets)) == want
+    assert host_lib.fa_path(elt, d, *(base + o for o in offsets)) == want
 
 
 # ---------------------------------------------------------------------

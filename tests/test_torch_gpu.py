@@ -15,7 +15,6 @@ one launch of the kernel its route names (decode: ``tensor_core_route``;
 bag: ``bag_route``) and none of the other.
 """
 import dataclasses
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -36,9 +35,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.embedding_bag import (
     EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL, bag_route, embedding_bag,
     embedding_bag_ref)
-from repro_torch.kernels.embedding_bag import ops as bag_ops
-from repro_torch.kernels.embedding_bag.ops import (BATCHED_BAGS_PER_SM,
-                                                   LANE_BAGS_PER_SM)
+from repro_torch.kernels.embedding_bag.ops import LANE_BAGS_PER_SM, PASS_IDS
 from repro_torch.kernels.flash_attention import (
     FLASH_ATTENTION_KERNEL, FLASH_ATTENTION_TC_KERNEL, attention_ref,
     flash_attention, tensor_core_route)
@@ -270,6 +267,7 @@ def test_cuda_block_scan_backend_matches_reference(cuda, du, dv):
     (1, 2, 1, 5, 1, 8, True, "float32", 8, 8),             # one key
     (1, 8, 2, 200, 200, 96, True, "bfloat16", 64, 64),     # bf16, CUDA cores
     (1, 4, 4, 130, 70, 32, False, "bfloat16", 64, 64),
+    (1, 4, 2, 100, 150, 36, True, "bfloat16", 64, 64),    # bf16 by elements
 ])
 def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d,
                                             causal, dtype, bq, bk):
@@ -302,16 +300,18 @@ def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d,
     (2, 8, 2, 300, 200, 40, True),        # GQA 4:1, rows 0..99 see no key
     (1, 8, 2, 130, 390, 96, True),        # Sq < Skv, causal offset 260
     (2, 32, 8, 1024, 1024, 128, True),    # the fp32 LM route's launch
+    (4, 32, 8, 300, 300, 40, True),       # 128-row tiles, D 40
     (1, 8, 2, 200, 333, 128, False),      # bidirectional, ragged keys
     (1, 4, 1, 70, 30, 128, True),         # rows 0..39 see no key
 ])
 def test_cuda_flash_attention_fp32_route(cuda, b, hq, hkv, sq, skv, d,
                                          causal, offset):
-    """fp32 on the CUDA-core kernel: one launch of ``flash_attention`` and
-    none of the tensor-core kernel, within 2e-5 of the plain version,
-    fully masked rows exactly 0; ``offset`` 1 puts q 4 bytes off 16-byte
-    alignment, so that the launch takes the register path instead of the
-    16-byte cp.async copies."""
+    """fp32 on the CUDA-core kernel (128-row tiles on the two cases with
+    at least one per SM, 64-row tiles on the rest): one launch of
+    ``flash_attention`` and none of the tensor-core kernel, within 2e-5
+    of the plain version, fully masked rows exactly 0; ``offset`` 1 puts
+    q 4 bytes off 16-byte alignment, so that the launch takes the
+    register path instead of the 16-byte cp.async copies."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(sq + skv + d + offset)
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
@@ -642,11 +642,11 @@ def test_cuda_embedding_bag_matches_plain(cuda, v, e, b, l, mode, dtype,
 @pytest.mark.parametrize("extra", [0, 1])
 def test_cuda_embedding_bag_route_edge(cuda, extra):
     """At the rule's edge (``LANE_BAGS_PER_SM`` bags per SM: the lane
-    route) and one bag past it (the batched route), Wide&Deep's E = 1, L =
+    route) and one bag past it (the column route), Wide&Deep's E = 1, L =
     40, with ids V, 2**31 - 1 and -1 planted."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     b, v, l = LANE_BAGS_PER_SM * sms + extra, 40 * 4096, 40
-    assert bag_route(b, 1, sms) == ("lanes", "batched")[extra]
+    assert bag_route(b, 1, sms) == ("lanes", "column")[extra]
     rng = np.random.default_rng(b)
     table = torch.from_numpy(rng.normal(size=(v, 1)).astype(np.float32)).to(cuda)
     idx = rng.integers(0, v, size=(b, l)).astype(np.int32)
@@ -656,26 +656,23 @@ def test_cuda_embedding_bag_route_edge(cuda, extra):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["batched", "column"])
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("l", [40, 41])
+@pytest.mark.parametrize("l", [16, 40, 41])
 @pytest.mark.parametrize("mode,weighted", [("sum", True), ("mean", False),
                                            ("mean", True)])
-def test_cuda_embedding_bag_thread_per_bag_routes(cuda, l, mode, weighted,
-                                                  offset, route):
-    """Past the lane route's edge at E = 1 (the batched route) and past
-    the batched route's (the column route): one launch of
+def test_cuda_embedding_bag_column_route(cuda, l, mode, weighted, offset):
+    """Past the lane route's edge at E = 1 (the column route, in passes of
+    ``PASS_IDS`` ids: one at L = 16, three at 40 and 41): one launch of
     ``embedding_bag`` and none of ``embedding_bag_lanes``, with ids past
     the table (NaN rows) and padding planted, against the plain version;
-    and bit for bit equal to the warp route at E = 1, which runs
-    eb_bag_column, the loop whose order the batched route keeps.
-    ``offset`` 1 puts the ids (and weights) 4 bytes off 16-byte
-    alignment: the batched route then loads them one id at a time (as it
-    does at L = 41)."""
+    and bit for bit equal to the warp route's loop (eb_bag_column, the
+    whole bag at once) over column 0 of a two-column table that holds
+    the table there.  ``offset`` 1 puts the ids (and weights) 4 bytes off
+    16-byte alignment."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    edge = {"batched": LANE_BAGS_PER_SM, "column": BATCHED_BAGS_PER_SM}[route]
-    b, v = edge * sms + 1000, 40 * 4096
-    assert bag_route(b, 1, sms) == route
+    b, v = LANE_BAGS_PER_SM * sms + 1000, 40 * 4096
+    assert bag_route(b, 1, sms) == "column" and bag_route(b, 2, sms) == "warp"
+    assert -(-l // PASS_IDS) == (1 if l == 16 else 3)
     rng = np.random.default_rng(l + offset)
     table = torch.from_numpy(rng.normal(size=(v, 1)).astype(np.float32)).to(cuda)
     idx = rng.integers(-1, v, size=(b, l)).astype(np.int32)
@@ -687,9 +684,10 @@ def test_cuda_embedding_bag_thread_per_bag_routes(cuda, l, mode, weighted,
     assert (idx.data_ptr() % 16 == 0) == (offset == 0)
     got = _assert_bag(table, idx, w, mode, [3, 7, b - 1])
     assert (got[0] == 0).all()
+    wide = torch.zeros((v, 2), device=cuda)
+    wide[:, 0] = table[:, 0]
     before = EMBEDDING_BAG_KERNEL.launches
-    with mock.patch.object(bag_ops, "bag_route", lambda *a: "warp"):
-        warp = embedding_bag(table, idx, w, mode=mode)
+    warp = embedding_bag(wide, idx, w, mode=mode)[:, :1]
     torch.cuda.synchronize()
     assert EMBEDDING_BAG_KERNEL.launches == before + 1
     assert torch.equal(got.view(torch.int32), warp.view(torch.int32))
