@@ -26,7 +26,9 @@ Phases (any failure raises and the script exits non-zero):
    runs between a reset and a read of the launch counts, then every
    output is held bit for bit against ``block_scan_reference`` in
    slices of 16 queries, and timed (no PyTorch call computes these
-   scans; every block-scan row prints its GB/s and bound/time); flash
+   scans; every block-scan row prints its GB/s and bound/time; the
+   static kernel's rows also the launch floor and (ms - floor)/bound,
+   and the static kernel is timed at twice its tile, in turns); flash
    attention within 2e-5
    (fp32) and 2e-2 (bf16), the JAX package's own tolerances, on its two
    routes (bf16 at D 64 or 128: the tensor-core kernel; fp32 and other
@@ -44,10 +46,14 @@ Phases (any failure raises and the script exits non-zero):
    Hq=32, Hkv=8, S=8208, D=128, bf16, kv_len 8193, through the
    transposed view of a (B, S, Hkv, D) cache; the tensor-core kernel
    also under two other split plans), phase 4's fp32-route launch
-   (B=2, S=1026, kv_len 1025, fp32), the four shapes of
+   (B=2, S=1026, kv_len 1025, fp32; one call under torch.profiler: one
+   kernel), the LM path's cache in fp32 (S=8208, kv_len 8193: bytes,
+   not the launch, set the time), both fp32 rows also under half and
+   twice the split plan's slices, the four shapes of
    ``tests/test_kernels.py``, per-row lengths with a row of length 0,
    and partials merged across four shards (fp32 1e-4, bf16 2e-2),
-   beside SDPA with a length mask; the embedding bag within 1e-5 (fp32)
+   beside SDPA with a length mask and the launch floor ((ms -
+   floor)/bound); the embedding bag within 1e-5 (fp32)
    and 3e-2 (bf16), bags with an id past the table NaN as in the plain
    version, at the Wide&Deep path's shapes (V=40M, E=1, L=40, B=512,
    the lane route's largest batch on this card with half and twice as
@@ -336,7 +342,14 @@ def rate_text(ms, bound, bytes_moved) -> str:
             f"{bound / ms:.2f}")
 
 
-def kernel_phase(dev, flush):
+def excess_text(ms, floor, bound) -> str:
+    """A short kernel's time beside the launch floor: its excess over
+    the floor as a share of its bound."""
+    return (f"launch floor {floor:.6f} ms, (ms - floor)/bound "
+            f"{(ms - floor) / bound:.2f}")
+
+
+def kernel_phase(dev, flush, floor):
     import numpy as np
     import torch
 
@@ -344,9 +357,6 @@ def kernel_phase(dev, flush):
                                                 block_scan_pruned_chunk_ref)
 
     b, nb, tf_planes, w = QUERY_BATCH, N_BLOCKS, 16, BLOCK_DOCS // 32
-    floor = launch_floor_ms(dev, flush)
-    print(f"[kernel] launch floor: one launch of a one-element add_ "
-          f"{floor:.6f} ms (cold L2, as the rows below)", flush=True)
     rows = {}
     for chunk in (4, 32):
         occ, meta, n_active, bp, t = block_scan_case(dev, b, nb, tf_planes,
@@ -451,15 +461,22 @@ def max_word_err(got, want):
 
 
 def whole_index_phase(dev, flush, q=QUERY_BATCH, nb=FULL_BLOCKS,
-                      w=BLOCK_DOCS // 32):
+                      w=BLOCK_DOCS // 32, floor=None):
     """The whole-index scans through ``kernels/block_scan/ops`` at the
     websearch-rl config's full index (the path: the launch counts are
     set to 0 just before and read just after), then every output held
     bit for bit against the plain version, in slices of queries, and,
-    on the card, cold-L2 times beside the bounds.  Returns the path's
-    counts and the rows of the two kernels."""
+    on the card, cold-L2 times beside the bounds (the static kernel's
+    also beside the launch floor ``floor``, and at twice its tile, in
+    turns).  Returns the path's counts and the rows of the two
+    kernels."""
+    import importlib
+
     import numpy as np
     import torch
+
+    bsp = importlib.import_module(
+        "repro_torch.kernels.block_scan.block_scan_pruned")
 
     from repro_torch.kernels.block_scan import (block_scan, block_scan_batched,
                                                 block_scan_pruned,
@@ -555,8 +572,24 @@ def whole_index_phase(dev, flush, q=QUERY_BATCH, nb=FULL_BLOCKS,
                   f"{int(act.sum())} active planes: bit-equal to plain; kernel "
                   f"{ms:.6f} ms (cold L2), plain {plain_ms:.6f} ms, bound "
                   f"{bound:.6f} ms ({bound_by}); kernel/bound {ms / bound:.2f}x; "
-                  f"{rate_text(ms, bound, moved)}",
+                  f"{rate_text(ms, bound, moved)}"
+                  + (f"; {excess_text(ms, floor, bound)}"
+                     if case == "static" else ""),
                   flush=True)
+        # the static tile against twice it, in turns
+        n_planes = len(bsp.static_plane_list(*host)[0])
+        tile = bsp.static_tile(nb, n_planes)
+        times = {}
+        for bb in (tile, 2 * tile, 2 * tile, tile):
+            with mock.patch.object(bsp, "static_tile", lambda *a, bb=bb: bb):
+                times.setdefault(bb, []).append(time_cuda(
+                    lambda host=host: block_scan_pruned(occ[0], *host), 50,
+                    flush))
+        print(f"[kernel] block_scan_pruned (block_scan_static) {name}, tiles "
+              f"(blocks a CTA: ms in two turns; static_tile gives {tile} for "
+              f"{n_planes} planes): "
+              + "; ".join(f"{bb}: {t[0]:.6f} / {t[1]:.6f}"
+                          for bb, t in times.items()), flush=True)
         torch.cuda.empty_cache()
     del occ, outs
     torch.cuda.empty_cache()
@@ -732,9 +765,11 @@ def flash_phase(dev, flush):
 # decode steps, read through the transposed (B, S, Hkv, D) cache), the
 # four shapes of tests/test_kernels.py, per-row lengths with a row of
 # length 0, the path's cache at batch 8 (toward decode_32k's 128),
-# where the fixed cost of a launch weighs less against its bytes, and
+# where the fixed cost of a launch weighs less against its bytes,
 # phase 4's fp32-route decode launch (its first step: kv_len prompt + 1
-# over the cache padded by its steps), the fp32 kernel's own path.
+# over the cache padded by its steps), the fp32 kernel's own path, and
+# the bf16 path's cache at the fp32 route's type (134 MB: bytes, not
+# the launch, set the time; a measurement row, not a path).
 DECODE_CASES = [
     ("path", LM_BATCH, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
      [LM_PROMPT + 1] * LM_BATCH, True),
@@ -747,7 +782,10 @@ DECODE_CASES = [
      [LM_PROMPT - 192] * 8, True),
     ("path_fp32", LM_BATCH, 32, 8, LM_FP32_PROMPT + LM_FP32_STEPS, 128,
      "float32", [LM_FP32_PROMPT + 1] * LM_BATCH, True),
+    ("path_fp32_8k", LM_BATCH, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128,
+     "float32", [LM_PROMPT + 1] * LM_BATCH, True),
 ]
+DECODE_FP32_PLAN_ROWS = ("path_fp32", "path_fp32_8k")
 
 
 def decode_bound_ms(b, hq, hkv, d, lens, dtype):
@@ -842,11 +880,13 @@ def decode_check(name, q, k, v, kv_len, lens, kernel, other):
     return err, row_err
 
 
-def decode_phase(dev, flush):
+def decode_phase(dev, flush, floor):
     """Every DECODE_CASES row through its route's kernel; the rows the
     tensor-core route takes also through the CUDA-core kernel, both held
-    and timed; at ``path`` the tensor-core kernel also under two other
-    split plans."""
+    and timed, beside the launch floor ``floor``; at ``path`` the
+    tensor-core kernel also under two other split plans, at
+    DECODE_FP32_PLAN_ROWS the CUDA-core kernel; one fp32 call at
+    ``path_fp32`` under torch.profiler (one kernel launch)."""
     import torch
     import torch.nn.functional as F
 
@@ -914,8 +954,8 @@ def decode_phase(dev, flush):
                   f"{ROW_TOL[dtype]}; out x{PLANTED_SCALE} rejected); kernel "
                   f"{t:.6f} ms, plain {plain_ms:.6f} ms, sdpa {library_ms:.6f} "
                   f"ms, bound {bound:.6f} ms ({bound_by}); kernel/bound "
-                  f"{t / bound:.2f}x, kernel/sdpa {t / library_ms:.2f}x",
-                  flush=True)
+                  f"{t / bound:.2f}x, kernel/sdpa {t / library_ms:.2f}x; "
+                  f"{excess_text(t, floor, bound)}", flush=True)
         if name == "path":      # the plan against two others, in turns
             n_tiles = -(-s // dops.TC_BLOCK_K)
             times = {}
@@ -942,6 +982,30 @@ def decode_phase(dev, flush):
                   f"(B, S, Hkv, D) {t_view:.6f} ms, contiguous (B, Hkv, S, D) "
                   f"{t_cont:.6f} ms", flush=True)
             del kc, vc
+        if name in DECODE_FP32_PLAN_ROWS:   # the plan against two others
+            n_rounds = -(-s // dops.BLOCK_K)
+            times = {}
+            for n in (plan[0], max(plan[0] // 2, 1), 2 * plan[0],
+                      2 * plan[0], max(plan[0] // 2, 1), plan[0]):
+                per = -(-n_rounds // n) * dops.BLOCK_K
+                with mock.patch.object(dops, "split_plan",
+                                       lambda *a, per=per: (-(-s // per), per)):
+                    times.setdefault(-(-s // per), []).append(time_cuda(
+                        lambda: decode_attention(q, k, v, kv_len=kv_len),
+                        reps, flush))
+            print(f"[kernel] decode_attention {name}, split plans (slices: ms "
+                  f"in two turns; split_plan gives {plan[0]}): "
+                  + "; ".join(f"{n}: {t[0]:.6f} / {t[1]:.6f}"
+                              for n, t in times.items()), flush=True)
+        if name == "path_fp32":
+            before = DECODE_ATTENTION_KERNEL.launches
+            profile_device(
+                "decode_attention path_fp32 call",
+                lambda: decode_attention(q, k, v, kv_len=kv_len),
+                "decode_attention_kernel")
+            print(f"[profile] decode_attention path_fp32: "
+                  f"{DECODE_ATTENTION_KERNEL.launches - before} wrapper launch "
+                  f"for one call (device events above)", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -1889,8 +1953,7 @@ def profile_device(name, fn, kernel):
     for e in dev_events:
         n, us = per_name.get(e.name, (0, 0.0))
         per_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    # CUDA names a template kernel "void name_kernel<T>(...)"; decode
-    # attention launches two (split and merge)
+    # CUDA names a template kernel "void name_kernel<T>(...)"
     kern = [v for k, v in per_name.items() if kernel in k]
     kern_us = sum(us for _, us in kern)
     print(f"[profile] {name}: wall {wall_us / 1e3:.1f} ms, device busy "
@@ -1931,13 +1994,16 @@ def main() -> int:
     print(f"[build] all kernels in {time.perf_counter() - t0:.1f} s", flush=True)
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    rows = kernel_phase(dev, flush)
-    whole_launches, whole_rows = whole_index_phase(dev, flush)
+    floor = launch_floor_ms(dev, flush)
+    print(f"[kernel] launch floor: one launch of a one-element add_ "
+          f"{floor:.6f} ms (cold L2, as the rows below)", flush=True)
+    rows = kernel_phase(dev, flush, floor)
+    whole_launches, whole_rows = whole_index_phase(dev, flush, floor=floor)
     for name in ("block_scan_tile", "block_scan_static"):
         if whole_launches[name] <= 0:
             raise AssertionError(f"the whole-index path launched no {name}")
     flash_rows = flash_phase(dev, flush)
-    decode_rows = decode_phase(dev, flush)
+    decode_rows = decode_phase(dev, flush, floor)
     bag_rows = bag_phase(dev, flush)
     del flush
     torch.cuda.empty_cache()

@@ -1,10 +1,11 @@
-// Warp-per-block core of the tile and chunk block scans
-// (block_scan_tile.cu, block_scan.cu).
+// Warp-per-block core of the three block scans (block_scan_tile.cu,
+// block_scan.cu, block_scan_static.cu).
 //
 // Shared by the CUDA kernels and by the g++ host harnesses of the CPU
-// tests, which replay both grids warp by warp and lane by lane: the word
-// ownership, the plane lists built from ballots, the slot plan, the
-// strip walk and the per-lane arithmetic below are the kernels' own.
+// tests, which replay the three grids warp by warp and lane by lane: the
+// word ownership, the plane lists built from ballots or taken from the
+// static rule, the slot plan, the strip walk and the per-lane arithmetic
+// below are the kernels' own.
 // Only the 16-byte loads and stores, the ballots and the shuffles are
 // CUDA-only; a harness computes a ballot over its 32 replayed lanes and
 // a warp sum by adding the lanes' shares.
@@ -127,6 +128,29 @@ __host__ __device__ inline void bs_warp_span(int n_blk, int warp,
 __host__ __device__ inline bool bs_vector_path(int W, uintptr_t occ,
                                                uintptr_t match) {
   return W % 4 == 0 && (occ | match) % 16 == 0;
+}
+
+// ---------------------------------------------- the static kernel's rule
+// A plane list by value: read at the constant slot indices of an
+// unrolled round, so it stays in registers (no shared memory, no
+// barrier).
+static_assert(BS_SLOTS == BS_MAX_PLANES, "a slot for every plane");
+
+struct BsSlots {
+  int32_t v[BS_SLOTS];
+  __host__ __device__ int operator[](int s) const { return v[s]; }
+};
+
+// The static rule's slots: off[s] = plane_ids[s] * W (the plane's word
+// offset in a block), term[s] = term_ids[s].
+__host__ __device__ inline void bs_static_slots(const BsStaticRule& rule,
+                                                int W, BsSlots* off,
+                                                BsSlots* term) {
+#pragma unroll
+  for (int s = 0; s < BS_SLOTS; ++s) {
+    off->v[s] = rule.plane_ids[s] * W;
+    term->v[s] = rule.term_ids[s];
+  }
 }
 
 // ---------------------------------------------- the chunk kernel's meta

@@ -1,7 +1,11 @@
-// Single-token GQA decode attention over a KV cache, for Hopper (sm_90a).
+// Single-token GQA decode attention over a KV cache on Hopper's CUDA
+// cores (sm_90a): fp32, and bf16 at the head dims the tensor-core kernel
+// is not built for.
 //
 // Replaces the Pallas TPU kernel decode_attention_pallas
-// (src/repro/kernels/decode_attention/decode_attention.py, _kernel).
+// (src/repro/kernels/decode_attention/decode_attention.py, _kernel) on the
+// route the wrapper (kernels/decode_attention/ops.py, tensor_core_route)
+// gives it; bf16 at D 64/128 goes to decode_attention_tc.cu.
 // q (B, Hq, D) contiguous; k and v (B, Hkv, S, D) given by their strides
 // (D contiguous), so the LM path passes a transposed view of its
 // (B, S, Hkv, D) cache with no copy.  Query head h reads KV head
@@ -12,385 +16,470 @@
 // gives 0, -inf, 0.  Scores, softmax and accumulators are fp32.
 //
 // What bounds it on an H100: bytes.  Each key and value is read once for
-// all the query heads of its group; at the LM path's shape (B=2, Hkv=8,
-// S=8208, D=128, bf16) that is 67.2 MB a layer, 20 us at 3.35 TB/s,
-// against ~0.3 GFLOP.
+// all the query heads of its group: at phase 4's fp32 route (B=2, Hkv=8,
+// kv_len 1025, D=128) 16.8 MB a launch, 5 us at 3.35 TB/s, against
+// ~34 MFLOP (0.5 us at the fp32 rate); at the same model's 8208-key
+// cache 134 MB, 40 us.
 //
-// Design (simple and right first): the TPU kernel walks the KV sequence
-// in order on one core with (m, l, acc) in VMEM.  Here B * Hkv is only 16
-// at the path's shape, so one CTA per (b, kv head) would leave 116 of the
-// 132 SMs idle.  The keys are cut into n_split slices (the wrapper's
-// split_plan picks at most two CTAs per SM, one wave) and pass 1 runs
-// one 128-thread CTA per (slice, b, kv head): it loops over tiles of 64
-// keys staged in shared memory as fp32, the next tile's 16-byte loads
-// (eight per tensor per thread) in flight in registers while this tile is
-// computed on;
-// each thread scores one key for its query rows, one warp per row does
-// the online-softmax update with shuffles, and each thread accumulates
-// one column of P.V for R rows of the group in registers (R a template
-// parameter, P rows past the group kept at zero, so the loop carries no
-// predicates).  It writes fp32 partials (acc, m, l) per slice.  Pass 2,
-// one CTA per (b, query head), merges the slices by their log-sum-exp
-// and normalises.  The rescale, probabilities and merge weights are the
+// Design (decode_attention.cuh has the maps):
+//   - One launch.  The keys are cut into slices (split_plan in ops.py:
+//     one wave of DA_CTAS_PER_SM CTAs an SM); a CTA takes one slice of
+//     one (b, kv head).  Each CTA fences its partial (acc, m, l) and adds
+//     one to its (b, kv head)'s counter; the CTA that sees n_split - 1 is
+//     the last, resets the counter to 0 and merges the n_split partials in
+//     slice order.  The wrapper keeps the zeroed counters per device and
+//     stream (the tensor-core kernel's mechanism).
+//   - K and V go straight into shared memory by 16-byte cp.async.cg, in
+//     the input's type (fp32 stays fp32; bf16 is widened at use), rows
+//     past the slice's last valid key zero-filled.  Each warp has its own
+//     ring of DA_STAGES tiles of DA_WARP_KEYS keys and takes the warp
+//     tiles w, w + 4, ... of the slice: at fp32 D = 128 a stage is 8 KB,
+//     a CTA 96 KB, two CTAs an SM, and the first DA_STAGES tiles of every
+//     warp are in flight at once (at phase 4's fp32 route, the whole
+//     slice).  No CTA barrier sits in the key loop: a warp waits for its
+//     own copies (cp.async.wait_group, __syncwarp).
+//   - Lanes own 4 columns of D (float4 loads of a K or V row), in teams
+//     of 32 lanes (16 at D <= 64, two teams a warp on alternate keys).
+//     A chunk of keys' partial q.k for the group's rows (32 values a
+//     lane) is summed over the team by a reduce-scatter of xor shuffles
+//     (31 at a team of 32, against 160 for a butterfly of each value), so
+//     each lane ends with the sums of one key and one or two rows; it
+//     scales and masks them, takes each row's max and sum over the
+//     chunk's keys by 3 xor steps, and keeps those rows' (m, l), so
+//     each score's exp is computed once.  Every lane then takes the rows'
+//     alpha and the chunk's P by shuffles from the lanes that hold them
+//     and updates its 4 columns of acc for every row: no shared memory
+//     between the scores and P.V.
+//   - The warps' and teams' states merge through shared memory once, at
+//     the slice's end, in order, 4 columns a thread; the last CTA's
+//     merge loads 4 columns of every slice at once.
+// The maps and the rescale, probability and merge weights are the
 // __host__ __device__ functions of decode_attention.cuh and
-// flash_attention.cuh, which the CPU tests compile with g++.
-//
-// What it leaves on the table: one tile in flight (no deeper cp.async or
-// TMA ring); ~83 KB of shared memory a CTA leaves two CTAs per SM; K and
-// V are widened to fp32 in shared memory.
+// flash_attention.cuh, which the CPU tests replay warp by warp and lane
+// by lane with g++.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "decode_attention.cuh"
 
-#define DA_K_STRIDE (DA_MAX_D + 4)   // sK row stride: float4 reads of 8
-                                     // rows hit 32 distinct banks
-#define DA_UNROLL 8                  // 16-byte loads per tensor per batch
-#define DA_P_ROWS (2 * DA_MAX_GROUP) // sP rows; those past the group stay 0
-#define DA_SMEM_FLOATS                                                    \
-  (DA_BK * DA_K_STRIDE + DA_BK * DA_MAX_D + DA_MAX_GROUP * DA_MAX_D +     \
-   DA_P_ROWS * DA_BK + DA_P_ROWS)
-#define DA_ROWS_PER_WARP (DA_MAX_GROUP / (DA_THREADS / 32))
+#define DA_FULL 0xFFFFFFFFu
 
-__device__ __forceinline__ float da_load(const float* p) { return *p; }
-__device__ __forceinline__ float da_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ void da_cp16(uint32_t dst, const void* src,
+                                        int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
+
+__device__ __forceinline__ void da_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void da_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four consecutive elements as fp32.
+__device__ __forceinline__ void da_ld4(const float* p, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  x[0] = f.x;
+  x[1] = f.y;
+  x[2] = f.z;
+  x[3] = f.w;
+}
+
+__device__ __forceinline__ void da_ld4(const __nv_bfloat16* p,
+                                       float (&x)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  x[0] = lo.x;
+  x[1] = lo.y;
+  x[2] = hi.x;
+  x[3] = hi.y;
+}
+
 __device__ __forceinline__ void da_store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void da_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// 16 bytes of T widened to fp32 into dst (4 fp32 or 8 bf16 values).
-__device__ __forceinline__ void da_widen(const uint4& raw, float* dst,
-                                         const float*) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
-}
-__device__ __forceinline__ void da_widen(const uint4& raw, float* dst,
-                                         const __nv_bfloat16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  float4 lo, hi;
-  float2 f;
-  f = __bfloat1622float2(h[0]); lo.x = f.x; lo.y = f.y;
-  f = __bfloat1622float2(h[1]); lo.z = f.x; lo.w = f.y;
-  f = __bfloat1622float2(h[2]); hi.x = f.x; hi.y = f.y;
-  f = __bfloat1622float2(h[3]); hi.z = f.x; hi.w = f.y;
-  *reinterpret_cast<float4*>(dst) = lo;
-  *reinterpret_cast<float4*>(dst + 4) = hi;
-}
-
-// One batch of a KV tile's 16-byte chunks in registers: chunk
-// e = base + u * DA_THREADS + tid is row e / cpr, element (e % cpr) * EPC;
-// rows at or past `keys` are zeros.
-struct DaBatch {
-  uint4 k[DA_UNROLL], v[DA_UNROLL];
+// The team's reduce-scatter of a chunk's N partial dot products
+// (decode_attention.cuh, da_rs_half): the xor step of offset OFF, then
+// the next; the indices are compile-time constants, so v stays in
+// registers.
+template <int N, int LPR, int OFF>
+struct DaReduce {
+  __device__ __forceinline__ static void run(float (&v)[N], int lane) {
+    constexpr int HALF = da_rs_half(N, LPR, OFF);
+    const bool upper = (lane & OFF) != 0;
+    if constexpr (HALF >= 1) {
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) {
+        const float keep = upper ? v[i + HALF] : v[i];
+        const float send = upper ? v[i] : v[i + HALF];
+        v[i] = keep + __shfl_xor_sync(DA_FULL, send, OFF);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(DA_FULL, v[0], OFF);
+    }
+    if constexpr (OFF > 1) DaReduce<N, LPR, OFF / 2>::run(v, lane);
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ void da_load_batch(
-    DaBatch& t, const T* kb, const T* vb, int64_t k_ss, int64_t v_ss, int k0,
-    int keys, int base, int cpr, int chunks, int tid) {
-  constexpr int EPC = 16 / sizeof(T);
-#pragma unroll
-  for (int u = 0; u < DA_UNROLL; ++u) {
-    const int e = base + u * DA_THREADS + tid;
-    const int r = e / cpr, c = (e - r * cpr) * EPC;
-    t.k[u] = t.v[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (e < chunks && r < keys) {
-      t.k[u] = *reinterpret_cast<const uint4*>(kb + (k0 + r) * k_ss + c);
-      t.v[u] = *reinterpret_cast<const uint4*>(vb + (k0 + r) * v_ss + c);
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void da_store_batch(const DaBatch& t, float* sK,
-                                               float* sV, int base, int cpr,
-                                               int chunks, int tid) {
-  constexpr int EPC = 16 / sizeof(T);
-#pragma unroll
-  for (int u = 0; u < DA_UNROLL; ++u) {
-    const int e = base + u * DA_THREADS + tid;
-    const int r = e / cpr, c = (e - r * cpr) * EPC;
-    if (e < chunks) {
-      const T* tag = nullptr;     // picks the widening for T
-      da_widen(t.k[u], &sK[r * DA_K_STRIDE + c], tag);
-      da_widen(t.v[u], &sV[r * DA_MAX_D + c], tag);
-    }
-  }
-}
-
-// R: query rows per thread in P.V (a power of two >= group / nsets).
-template <typename T, int R>
-__global__ void __launch_bounds__(DA_THREADS) decode_attention_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int* __restrict__ kv_lens,
-    int kv_len_all, float* __restrict__ acc_part, float* __restrict__ m_part,
-    float* __restrict__ l_part, int Hq, int Hkv, int S, int D, int64_t k_sb,
-    int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
-    int split_keys, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;                              // DA_BK x DA_K_STRIDE
-  float* sV = sK + DA_BK * DA_K_STRIDE;          // DA_BK x DA_MAX_D
-  float* sQ = sV + DA_BK * DA_MAX_D;             // DA_MAX_GROUP x DA_MAX_D
-  float* sP = sQ + DA_MAX_GROUP * DA_MAX_D;      // DA_P_ROWS x DA_BK
-  float* sAlpha = sP + DA_P_ROWS * DA_BK;        // DA_P_ROWS
+// GM: query rows a lane keeps (a power of two >= the group; rows past
+// the group hold q = 0 and are never written); LPR: da_row_lanes(D).
+template <typename T, int GM, int LPR>
+__global__ void __launch_bounds__(DA_THREADS, DA_CTAS_PER_SM)
+    decode_attention_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const int* __restrict__ kv_lens,
+        int kv_len_all, float* __restrict__ acc_part,
+        float* __restrict__ m_part, float* __restrict__ l_part,
+        int* __restrict__ counters, T* __restrict__ out,
+        float* __restrict__ m_out, float* __restrict__ l_out, int Hq,
+        int Hkv, int S, int D, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+        int64_t v_sb, int64_t v_sh, int64_t v_ss, int split_keys,
+        float scale, int return_partial) {
+  constexpr int TEAMS = 32 / LPR;
+  constexpr int TEAM_KEYS = DA_WARP_KEYS / TEAMS;
+  constexpr int KC = da_chunk_keys(GM, TEAM_KEYS);
+  constexpr int N = KC * GM;                   // a chunk's dots a lane
+  constexpr int R = da_rs_kept(N, LPR);        // of which it keeps the sums
+  constexpr int EPC = 16 / sizeof(T);          // elements of a chunk
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_last;
 
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int bkv = blockIdx.y;                    // b * Hkv + kv head
+  const int bkv = blockIdx.y;                  // b * Hkv + kv head
   const int b = bkv / Hkv, kvh = bkv - b * Hkv;
   const int group = Hq / Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = da_valid_len(kv_lens ? kv_lens[b] : kv_len_all, S);
   const int k_begin = split * split_keys;
   const int k_end = min(k_begin + split_keys, len);
+  const int n_tiles = da_warp_tiles(k_end - k_begin, warp);
 
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
+  const int cpr = D / EPC;                     // 16-byte chunks of a row
+  const int tile_bytes = DA_WARP_KEYS * D * (int)sizeof(T);
+  const int stage_bytes = 2 * tile_bytes;      // K then V
+  uint8_t* ring = smem + warp * DA_STAGES * stage_bytes;
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
+
+  // Warp tile r into stage st (da_tile_chunks: the copy map).
+  auto load_tile = [&](int r, int st) {
+    const int k0 = k_begin + da_tile_key(warp, r);
+    const uint32_t sk = ring_s + st * stage_bytes, sv = sk + tile_bytes;
+    for (int e = lane; e < da_tile_chunks(cpr); e += 32) {
+      const int row = da_chunk_row(e, cpr), c = da_chunk_col(e, cpr);
+      const bool ok = k0 + row < k_end;
+      const int64_t key = ok ? k0 + row : k_begin;
+      da_cp16(sk + e * 16, kb + key * k_ss + c * EPC, ok ? 16 : 0);
+      da_cp16(sv + e * 16, vb + key * v_ss + c * EPC, ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < DA_STAGES; ++st) {
+    if (st < n_tiles) load_tile(st, st);
+    da_commit();
+  }
+
+  const int team = lane / LPR, tl = lane % LPR, lane0 = team * LPR;
+  const int col = da_lane_col(lane, LPR);
+  const bool has_col = col < D;
+  // After a chunk's reduce-scatter this lane holds R sums: key jk of the
+  // chunk, query rows g0 .. g0 + R - 1, whose (m, l) it keeps.
+  const int f0 = da_rs_base(tl, LPR, N);
+  const int jk = f0 / GM, g0 = f0 % GM;
+  float qr[GM][4], acc[GM][4], m[R], l[R];
   const T* qb = q + ((int64_t)b * Hq + (int64_t)kvh * group) * D;
-  for (int e = tid; e < group * D; e += DA_THREADS) {
-    const int g = e / D;
-    sQ[g * DA_MAX_D + (e - g * D)] = da_load(qb + e);
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qr[g][e] = acc[g][e] = 0.0f;
+    if (g < group && has_col) da_ld4(qb + g * D + col, qr[g]);
   }
-  // P rows past the group are read by P.V as zeros (no predicates there)
-  for (int e = tid; e < DA_P_ROWS * DA_BK; e += DA_THREADS) sP[e] = 0.0f;
-  for (int e = tid; e < DA_P_ROWS; e += DA_THREADS) sAlpha[e] = 0.0f;
-
-  // P.V: this thread owns column col of rows set, set + nsets, ...
-  const int nsets = DA_THREADS / D;
-  const int set = tid / D, col = tid - set * D;
-  const bool owns = set < nsets;
-  float acc[R];
 #pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
-  // Online softmax: warp w owns rows w, w + 4, ...
-  float m_row[DA_ROWS_PER_WARP], l_row[DA_ROWS_PER_WARP];
-#pragma unroll
-  for (int i = 0; i < DA_ROWS_PER_WARP; ++i) {
-    m_row[i] = fa_neg_inf();
-    l_row[i] = 0.0f;
+  for (int i = 0; i < R; ++i) {
+    m[i] = fa_neg_inf();
+    l[i] = 0.0f;
   }
 
-  constexpr int EPC = 16 / sizeof(T);            // elements per 16 bytes
-  const int cpr = D / EPC;                       // 16-byte chunks per row
-  const int chunks = DA_BK * cpr;
-  constexpr int BATCH = DA_THREADS * DA_UNROLL;
-  // The first batch of each tile is loaded while the tile before it is
-  // computed on; the rest of a tile (fp32 with D > 64) when it is staged.
-  DaBatch next;
-  if (k_begin < k_end)
-    da_load_batch<T>(next, kb, vb, k_ss, v_ss, k_begin,
-                     min(DA_BK, k_end - k_begin), 0, cpr, chunks, tid);
-  for (int k0 = k_begin; k0 < k_end; k0 += DA_BK) {
-    const int keys = min(DA_BK, k_end - k0);
-    __syncthreads();   // sQ, sP staged; the last tile's reads of smem done
-    da_store_batch<T>(next, sK, sV, 0, cpr, chunks, tid);
-    for (int base = BATCH; base < chunks; base += BATCH) {
-      DaBatch rest;
-      da_load_batch<T>(rest, kb, vb, k_ss, v_ss, k0, keys, base, cpr, chunks,
-                       tid);
-      da_store_batch<T>(rest, sK, sV, base, cpr, chunks, tid);
-    }
-    if (k0 + DA_BK < k_end)
-      da_load_batch<T>(next, kb, vb, k_ss, v_ss, k0 + DA_BK,
-                       min(DA_BK, k_end - k0 - DA_BK), 0, cpr, chunks, tid);
-    __syncthreads();
-
-    // Scores: this thread takes key j for rows tid / DA_BK, + 2, ...
-    {
-      const int j = tid & (DA_BK - 1);
-      for (int g = tid / DA_BK; g < group; g += DA_THREADS / DA_BK) {
-        float dot = 0.0f;
-        for (int d = 0; d < D; d += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(
-              &sK[j * DA_K_STRIDE + d]);
-          const float4 qv = *reinterpret_cast<const float4*>(
-              &sQ[g * DA_MAX_D + d]);
-          dot = fmaf(qv.x, kv.x, dot);
-          dot = fmaf(qv.y, kv.y, dot);
-          dot = fmaf(qv.z, kv.z, dot);
-          dot = fmaf(qv.w, kv.w, dot);
+  for (int r = 0; r < n_tiles; ++r) {
+    da_wait<DA_STAGES - 1>();   // this lane's copies of tile r landed
+    __syncwarp();               // and the other lanes'
+    const int st = r % DA_STAGES;
+    const T* sK = reinterpret_cast<const T*>(ring + st * stage_bytes);
+    const T* sV = sK + DA_WARP_KEYS * D;
+    const int k0 = k_begin + da_tile_key(warp, r);
+#pragma unroll
+    for (int c0 = 0; c0 < TEAM_KEYS; c0 += KC) {
+      float sc[N], vv[KC][4];
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const int row = da_team_key(team, TEAMS, c0 + j);
+        float kk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vv[j][e] = 0.0f;
+        if (has_col) {
+          da_ld4(sK + row * D + col, kk);
+          da_ld4(sV + row * D + col, vv[j]);
         }
-        sP[g * DA_BK + j] = fa_score(dot, scale, j < keys);
-      }
-    }
-    __syncthreads();
-
 #pragma unroll
-    for (int i = 0; i < DA_ROWS_PER_WARP; ++i) {
-      const int g = warp + i * (DA_THREADS / 32);
-      if (g < group) {   // warp-uniform
-        const float s0 = sP[g * DA_BK + lane];
-        const float s1 = sP[g * DA_BK + lane + 32];
-        float mc = fmaxf(s0, s1);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mc = fmaxf(mc, __shfl_xor_sync(0xFFFFFFFFu, mc, off));
-        const FaRescale rs = fa_rescale(m_row[i], mc);
-        const float p0 = fa_prob(s0, rs.m_safe), p1 = fa_prob(s1, rs.m_safe);
-        sP[g * DA_BK + lane] = p0;
-        sP[g * DA_BK + lane + 32] = p1;
-        float ps = p0 + p1;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          ps += __shfl_xor_sync(0xFFFFFFFFu, ps, off);
-        l_row[i] = rs.alpha * l_row[i] + ps;
-        m_row[i] = rs.m_new;
-        if (lane == 0) sAlpha[g] = rs.alpha;
-      }
-    }
-    __syncthreads();
-
-    if (owns) {
-#pragma unroll
-      for (int i = 0; i < R; ++i) acc[i] *= sAlpha[set + i * nsets];
-      // keys past `keys` have P = 0 and zero V rows: whole steps of 4
-      const int keys4 = (keys + 3) & ~3;
-      for (int j = 0; j < keys4; j += 4) {
-        const float v0 = sV[(j + 0) * DA_MAX_D + col];
-        const float v1 = sV[(j + 1) * DA_MAX_D + col];
-        const float v2 = sV[(j + 2) * DA_MAX_D + col];
-        const float v3 = sV[(j + 3) * DA_MAX_D + col];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const float4 p = *reinterpret_cast<const float4*>(
-              &sP[(set + i * nsets) * DA_BK + j]);
-          float a = acc[i];
-          a = fmaf(p.x, v0, a);
-          a = fmaf(p.y, v1, a);
-          a = fmaf(p.z, v2, a);
-          a = fmaf(p.w, v3, a);
-          acc[i] = a;
+        for (int g = 0; g < GM; ++g) {
+          float d = qr[g][0] * kk[0];
+          d = fmaf(qr[g][1], kk[1], d);
+          d = fmaf(qr[g][2], kk[2], d);
+          sc[j * GM + g] = fmaf(qr[g][3], kk[3], d);
         }
       }
+      DaReduce<N, LPR, LPR / 2>::run(sc, lane);
+      // this lane's rows: the max and sum over the chunk's keys are the
+      // xor steps over the lane bits that hold the key
+      const bool ok = k0 + da_team_key(team, TEAMS, c0 + jk) < k_end;
+      float s[R], mc[R], p[R], alpha[R], ps[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) mc[i] = s[i] = fa_score(sc[i], scale, ok);
+#pragma unroll
+      for (int off = LPR / 2; off * KC >= LPR; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          mc[i] = fmaxf(mc[i], __shfl_xor_sync(DA_FULL, mc[i], off));
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const FaRescale rs = fa_rescale(m[i], mc[i]);
+        ps[i] = p[i] = fa_prob(s[i], rs.m_safe);
+        alpha[i] = rs.alpha;
+        m[i] = rs.m_new;
+      }
+#pragma unroll
+      for (int off = LPR / 2; off * KC >= LPR; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          ps[i] += __shfl_xor_sync(DA_FULL, ps[i], off);
+#pragma unroll
+      for (int i = 0; i < R; ++i) l[i] = alpha[i] * l[i] + ps[i];
+      // every row's alpha and every (key, row)'s p from the lane that
+      // holds it, into this lane's columns of acc
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float a = __shfl_sync(DA_FULL, alpha[g % R],
+                                    lane0 + da_rs_lane(g, LPR, N));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][e] *= a;
+      }
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          const int f = j * GM + g;
+          const float pf = __shfl_sync(DA_FULL, p[f % R],
+                                       lane0 + da_rs_lane(f, LPR, N));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(pf, vv[j][e], acc[g][e]);
+        }
+    }
+    __syncwarp();               // every lane is done with stage st
+    if (r + DA_STAGES < n_tiles) load_tile(r + DA_STAGES, st);
+    da_commit();
+  }
+  da_wait<0>();
+  __syncthreads();              // every ring is free for the states
+
+  // The states (warp, team) into shared memory: m, l per row (from the
+  // lane that holds the row at key 0), acc per (row, column).
+  constexpr int STATES = DA_WARPS * TEAMS;
+  float* sM = reinterpret_cast<float*>(smem);   // [state][row]
+  float* sL = sM + STATES * group;
+  float* sAcc = sL + STATES * group;            // [state][row][d]
+  const int state = warp * TEAMS + team;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int g = g0 + i;
+    if (g < group && tl == da_rs_lane(g, LPR, N)) {
+      sM[state * group + g] = m[i];
+      sL[state * group + g] = l[i];
     }
   }
+  if (has_col) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < group)
+        *reinterpret_cast<float4*>(&sAcc[(state * group + g) * D + col]) =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
+  __syncthreads();
 
-  // Partials of this slice, (b * Hkv + kvh, split, g): a slice with no
-  // valid key leaves acc 0, m -inf, l 0.
+  // The slice's partial, 4 columns a thread: the states merged in order.
+  // A launch of one slice writes the result itself.
   const int64_t part = ((int64_t)bkv * n_split + split) * group;
-  if (owns) {
+  const int64_t bh0 = (int64_t)b * Hq + (int64_t)kvh * group;
+  for (int e = 4 * tid; e < group * D; e += 4 * DA_THREADS) {
+    const int h = e / D, d = e - h * D;
+    float mx = fa_neg_inf();
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int g = set + i * nsets;
-      if (g < group) acc_part[(part + g) * D + col] = acc[i];
+    for (int s = 0; s < STATES; ++s) mx = fmaxf(mx, sM[s * group + h]);
+    const float m_safe = da_finite_or_zero(mx);
+    float ls = 0.0f, a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < STATES; ++s) {
+      const float w = da_merge_weight(sM[s * group + h], m_safe);
+      const float4 x =
+          *reinterpret_cast<const float4*>(&sAcc[(s * group + h) * D + d]);
+      ls += w * sL[s * group + h];
+      a[0] += w * x.x;
+      a[1] += w * x.y;
+      a[2] += w * x.z;
+      a[3] += w * x.w;
+    }
+    if (n_split == 1) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        da_store(out + (bh0 + h) * D + d + c,
+                 return_partial ? a[c] : fa_finalize(a[c], ls));
+      if (d == 0) {
+        m_out[bh0 + h] = mx;
+        l_out[bh0 + h] = ls;
+      }
+    } else {
+      *reinterpret_cast<float4*>(acc_part + (part + h) * D + d) =
+          make_float4(a[0], a[1], a[2], a[3]);
+      if (d == 0) {
+        m_part[part + h] = mx;
+        l_part[part + h] = ls;
+      }
     }
   }
+  if (n_split == 1) return;
+
+  // The last CTA of this (b, kv head) merges the slices, 4 columns a
+  // thread, the slices' loads in flight together.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int done = atomicAdd(counters + bkv, 1);
+    s_last = done == n_split - 1;
+    if (s_last) counters[bkv] = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int64_t part0 = (int64_t)bkv * n_split * group;
+  float* sMp = reinterpret_cast<float*>(smem);  // [slice][row]
+  float* sLp = sMp + n_split * group;
+  for (int e = tid; e < n_split * group; e += DA_THREADS) {
+    sMp[e] = __ldcg(m_part + part0 + e);
+    sLp[e] = __ldcg(l_part + part0 + e);
+  }
+  __syncthreads();
+  for (int e = 4 * tid; e < group * D; e += 4 * DA_THREADS) {
+    const int h = e / D, d = e - h * D;
+    float m_all = fa_neg_inf();
+    for (int i = 0; i < n_split; ++i) m_all = fmaxf(m_all, sMp[i * group + h]);
+    const float m_safe = da_finite_or_zero(m_all);
+    float ls = 0.0f, a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+    for (int i = 0; i < n_split; ++i) {
+      const int p = i * group + h;
+      const float w = da_merge_weight(sMp[p], m_safe);
+      const float4 x = __ldcg(
+          reinterpret_cast<const float4*>(acc_part + (part0 + p) * D + d));
+      ls += w * sLp[p];
+      a[0] += w * x.x;
+      a[1] += w * x.y;
+      a[2] += w * x.z;
+      a[3] += w * x.w;
+    }
 #pragma unroll
-  for (int i = 0; i < DA_ROWS_PER_WARP; ++i) {
-    const int g = warp + i * (DA_THREADS / 32);
-    if (g < group && lane == 0) {
-      m_part[part + g] = m_row[i];
-      l_part[part + g] = l_row[i];
+    for (int c = 0; c < 4; ++c)
+      da_store(out + (bh0 + h) * D + d + c,
+               return_partial ? a[c] : fa_finalize(a[c], ls));
+    if (d == 0) {
+      m_out[bh0 + h] = m_all;
+      l_out[bh0 + h] = ls;
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(DA_THREADS) decode_attention_merge_kernel(
-    const float* __restrict__ acc_part, const float* __restrict__ m_part,
-    const float* __restrict__ l_part, T* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int Hq, int Hkv,
-    int D, int n_split, int return_partial) {
-  const int bh = blockIdx.x;                     // b * Hq + h
-  const int b = bh / Hq, h = bh - b * Hq;
-  const int group = Hq / Hkv;
-  const int kvh = h / group, g = h - kvh * group;
-  const int64_t part0 = ((int64_t)b * Hkv + kvh) * n_split;
-
-  float m_all = fa_neg_inf();
-  for (int i = 0; i < n_split; ++i)
-    m_all = fmaxf(m_all, m_part[(part0 + i) * group + g]);
-  const float m_safe = da_finite_or_zero(m_all);
-  const int d = threadIdx.x;
-  float l = 0.0f, acc = 0.0f;
-  for (int i = 0; i < n_split; ++i) {
-    const int64_t p = (part0 + i) * group + g;
-    const float w = da_merge_weight(m_part[p], m_safe);
-    l += w * l_part[p];
-    if (d < D) acc += w * acc_part[p * D + d];
-  }
-  if (d < D)
-    da_store(out + (int64_t)bh * D + d,
-             return_partial ? acc : fa_finalize(acc, l));
-  if (d == 0) {
-    m_out[bh] = m_all;
-    l_out[bh] = l;
-  }
-}
-
-template <typename T, int R>
-static int da_launch_rows(const void* q, const void* k, const void* v,
-                          const int* kv_lens, int kv_len_all,
-                          float* acc_part, float* m_part, float* l_part,
-                          int B, int Hq, int Hkv, int S, int D, int64_t k_sb,
-                          int64_t k_sh, int64_t k_ss, int64_t v_sb,
-                          int64_t v_sh, int64_t v_ss, int n_split,
-                          int split_keys, float scale, cudaStream_t stream) {
-  const int smem = DA_SMEM_FLOATS * (int)sizeof(float);
+template <typename T, int GM, int LPR>
+static int da_launch(const void* q, const void* k, const void* v,
+                     const int* kv_lens, int kv_len_all, float* acc_part,
+                     float* m_part, float* l_part, int* counters, void* out,
+                     float* m_out, float* l_out, int B, int Hq, int Hkv,
+                     int S, int D, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                     int64_t v_sb, int64_t v_sh, int64_t v_ss, int n_split,
+                     int split_keys, int return_partial, float scale,
+                     cudaStream_t stream) {
+  const int smem = da_smem_bytes((int)sizeof(T), D, Hq / Hkv, n_split);
   const cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_split_kernel<T, R>,
+      decode_attention_kernel<T, GM, LPR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)n_split, (unsigned)(B * Hkv));
-  decode_attention_split_kernel<T, R><<<grid, DA_THREADS, smem, stream>>>(
+  decode_attention_kernel<T, GM, LPR><<<grid, DA_THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, kv_lens, kv_len_all, acc_part,
-      m_part, l_part, Hq, Hkv, S, D, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-      split_keys, scale);
+      m_part, l_part, counters, (T*)out, m_out, l_out, Hq, Hkv, S, D, k_sb,
+      k_sh, k_ss, v_sb, v_sh, v_ss, split_keys, scale, return_partial);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int da_launch(const void* q, const void* k, const void* v,
-                     const int* kv_lens, int kv_len_all, float* acc_part,
-                     float* m_part, float* l_part, void* out, float* m_out,
-                     float* l_out, int B, int Hq, int Hkv, int S, int D,
-                     int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
-                     int64_t v_sh, int64_t v_ss, int n_split, int split_keys,
-                     int return_partial, float scale, cudaStream_t stream) {
-  // rows of P.V per thread: the group over the thread sets of a column
-  const int nsets = DA_THREADS / D;
-  const int need = (Hq / Hkv + nsets - 1) / nsets;
-  auto pass1 = need <= 1 ? da_launch_rows<T, 1>
-             : need <= 2 ? da_launch_rows<T, 2>
-             : need <= 4 ? da_launch_rows<T, 4>
-             : need <= 8 ? da_launch_rows<T, 8>
-                         : da_launch_rows<T, 16>;
-  const int err = pass1(q, k, v, kv_lens, kv_len_all, acc_part, m_part,
-                        l_part, B, Hq, Hkv, S, D, k_sb, k_sh, k_ss, v_sb,
-                        v_sh, v_ss, n_split, split_keys, scale, stream);
-  if (err != 0) return err;
-  decode_attention_merge_kernel<T><<<B * Hq, DA_THREADS, 0, stream>>>(
-      acc_part, m_part, l_part, (T*)out, m_out, l_out, Hq, Hkv, D, n_split,
-      return_partial);
-  return (int)cudaGetLastError();
+template <typename T, int LPR>
+static int da_launch_rows(int group, const void* q, const void* k,
+                          const void* v, const int* kv_lens, int kv_len_all,
+                          float* acc_part, float* m_part, float* l_part,
+                          int* counters, void* out, float* m_out,
+                          float* l_out, int B, int Hq, int Hkv, int S, int D,
+                          int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                          int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                          int n_split, int split_keys, int return_partial,
+                          float scale, cudaStream_t stream) {
+  auto launch = group <= 1   ? da_launch<T, 1, LPR>
+              : group <= 2   ? da_launch<T, 2, LPR>
+              : group <= 4   ? da_launch<T, 4, LPR>
+              : group <= 8   ? da_launch<T, 8, LPR>
+                             : da_launch<T, 16, LPR>;
+  return launch(q, k, v, kv_lens, kv_len_all, acc_part, m_part, l_part,
+                counters, out, m_out, l_out, B, Hq, Hkv, S, D, k_sb, k_sh,
+                k_ss, v_sb, v_sh, v_ss, n_split, split_keys, return_partial,
+                scale, stream);
 }
 
-// Plain C entry point for ctypes.  dtype: 0 = fp32, 1 = bf16.  kv_lens:
+// Plain C entry point for ctypes.  dtype: 0 = fp32, 1 = bf16; D a
+// multiple of 8 up to DA_MAX_D; Hq / Hkv at most DA_MAX_GROUP.  kv_lens:
 // (B,) int32 on the device, or null to use kv_len_all for every row.
-// Strides are in elements.  Pass 1 cuts the keys into n_split slices of
-// split_keys each (a multiple of DA_BK, n_split * split_keys >= S); the
-// wrapper's split_plan picks both.  acc_part (B * Hkv * n_split * group
-// * D), m_part and l_part (B * Hkv * n_split * group) are fp32 scratch.
-// Launches both passes on the given stream and returns the CUDA error
-// code (0 on success).
+// Strides in elements.  The keys are cut into n_split slices of
+// split_keys each (a multiple of DA_BK, n_split * split_keys >= S; the
+// wrapper's split_plan).  acc_part (B * Hkv * n_split * group * D),
+// m_part and l_part (B * Hkv * n_split * group) are fp32 scratch;
+// counters (B * Hkv) int32, zero on entry and left zero.  Launches one
+// kernel on the given stream and returns the CUDA error code (0 on
+// success; cudaErrorInvalidValue for a shape it does not take).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_lens,
-    int kv_len_all, void* acc_part, void* m_part, void* l_part, void* out,
-    void* m_out, void* l_out, int dtype, int B, int Hq, int Hkv, int S, int D,
-    int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
-    int64_t v_ss, int n_split, int split_keys, int return_partial,
-    float scale, void* stream) {
-  if (dtype == 1)
-    return da_launch<__nv_bfloat16>(
-        q, k, v, (const int*)kv_lens, kv_len_all, (float*)acc_part,
-        (float*)m_part, (float*)l_part, out, (float*)m_out, (float*)l_out, B,
-        Hq, Hkv, S, D, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, n_split,
-        split_keys, return_partial, scale, (cudaStream_t)stream);
-  return da_launch<float>(
-      q, k, v, (const int*)kv_lens, kv_len_all, (float*)acc_part,
-      (float*)m_part, (float*)l_part, out, (float*)m_out, (float*)l_out, B,
-      Hq, Hkv, S, D, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, n_split,
-      split_keys, return_partial, scale, (cudaStream_t)stream);
+    int kv_len_all, void* acc_part, void* m_part, void* l_part,
+    void* counters, void* out, void* m_out, void* l_out, int dtype, int B,
+    int Hq, int Hkv, int S, int D, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+    int64_t v_sb, int64_t v_sh, int64_t v_ss, int n_split, int split_keys,
+    int return_partial, float scale, void* stream) {
+  const int group = Hq / Hkv;
+  const int elt = dtype == 1 ? 2 : 4;
+  if (D < 8 || D > DA_MAX_D || D % 8 || group < 1 ||
+      group > DA_MAX_GROUP || split_keys % DA_BK || n_split < 1 ||
+      da_smem_bytes(elt, D, group, n_split) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = da_row_lanes(D) == 32;
+  auto launch = dtype == 1
+      ? (wide ? da_launch_rows<__nv_bfloat16, 32> : da_launch_rows<__nv_bfloat16, 16>)
+      : (wide ? da_launch_rows<float, 32> : da_launch_rows<float, 16>);
+  return launch(group, q, k, v, (const int*)kv_lens, kv_len_all,
+                (float*)acc_part, (float*)m_part, (float*)l_part,
+                (int*)counters, out, (float*)m_out, (float*)l_out, B, Hq, Hkv,
+                S, D, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, n_split, split_keys,
+                return_partial, scale, (cudaStream_t)stream);
 }

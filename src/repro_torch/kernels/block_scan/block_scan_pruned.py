@@ -12,9 +12,10 @@ on CPU tensors it runs the plain version ``ref.py``.
 ``block_scan_pruned`` replaces ``block_scan_pruned_pallas``: one query,
 every block, a static rule given on the host.  The host turns the rule
 into its active-plane list (``static_plane_list``) and the kernel
-``csrc/block_scan_static.cu`` gets it by value, as a kernel parameter;
-on CPU tensors the plain ``ref.block_scan_pruned_ref`` reads the same
-planes.
+``csrc/block_scan_static.cu`` (a warp per block on the three kernels'
+core ``csrc/block_scan_warp.cuh``, at the rule's slot width and tile,
+``static_tile``) gets it by value, as a kernel parameter; on CPU
+tensors the plain ``ref.block_scan_pruned_ref`` reads the same planes.
 
 There is no fallback from a kernel to its plain version.
 
@@ -34,16 +35,19 @@ from .ref import block_scan_pruned_chunk_ref, block_scan_pruned_ref
 
 __all__ = ["block_scan_pruned_chunk", "build_rule_meta", "META_ROWS",
            "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS",
-           "block_scan_pruned", "static_plane_list",
+           "block_scan_pruned", "static_plane_list", "static_tile",
            "BLOCK_SCAN_STATIC_KERNEL"]
 
 META_ROWS = 4          # plane id / term id / step valid / required per term
-# The static kernel's tile (block_scan_static.cu, bs_scan_blocks), for
-# tile_blocks: at most BS_MAX_BB blocks per CTA, halved while one
-# query's grid would hold fewer than STATIC_MIN_CTAS CTAs of 128
-# threads (~16 on each of 132 SMs).
-STATIC_MAX_BB = csrc_define("block_scan.cuh", "BS_MAX_BB")
-STATIC_MIN_CTAS = 2048
+# The static kernel's tile (block_scan_static.cu on the warp core
+# block_scan_warp.cuh), for tile_blocks: one round of a warp's BS_SLOTS
+# plane rows per warp (BS_SLOTS / slot width blocks at W <= 128), halved
+# while one query's grid would hold fewer than STATIC_MIN_CTAS CTAs of
+# BS_STATIC_WARPS warps (~4 on each of 132 SMs).
+STATIC_WARPS = csrc_define("block_scan_static.cu", "BS_STATIC_WARPS")
+STATIC_MAX_TILE = csrc_define("block_scan_static.cu", "BS_STATIC_MAX_BLOCKS")
+SLOTS = csrc_define("block_scan_warp.cuh", "BS_SLOTS")
+STATIC_MIN_CTAS = 512
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BLOCK_SCAN_KERNEL = NativeKernel(
@@ -56,7 +60,7 @@ BLOCK_SCAN_KERNEL = NativeKernel(
 BLOCK_SCAN_STATIC_KERNEL = NativeKernel(
     name="block_scan_static",
     source="block_scan_static.cu",
-    headers=("block_scan.cuh",),
+    headers=("block_scan.cuh", "block_scan_warp.cuh"),
     symbol="block_scan_static_launch",
     argtypes=[_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 )
@@ -163,6 +167,23 @@ def static_plane_list(allowed, required, term_present):
             req.astype(np.int32))
 
 
+def slot_width(n_active: int) -> int:
+    """Plane rows a block takes of a warp's ``SLOTS``: the smallest power
+    of two >= n_active, at least 1 (``bs_slot_width``)."""
+    return 1 << max(n_active - 1, 0).bit_length()
+
+
+def static_tile(nb: int, n_active: int) -> int:
+    """Blocks per CTA of the static kernel: a round of ``SLOTS`` plane
+    rows a warp (one block at the deepest rule, 8 at a two-plane rule),
+    halved while one query's grid would hold fewer than
+    ``STATIC_MIN_CTAS`` CTAs.  At 4096 blocks: 4 (1,024 CTAs, a block a
+    warp) at 16 planes, 8 (512 CTAs, a round of two blocks a warp) at 2
+    to 8 planes.  ``chip_smoke.py`` times it against twice the tile."""
+    return tile_blocks(1, nb, STATIC_WARPS * (SLOTS // slot_width(n_active)),
+                       STATIC_MIN_CTAS)
+
+
 def block_scan_pruned(occ: torch.Tensor, allowed, required, term_present):
     """Evaluate one static rule over every block of one query's index;
     only the rule's active planes are read.
@@ -202,5 +223,5 @@ def block_scan_pruned(occ: torch.Tensor, allowed, required, term_present):
             occ.data_ptr(), match.data_ptr(), v_inc.data_ptr(),
             n_match.data_ptr(), planes.ctypes.data, terms.ctypes.data,
             len(planes), req.ctypes.data, nb, t * f, w, t,
-            tile_blocks(1, nb, STATIC_MAX_BB, STATIC_MIN_CTAS), stream)
+            static_tile(nb, len(planes)), stream)
     return match, v_inc, n_match

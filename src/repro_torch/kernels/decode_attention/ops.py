@@ -4,9 +4,14 @@
 and its Pallas TPU kernel ``decode_attention_pallas``.  On CUDA tensors
 it launches one of two kernels, chosen by dtype, head dim and GQA group
 alone (``tensor_core_route``): ``csrc/decode_attention_tc.cu`` (bf16 on
-the tensor cores) or ``csrc/decode_attention.cu`` (both bound by bytes:
-see the notes there); on CPU tensors it runs the plain version
-``ref.py``.  There is no fallback from one to another.
+the tensor cores) or ``csrc/decode_attention.cu`` (fp32, and bf16 at
+other head dims, on the CUDA cores).  Both are bound by bytes (see the
+notes there) and both are one launch a call: the key axis is cut into
+slices (``split_plan_tc``, ``split_plan``), one CTA a slice of one
+(sequence, KV head), and the last CTA of each pair to finish merges the
+slices, counted on zeroed counters the wrapper keeps per device and
+stream.  On CPU tensors it runs the plain version ``ref.py``.  There is
+no fallback from one to another.
 
 The reference pads S up to its KV block and masks the padded keys by
 ``kv_len``; the kernel masks keys at or past ``kv_len`` itself, so
@@ -31,10 +36,11 @@ __all__ = ["decode_attention", "merge_partials", "split_plan",
            "DECODE_ATTENTION_TC_KERNEL", "MAX_HEAD_DIM", "MAX_GROUP",
            "BLOCK_K", "TC_BLOCK_K", "TC_HEAD_DIMS"]
 
-BLOCK_K = 64           # DA_BK in csrc/decode_attention.cuh
-MAX_HEAD_DIM = 128     # DA_MAX_D
-MAX_GROUP = 16         # DA_MAX_GROUP
-CTAS_PER_SM = 2        # pass 1's CTAs resident per SM (~83 KB of smem each)
+BLOCK_K = csrc_define("decode_attention.cuh", "DA_BK")   # a slice's unit
+MAX_HEAD_DIM = csrc_define("decode_attention.cuh", "DA_MAX_D")
+MAX_GROUP = csrc_define("decode_attention.cuh", "DA_MAX_GROUP")
+# CTAs resident per SM (96 KB of shared memory each at fp32 D = 128)
+CTAS_PER_SM = csrc_define("decode_attention.cuh", "DA_CTAS_PER_SM")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -43,7 +49,7 @@ DECODE_ATTENTION_KERNEL = NativeKernel(
     source="decode_attention.cu",
     headers=("decode_attention.cuh", "flash_attention.cuh"),
     symbol="decode_attention_launch",
-    argtypes=[_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+    argtypes=[_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
               _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
               _I, _I, _I, ctypes.c_float, _P],
 )
@@ -65,8 +71,8 @@ TC_MAX_SPLIT = csrc_define("decode_attention_tc.cuh", "DATC_MAX_SPLIT")
 
 merge_partials = merge_partials_ref
 
-# Per (device, stream): B * Hkv int32 counters of the tensor-core kernel's
-# last-CTA merge, zero between launches (the kernel leaves them zero).
+# Per (device, stream): B * Hkv int32 counters of the kernels' last-CTA
+# merge, zero between launches (the kernels leave them zero).
 _COUNTERS: dict = {}
 
 
@@ -124,11 +130,14 @@ def _check_cuda(q, k, v, kv_len):
 
 
 def split_plan(b: int, hkv: int, s: int, sms: int) -> tuple[int, int]:
-    """(n_split, split_keys): the slices of the key axis for pass 1 and
-    the keys of each.  As many slices as keep the b * hkv (sequence, KV
-    head) pairs' CTAs within one wave of ``CTAS_PER_SM`` per SM (at least
-    one), each slice whole tiles of ``BLOCK_K`` keys, no slice wholly
-    past S.  The kernel takes both numbers as they are."""
+    """(n_split, split_keys) for the CUDA-core kernel: the slices of the
+    key axis and the keys of each.  As many slices as keep the b * hkv
+    (sequence, KV head) pairs' CTAs within one wave of ``CTAS_PER_SM``
+    per SM (at least one), each slice whole rounds of ``BLOCK_K`` keys,
+    no slice wholly past S.  At phase 4's fp32 route (b=2, hkv=8,
+    s=1026, 132 SMs) that is 11 slices of 96 keys: three tiles a warp,
+    all in its ring at once.  The kernel takes both numbers as they
+    are; ``chip_smoke.py`` times the plan against two others."""
     want = min(max(CTAS_PER_SM * sms // (b * hkv), 1), cdiv(s, BLOCK_K))
     per = cdiv(cdiv(s, want), BLOCK_K) * BLOCK_K
     return cdiv(s, per), per
@@ -174,9 +183,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On CUDA the kernel is chosen by contract (``tensor_core_route``):
     bf16 at D 64 or 128 with a group of at most 16 launches
     ``DECODE_ATTENTION_TC_KERNEL`` (mma.sync on bf16 tiles; P is rounded
-    to bf16 before P.V; the slices merge inside the launch), everything
-    else ``DECODE_ATTENTION_KERNEL``.  If the chosen kernel fails to
-    build or to launch, the call raises; nothing tries the other."""
+    to bf16 before P.V), everything else ``DECODE_ATTENTION_KERNEL``
+    (fp32 FMAs on the CUDA cores).  Either is one launch, whose last CTA
+    per (sequence, KV head) merges the slices.  If the chosen kernel
+    fails to build or to launch, the call raises; nothing tries the
+    other."""
     _check(q, k, v)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -215,12 +226,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
               None if lens is None else lens.data_ptr(), kv_all,
               acc_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr())
-        outs = (out.data_ptr(), m.data_ptr(), l.data_ptr())
+        outs = (_counters(dev, stream, b * hkv).data_ptr(), out.data_ptr(),
+                m.data_ptr(), l.data_ptr())
         shape = (b, hq, hkv, s, d, *k.stride()[:3], *v.stride()[:3], n_split,
                  split_keys, int(return_partial), scale, stream)
         if tc:
-            DECODE_ATTENTION_TC_KERNEL.launch(
-                *kv, _counters(dev, stream, b * hkv).data_ptr(), *outs, *shape)
+            DECODE_ATTENTION_TC_KERNEL.launch(*kv, *outs, *shape)
         else:
             DECODE_ATTENTION_KERNEL.launch(*kv, *outs, _DTYPES[q.dtype], *shape)
     return out, m, l

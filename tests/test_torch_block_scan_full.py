@@ -6,10 +6,10 @@ they are held bit for bit against the JAX package's ``block_scan``,
 ``block_scan_batched`` (Pallas ``block_scan_pallas`` in interpret mode)
 and ``block_scan_pruned_pallas`` at the shapes and rules of
 ``tests/test_kernels.py``, degenerate rules included.  The tile
-kernel's grid (``csrc/block_scan_warp.cuh``: ballots, slots, warps'
-runs, word ownership, strips) and the static kernel's per-word core
-(``csrc/block_scan.cuh``) are compiled with g++ into host replays of
-both grids and held bit for bit against the plain version.  The CUDA kernels themselves are held against the
+and static kernels' grids (``csrc/block_scan_warp.cuh``: ballots or
+the static rule's slots, slot widths, warps' runs, word ownership,
+strips) are compiled with g++ into host replays of both grids and held
+bit for bit against the plain version.  The CUDA kernels themselves are held against the
 plain version on a GPU by ``tests/test_torch_gpu.py``.
 """
 import ctypes
@@ -33,7 +33,8 @@ from repro_torch.kernels.block_scan import ops
 from repro_torch.kernels.block_scan.block_scan import (MAX_PLANES, MAX_TERMS,
                                                        MAX_TILE, tile_blocks)
 from repro_torch.kernels.block_scan.block_scan_pruned import (
-    STATIC_MAX_BB, STATIC_MIN_CTAS)
+    SLOTS, STATIC_MAX_TILE, STATIC_MIN_CTAS, STATIC_WARPS, slot_width,
+    static_tile)
 from repro_torch.kernels.native import CSRC_DIR, csrc_define
 
 T, F = 4, 4
@@ -230,14 +231,21 @@ def test_static_plane_list():
 def test_tile_blocks():
     """The tile kernel's 64 blocks per CTA (16 a warp) at the batched
     shape; fewer for one query, so that its grid still fills the card
-    (512 CTAs of 4 warps at 4096 blocks).  The static kernel keeps its
-    own tile: 8, halved to 2048 CTAs for one query."""
+    (512 CTAs of 4 warps at 4096 blocks).  The static kernel's tile
+    (``static_tile``, through the same ``tile_blocks``): a round of a
+    warp's 16 plane rows a warp, at least 512 CTAs: at 4096 blocks one
+    block a warp at the deepest rule (1,024 CTAs), two at 2 to 8 planes
+    (512 CTAs)."""
     assert tile_blocks(256, 4096) == 64
     assert tile_blocks(1, 4096) == 8
     assert tile_blocks(1, 5) == 1
-    assert tile_blocks(1, 4096, STATIC_MAX_BB, STATIC_MIN_CTAS) == 2
-    assert tile_blocks(1, 5, STATIC_MAX_BB, STATIC_MIN_CTAS) == 1
-    assert tile_blocks(1, 10**6, STATIC_MAX_BB, STATIC_MIN_CTAS) == 8
+    assert [static_tile(4096, n) for n in (16, 9, 8, 6, 2, 1, 0)] == \
+        [4, 4, 8, 8, 8, 8, 8]
+    assert static_tile(5, 16) == static_tile(5, 2) == 1
+    assert [static_tile(10**6, n) for n in (16, 8, 4, 2, 1)] == \
+        [4, 8, 16, 32, 64]
+    assert [slot_width(n) for n in (0, 1, 2, 3, 5, 9, 16)] == \
+        [1, 1, 2, 4, 8, 16, 16]
 
 
 def test_tile_cap_is_the_headers():
@@ -245,15 +253,16 @@ def test_tile_cap_is_the_headers():
     the kernels are built with, and no tile exceeds the cap that the
     launch entry points enforce."""
     assert MAX_TILE == csrc_define("block_scan_tile.cu", "BS_TILE_MAX_BLOCKS")
-    assert STATIC_MAX_BB == csrc_define("block_scan.cuh", "BS_MAX_BB")
+    assert STATIC_MAX_TILE == STATIC_WARPS * SLOTS == 64
+    assert SLOTS == csrc_define("block_scan_warp.cuh", "BS_SLOTS") == MAX_PLANES
     assert MAX_PLANES == csrc_define("block_scan.cuh", "BS_MAX_PLANES")
     assert MAX_TERMS == csrc_define("block_scan.cuh", "BS_MAX_TERMS")
     assert TILE_WARPS == 4
     assert all(1 <= tile_blocks(q, nb) <= MAX_TILE
                for q in (1, 3, 256) for nb in (1, 5, 64, 4096))
-    assert all(1 <= tile_blocks(1, nb, STATIC_MAX_BB, STATIC_MIN_CTAS)
-               <= STATIC_MAX_BB
-               for nb in (1, 5, 64, 4096))
+    assert all(1 <= static_tile(nb, n) <= STATIC_MAX_TILE
+               for nb in (1, 5, 64, 4096, 10**6) for n in range(17))
+    assert STATIC_MIN_CTAS == 512
     with pytest.raises(KeyError, match="BS_NO_SUCH"):
         csrc_define("block_scan.cuh", "BS_NO_SUCH")
 
@@ -397,42 +406,45 @@ extern "C" void bs_host_tile(const uint32_t* occ, const uint8_t* allowed,
   reads_end(reads);
 }
 
-// The static kernel's CTA, one word per inner iteration over
-// bs_eval_planes: blocks [b0, b0 + n_blk) of one query.
-static void replay_static_tile(const uint32_t* occ_q, uint32_t* match_q,
-                               int32_t* v_q, int32_t* n_q, int b0, int n_blk,
-                               int tf_planes, int W, const int32_t* plane,
-                               const int32_t* term, int n_active,
-                               const int32_t* req, int n_terms) {
-  for (int i = 0; i < n_blk; ++i) {
-    const int64_t blk = b0 + i;
-    int tv = 0, tm = 0;
-    for (int w = 0; w < W; ++w) {
-      BsWord r = bs_eval_planes(occ_q + blk * tf_planes * W, W, w, plane,
-                                term, n_active, req, n_terms);
-      match_q[blk * W + w] = r.match;
-      tv += r.v_pop;
-      tm += r.match_pop;
-    }
-    v_q[blk] = tv;
-    n_q[blk] = tm;
-  }
-}
-
-// block_scan_static.cu: the rule struct built from the host arrays.
+// Host replay of block_scan_static.cu's grid: the rule struct built
+// from the host arrays, its slots read into each warp's "registers",
+// then per CTA (tile of bb blocks) every warp's run of blocks, its 32
+// lanes one after another, at the launch entry's slot width (the
+// kernel instantiation for bs_slot_width(n_active)).
 extern "C" void bs_host_static(const uint32_t* occ, uint32_t* match,
                                int32_t* v_inc, int32_t* n_match,
+                               int32_t* calls, int64_t* reads,
                                const int32_t* plane_ids,
                                const int32_t* term_ids, int n_active,
                                const int32_t* req, int nb, int tf_planes,
-                               int W, int n_terms, int bb) {
+                               int W, int n_terms, int bb, int n_warps,
+                               int vec) {
+  reads_begin(occ, (int64_t)nb * tf_planes * W);
+  for (int i = 0; i < nb; ++i) v_inc[i] = n_match[i] = calls[i] = 0;
   const BsStaticRule rule =
       bs_static_rule(plane_ids, term_ids, n_active, req, n_terms);
-  for (int b0 = 0; b0 < nb; b0 += bb)
-    replay_static_tile(occ, match, v_inc, n_match, b0,
-                       nb - b0 < bb ? nb - b0 : bb, tf_planes, W,
-                       rule.plane_ids, rule.term_ids, rule.n_active, rule.req,
-                       n_terms);
+  for (int b0 = 0; b0 < nb; b0 += bb) {
+    const int n_blk = nb - b0 < bb ? nb - b0 : bb;
+    for (int warp = 0; warp < n_warps; ++warp) {
+      int first, count;
+      bs_warp_span(n_blk, warp, n_warps, &first, &count);
+      if (count == 0) continue;
+      BsSlots off, term;
+      bs_static_slots(rule, W, &off, &term);
+      for (int l = 0; l < BS_WARP; ++l) {
+        const HostFinish fin{v_inc, n_match, calls, l};
+        if (vec)
+          bs_warp_scan<true>(occ, match, b0 + first, count, tf_planes, W, l,
+                             off, term, rule.n_active, rule.req_mask,
+                             n_terms, fin);
+        else
+          bs_warp_scan<false>(occ, match, b0 + first, count, tf_planes, W, l,
+                              off, term, rule.n_active, rule.req_mask,
+                              n_terms, fin);
+      }
+    }
+  }
+  reads_end(reads);
 }
 
 extern "C" int bs_host_slot_width(int n_active) {
@@ -460,7 +472,7 @@ def host_core(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
     so.bs_host_tile.argtypes = [P] * 9 + [I] * 9
-    so.bs_host_static.argtypes = [P, P, P, P, P, P, I, P] + [I] * 5
+    so.bs_host_static.argtypes = [P] * 8 + [I, P] + [I] * 7
     so.bs_host_warp_span.argtypes = [I, I, I, P, P]
     so.bs_host_slot_width.argtypes = [I]
     so.bs_host_slot_width.restype = I
@@ -560,6 +572,8 @@ def test_host_warp_span(host_core, n_blk, spans):
     assert got == spans
 
 
+@pytest.mark.parametrize("nb,w,vec", [(11, 16, 1), (11, 6, 0)],
+                         ids=["vec_w16", "scalar_w6"])
 @pytest.mark.parametrize("fields,required,present", [
     ((0, 1, 2, 3), (1, 1, 1, 1), (1, 1, 1, 1)),      # the deepest rule
     ((3,), (1, 1, 0, 0), (1, 1, 0, 0)),               # shallow: 2 planes
@@ -567,24 +581,37 @@ def test_host_warp_span(host_core, n_blk, spans):
     ((), (1, 1, 1, 1), (1, 1, 1, 1)),                 # no active plane
     ((0, 1), (0, 0, 0, 0), (1, 1, 1, 1)),             # no required term
 ], ids=["deep", "shallow", "mixed", "no_active_plane", "no_required_term"])
-def test_host_static_core_matches_plain(host_core, fields, required, present):
-    """The static kernel's rule struct and per-word arithmetic, built by
-    g++, against the plain version."""
-    nb, w, bb = 11, 16, 4
+def test_host_static_core_matches_plain(host_core, fields, required, present,
+                                        nb, w, vec):
+    """The static kernel's grid (csrc/block_scan_static.cu over
+    csrc/block_scan_warp.cuh), built by g++ and replayed warp by warp
+    and lane by lane at the wrapper's tile for the rule (``static_tile``,
+    and a ragged tile of 4), on the 16-byte path (W = 16) and the scalar
+    path (W = 6): the rule struct and its slots, the warps' runs, every
+    block finished once, every match word written, exactly the active
+    planes' words read once each (``BS_HOST_READ``), nothing outside the
+    occupancy; against the plain version."""
     rng = np.random.default_rng(len(fields))
     occ = _t(rng.integers(0, 2**32, (nb, T, F, w), dtype=np.uint32))
     allowed = np.zeros((T, F), bool)
     allowed[:, list(fields)] = True
     required, present = np.asarray(required, bool), np.asarray(present, bool)
     planes, terms, req = static_plane_list(allowed, required, present)
-    got = _outputs(nb, w=w)
-    host_core.bs_host_static(occ.data_ptr(), *(x.data_ptr() for x in got),
-                             planes.ctypes.data, terms.ctypes.data,
-                             len(planes), req.ctypes.data, nb, T * F, w, T, bb)
     want = block_scan_reference(occ, _t(allowed), _t(required), _t(present))
-    for g, ref in zip(got, want):
-        assert torch.equal(g, ref)
-    for g, ref in zip(got, block_scan_pruned_ref(occ, planes.tolist(),
-                                                 terms.tolist(), req.tolist())):
-        assert torch.equal(g, ref)
-
+    for bb in (static_tile(nb, len(planes)), 4):
+        got = _outputs(nb, w=w)
+        got[0].fill_(0x5A5A5A5A)
+        calls = torch.empty(nb, dtype=torch.int32)
+        reads = torch.empty(2, dtype=torch.int64)
+        host_core.bs_host_static(occ.data_ptr(), *(x.data_ptr() for x in got),
+                                 calls.data_ptr(), reads.data_ptr(),
+                                 planes.ctypes.data, terms.ctypes.data,
+                                 len(planes), req.ctypes.data, nb, T * F, w,
+                                 T, bb, STATIC_WARPS, vec)
+        assert (calls == 1).all()
+        assert reads.tolist() == [len(planes) * nb * w, 0]
+        for g, ref in zip(got, want):
+            assert torch.equal(g, ref)
+        for g, ref in zip(got, block_scan_pruned_ref(
+                occ, planes.tolist(), terms.tolist(), req.tolist())):
+            assert torch.equal(g, ref)

@@ -9,10 +9,11 @@ of the output, 2**-8 relative).  m and l are fp32 on both sides and are
 held to the same numbers.  The partials and their LSE merge are held to
 the JAX merge at 1e-4 (``tests/test_kernels.py``'s own bound for the
 merge).  Per-row lengths, which the jitted JAX entry point does not take,
-are held to the JAX oracle called one row at a time.  The CUDA kernel's
-per-row update and merge (``csrc/decode_attention.cuh``) are compiled
-with g++ into a host harness that replays the kernel's slices (from
-``split_plan``) and tiles, and the tensor-core kernel's header
+are held to the JAX oracle called one row at a time.  The CUDA-core
+kernel's maps and merges (``csrc/decode_attention.cuh``) are compiled
+with g++ into a host harness that replays every CTA of a launch warp by
+warp and lane by lane (its slices from ``split_plan``), held against
+the plain version and the Pallas kernel, and the tensor-core kernel's header
 (``csrc/decode_attention_tc.cuh``) into one that replays its CTAs thread
 by thread, fragment by fragment, under the PTX layouts; the kernels
 themselves are held against the plain version on a GPU by
@@ -30,6 +31,8 @@ import torch
 from repro.kernels.decode_attention.ops import (
     decode_attention as jax_decode, decode_attention_reference as jax_ref,
     merge_partials as jax_merge)
+from repro.kernels.decode_attention.decode_attention import \
+    decode_attention_pallas
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref_fn
 from repro_torch.kernels.decode_attention import (
     BLOCK_K, TC_BLOCK_K, decode_attention, decode_attention_ref, merge_partials,
@@ -136,99 +139,315 @@ def test_wrapper_rejects_unsupported_inputs():
 
 
 def test_n_splits_plan():
-    """At most two CTAs per SM over B * Hkv (one wave), whole tiles that
-    cover S, no empty slice."""
+    """At most two CTAs per SM over B * Hkv (one wave), whole rounds of
+    ``BLOCK_K`` keys that cover S, no empty slice; at the LM path's
+    fp32 route (2 x 8 pairs, S = 1026) 11 slices of 96 keys, and 16 of
+    544 at the 8208-key cache."""
     for b, hkv, s, sms in [(2, 8, 8208, 132), (1, 8, 640, 132),
-                           (64, 8, 8208, 132), (1, 1, 10, 132)]:
+                           (64, 8, 8208, 132), (1, 1, 10, 132),
+                           (2, 8, 1026, 132), (1, 1, 10**6, 132)]:
         n, per = split_plan(b, hkv, s, sms)
         assert per % BLOCK_K == 0
         assert 1 <= n <= max(1, 2 * sms // (b * hkv))
         assert (n - 1) * per < s <= n * per
-    assert split_plan(2, 8, 8208, 132) == (15, 576)   # 240 CTAs
+    assert BLOCK_K == 32
+    assert split_plan(2, 8, 1026, 132) == (11, 96)     # 176 CTAs
+    assert split_plan(2, 8, 8208, 132) == (16, 544)    # 256 CTAs
 
 
 _HARNESS = r"""
+#include <cstring>
 #include <vector>
 #include "decode_attention.cuh"
-// Host replay of the CUDA kernel: pass 1 per (b, kv head, slice) and
-// query row, the same tiles and per-tile update, into partials; pass 2
-// the same merge.  The sums the kernel reduces across threads are plain
-// loops here.
-extern "C" void da_host(const float* q, const float* k, const float* v,
-                        const int* kv_lens, float* out, float* m_out,
-                        float* l_out, int B, int Hq, int Hkv, int S, int D,
-                        long k_sb, long k_sh, long k_ss, long v_sb,
-                        long v_sh, long v_ss, int n_split,
-                        int split_keys, int return_partial, float scale) {
-  const int group = Hq / Hkv;
+
+// Elements: fp32, or bf16 as its 16 bits.
+static float to_f(float x) { return x; }
+static float to_f(uint16_t x) {
+  const uint32_t u = (uint32_t)x << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+static void poison(float* x) { *x = NAN; }
+static void poison(uint16_t* x) { *x = 0x7FC0; }   // a bf16 NaN
+
+// Host replay of one launch of decode_attention.cu, CTA by CTA, warp by
+// warp and lane by lane: each warp's ring (stages filled with NaN before
+// the slice, so a read of a stage no copy wrote shows), the copy map with
+// its zero-fill, the teams' reduce-scatter of the chunk's dot products,
+// the xor steps of each row's max and sum over the chunk's keys, the rows'
+// alpha and p from the lanes that hold them (the kernel's __shfl_sync),
+// each lane's online softmax, the states' merge in (warp, team) order into the
+// slice's partial, and the last CTA's merge of the slices in slice
+// order (or the result written at once for one slice).
+template <typename T, int GM, int LPR>
+static void replay(const T* q, const T* k, const T* v, const int* kv_lens,
+                   float* out, float* m_out, float* l_out, int B, int Hq,
+                   int Hkv, int S, int D, long k_sb, long k_sh, long k_ss,
+                   long v_sb, long v_sh, long v_ss, int n_split,
+                   int split_keys, int return_partial, float scale) {
+  constexpr int TEAMS = 32 / LPR, TEAM_KEYS = DA_WARP_KEYS / TEAMS;
+  constexpr int KC = da_chunk_keys(GM, TEAM_KEYS), N = KC * GM;
+  constexpr int R = da_rs_kept(N, LPR);
+  constexpr int EPC = 16 / sizeof(T), STATES = DA_WARPS * TEAMS;
+  const int group = Hq / Hkv, cpr = D / EPC, tile = DA_WARP_KEYS * D;
   const size_t parts = (size_t)B * Hkv * n_split * group;
   std::vector<float> acc_part(parts * D), m_part(parts), l_part(parts);
-  std::vector<float> s(DA_BK), acc(D);
-  for (int b = 0; b < B; ++b)
-    for (int kvh = 0; kvh < Hkv; ++kvh)
-      for (int sp = 0; sp < n_split; ++sp) {
-        const int len = da_valid_len(kv_lens[b], S);
-        const int k_begin = sp * split_keys;
-        const int k_end = k_begin + split_keys < len ? k_begin + split_keys
-                                                     : len;
-        const float* kb = k + b * k_sb + kvh * k_sh;
-        const float* vb = v + b * v_sb + kvh * v_sh;
-        for (int g = 0; g < group; ++g) {
-          const float* qr = q + ((long)b * Hq + kvh * group + g) * D;
-          float m = fa_neg_inf(), l = 0.0f;
-          for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-          for (int k0 = k_begin; k0 < k_end; k0 += DA_BK) {
-            const int keys = DA_BK < k_end - k0 ? DA_BK : k_end - k0;
-            float mc = fa_neg_inf();
-            for (int j = 0; j < DA_BK; ++j) {
-              float dot = 0.0f;
-              if (j < keys)
-                for (int d = 0; d < D; ++d) dot += qr[d] * kb[(k0 + j) * k_ss + d];
-              s[j] = fa_score(dot, scale, j < keys);
-              mc = s[j] > mc ? s[j] : mc;
+  std::vector<T> ring(DA_STAGES * 2 * tile);
+  std::vector<float> sM(STATES * group), sL(STATES * group),
+      sAcc(STATES * group * D);
+  static float qr[32][GM][4], acc[32][GM][4], m[32][R], l[32][R];
+  static float sc[32][N], nx[32][N], vv[32][KC][4];
+  static float s[32][R], mc[32][R], p[32][R], alpha[32][R], ps[32][R];
+  for (int bkv = 0; bkv < B * Hkv; ++bkv) {
+    const int b = bkv / Hkv, kvh = bkv % Hkv;
+    const int len = da_valid_len(kv_lens[b], S);
+    const T* kb = k + b * k_sb + kvh * k_sh;
+    const T* vb = v + b * v_sb + kvh * v_sh;
+    const long bh0 = (long)b * Hq + (long)kvh * group;
+    for (int split = 0; split < n_split; ++split) {
+      const int k_begin = split * split_keys;
+      const int k_end = k_begin + split_keys < len ? k_begin + split_keys : len;
+      for (int warp = 0; warp < DA_WARPS; ++warp) {
+        const int n_tiles = da_warp_tiles(k_end - k_begin, warp);
+        for (auto& x : ring) poison(&x);
+        auto load = [&](int r, int st) {
+          const int k0 = k_begin + da_tile_key(warp, r);
+          T* sk = ring.data() + st * 2 * tile;
+          for (int lane = 0; lane < 32; ++lane)
+            for (int e = lane; e < da_tile_chunks(cpr); e += 32) {
+              const int row = da_chunk_row(e, cpr), c = da_chunk_col(e, cpr);
+              const bool ok = k0 + row < k_end;
+              for (int x = 0; x < EPC; ++x) {
+                sk[e * EPC + x] = ok ? kb[(k0 + row) * k_ss + c * EPC + x] : T(0);
+                sk[tile + e * EPC + x] = ok ? vb[(k0 + row) * v_ss + c * EPC + x] : T(0);
+              }
             }
-            const FaRescale rs = fa_rescale(m, mc);
-            float ps = 0.0f;
-            for (int j = 0; j < DA_BK; ++j) {
-              s[j] = fa_prob(s[j], rs.m_safe);
-              ps += s[j];
+        };
+        for (int st = 0; st < DA_STAGES; ++st)
+          if (st < n_tiles) load(st, st);
+        for (int lane = 0; lane < 32; ++lane) {
+          const int col = da_lane_col(lane, LPR);
+          for (int g = 0; g < GM; ++g)
+            for (int e = 0; e < 4; ++e) {
+              acc[lane][g][e] = 0.0f;
+              qr[lane][g][e] = g < group && col < D
+                  ? to_f(q[(bh0 + g) * D + col + e]) : 0.0f;
             }
-            l = rs.alpha * l + ps;
-            for (int d = 0; d < D; ++d) {
-              float a = rs.alpha * acc[d];
-              for (int j = 0; j < keys; ++j) a += s[j] * vb[(k0 + j) * v_ss + d];
-              acc[d] = a;
-            }
-            m = rs.m_new;
+          for (int i = 0; i < R; ++i) {
+            m[lane][i] = fa_neg_inf();
+            l[lane][i] = 0.0f;
           }
-          const size_t p = (((size_t)b * Hkv + kvh) * n_split + sp) * group + g;
-          m_part[p] = m;
-          l_part[p] = l;
-          for (int d = 0; d < D; ++d) acc_part[p * D + d] = acc[d];
+        }
+        for (int r = 0; r < n_tiles; ++r) {
+          const int st = r % DA_STAGES;
+          const T* sK = ring.data() + st * 2 * tile;
+          const T* sV = sK + tile;
+          const int k0 = k_begin + da_tile_key(warp, r);
+          for (int c0 = 0; c0 < TEAM_KEYS; c0 += KC) {
+            for (int lane = 0; lane < 32; ++lane) {
+              const int team = lane / LPR, col = da_lane_col(lane, LPR);
+              for (int j = 0; j < KC; ++j) {
+                const int row = da_team_key(team, TEAMS, c0 + j);
+                float kk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                for (int e = 0; e < 4; ++e) vv[lane][j][e] = 0.0f;
+                if (col < D)
+                  for (int e = 0; e < 4; ++e) {
+                    kk[e] = to_f(sK[row * D + col + e]);
+                    vv[lane][j][e] = to_f(sV[row * D + col + e]);
+                  }
+                for (int g = 0; g < GM; ++g) {
+                  float d = qr[lane][g][0] * kk[0];
+                  d = fmaf(qr[lane][g][1], kk[1], d);
+                  d = fmaf(qr[lane][g][2], kk[2], d);
+                  sc[lane][j * GM + g] = fmaf(qr[lane][g][3], kk[3], d);
+                }
+              }
+            }
+            // the reduce-scatter (DaReduce): xor steps LPR / 2 .. 1
+            for (int off = LPR / 2; off > 0; off >>= 1) {
+              const int half = da_rs_half(N, LPR, off);
+              memcpy(nx, sc, sizeof(sc));
+              for (int lane = 0; lane < 32; ++lane) {
+                if (half >= 1) {
+                  const bool upper = lane & off, partner_upper = !upper;
+                  for (int i = 0; i < half; ++i) {
+                    const float keep = upper ? nx[lane][i + half] : nx[lane][i];
+                    const int o = lane ^ off;
+                    const float send = partner_upper ? nx[o][i] : nx[o][i + half];
+                    sc[lane][i] = keep + send;
+                  }
+                } else {
+                  sc[lane][0] = nx[lane][0] + nx[lane ^ off][0];
+                }
+              }
+            }
+            for (int lane = 0; lane < 32; ++lane) {
+              const int team = lane / LPR, f0 = da_rs_base(lane % LPR, LPR, N);
+              const bool ok = k0 + da_team_key(team, TEAMS, c0 + f0 / GM) < k_end;
+              for (int i = 0; i < R; ++i)
+                mc[lane][i] = s[lane][i] = fa_score(sc[lane][i], scale, ok);
+            }
+            auto xor_steps = [&](float (*x)[R], bool take_max) {
+              for (int off = LPR / 2; off * KC >= LPR; off >>= 1) {
+                float y[32][R];
+                for (int lane = 0; lane < 32; ++lane)
+                  for (int i = 0; i < R; ++i) {
+                    const float a = x[lane][i], o = x[lane ^ off][i];
+                    y[lane][i] = take_max ? (a > o ? a : o) : a + o;
+                  }
+                memcpy(x, y, sizeof(y));
+              }
+            };
+            xor_steps(mc, true);
+            for (int lane = 0; lane < 32; ++lane)
+              for (int i = 0; i < R; ++i) {
+                const FaRescale rs = fa_rescale(m[lane][i], mc[lane][i]);
+                ps[lane][i] = p[lane][i] = fa_prob(s[lane][i], rs.m_safe);
+                alpha[lane][i] = rs.alpha;
+                m[lane][i] = rs.m_new;
+              }
+            xor_steps(ps, false);
+            for (int lane = 0; lane < 32; ++lane) {
+              const int lane0 = lane / LPR * LPR;
+              for (int i = 0; i < R; ++i)
+                l[lane][i] = alpha[lane][i] * l[lane][i] + ps[lane][i];
+              for (int g = 0; g < GM; ++g) {        // __shfl_sync
+                const float a = alpha[lane0 + da_rs_lane(g, LPR, N)][g % R];
+                for (int e = 0; e < 4; ++e) acc[lane][g][e] *= a;
+              }
+            }
+            for (int lane = 0; lane < 32; ++lane) {
+              const int lane0 = lane / LPR * LPR;
+              for (int j = 0; j < KC; ++j)
+                for (int g = 0; g < GM; ++g) {
+                  const int f = j * GM + g;
+                  const float pf = p[lane0 + da_rs_lane(f, LPR, N)][f % R];
+                  for (int e = 0; e < 4; ++e)
+                    acc[lane][g][e] = fmaf(pf, vv[lane][j][e], acc[lane][g][e]);
+                }
+            }
+          }
+          if (r + DA_STAGES < n_tiles) load(r + DA_STAGES, st);
+        }
+        for (int lane = 0; lane < 32; ++lane) {
+          const int team = lane / LPR, tl = lane % LPR;
+          const int col = da_lane_col(lane, LPR), state = warp * TEAMS + team;
+          const int g0 = da_rs_base(tl, LPR, N) % GM;
+          for (int i = 0; i < R; ++i) {
+            const int g = g0 + i;
+            if (g < group && tl == da_rs_lane(g, LPR, N)) {
+              sM[state * group + g] = m[lane][i];
+              sL[state * group + g] = l[lane][i];
+            }
+          }
+          if (col < D)
+            for (int g = 0; g < group; ++g)
+              for (int e = 0; e < 4; ++e)
+                sAcc[(state * group + g) * D + col + e] = acc[lane][g][e];
         }
       }
-  for (int bh = 0; bh < B * Hq; ++bh) {
-    const int b = bh / Hq, h = bh % Hq, kvh = h / group, g = h % group;
-    const size_t p0 = ((size_t)b * Hkv + kvh) * n_split;
-    float m_all = fa_neg_inf();
-    for (int i = 0; i < n_split; ++i) {
-      const float mi = m_part[(p0 + i) * group + g];
-      m_all = mi > m_all ? mi : m_all;
+      const size_t part = ((size_t)bkv * n_split + split) * group;
+      for (int h = 0; h < group; ++h)
+        for (int d = 0; d < D; ++d) {
+          float mx = fa_neg_inf();
+          for (int s = 0; s < STATES; ++s)
+            mx = mx > sM[s * group + h] ? mx : sM[s * group + h];
+          const float m_safe = da_finite_or_zero(mx);
+          float ls = 0.0f, a = 0.0f;
+          for (int s = 0; s < STATES; ++s) {
+            const float w = da_merge_weight(sM[s * group + h], m_safe);
+            ls += w * sL[s * group + h];
+            a += w * sAcc[(s * group + h) * D + d];
+          }
+          if (n_split == 1) {
+            out[(bh0 + h) * D + d] = return_partial ? a : fa_finalize(a, ls);
+            if (d == 0) { m_out[bh0 + h] = mx; l_out[bh0 + h] = ls; }
+          } else {
+            acc_part[(part + h) * D + d] = a;
+            if (d == 0) { m_part[part + h] = mx; l_part[part + h] = ls; }
+          }
+        }
     }
-    const float m_safe = da_finite_or_zero(m_all);
-    float l = 0.0f;
-    for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-    for (int i = 0; i < n_split; ++i) {
-      const size_t p = (p0 + i) * group + g;
-      const float w = da_merge_weight(m_part[p], m_safe);
-      l += w * l_part[p];
-      for (int d = 0; d < D; ++d) acc[d] += w * acc_part[p * D + d];
-    }
-    for (int d = 0; d < D; ++d)
-      out[(long)bh * D + d] = return_partial ? acc[d] : fa_finalize(acc[d], l);
-    m_out[bh] = m_all;
-    l_out[bh] = l;
+    if (n_split == 1) continue;
+    const size_t part0 = (size_t)bkv * n_split * group;
+    for (int h = 0; h < group; ++h)
+      for (int d = 0; d < D; ++d) {
+        float m_all = fa_neg_inf();
+        for (int i = 0; i < n_split; ++i) {
+          const float mi = m_part[part0 + i * group + h];
+          m_all = m_all > mi ? m_all : mi;
+        }
+        const float m_safe = da_finite_or_zero(m_all);
+        float ls = 0.0f, a = 0.0f;
+        for (int i = 0; i < n_split; ++i) {
+          const size_t p = part0 + i * group + h;
+          const float w = da_merge_weight(m_part[p], m_safe);
+          ls += w * l_part[p];
+          a += w * acc_part[p * D + d];
+        }
+        out[(bh0 + h) * D + d] = return_partial ? a : fa_finalize(a, ls);
+        if (d == 0) { m_out[bh0 + h] = m_all; l_out[bh0 + h] = ls; }
+      }
   }
+}
+
+template <typename T, int LPR>
+static void replay_rows(const void* q, const void* k, const void* v,
+                        const int* kv_lens, float* out, float* m_out,
+                        float* l_out, int B, int Hq, int Hkv, int S, int D,
+                        long k_sb, long k_sh, long k_ss, long v_sb, long v_sh,
+                        long v_ss, int n_split, int split_keys,
+                        int return_partial, float scale) {
+  const int group = Hq / Hkv;
+  auto run = group <= 1 ? replay<T, 1, LPR> : group <= 2 ? replay<T, 2, LPR>
+           : group <= 4 ? replay<T, 4, LPR> : group <= 8 ? replay<T, 8, LPR>
+                        : replay<T, 16, LPR>;
+  run((const T*)q, (const T*)k, (const T*)v, kv_lens, out, m_out, l_out, B,
+      Hq, Hkv, S, D, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, n_split, split_keys,
+      return_partial, scale);
+}
+
+// The launch entry's dispatch: dtype 0 fp32, 1 bf16; da_row_lanes(D).
+extern "C" void da_host(const void* q, const void* k, const void* v,
+                        const int* kv_lens, float* out, float* m_out,
+                        float* l_out, int dtype, int B, int Hq, int Hkv,
+                        int S, int D, long k_sb, long k_sh, long k_ss,
+                        long v_sb, long v_sh, long v_ss, int n_split,
+                        int split_keys, int return_partial, float scale) {
+  const bool wide = da_row_lanes(D) == 32;
+  auto run = dtype == 1 ? (wide ? replay_rows<uint16_t, 32> : replay_rows<uint16_t, 16>)
+                        : (wide ? replay_rows<float, 32> : replay_rows<float, 16>);
+  run(q, k, v, kv_lens, out, m_out, l_out, B, Hq, Hkv, S, D, k_sb, k_sh,
+      k_ss, v_sb, v_sh, v_ss, n_split, split_keys, return_partial, scale);
+}
+
+// The copy map of one warp tile: how often each 16-byte chunk of the
+// tile is copied, and whether its copy is a zero-fill.
+extern "C" void da_host_copy_map(int cpr, int n_valid, int* copies,
+                                 int* zero) {
+  for (int e = 0; e < da_tile_chunks(cpr); ++e) copies[e] = zero[e] = 0;
+  for (int lane = 0; lane < 32; ++lane)
+    for (int e = lane; e < da_tile_chunks(cpr); e += 32) {
+      const int row = da_chunk_row(e, cpr), c = da_chunk_col(e, cpr);
+      ++copies[row * cpr + c];
+      zero[row * cpr + c] = !(row < n_valid);
+    }
+}
+
+extern "C" int da_host_warp_tiles(int n_keys, int warp) {
+  return da_warp_tiles(n_keys, warp);
+}
+
+extern "C" int da_host_rs_base(int l, int lpr, int n) { return da_rs_base(l, lpr, n); }
+extern "C" int da_host_rs_lane(int f, int lpr, int n) { return da_rs_lane(f, lpr, n); }
+extern "C" int da_host_rs_kept(int n, int lpr) { return da_rs_kept(n, lpr); }
+extern "C" int da_host_chunk_keys(int gm, int team_keys) {
+  return da_chunk_keys(gm, team_keys);
+}
+
+extern "C" int da_host_smem_bytes(int elt, int d, int group, int n_split) {
+  return da_smem_bytes(elt, d, group, n_split);
 }
 """
 
@@ -237,35 +456,82 @@ extern "C" void da_host(const float* q, const float* k, const float* v,
 def host_kernel(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ is not on PATH: the split plan and merge are not checked")
+        pytest.skip("g++ is not on PATH: the kernel's warps are not replayed")
     d = tmp_path_factory.mktemp("da_host")
     (d / "harness.cpp").write_text(_HARNESS)
     lib = d / "libda_host.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-w",
                     "-I", str(CSRC_DIR), "-o", str(lib), str(d / "harness.cpp")],
                    check=True)
-    fn = ctypes.CDLL(str(lib)).da_host
+    lib = ctypes.CDLL(str(lib))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    fn.argtypes = [P] * 7 + [I] * 5 + [L] * 6 + [I, I, I, ctypes.c_float]
-    fn.restype = None
-    return fn
+    lib.da_host.argtypes = [P] * 7 + [I] * 6 + [L] * 6 + [I, I, I, ctypes.c_float]
+    lib.da_host.restype = None
+    lib.da_host_copy_map.argtypes = [I, I, P, P]
+    lib.da_host_copy_map.restype = None
+    lib.da_host_warp_tiles.argtypes = [I, I]
+    lib.da_host_smem_bytes.argtypes = [I, I, I, I]
+    for name in ("da_host_rs_base", "da_host_rs_lane"):
+        getattr(lib, name).argtypes = [I, I, I]
+    lib.da_host_rs_kept.argtypes = [I, I]
+    lib.da_host_chunk_keys.argtypes = [I, I]
+    return lib
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,d,lens,split_keys,partial,cache_layout", [
-    (2, 8, 2, 300, 64, [0, 300], 128, False, False),   # kv_len 0; ragged tail
-    (3, 6, 2, 517, 32, [1, 129, 517], None, False, True),   # cache view
-    (2, 32, 8, 1000, 128, [1000, 513], None, False, True),  # the LM's heads
-    (1, 4, 4, 64, 16, [64], 64, True, False),           # one slice, partial
-    (2, 4, 1, 400, 8, [390, 65], 64, True, False),      # slices past kv_len
-])
-def test_host_kernel_matches_plain(host_kernel, b, hq, hkv, s, d, lens,
-                                   split_keys, partial, cache_layout):
-    """The kernel's slices, tiles and merge (csrc/decode_attention.cuh),
-    built by g++, against the plain version; fp32 on both sides, 2e-5 as
-    above.  The slices are ``split_plan``'s on 132 SMs, or the given
-    ``split_keys``.  With ``cache_layout`` k and v are the transposed view
-    of a (B, S, Hkv, D) cache, as the LM decode path passes them."""
-    q, k, v = (torch.from_numpy(a) for a in _qkv(9 + s, b, hq, hkv, s, d))
+def _pallas_rows(q, k, v, lens, partial):
+    """The Pallas kernel in interpret mode, one call per distinct length
+    (its kv_len is an int), on fp32 copies of the inputs laid out (B,
+    Hkv, S, D), S padded to whole 64-key blocks → (out, m, l) numpy."""
+    b, hq, d = q.shape
+    s = k.shape[2]
+    s_p = -(-s // 64) * 64
+    kp, vp = (np.pad(x.float().contiguous().numpy(),
+                     ((0, 0), (0, 0), (0, s_p - s), (0, 0))) for x in (k, v))
+    qn = q.float().numpy()
+    out = np.zeros((b, hq, d), np.float32)
+    m = np.zeros((b, hq, 1), np.float32)
+    l = np.zeros((b, hq, 1), np.float32)
+    for n in sorted(set(lens)):
+        rows = [i for i, x in enumerate(lens) if x == n]
+        got = decode_attention_pallas(
+            jnp.asarray(qn[rows]), jnp.asarray(kp[rows]), jnp.asarray(vp[rows]),
+            block_k=64, kv_len=min(n, s), return_partial=partial,
+            interpret=True)
+        for dst, src in zip((out, m, l), got):
+            dst[rows] = _f32(src)
+    return out, m, l
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,d,dtype,lens,split_keys,partial,cache_layout", [
+        (2, 8, 2, 300, 64, "float32", [0, 300], 128, False, False),  # kv_len 0
+        (3, 6, 2, 517, 32, "float32", [1, 129, 517], None, False, True),
+        (2, 32, 8, 1000, 128, "float32", [1000, 513], None, False, True),
+        (1, 4, 4, 64, 16, "float32", [64], 64, True, False),    # one slice
+        (2, 4, 1, 400, 8, "float32", [390, 65], 64, True, False),  # past kv_len
+        (2, 32, 8, 258, 128, "float32", [257, 257], None, False, True),  # path
+        (3, 8, 2, 300, 96, "bfloat16", [300, 77, 0], None, False, True),
+        (2, 32, 2, 300, 128, "float32", [300, 17], 96, True, True),  # group 16
+        (1, 8, 1, 700, 128, "float32", [700], 352, False, False),  # ring wraps
+        (2, 12, 2, 130, 48, "bfloat16", [130, 5], 160, True, False),
+    ], ids=["kv_len0", "cache_view", "lm_heads", "one_slice", "past_kv_len",
+            "path_fp32", "bf16_d96", "group16_partial", "ring_wraps",
+            "bf16_one_slice"])
+def test_host_kernel_matches_plain(host_kernel, b, hq, hkv, s, d, dtype,
+                                   lens, split_keys, partial, cache_layout):
+    """Every CTA of a launch of csrc/decode_attention.cu replayed by g++
+    warp by warp and lane by lane (decode_attention.cuh: the warps'
+    rings and copy map with its zero-fill, the teams' shuffle sums, each
+    lane's online softmax, the states' merge and the last CTA's merge of
+    the slices in slice order) against the plain version and the Pallas
+    kernel in interpret mode, on the same seeded inputs, fp32 on all
+    sides (bf16 inputs as their fp32 values), 2e-5 as above.  The slices
+    are ``split_plan``'s on 132 SMs, or the given ``split_keys``; with
+    ``cache_layout`` k and v are the transposed view of a (B, S, Hkv, D)
+    cache, as the LM decode path passes them."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt)
+               for a in _qkv(9 + s, b, hq, hkv, s, d))
     if cache_layout:
         k = k.transpose(1, 2).contiguous().transpose(1, 2)
         v = v.transpose(1, 2).contiguous().transpose(1, 2)
@@ -273,18 +539,86 @@ def test_host_kernel_matches_plain(host_kernel, b, hq, hkv, s, d, lens,
         n_split, split_keys = split_plan(b, hkv, s, 132)
     else:
         n_split = -(-s // split_keys)
+    assert split_keys % BLOCK_K == 0
     kv = torch.tensor(lens, dtype=torch.int32)
-    out = torch.empty_like(q)
+    out = torch.empty((b, hq, d))
     m = torch.empty((b, hq, 1))
     l = torch.empty_like(m)
-    host_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
-                out.data_ptr(), m.data_ptr(), l.data_ptr(), b, hq, hkv, s, d,
-                *k.stride()[:3], *v.stride()[:3], n_split, split_keys,
-                int(partial), d ** -0.5)
-    want = decode_attention_ref(q, k, v, kv_len=kv, return_partial=partial)
+    host_kernel.da_host(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        kv.data_ptr(), out.data_ptr(), m.data_ptr(),
+                        l.data_ptr(), int(dtype == "bfloat16"), b, hq, hkv,
+                        s, d, *k.stride()[:3], *v.stride()[:3], n_split,
+                        split_keys, int(partial), d ** -0.5)
+    want = decode_attention_ref(q.float(), k.float(), v.float(), kv_len=kv,
+                                return_partial=partial)
     for got, w in zip((out, m, l), want):
         _close(got, w, 2e-5)
+    for got, w in zip((out, m, l), _pallas_rows(q, k, v, lens, partial)):
+        _close(got, w, 2e-5)
     assert torch.isfinite(out).all()
+    empty = kv == 0
+    assert (out[empty] == 0).all() and torch.isinf(m[empty]).all()
+
+
+@pytest.mark.parametrize("cpr,n_valid", [(32, 8), (32, 3), (16, 0), (12, 5),
+                                         (2, 7), (1, 1)])
+def test_host_copy_map(host_kernel, cpr, n_valid):
+    """A warp tile's copy map (fp32 D 128, 64, 8; bf16 D 96, 16, 8):
+    every 16-byte chunk of the tile copied exactly once, the chunks of
+    rows at or past the slice's last valid key zero-filled, the rest
+    read; and each warp's tiles of a slice cover its tiles once."""
+    chunks = csrc_define("decode_attention.cuh", "DA_WARP_KEYS") * cpr
+    copies = (ctypes.c_int * chunks)()
+    zero = (ctypes.c_int * chunks)()
+    host_kernel.da_host_copy_map(cpr, n_valid, copies, zero)
+    assert list(copies) == [1] * chunks
+    assert list(zero) == [int(e // cpr >= n_valid) for e in range(chunks)]
+    warps = csrc_define("decode_attention.cuh", "DA_WARPS")
+    for n_keys in (0, 1, 8, 9, 32, 33, 96, 545):
+        tiles = sum(host_kernel.da_host_warp_tiles(n_keys, w)
+                    for w in range(warps))
+        assert tiles == -(-n_keys // 8)
+
+
+@pytest.mark.parametrize("gm", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("lpr", [16, 32])
+def test_host_reduce_scatter_maps(host_kernel, gm, lpr):
+    """Every kernel instantiation's reduce-scatter of a chunk's
+    N = KC * GM dot products over a team: each value f = j * GM + g is
+    held by lpr * R / N lanes (R values a lane, consecutive from a
+    multiple of R), ``da_rs_lane`` names the lowest of them, a lane's
+    values share one key j, and the lanes of a row g over the chunk's
+    keys are those that differ in the top log2(KC) lane bits only."""
+    f = host_kernel
+    kc = f.da_host_chunk_keys(gm, 8 * lpr // 32)
+    n = kc * gm
+    r = f.da_host_rs_kept(n, lpr)
+    held = {}
+    for lane in range(lpr):
+        base = f.da_host_rs_base(lane, lpr, n)
+        assert base % r == 0 and len({(base + i) // gm for i in range(r)}) == 1
+        for i in range(r):
+            held.setdefault(base + i, []).append(lane)
+    assert sorted(held) == list(range(n))
+    for v, lanes in held.items():
+        assert len(lanes) == lpr * r // n
+        assert f.da_host_rs_lane(v, lpr, n) == min(lanes)
+    key_bits = sum(lpr >> (b + 1) for b in range(kc.bit_length() - 1))
+    for lane in range(lpr):
+        g_of = {(f.da_host_rs_base(x, lpr, n) % gm) for x in range(lpr)
+                if x & ~key_bits == lane & ~key_bits}
+        keys = {(f.da_host_rs_base(x, lpr, n) // gm) for x in range(lpr)
+                if x & ~key_bits == lane & ~key_bits}
+        assert len(g_of) == 1 and keys == set(range(kc))
+
+
+def test_host_smem_fits_two_ctas(host_kernel):
+    """The fp32 route's launch at D 128: three 8 KB stages a warp, 96 KB
+    a CTA, two CTAs an SM (228 KB); the warps' states and the slices' m
+    and l fit in the ring."""
+    assert host_kernel.da_host_smem_bytes(4, 128, 4, 11) == 96 * 1024
+    assert 2 * (host_kernel.da_host_smem_bytes(4, 128, 16, 264) + 1024) \
+        <= 228 * 1024
 
 
 # ------------------------------------------- the tensor-core kernel (bf16)

@@ -191,11 +191,17 @@ def test_cuda_block_scan_tile_matches_plain(cuda, q, nb, w, offset):
     ((0, 1, 2, 3), (1, 1, 1, 1), (0, 0, 0, 0)),       # no present term
     ((0, 1), (0, 0, 0, 0), (1, 1, 1, 1)),             # no required term
 ])
-@pytest.mark.parametrize("nb,w", [(4096, 128), (7, 16)])
-def test_cuda_block_scan_static_matches_plain(cuda, fields, req, pres, nb, w):
+@pytest.mark.parametrize("nb,w,offset", [(4096, 128, 0), (7, 16, 0), (7, 6, 0),
+                                         (64, 128, 3), (9, 6, 1)])
+def test_cuda_block_scan_static_matches_plain(cuda, fields, req, pres, nb, w,
+                                              offset):
     """The static-rule whole-index kernel against the plain version,
-    with the degenerate rules of ``tests/test_kernels.py``."""
-    occ = _whole_index_case(nb + w + len(fields), 1, nb, w, cuda)[0][0]
+    with the degenerate rules of ``tests/test_kernels.py``: on the
+    16-byte path, on the scalar path (W = 6) and on an ``occ`` view
+    that starts ``offset`` blocks into a larger index."""
+    occ = _whole_index_case(nb + w + len(fields), 1, nb + offset, w,
+                            cuda)[0][0][offset:]
+    assert occ.is_contiguous() and occ.shape[0] == nb
     allowed = np.zeros((T, F), bool)
     allowed[:, list(fields)] = True
     required, present = np.asarray(req, bool), np.asarray(pres, bool)
@@ -493,23 +499,39 @@ def _assert_decode(q, k, v, kv_len, lens, partial=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,hq,hkv,s,d,dtype,lens,cache_view", [
-    (2, 8, 8, 512, 64, "float32", None, False),       # test_kernels.py shapes
-    (2, 8, 2, 1024, 64, "float32", None, False),
-    (1, 48, 8, 640, 128, "bfloat16", None, False),
-    (1, 16, 16, 300, 64, "float32", None, False),
-    (2, 32, 8, 8208, 128, "bfloat16", [8193, 8193], True),   # the LM path
-    (4, 32, 8, 1000, 128, "bfloat16", [0, 1, 517, 1000], True),  # ragged
-    (3, 8, 2, 700, 128, "float32", [700, 0, 65], True),
-    (2, 4, 1, 100, 32, "float32", 37, False),         # an int kv_len
-    (2, 8, 2, 300, 96, "bfloat16", [300, 77], True),  # bf16 off the tc route
-    (2, 16, 4, 200, 32, "bfloat16", 150, False),      # bf16 at D 32
+@pytest.mark.parametrize("b,hq,hkv,s,d,dtype,lens,cache_view,partial,calls", [
+    (2, 8, 8, 512, 64, "float32", None, False, False, 1),   # test_kernels.py
+    (2, 8, 2, 1024, 64, "float32", None, False, False, 1),
+    (1, 48, 8, 640, 128, "bfloat16", None, False, False, 1),
+    (1, 16, 16, 300, 64, "float32", None, False, False, 1),
+    (2, 32, 8, 8208, 128, "bfloat16", [8193, 8193], True, False, 1),  # LM path
+    (4, 32, 8, 1000, 128, "bfloat16", [0, 1, 517, 1000], True, False, 1),
+    (3, 8, 2, 700, 128, "float32", [700, 0, 65], True, False, 1),
+    (2, 4, 1, 100, 32, "float32", 37, False, False, 1),    # an int kv_len
+    (2, 8, 2, 300, 96, "bfloat16", [300, 77], True, False, 1),  # off tc route
+    (2, 16, 4, 200, 32, "bfloat16", 150, False, False, 1),  # bf16 at D 32
+    # many slices (63 of 64 keys), those of the short row wholly past it
+    (2, 8, 2, 4000, 128, "float32", [4000, 1000], True, False, 1),
+    (2, 8, 2, 4000, 96, "bfloat16", [1000, 4000], True, False, 1),
+    # a second call on the same stream: the counters were left at 0
+    (2, 32, 8, 1026, 128, "float32", [1025, 1025], True, False, 2),
+    (2, 8, 2, 2000, 96, "bfloat16", [2000, 613], True, False, 2),
+    # the unnormalised accumulator for an LSE merge
+    (3, 32, 8, 1026, 128, "float32", [1025, 0, 300], True, True, 1),
+    (2, 8, 2, 300, 96, "bfloat16", [300, 77], True, True, 1),
 ])
 def test_cuda_decode_attention_matches_plain(cuda, b, hq, hkv, s, d, dtype,
-                                             lens, cache_view):
+                                             lens, cache_view, partial,
+                                             calls):
+    """The route's kernel against the plain version (see
+    ``_assert_decode``); fp32 and bf16 off the tensor-core route take
+    ``csrc/decode_attention.cu``, one launch whose last CTA per
+    (sequence, KV head) merges the slices, so a second call right after
+    the first on the same stream also shows the counters reset."""
     q, k, v, kv_len = _decode_case(cuda, b, hq, hkv, s, d, dtype, lens,
                                    cache_view, s + d + hq)
-    _assert_decode(q, k, v, kv_len, lens)
+    for _ in range(calls):
+        _assert_decode(q, k, v, kv_len, lens, partial)
 
 
 @pytest.mark.gpu
