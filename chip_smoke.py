@@ -83,6 +83,20 @@ Phases (any failure raises and the script exits non-zero):
    The rule quotas are scaled (du x16, dv x64) so that production rules
    scan several chunks; one batch is also served at the config's own
    quotas for comparison, and two batches run under torch.profiler.
+3b. Train (websearch-rl's ``rl_rollout`` shape, query batch 256) on
+   the system phase 3 built: ``fit_l1`` (256 judged queries, l1_steps
+   Adam steps of 4096 pairs; the loss must fall) and one
+   ``_l1_adam_step`` on the card against the CPU (rtol 1e-5, atol
+   1e-6); one ``train_batch`` at ε 0.1 with draws from a seeded CUDA
+   generator, run twice on ``block_scan`` (Q bit-equal) and once on
+   ``reference`` (transitions, final state and Q bit-equal), its TD
+   update against a float64 scatter-mean (1e-6 x (1 + |q|)), and its
+   chunk-kernel launches (> 0); then, between a reset and a read of
+   the launch counts, ``train_policy`` per category (ε 0.5 -> 0.05, as
+   many iterations as fit in about 60 s for both), three steps timed
+   stage by stage, ``evaluate`` of each trained Q against its
+   production plan (Δu %, ΔNCG %; no threshold at this depth) and one
+   step under torch.profiler.
 4. LM serve: Mistral-NeMo-12B at full width and depth (40 layers,
    d_model 5120, 32 heads, 8 KV heads, d_head 128, d_ff 14336, vocab
    131072, bf16), random weights from a seeded CUDA generator.  The
@@ -117,8 +131,9 @@ Phases (any failure raises and the script exits non-zero):
    kernel-path forward is held against the same forward with the plain
    bag (1e-5 + 1e-5|logit|); one ``serve_bulk`` forward of each of the
    two runs under torch.profiler.
-6. Print the kernels' JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. Print the kernels' JSON line (the chunk kernel's row also carries
+   the training path's launches, ``train_launches``), the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
 """
@@ -1266,7 +1281,7 @@ def mean_blocks_per_rule(sys_, cat, inputs):
 
 def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGORY):
     """Build the system, fit bins, serve and check what was served;
-    returns the kernels' launch counts of the serve step."""
+    returns the kernels' launch counts of the serve step and the system."""
     import numpy as np
     import torch
 
@@ -1376,7 +1391,7 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
         for name, policy in (("plan", sys_.plan_policy(cat0)),
                              ("greedy_q", greedy)):
             profile_batch(exe, name, policy, inputs[0])
-    return launches
+    return launches, sys_
 
 
 def real_data_check(sys_, inp):
@@ -1444,6 +1459,294 @@ def unscaled_batch(sys_, cat, inp, greedy, counter):
     blocks = mean_blocks_per_rule(plain, cat, inp)
     print(f"[serve] unscaled quotas, production plan (cat {cat}): "
           f"{blocks:.2f} blocks per rule execution", flush=True)
+
+
+# ------------------------------------------------------------ phase 3b
+# The rl_rollout step (src/repro/configs/websearch_rl.py:48-52): query
+# batch 256, ε 0.1 (src/repro/launch/steps.py:538-540).
+TRAIN_EPS = 0.1
+EPS_START, EPS_END = 0.5, 0.05          # train_policy's defaults
+TRAIN_SECONDS = 60.0                    # train_policy, both categories
+TRAIN_ITERS = (4, 64)                   # least and most iterations a category
+SPLIT_STEPS = 3                         # timed steps, split by stage
+# One L1 Adam step, card against CPU: the CPU tests' one-step tolerance
+# (tests/test_torch_train.py::test_l1_adam_step_matches_reference).
+L1_STEP_RTOL, L1_STEP_ATOL = 1e-5, 1e-6
+# td_update against a float64 scatter-mean: float32 target, TD error,
+# mean and step each round once (a few ulps of values below 1); the
+# sums themselves are float64 on both sides.
+TD_TOL = 1e-6
+
+
+def l1_step_check(dev, params0, feats, gains, weights):
+    """One ``_l1_adam_step`` from ``params0`` on one batch of 4096 judged
+    rows, on the card and on the CPU; returns the largest parameter
+    difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ranking.l1_ranker import _l1_adam_step
+    from repro_torch.train.optimizer import adamw_init
+
+    idx = np.random.default_rng(SEED).integers(0, len(feats),
+                                               size=min(4096, len(feats)))
+    batch = [torch.from_numpy(x[idx]).to(torch.float32)
+             for x in (feats, gains / 4.0, weights)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = {k: v.detach().to(d) for k, v in params0.items()}
+        out[d.type] = _l1_adam_step(p, adamw_init(p), *[x.to(d) for x in batch])
+    (pc, _, lc), (ph, _, lh) = out[dev.type], out["cpu"]
+    if not np.isclose(float(lc), float(lh), rtol=L1_STEP_RTOL, atol=0):
+        raise AssertionError(f"L1 step loss {float(lc)} != CPU {float(lh)}")
+    worst = 0.0
+    for k in ph:
+        got, want = pc[k].cpu().numpy(), ph[k].numpy()
+        if not np.allclose(got, want, rtol=L1_STEP_RTOL, atol=L1_STEP_ATOL):
+            raise AssertionError(f"L1 step {k}: card != CPU beyond "
+                                 f"rtol {L1_STEP_RTOL} atol {L1_STEP_ATOL}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    return len(idx), worst
+
+
+def td_float64(qcfg, q, trans):
+    """The TD scatter-mean in float64 numpy, from the same transitions."""
+    import numpy as np
+
+    t = {k: v.cpu().numpy().reshape(-1) for k, v in trans.items()}
+    q64 = q.cpu().numpy().astype(np.float64)
+    target = t["r"].astype(np.float64) + qcfg.gamma * np.where(
+        t["done"], 0.0, q64[t["s2"]].max(axis=-1))
+    td = np.where(t["valid"], target - q64[t["s"], t["a"]], 0.0)
+    flat = t["s"].astype(np.int64) * qcfg.n_actions + t["a"]
+    sums = np.zeros(q64.size)
+    counts = np.zeros(q64.size)
+    np.add.at(sums, flat, td)
+    np.add.at(counts, flat, t["valid"].astype(np.float64))
+    mean = (sums / np.maximum(counts, 1.0)).reshape(q64.shape)
+    return q64 + qcfg.alpha * mean, int((counts > 0).sum())
+
+
+def train_step_check(dev, sys_, batch):
+    """One ``train_batch`` at ``batch`` queries from a seeded generator on
+    the device: twice on ``block_scan`` (Q bit-equal), once on
+    ``reference`` (transitions, final state and Q bit-equal), and its
+    TD update against a float64 scatter-mean.  Returns the chunk-kernel
+    launches of one step and the step's stage times (s)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.qlearning import _epsilon_rollout, td_update, train_batch
+    from repro_torch.data.querylog import CAT1
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL as counter
+    from repro_torch.policies import EpsilonGreedy, TabularQPolicy
+
+    qcfg = sys_.qcfg
+    qids = sys_.sample_train_qids(CAT1, batch, np.random.default_rng(SEED))
+    # A seeded table whose stop column never wins (as the serve phase's):
+    # greedy actions vary over bins, so the episode visits many cells.
+    q_np = np.random.default_rng(SEED + 11).normal(
+        scale=0.05, size=(qcfg.p, qcfg.n_actions)).astype(np.float32)
+    q_np[:, sys_.env_cfg.a_stop] = q_np.min() - 1.0
+    q = torch.from_numpy(q_np).to(dev)
+    times = {}
+    t0 = time.perf_counter()
+    occ, scores, tp = sys_.batch_inputs(qids)
+    sync(dev)
+    times["batch_inputs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, traj = sys_._run_plan_batch(sys_.plan_for_category(CAT1), occ, scores, tp)
+    prod_r = sys_.production_step_rewards(traj)
+    sync(dev)
+    times["production_rollout"] = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pol = EpsilonGreedy.draw(gen, qcfg.t_max, len(qids), qcfg.n_actions,
+                             TRAIN_EPS, TabularQPolicy(q))
+    draws = (pol.explore, pol.uniform)
+    args = (sys_.env_cfg, qcfg, sys_.ruleset, sys_.bins, q, occ, scores, tp,
+            prod_r, TRAIN_EPS, draws)
+
+    before = counter.launches
+    t0 = time.perf_counter()
+    q_a, m_a = train_batch(*args, backend="block_scan")
+    sync(dev)
+    times["train_batch"] = time.perf_counter() - t0
+    step_launches = counter.launches - before
+    q_b, _ = train_batch(*args, backend="block_scan")
+    if not torch.equal(q_a, q_b):
+        raise AssertionError("train_batch twice on block_scan: Q differs")
+    fin_k, tr_k = _epsilon_rollout(*args, backend="block_scan")
+    fin_r, tr_r = _epsilon_rollout(*args, backend="reference")
+    for k in tr_k:
+        if not torch.equal(tr_k[k], tr_r[k]):
+            raise AssertionError(f"block_scan != reference on transitions/{k}")
+    for f in dataclasses.fields(fin_k):
+        if not torch.equal(getattr(fin_k, f.name), getattr(fin_r, f.name)):
+            raise AssertionError(f"block_scan != reference on state/{f.name}")
+    q_r = td_update(qcfg, q, tr_r)
+    if not (torch.equal(q_r, q_a) and torch.equal(td_update(qcfg, q, tr_k), q_a)):
+        raise AssertionError("TD update of the reference backend's "
+                             "transitions != train_batch's Q")
+    want, cells = td_float64(qcfg, q, tr_k)
+    err = np.abs(q_a.cpu().numpy().astype(np.float64) - want)
+    if not (err <= TD_TOL * (1.0 + np.abs(want))).all():
+        raise AssertionError(f"td_update vs float64: max |dq| {err.max():.3e}")
+    if not (torch.isfinite(q_a).all() and (q_a != q).any()):
+        raise AssertionError("the TD update left Q unchanged or not finite")
+    n_valid = int(tr_k["valid"].sum())
+    explored = int((pol.uniform < TRAIN_EPS).sum())
+    print(f"[train] train_batch at {len(qids)} queries, eps {TRAIN_EPS}: "
+          f"{n_valid} valid transitions into {cells} cells, {explored} "
+          f"explored draws, {len(torch.unique(tr_k['a']))} distinct actions; "
+          f"Q bit-equal twice on 'block_scan' and to 'reference' "
+          f"(transitions, final state, Q); td_update vs float64 "
+          f"scatter-mean max |dq| {err.max():.3e} (tol {TD_TOL} x (1+|q|)); "
+          f"{step_launches} block_scan_pruned_chunk launches a step; "
+          f"mean_u {float(m_a['mean_u']):.1f}, mean_reward "
+          f"{float(m_a['mean_reward']):.6f}", flush=True)
+    print(f"[train] one step's stages: batch_inputs "
+          f"{times['batch_inputs'] * 1e3:.1f} ms, production rollout "
+          f"{times['production_rollout'] * 1e3:.1f} ms, train_batch "
+          f"(ε-greedy rollout + TD) {times['train_batch'] * 1e3:.1f} ms",
+          flush=True)
+    return step_launches, times
+
+
+def split_steps(dev, sys_, cat, q, batch, n=SPLIT_STEPS):
+    """``n`` training steps run stage by stage, each stage ending in a
+    synchronize: mean seconds of batch_inputs, the production rollout,
+    the ε-greedy rollout and the TD update."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.qlearning import _epsilon_rollout, td_update
+
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    names = ("batch_inputs", "production_rollout", "epsilon_rollout",
+             "td_update")
+    sums = dict.fromkeys(names, 0.0)
+    for _ in range(n):
+        qids = sys_.sample_train_qids(cat, batch, rng)
+        marks = [time.perf_counter()]
+        occ, scores, tp = sys_.batch_inputs(qids)
+        sync(dev)
+        marks.append(time.perf_counter())
+        _, traj = sys_._run_plan_batch(sys_.plan_for_category(cat), occ,
+                                       scores, tp)
+        prod_r = sys_.production_step_rewards(traj)
+        sync(dev)
+        marks.append(time.perf_counter())
+        _, trans = _epsilon_rollout(sys_.env_cfg, sys_.qcfg, sys_.ruleset,
+                                    sys_.bins, q, occ, scores, tp, prod_r,
+                                    EPS_END, gen, backend=sys_.cfg.backend)
+        sync(dev)
+        marks.append(time.perf_counter())
+        q = td_update(sys_.qcfg, q, trans)
+        sync(dev)
+        marks.append(time.perf_counter())
+        for name, a, b in zip(names, marks, marks[1:]):
+            sums[name] += b - a
+    return {k: v / n for k, v in sums.items()}
+
+
+def train_phase(dev, sys_, batch=QUERY_BATCH, train_seconds=TRAIN_SECONDS):
+    """Train the match-planning policy on the serve phase's system: the
+    L1 fit, one checked ``train_batch``, ``train_policy`` per category
+    between a reset and a read of the launch counts, ``evaluate`` of
+    each trained Q against its production plan, one profiled step.
+    Returns the kernels' launch counts of ``train_policy``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.querylog import CAT1, CAT2
+    from repro_torch.ranking.metrics import relative_delta
+
+    if sys_.qcfg is None:
+        raise AssertionError("the serve phase fitted no state bins")
+    # 1. The L1 fit (256 judged queries, l1_steps Adam steps of 4096).
+    params0 = {k: v.clone() for k, v in sys_.l1_params.items()}
+    t0 = time.perf_counter()
+    losses = sys_.fit_l1()
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    feats, gains, weights = sys_.l1_training_set()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"L1 fit: loss {losses[0]} -> {losses[-1]}")
+    rows, worst = l1_step_check(dev, params0, feats, gains, weights)
+    print(f"[train] L1 fit: {len(feats)} judged pairs, {len(losses)} Adam "
+          f"steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}, {fit_s:.2f} s "
+          f"(training set and steps); one step on {rows} rows, card vs CPU "
+          f"(TF32 off): max |dparam| {worst:.3e} (rtol {L1_STEP_RTOL}, "
+          f"atol {L1_STEP_ATOL})", flush=True)
+
+    # 2. One train_batch, checked.
+    step_launches, stage = train_step_check(dev, sys_, batch)
+    if dev.type == "cuda" and step_launches <= 0:
+        raise AssertionError("a train step launched no block_scan kernel")
+    step_s = sum(stage.values())
+    iters = int(min(TRAIN_ITERS[1], max(TRAIN_ITERS[0],
+                                        train_seconds / 2 / step_s)))
+
+    # 3. train_policy per category: the main path, counts reset before.
+    reset_counts()
+    trained, walls = {}, {}
+    for cat in (CAT1, CAT2):
+        t0 = time.perf_counter()
+        q, hist = sys_.train_policy(cat, iters=iters, batch=batch,
+                                    eps_start=EPS_START, eps_end=EPS_END,
+                                    seed=SEED)
+        sync(dev)
+        walls[cat] = time.perf_counter() - t0
+        if not (torch.isfinite(q).all() and all(
+                np.isfinite(list(h.values())).all() for h in hist)):
+            raise AssertionError(f"cat {cat}: Q or history not finite")
+        trained[cat] = q
+        h0, h1 = hist[0], hist[-1]
+        print(f"[train] cat {cat} train_policy: {iters} iterations of "
+              f"{batch} queries, eps {EPS_START} -> {EPS_END}, "
+              f"{walls[cat] * 1e3 / iters:.1f} ms/step; mean_u "
+              f"{h0['mean_u']:.1f} -> {h1['mean_u']:.1f}, mean_reward "
+              f"{h0['mean_reward']:.6f} -> {h1['mean_reward']:.6f}, "
+              f"q_abs_mean {h1['q_abs_mean']:.6f}", flush=True)
+    launches = read_counts()
+    n_steps = 2 * iters
+    print(f"[train] main path launches ({n_steps} steps): {launches}; "
+          f"{launches['block_scan_pruned_chunk'] / n_steps:.1f} "
+          f"block_scan_pruned_chunk launches a step", flush=True)
+
+    split = split_steps(dev, sys_, CAT1, trained[CAT1], batch)
+    print("[train] step split (mean of %d, each stage synchronized): %s; "
+          "total %.1f ms" % (SPLIT_STEPS, ", ".join(
+              f"{k} {v * 1e3:.1f} ms" for k, v in split.items()),
+              sum(split.values()) * 1e3), flush=True)
+
+    # 4. Learned policy vs production plan, per category.
+    for cat in (CAT1, CAT2):
+        qids = np.where(sys_.log.category == cat)[0][:batch]
+        res = sys_.evaluate(trained[cat], qids, cat)
+        for k in ("policy_ncg", "baseline_ncg"):
+            if not (np.isfinite(res[k]).all() and (res[k] >= 0).all()
+                    and (res[k] <= 1 + 1e-6).all()):
+                raise AssertionError(f"cat {cat}: {k} out of [0, 1]")
+        if (res["baseline_u"].shape != (len(qids),)
+                or not (res["baseline_u"] > 0).all()):
+            raise AssertionError(f"cat {cat}: the production plan scanned nothing")
+        d_u = relative_delta(res["policy_u"], res["baseline_u"])
+        d_ncg = relative_delta(res["policy_ncg"], res["baseline_ncg"])
+        print(f"[train] cat {cat} evaluate on {len(qids)} queries: "
+              f"du {d_u:+.2f}% (u {res['policy_u'].mean():.1f} vs plan "
+              f"{res['baseline_u'].mean():.1f}), dNCG {d_ncg:+.2f}% (NCG "
+              f"{res['policy_ncg'].mean():.4f} vs plan "
+              f"{res['baseline_ncg'].mean():.4f})", flush=True)
+
+    # 5. One training step under the profiler.
+    if dev.type == "cuda":
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        qids = sys_.sample_train_qids(CAT2, batch, np.random.default_rng(SEED + 5))
+        profile_device("train step", lambda: sys_.policy_train_step(
+            CAT2, trained[CAT2], gen, EPS_END, qids), "block_scan_pruned_chunk")
+    return launches
 
 
 # ------------------------------------------------------------ phase 4
@@ -2014,9 +2317,14 @@ def main() -> int:
           f"{FULL_BLOCKS * BLOCK_DOCS}); all widths as configured; rule "
           f"quotas scaled du x{RULE_DU_SCALE}, dv x{RULE_DV_SCALE} so that "
           f"rules span several chunks (one batch at x1 follows)", flush=True)
-    launches = serve_phase(dev, cfg)
+    launches, sys_ = serve_phase(dev, cfg)
     if launches["block_scan_pruned_chunk"] <= 0:
         raise AssertionError("the serve path launched no block_scan kernel")
+    train_launches = train_phase(dev, sys_)
+    if train_launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the training path launched no block_scan kernel")
+    del sys_
+    torch.cuda.empty_cache()
 
     lm_launches = lm_phase(dev)
     torch.cuda.empty_cache()
@@ -2045,6 +2353,7 @@ def main() -> int:
             "src/repro/kernels/block_scan/block_scan_pruned.py:222",
             launches["block_scan_pruned_chunk"],
             rows[4], worst(rows)),      # C=4: the serve path's chunk
+        # (its "train_launches" key is added below)
         row("block_scan_tile", "block_scan_tile.cu",
             "src/repro/kernels/block_scan/block_scan.py:65",
             whole_launches["block_scan_tile"], whole_rows[("batched", "deep")],
@@ -2084,6 +2393,7 @@ def main() -> int:
             recsys_launches["embedding_bag_lanes"], bag_rows["wd_p99"],
             max(r["max_abs_err"] for r in bag_rows.values()
                 if r["kernel"] == "embedding_bag_lanes"))]
+    kernels[0]["train_launches"] = train_launches["block_scan_pruned_chunk"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,5 +1,6 @@
 """Arch registry: importing this package registers the ported configs
-(the dense GQA LMs and the recsys models so far)."""
+(the paper's websearch-rl system, the dense GQA LMs and the recsys
+models so far)."""
 from .base import ArchDef, ShapeSpec, get_arch, list_archs
 
 __all__ = ["ArchDef", "ShapeSpec", "get_arch", "list_archs"]
@@ -20,4 +21,5 @@ def _load_all():
         deepfm,
         dcn_v2,
         bert4rec,
+        websearch_rl,
     )

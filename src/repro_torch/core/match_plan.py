@@ -30,6 +30,27 @@ class MatchPlan:
     def length(self) -> int:
         return self.rule_idx.shape[0]
 
+    def prefix(self, length: int) -> "MatchPlan":
+        """The first ``length`` entries as a standalone plan — the
+        shallow degraded-service fallback: its u is bounded by the
+        prefix's summed Δu quotas (each rule execution stops at its
+        quota), so serving it under pressure has a known worst case."""
+        length = max(1, min(int(length), self.length))
+        return MatchPlan(
+            rule_idx=self.rule_idx[:length],
+            reset_before=self.reset_before[:length],
+            du_quota=self.du_quota[:length],
+            dv_quota=self.dv_quota[:length],
+        )
+
+    def u_cap(self, per_entry_overshoot: int = 0) -> int:
+        """Hard upper bound on u for one execution of this plan: the
+        summed per-entry Δu quotas, plus the rule loop's worst-case
+        quota overshoot per entry (it checks the quota between blocks,
+        so the final block's planes — at most one block's worth, i.e.
+        terms × fields — land past the quota)."""
+        return int(self.du_quota.sum()) + self.length * per_entry_overshoot
+
 
 def make_plan(ruleset: RuleSet,
               entries: Sequence[Tuple[int, bool]]) -> MatchPlan:

@@ -1,7 +1,7 @@
 """The ONE rollout loop (Unified Policy API).
 
-Static production match plans, greedy tabular Q policies and serving
-rollouts are one computation: a loop over agent steps where each step
+Static production match plans, ε-greedy Q-learning episodes, greedy
+tabular Q policies and serving rollouts are one computation: a loop over agent steps where each step
 asks a *policy* for an action and advances the batched match
 environment.  The reference runs it as a ``lax.scan``; here it is an
 eager Python loop over ``t_max`` steps.  HOW each rule execution
@@ -94,12 +94,15 @@ def unified_rollout(
     occ: torch.Tensor,             # (B, n_blocks, T, F, W) int32
     scores: torch.Tensor,          # (B, n_pad) float32
     term_present: torch.Tensor,    # (B, T) bool
+    prod_rewards: Optional[torch.Tensor] = None,  # (B, Lp) Eq. 4 subtrahend
     *,
     backend: Union[str, ScanBackend] = "reference",
 ) -> RolloutResult:
     """Run ``policy`` for ``t_max`` steps over a query batch.  The
-    recorded reward is Eq. 4 against a production reward of 0 (the
-    reference's default when no production rewards are given)."""
+    recorded reward at step t is Eq. 4 against
+    ``prod_rewards[:, min(t, Lp - 1)]``, the production plan's reward at
+    that step (``Lp`` is the plan's length); without ``prod_rewards``,
+    against 0, as in the reference."""
     batch, dev = occ.shape[0], occ.device
     state = env_reset(cfg, batch, dev)
     scan = get_scan_backend(backend) if isinstance(backend, str) else backend
@@ -116,7 +119,9 @@ def unified_rollout(
         pa = policy.act(s_bin, state, t)
         new_state = policy_env_step(cfg, ruleset, occ, scores, term_present,
                                     state, pa, scan)
-        r = step_reward(cfg, state, new_state, 0.0)
+        r_prod_t = (0.0 if prod_rewards is None else
+                    prod_rewards[:, min(t, prod_rewards.shape[1] - 1)])
+        r = step_reward(cfg, state, new_state, r_prod_t)
         s2_bin = state_bin(new_state)
         for k, val in (("s", s_bin), ("a", pa.action), ("r", r),
                        ("s2", s2_bin), ("done", new_state.done),

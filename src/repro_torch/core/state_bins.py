@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = ["StateBins", "fit_bins", "bin_index"]
 
 
@@ -33,8 +35,10 @@ class StateBins:
 
 
 def fit_bins(u: np.ndarray, v: np.ndarray, p: int = 1024,
-             device="cpu") -> StateBins:
-    """Fit from harvested baseline (u, v) pairs (host-side)."""
+             device=None) -> StateBins:
+    """Fit from harvested baseline (u, v) pairs (host-side); the edges
+    go to ``device`` (cuda unless asked)."""
+    device = resolve_device(device)
     u = np.asarray(u, dtype=np.float32).ravel()
     v = np.asarray(v, dtype=np.float32).ravel()
     pu = max(1, int(np.sqrt(p)))

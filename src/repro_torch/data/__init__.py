@@ -1,1 +1,1 @@
-"""Synthetic query log (numpy)."""
+"""Synthetic query log, its query classifier and eval-set sampler (numpy)."""

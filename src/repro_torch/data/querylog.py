@@ -17,8 +17,8 @@ uniformly over distinct queries).
 
 A numpy copy of ``repro.data.querylog`` (same RNG call order, so the
 same config gives the same log), kept here so that the port never
-imports the JAX package.  The query classifier and the evaluation-set
-sampler are not ported yet.
+imports the JAX package, with the query classifier and the
+evaluation-set sampler (Table 1's two test samples).
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ import numpy as np
 from repro_torch.index.builder import MAX_QUERY_TERMS, InvertedIndex
 from repro_torch.index.corpus import B, Corpus, T, U
 
-__all__ = ["CAT1", "CAT2", "QueryLogConfig", "QueryLog", "generate_querylog"]
+__all__ = ["CAT1", "CAT2", "QueryLogConfig", "QueryLog", "generate_querylog",
+           "classify_query", "sample_eval_sets"]
 
 CAT1, CAT2 = 0, 1
 
@@ -158,3 +159,29 @@ def generate_querylog(
         judged_gains=judged_gains,
         seed_doc=seed_doc,
     )
+
+
+def classify_query(log: QueryLog, index: InvertedIndex) -> np.ndarray:
+    """The paper's query categorizer: historical popularity, number of
+    terms, and term document frequencies → category."""
+    df_body = index.df[:, B].astype(np.float64)
+    mean_df = np.zeros(log.n_queries)
+    for qi in range(log.n_queries):
+        ts = log.terms[qi, : log.n_terms[qi]]
+        mean_df[qi] = df_body[ts].mean() if len(ts) else 0.0
+    df_frac = mean_df / index.n_docs
+    pop_med = np.median(log.popularity)
+    # CAT2: moderately-high df terms and head popularity; CAT1: rare terms.
+    return np.where((df_frac > 0.02) & (log.popularity > pop_med),
+                    CAT2, CAT1).astype(np.int8)
+
+
+def sample_eval_sets(log: QueryLog, n_eval: int,
+                     seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(weighted_ids, unweighted_ids): the paper's two test samples."""
+    rng = np.random.default_rng(seed)
+    weighted = rng.choice(log.n_queries, size=n_eval, replace=True,
+                          p=log.popularity)
+    unweighted = rng.choice(log.n_queries, size=min(n_eval, log.n_queries),
+                            replace=False)
+    return weighted.astype(np.int64), unweighted.astype(np.int64)

@@ -3,12 +3,14 @@
 Required surface::
 
     act(s_bin, state, t) -> PolicyAction   # batched
+    n_actions: int                         # k_rules + 2
     horizon: Optional[int]                 # natural episode length
 
 ``act`` receives the discretized state index ``s_bin`` (B,), the full
 batched :class:`EnvState` and the step counter ``t`` (a Python int).
-The reference's ``act`` also takes a PRNG key; no policy here draws
-random numbers.
+The reference's ``act`` also takes a PRNG key; here no policy draws
+random numbers inside ``act``: ``EpsilonGreedy`` carries its draws for
+every step and reads row ``t``.
 """
 from __future__ import annotations
 

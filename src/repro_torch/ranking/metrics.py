@@ -4,12 +4,15 @@ discounting, because L0 candidate sets are unordered (Eq. 5–6)::
     CumGain = Σ_{i=1..|D|} gain_i ,  NCG = CumGain / CumGain_ideal
 
 |D| capped at 100 (candidates kept in scan order = static-rank order).
+Paired relative deltas and a sign-permutation significance test
+(numpy) reproduce Table 1's reporting.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["batched_ncg"]
+__all__ = ["batched_ncg", "relative_delta", "paired_permutation_pvalue"]
 
 
 def batched_ncg(cand: torch.Tensor,          # (B, K) int32, -1 pad
@@ -28,3 +31,20 @@ def batched_ncg(cand: torch.Tensor,          # (B, K) int32, -1 pad
     ideal = ideal_sorted[:, :k].sum(dim=1)
     safe = torch.where(ideal > 0, ideal, 1.0)
     return torch.where(ideal > 0, cum_gain / safe, 0.0)
+
+
+def relative_delta(treatment: np.ndarray, baseline: np.ndarray) -> float:
+    """Mean relative change, as Table 1 reports (%)."""
+    b = np.mean(baseline)
+    return float((np.mean(treatment) - b) / max(b, 1e-9) * 100.0)
+
+
+def paired_permutation_pvalue(treatment: np.ndarray, baseline: np.ndarray,
+                              n_perm: int = 2000, seed: int = 0) -> float:
+    """Two-sided paired sign-permutation test on the per-query deltas."""
+    rng = np.random.default_rng(seed)
+    d = np.asarray(treatment, np.float64) - np.asarray(baseline, np.float64)
+    obs = abs(d.mean())
+    signs = rng.choice([-1.0, 1.0], size=(n_perm, len(d)))
+    null = np.abs((signs * d[None, :]).mean(axis=1))
+    return float((np.sum(null >= obs) + 1) / (n_perm + 1))

@@ -1,11 +1,14 @@
 """Parameters carried across from the JAX reference.
 
-The reference's trained parameters cannot be re-drawn here (its
-``jax.random`` streams have no torch counterpart), so they cross as
-numpy arrays: ``np.asarray`` of each leaf on the reference side,
+The reference's parameters cannot be re-drawn here (its ``jax.random``
+streams have no torch counterpart), so they cross as numpy arrays:
+``np.asarray`` of each leaf on the reference side,
 :func:`from_reference` (retrieval system),
 :func:`lm_params_from_reference` (LM parameter tree) or
 :func:`recsys_params_from_reference` (recsys parameter trees) here.
+Among them are the reference trainer's outputs, a trained ``q`` table
+and trained ``l1_params``; the port also trains its own
+(``RetrievalSystem.fit_l1``, ``train_policy``).
 """
 from __future__ import annotations
 

@@ -775,3 +775,87 @@ def test_cuda_mistral_nemo_two_layer_decode_kernel_and_plain(cuda):
     torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)
     for f in ("k", "v"):
         assert torch.equal(cache[f][0], other[f][0])
+
+
+# ------------------------------------------------------------ training
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_td_update_order_is_pinned(cuda, seed):
+    """The TD scatter-mean on the card: 2048 transitions into a few dozen
+    cells (hundreds a cell), twice bit-equal, a permutation of them
+    bit-equal too, and within 1e-6 of the CPU's (both sum each cell in
+    float64 and round once; only the float64 sum order may differ)."""
+    from repro_torch.core.qlearning import QConfig, td_update
+
+    rng = np.random.default_rng(seed)
+    t_max, b, p, n_actions = 8, 256, 8, 8
+    tr = {"s": rng.integers(0, p, (t_max, b)).astype(np.int32),
+          "a": rng.integers(0, 4, (t_max, b)).astype(np.int32),
+          "r": rng.normal(scale=0.05, size=(t_max, b)).astype(np.float32),
+          "s2": rng.integers(0, p, (t_max, b)).astype(np.int32),
+          "done": rng.random((t_max, b)) < 0.3,
+          "valid": rng.random((t_max, b)) < 0.8}
+    qcfg = QConfig(p=p, n_actions=n_actions, gamma=1.0)
+    q = torch.from_numpy(rng.normal(scale=0.1, size=(p, n_actions))
+                         .astype(np.float32))
+    on = {k: torch.from_numpy(v).to(cuda) for k, v in tr.items()}
+    got = td_update(qcfg, q.to(cuda), on)
+    assert torch.equal(td_update(qcfg, q.to(cuda), on), got)
+    perm = torch.from_numpy(rng.permutation(t_max * b)).to(cuda)
+    shuffled = {k: v.reshape(-1)[perm] for k, v in on.items()}
+    assert torch.equal(td_update(qcfg, q.to(cuda), shuffled), got)
+    want = td_update(qcfg, q, {k: torch.from_numpy(v) for k, v in tr.items()})
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_training_step_and_policy(cuda):
+    """A small system on the card and on the CPU, the same L1 parameters
+    and bins: one ``policy_train_step`` with the same draws gives Q within
+    1e-6 (L1 scores from cuBLAS and the CPU differ in the last ulps, and
+    rewards are sums of scores) through the chunk kernel; then
+    ``train_policy`` on the card is bit-equal run to run and between the
+    ``block_scan`` and ``reference`` backends."""
+    import copy
+
+    from repro_torch.data.querylog import CAT1, CAT2, QueryLogConfig
+    from repro_torch.index.corpus import CorpusConfig
+    from repro_torch.system import RetrievalSystem, SystemConfig
+
+    cfg = SystemConfig(corpus=CorpusConfig(n_docs=2048, vocab_size=1024),
+                       querylog=QueryLogConfig(n_queries=300), block_docs=256,
+                       p_bins=256, u_budget=2048, rule_du_scale=4,
+                       rule_dv_scale=20, l1_hidden=64, l1_steps=100)
+    host = RetrievalSystem(cfg, device="cpu")
+    card = RetrievalSystem(cfg, device=cuda)
+    losses = host.fit_l1(n_queries=64, batch=16)
+    assert losses[-1] < losses[0]
+    card.l1_params = {k: v.to(cuda) for k, v in host.l1_params.items()}
+    host.fit_state_bins(n_queries=32, batch=16)
+    card.fit_state_bins(n_queries=32, batch=16)
+    assert torch.equal(card.bins.v_edges.cpu(), host.bins.v_edges)
+
+    qids = np.where(host.log.category == CAT1)[0][:32]
+    g = torch.Generator().manual_seed(3)
+    draws = (torch.randint(0, host.env_cfg.n_actions, (cfg.t_max, 32),
+                           generator=g, dtype=torch.int32),
+             torch.rand((cfg.t_max, 32), generator=g))
+    q = torch.from_numpy(np.random.default_rng(4).normal(
+        scale=0.05, size=(host.qcfg.p, host.qcfg.n_actions)).astype(np.float32))
+    before = BLOCK_SCAN_KERNEL.launches
+    got, m = card.policy_train_step(CAT1, q.to(cuda), tuple(d.to(cuda) for d in draws),
+                                    0.3, qids)
+    torch.cuda.synchronize()
+    assert BLOCK_SCAN_KERNEL.launches > before
+    want, wm = host.policy_train_step(CAT1, q, draws, 0.3, qids)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    for k in wm:
+        torch.testing.assert_close(m[k].cpu(), wm[k], rtol=1e-6, atol=1e-6)
+
+    q1, _ = card.train_policy(CAT2, iters=6, batch=32, seed=2)
+    q2, _ = card.train_policy(CAT2, iters=6, batch=32, seed=2)
+    ref = copy.copy(card)
+    ref.cfg = dataclasses.replace(card.cfg, backend="reference")
+    q3, _ = ref.train_policy(CAT2, iters=6, batch=32, seed=2)
+    assert q1.device.type == "cuda"
+    assert torch.equal(q1, q2) and torch.equal(q1, q3)

@@ -230,8 +230,8 @@ def test_configs_equal_reference(arch_id, reduced):
 
 
 def test_unported_archs_raise():
-    recsys = ["wide-deep", "deepfm", "dcn-v2", "bert4rec"]
-    assert sorted(list_archs()) == sorted(ARCHS + recsys)
+    others = ["wide-deep", "deepfm", "dcn-v2", "bert4rec", "websearch-rl"]
+    assert sorted(list_archs()) == sorted(ARCHS + others)
     for arch_id in ("deepseek-v2-lite-16b", "grok-1-314b"):
         jax_get_arch(arch_id)                     # the reference has them
         with pytest.raises(NotImplementedError, match="not ported yet"):

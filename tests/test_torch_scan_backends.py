@@ -266,7 +266,7 @@ def test_tabular_rollout_parity(cfgs, inputs, backend):
     (jo, js_, jt), (po, ps_, pt) = _rollout_inputs(inputs)
     u_pts, v_pts = np.linspace(0, 200, 64), np.linspace(0, 4000, 64)
     jbins = jfit_bins(u_pts, v_pts, p=16)
-    bins = fit_bins(u_pts, v_pts, p=16)
+    bins = fit_bins(u_pts, v_pts, p=16, device="cpu")
     np.testing.assert_array_equal(bins.v_edges.numpy(), np.asarray(jbins.v_edges))
     q = np.random.default_rng(11).normal(
         size=(jbins.p, jcfg.n_actions)).astype(np.float32)
