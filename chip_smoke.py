@@ -97,6 +97,23 @@ Phases (any failure raises and the script exits non-zero):
    stage by stage, ``evaluate`` of each trained Q against its
    production plan (Δu %, ΔNCG %; no threshold at this depth) and one
    step under torch.profiler.
+3c. Engine: phase 3b's trained Qs published as ``TabularQPolicy``s
+   (fallbacks: the system's two-entry shallow plans) into a
+   ``PolicyStore``, served through ``ServeEngine`` on the same system
+   (buckets 8..256, a result cache of 4096, ``block_scan``): warmup,
+   then with the counts set to 0 a stream of 2,560 arrivals drawn under
+   the query log's own popularity (``QueryLog.popularity``) —
+   64 one ticket at a time (``serve``), 1,984 in slabs of 256
+   (``serve_many``), 256 at SHALLOW, then a publish of the same Qs as v2
+   and 256 more in two slabs — and the counts read.  Checks: no serve
+   step prepared after warmup, chunk launches > 0, every response's ids
+   in range and scores sorted, hits before the swap and none after it
+   before a fill at v2, and an engine on the ``reference`` backend over
+   the same stream giving every response field (all but the host-clock
+   latency) bit-equal.  Prints queries/s, the Telemetry latency
+   percentiles, the hit rate, each bucket's split into ``batch_inputs``
+   and ``execute``, chunk launches per micro-batch and one profiled
+   drain of a bucket of cold arrivals.
 4. LM serve: Mistral-NeMo-12B at full width and depth (40 layers,
    d_model 5120, 32 heads, 8 KV heads, d_head 128, d_ff 14336, vocab
    131072, bf16), random weights from a seeded CUDA generator.  The
@@ -132,8 +149,9 @@ Phases (any failure raises and the script exits non-zero):
    bag (1e-5 + 1e-5|logit|); one ``serve_bulk`` forward of each of the
    two runs under torch.profiler.
 6. Print the kernels' JSON line (the chunk kernel's row also carries
-   the training path's launches, ``train_launches``), the card line,
-   and last ``{"ok": true, "device": {...}}``.
+   the training path's launches, ``train_launches``, and the engine
+   stream's, ``engine_launches``), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
 """
@@ -1333,6 +1351,10 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
 
     from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL as counter
 
+    # Each (bucket, policy structure) serve step is prepared (run once on
+    # a zero-occupancy batch) at its first use; do that before the reset.
+    exe.warmup([batch], [sys_.plan_policy(CAT1), sys_.plan_policy(CAT2),
+                         greedy])
     reset_counts()
     served = []
     for (cat, qids), inp in zip(work, inputs):
@@ -1368,6 +1390,7 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
     # One batch, bit-equal between the kernel and the reference backend.
     ref_exe = ShardedExecutor(sys_, n_shards=1, backend="reference")
     cat0, _ = work[0]
+    ref_exe.warmup([batch], [sys_.plan_policy(cat0), greedy])
     for name, policy in (("plan", sys_.plan_policy(cat0)), ("greedy_q", greedy)):
         t0 = time.perf_counter()
         got = exe.execute(policy, *inputs[0])
@@ -1447,6 +1470,7 @@ def unscaled_batch(sys_, cat, inp, greedy, counter):
     plain.ruleset = default_rule_library(1, 1, device=sys_.device)
     plain.plans = production_plans(plain.ruleset)
     exe = ShardedExecutor(plain, n_shards=1)
+    exe.warmup([inp[0].shape[0]], [plain.plan_policy(cat), greedy])
     for name, policy in (("plan", plain.plan_policy(cat)), ("greedy_q", greedy)):
         before = counter.launches
         t0 = time.perf_counter()
@@ -1655,7 +1679,8 @@ def train_phase(dev, sys_, batch=QUERY_BATCH, train_seconds=TRAIN_SECONDS):
     L1 fit, one checked ``train_batch``, ``train_policy`` per category
     between a reset and a read of the launch counts, ``evaluate`` of
     each trained Q against its production plan, one profiled step.
-    Returns the kernels' launch counts of ``train_policy``."""
+    Returns the kernels' launch counts of ``train_policy`` and the
+    trained Q table of each category."""
     import numpy as np
     import torch
 
@@ -1746,6 +1771,178 @@ def train_phase(dev, sys_, batch=QUERY_BATCH, train_seconds=TRAIN_SECONDS):
         qids = sys_.sample_train_qids(CAT2, batch, np.random.default_rng(SEED + 5))
         profile_device("train step", lambda: sys_.policy_train_step(
             CAT2, trained[CAT2], gen, EPS_END, qids), "block_scan_pruned_chunk")
+    return launches, trained
+
+
+# ------------------------------------------------------------ phase 3c
+# The online engine on the serve phase's system, serving phase 3b's
+# policies: arrivals are drawn under the query log's own popularity
+# (Zipf over distinct queries, CAT2 at the head).
+ENGINE_ARRIVALS = 2048                 # the main stream
+ENGINE_TICKETS = 64                    # of it served one ticket at a time
+ENGINE_SLAB = 256                      # serve_many slabs for the rest
+ENGINE_SHALLOW = 256                   # then arrivals at SHALLOW
+ENGINE_SWAP = 256                      # then after a publish of v2, in 2 slabs
+ENGINE_CFG = dict(min_bucket=8, max_bucket=256, cache_capacity=4096)
+
+
+def drive_engine(dev, sys_, trained, backend, stream):
+    """One engine on ``backend``: publish the trained Qs (fallbacks: the
+    system's shallow plans), warm up, serve the stream in its four parts;
+    returns (engine, responses per part, warmup seconds, stream seconds,
+    compile count after warmup)."""
+    from repro_torch.policies import PolicyStore, TabularQPolicy
+    from repro_torch.serving import EngineConfig, ServeEngine, ServiceLevel
+
+    policies = {cat: TabularQPolicy(q) for cat, q in trained.items()}
+    store = PolicyStore(staleness_bound=1)
+    store.publish(dict(policies), fallbacks=sys_.fallback_policies())
+    engine = ServeEngine(sys_, store, EngineConfig(backend=backend,
+                                                   **ENGINE_CFG))
+    t0 = time.perf_counter()
+    n_warm = engine.warmup()
+    sync(dev)
+    t_warm = time.perf_counter() - t0
+    if backend == "block_scan":
+        reset_counts()            # the main path: the stream, after warmup
+    a, b = ENGINE_TICKETS, ENGINE_ARRIVALS
+    c = b + ENGINE_SHALLOW
+    t0 = time.perf_counter()
+    parts = {"tickets": [r for q in stream[:a] for r in engine.serve([q])],
+             "slabs": [r for i in range(a, b, ENGINE_SLAB)
+                       for r in engine.serve_many(stream[i:min(i + ENGINE_SLAB, b)])],
+             "shallow": engine.serve_many(stream[b:c], ServiceLevel.SHALLOW)}
+    store.publish(dict(policies), fallbacks=sys_.fallback_policies())
+    half = c + ENGINE_SWAP // 2
+    parts["swap"] = (engine.serve_many(stream[c:half])
+                     + engine.serve_many(stream[half:c + ENGINE_SWAP]))
+    t_stream = time.perf_counter() - t0
+    return engine, parts, t_warm, t_stream, n_warm
+
+
+def engine_phase(dev, sys_, trained):
+    """Phase 3c: serve phase 3b's policies through ``ServeEngine`` on the
+    chunk kernel, check what came out, hold every response bit for bit
+    against an engine on the ``reference`` backend; returns the kernels'
+    launch counts of the stream."""
+    import numpy as np
+
+    from repro_torch.data.querylog import CAT2
+    from repro_torch.serving.cache import canonical_query_key
+
+    log = sys_.log
+    n = ENGINE_ARRIVALS + ENGINE_SHALLOW + ENGINE_SWAP
+    stream = np.random.default_rng(SEED + 11).choice(
+        log.n_queries, size=n, p=log.popularity)
+    cat2 = float((log.category[stream] == CAT2).mean())
+    print(f"[engine] stream: {n} arrivals over {log.n_queries} queries "
+          f"(the log's popularity, {len(np.unique(stream))} distinct, CAT2 "
+          f"share {cat2:.4f}): "
+          f"{ENGINE_TICKETS} one ticket at a time, "
+          f"{ENGINE_ARRIVALS - ENGINE_TICKETS} in slabs of {ENGINE_SLAB}, "
+          f"{ENGINE_SHALLOW} at SHALLOW, {ENGINE_SWAP} after a publish of "
+          f"v2; {ENGINE_CFG}", flush=True)
+    engine, parts, t_warm, t_stream, n_warm = drive_engine(
+        dev, sys_, trained, "block_scan", stream)
+    launches = read_counts()
+    summ = engine.summary()
+    print(f"[engine] 'block_scan': warmup prepared {n_warm} serve steps "
+          f"(buckets {engine.bucket_cfg.buckets()} x FULL and SHALLOW "
+          f"structures) in {t_warm:.2f} s", flush=True)
+
+    # Checks.
+    if engine.compile_count != n_warm:
+        raise AssertionError(f"compile count {n_warm} -> {engine.compile_count} "
+                             f"after warmup")
+    if dev.type == "cuda" and launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the engine launched no block_scan kernel")
+    n_docs = sys_.index.n_docs
+    responses = [r for part in parts.values() for r in part]
+    for r in responses:
+        valid = r.doc_ids >= 0
+        if r.doc_ids.shape != (engine.cfg.keep,) or not (
+                np.isfinite(r.scores[valid]).all()
+                and (r.doc_ids[valid] < n_docs).all()):
+            raise AssertionError(f"request {r.request_id}: ids/scores out of range")
+        if not (np.diff(np.where(np.isfinite(r.scores), r.scores, -1.0)) <= 0).all():
+            raise AssertionError(f"request {r.request_id}: scores not sorted")
+    pre = parts["tickets"] + parts["slabs"] + parts["shallow"]
+    hits_pre = sum(r.cached for r in pre)
+    if hits_pre <= 0:
+        raise AssertionError("no cache hit before the swap")
+    seen = set()
+    for r in parts["swap"]:
+        key = canonical_query_key(log.terms[r.qid], r.category)
+        if r.policy_version != 2 or (key not in seen and r.cached):
+            raise AssertionError(f"request {r.request_id}: a hit before a "
+                                 f"fill after the swap (v{r.policy_version})")
+        seen.add(key)
+    hits_swap = sum(r.cached for r in parts["swap"])
+
+    # Prints.
+    lat = {k: np.array([r.latency_s for r in v]) * 1e3 for k, v in parts.items()}
+    print(f"[engine] 'block_scan' stream: {len(responses)} responses in "
+          f"{t_stream:.2f} s, {len(responses) / t_stream:.1f} queries/s; "
+          f"Telemetry latency p50 {summ['latency_p50_ms']:.3f} ms, p99 "
+          f"{summ['latency_p99_ms']:.3f} ms, mean {summ['latency_mean_ms']:.3f}; "
+          f"hit rate {summ['cache_hit_rate']:.4f} ({summ['n_cached']} of "
+          f"{summ['n_requests']}); {summ['n_batches']} micro-batches, padding "
+          f"{summ['padding_overhead']:.4f}; level counts {summ['level_counts']}; "
+          f"mean u {summ['mean_u']:.1f}", flush=True)
+    for k, v in lat.items():
+        miss = np.array([r.latency_s for r in parts[k] if not r.cached]) * 1e3
+        print(f"[engine] {k:8s}: {len(v)} responses, {int(sum(r.cached for r in parts[k]))} "
+              f"hits; latency p50 {np.percentile(v, 50):.3f} ms, p99 "
+              f"{np.percentile(v, 99):.3f} ms; misses p50 "
+              f"{np.percentile(miss, 50) if len(miss) else 0.0:.3f} ms",
+              flush=True)
+    print(f"[engine] swap to v2: {hits_pre} hits before; after, no hit before "
+          f"a fill at v2 ({hits_swap} hits in the second post-swap slab)",
+          flush=True)
+    by_bucket = {}
+    for row in engine.telemetry.batches:
+        by_bucket.setdefault(row["bucket"], []).append(row)
+    for bucket, rows in sorted(by_bucket.items()):
+        print(f"[engine] micro-batch bucket {bucket:3d}: {len(rows)} batches, "
+              f"{np.mean([r['n_real'] for r in rows]):.1f} real lanes; "
+              f"batch_inputs {np.mean([r['t_inputs_s'] for r in rows]) * 1e3:.1f} "
+              f"ms, execute {np.mean([r['t_execute_s'] for r in rows]) * 1e3:.1f} "
+              f"ms (means)", flush=True)
+    n_batches = len(engine.telemetry.batches)
+    print(f"[engine] main path launches: {launches}; "
+          f"{launches['block_scan_pruned_chunk'] / n_batches:.1f} "
+          f"block_scan_pruned_chunk launches per micro-batch", flush=True)
+
+    # The same stream on the reference backend: every field but the
+    # host-clock latency bit-equal.
+    ref, ref_parts, _, t_ref, _ = drive_engine(dev, sys_, trained, "reference",
+                                               stream)
+    fields = ("request_id", "qid", "category", "u", "cand_cnt", "cached",
+              "policy_version", "index_epoch", "level")
+    for k in parts:
+        for g, w in zip(parts[k], ref_parts[k], strict=True):
+            if not (all(getattr(g, f) == getattr(w, f) for f in fields)
+                    and np.array_equal(g.doc_ids, w.doc_ids)
+                    and np.array_equal(g.scores, w.scores)):
+                raise AssertionError(f"{k}: request {g.request_id} differs "
+                                     f"between 'block_scan' and 'reference'")
+    if ref.summary()["cache_hits"] != summ["cache_hits"]:
+        raise AssertionError("cache hits differ between the backends")
+    print(f"[engine] 'reference' engine, same stream: {t_ref:.2f} s "
+          f"({len(responses) / t_ref:.1f} queries/s); every response equal "
+          f"to 'block_scan' bit for bit (doc_ids, scores, u, cand_cnt, cached, "
+          f"level, policy_version, index_epoch, request ids)", flush=True)
+
+    # One drain of a full bucket of keys not in the cache, profiled.
+    if dev.type == "cuda":
+        cold = np.array([q for q in np.random.default_rng(SEED + 12).permutation(
+            log.n_queries) if not engine.cache_has(
+                canonical_query_key(log.terms[q], int(log.category[q])))])
+        cat = int(log.category[cold[0]])
+        cold = cold[log.category[cold] == cat][:ENGINE_CFG["max_bucket"]]
+        profile_device(f"engine drain (cat {cat}, {len(cold)} cold arrivals)",
+                       lambda: engine.serve_many(cold),
+                       "block_scan_pruned_chunk")
     return launches
 
 
@@ -2320,10 +2517,13 @@ def main() -> int:
     launches, sys_ = serve_phase(dev, cfg)
     if launches["block_scan_pruned_chunk"] <= 0:
         raise AssertionError("the serve path launched no block_scan kernel")
-    train_launches = train_phase(dev, sys_)
+    train_launches, trained = train_phase(dev, sys_)
     if train_launches["block_scan_pruned_chunk"] <= 0:
         raise AssertionError("the training path launched no block_scan kernel")
-    del sys_
+    engine_launches = engine_phase(dev, sys_, trained)
+    if engine_launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the engine launched no block_scan kernel")
+    del sys_, trained
     torch.cuda.empty_cache()
 
     lm_launches = lm_phase(dev)
@@ -2353,7 +2553,7 @@ def main() -> int:
             "src/repro/kernels/block_scan/block_scan_pruned.py:222",
             launches["block_scan_pruned_chunk"],
             rows[4], worst(rows)),      # C=4: the serve path's chunk
-        # (its "train_launches" key is added below)
+        # (its "train_launches" and "engine_launches" keys are added below)
         row("block_scan_tile", "block_scan_tile.cu",
             "src/repro/kernels/block_scan/block_scan.py:65",
             whole_launches["block_scan_tile"], whole_rows[("batched", "deep")],
@@ -2394,6 +2594,7 @@ def main() -> int:
             max(r["max_abs_err"] for r in bag_rows.values()
                 if r["kernel"] == "embedding_bag_lanes"))]
     kernels[0]["train_launches"] = train_launches["block_scan_pruned_chunk"]
+    kernels[0]["engine_launches"] = engine_launches["block_scan_pruned_chunk"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

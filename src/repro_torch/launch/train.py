@@ -14,11 +14,17 @@
             set, with paired sign-permutation p-values, at the
             reference's ``small`` or ``full`` scale.
 
-Both run on ``--device`` (``cuda`` unless asked) and every rollout
-through ``--backend`` (``block_scan``: the chunked CUDA kernel)::
+  figure2 — Figure 2 (the reference's ``benchmarks/figure2.py``): the
+            per-query u that ``table1`` wrote, sorted per treatment,
+            learned policy against production plan, as an ASCII plot.
+
+The first two run on ``--device`` (``cuda`` unless asked) and every
+rollout through ``--backend`` (``block_scan``: the chunked CUDA
+kernel); ``figure2`` only reads a file::
 
     PYTHONPATH=src python -m repro_torch.launch.train policy --iters 200
     PYTHONPATH=src python -m repro_torch.launch.train table1 --scale small
+    PYTHONPATH=src python -m repro_torch.launch.train figure2
 """
 from __future__ import annotations
 
@@ -203,6 +209,48 @@ def table1_cmd(args) -> list:
     return rows
 
 
+# ----------------------------------------------------------------- figure2
+def ascii_curve(base: np.ndarray, pol: np.ndarray, width: int = 72,
+                height: int = 16) -> str:
+    """Sorted per-query u of both treatments on one character grid,
+    ``b`` baseline and ``p`` policy (drawn second, so it covers a shared
+    cell; as in the reference, the legend's ``x`` is never drawn)."""
+    base = np.sort(base)
+    pol = np.sort(pol)
+    hi = max(base.max(), pol.max()) * 1.05
+    grid = [[" "] * width for _ in range(height)]
+    for series, ch in ((base, "b"), (pol, "p")):
+        xs = np.linspace(0, len(series) - 1, width).astype(int)
+        for col, xi in enumerate(xs):
+            row = height - 1 - int(series[xi] / hi * (height - 1))
+            grid[row][col] = "x" if grid[row][col] == ch else ch
+    lines = ["".join(r) for r in grid]
+    lines.append("-" * width)
+    lines.append("queries sorted by u per treatment;  b=baseline  p=policy  "
+                 "x=overlap")
+    return "\n".join(lines)
+
+
+def figure2_text(per_query: dict) -> str:
+    """Figure 2 of one ``table1`` per-query record: CAT2 weighted where
+    present, else the first key."""
+    key = "CAT2_weighted" if "CAT2_weighted" in per_query else sorted(per_query)[0]
+    base = np.asarray(per_query[key]["baseline_u"], float)
+    pol = np.asarray(per_query[key]["policy_u"], float)
+    return ascii_curve(base, pol) + (
+        f"\nmean u: baseline={base.mean():.1f} policy={pol.mean():.1f} "
+        f"({(pol.mean() - base.mean()) / base.mean() * 100:+.1f}%)  [{key}]")
+
+
+def figure2_cmd(args) -> str:
+    txt = figure2_text(json.loads(Path(args.per_query).read_text()))
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(txt)
+    print(txt)
+    return txt
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -230,6 +278,11 @@ def main(argv=None) -> None:
         p.add_argument("--backend", default="block_scan",
                        help="index-scan backend of every rollout "
                             "(repro_torch.core.scan_backends)")
+
+    p = sub.add_parser("figure2")
+    p.add_argument("--per-query", default="results/table1_torch_perquery.json")
+    p.add_argument("--out", default="results/figure2_torch.txt")
+    p.set_defaults(fn=figure2_cmd)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -71,6 +71,15 @@ class SystemConfig:
 
 
 class RetrievalSystem:
+    # The static system has no live index: one immutable "epoch 0"
+    # forever.  The serving engine probes both with getattr, so that a
+    # live-index system can override them with its epoch store.
+    index_epoch_store = None
+
+    @property
+    def index_epoch(self) -> int:
+        return 0
+
     def __init__(self, cfg: SystemConfig, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -160,9 +169,12 @@ class RetrievalSystem:
         idf = torch.from_numpy(self.idf_all[qids]).to(self.device)
         return occ, term_present, idf
 
-    def batch_inputs(self, query_ids: Sequence[int]):
+    def batch_inputs(self, query_ids: Sequence[int], epoch=None):
         """Occupancy (B, nb, T, F, W) int32, L1 scores (B, n_pad) float32
-        and term-present masks (B, T) bool for a set of query ids."""
+        and term-present masks (B, T) bool for a set of query ids.
+
+        ``epoch`` is the serving engine's pinned index epoch; the static
+        index ignores it."""
         qids = np.asarray(query_ids)
         occ, term_present, idf = self._query_tensors(qids)
         step = self.scoring_batch_size()

@@ -859,3 +859,57 @@ def test_cuda_training_step_and_policy(cuda):
     q3, _ = ref.train_policy(CAT2, iters=6, batch=32, seed=2)
     assert q1.device.type == "cuda"
     assert torch.equal(q1, q2) and torch.equal(q1, q3)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_matches_executor_and_holds_compile_count(cuda):
+    """A small system on the card served through ``ServeEngine``: each
+    category's micro-batch (5 real lanes padded to a bucket of 8) gives
+    the real lanes of ``ShardedExecutor.execute`` on the same padded
+    batch bit for bit, at FULL and SHALLOW, through the chunk kernel;
+    after ``warmup`` a mixed stream prepares no serve step."""
+    from repro_torch.data.querylog import CAT1, CAT2, QueryLogConfig
+    from repro_torch.index.corpus import CorpusConfig
+    from repro_torch.policies import PolicyStore, TabularQPolicy
+    from repro_torch.serving import (EngineConfig, ServeEngine, ServiceLevel,
+                                     ShardedExecutor)
+    from repro_torch.system import RetrievalSystem, SystemConfig
+
+    cfg = SystemConfig(corpus=CorpusConfig(n_docs=2048, vocab_size=1024),
+                       querylog=QueryLogConfig(n_queries=300), block_docs=256,
+                       p_bins=256, u_budget=2048, rule_du_scale=4,
+                       rule_dv_scale=20, l1_hidden=64)
+    sys_ = RetrievalSystem(cfg, device=cuda)
+    sys_.fit_state_bins(n_queries=32, batch=16)
+    q = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(sys_.bins.p, sys_.env_cfg.n_actions)).astype(np.float32))
+    policies = {CAT1: TabularQPolicy(q.to(cuda)),
+                CAT2: TabularQPolicy(q.flip(0).contiguous().to(cuda))}
+    store = PolicyStore(staleness_bound=0)
+    store.publish(policies, fallbacks=sys_.fallback_policies())
+    engine = ServeEngine(sys_, store, EngineConfig(
+        min_bucket=8, max_bucket=16, cache_capacity=0))
+    n_warm = engine.warmup()
+    exe = ShardedExecutor(sys_)
+    fallbacks = sys_.fallback_policies()
+    for cat in (CAT1, CAT2):
+        qids = np.where(sys_.log.category == cat)[0][:5]
+        padded = np.concatenate([qids, np.full(3, qids[0])])
+        inputs = sys_.batch_inputs(padded)
+        for level, policy in ((ServiceLevel.FULL, policies[cat]),
+                              (ServiceLevel.SHALLOW, fallbacks[cat])):
+            before = BLOCK_SCAN_KERNEL.launches
+            got = engine.serve(qids, level)
+            assert BLOCK_SCAN_KERNEL.launches > before
+            ids, sc, u, cnt = exe.execute(policy, *inputs)
+            for lane, r in enumerate(got):
+                assert r.level == level and not r.cached
+                np.testing.assert_array_equal(r.doc_ids, ids[lane])
+                np.testing.assert_array_equal(r.scores, sc[lane])
+                assert (r.u, r.cand_cnt) == (u[lane], cnt[lane])
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        engine.serve(rng.integers(0, sys_.log.n_queries, size=21))
+        engine.serve(rng.integers(0, sys_.log.n_queries, size=7),
+                     ServiceLevel.SHALLOW)
+    assert engine.compile_count == n_warm

@@ -32,6 +32,21 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert bad.strip() == "[]"
 
 
+def test_probe_walks_the_serving_and_obs_modules():
+    """The import probe above walks the engine's modules too."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {f"repro_torch.serving.{m}" for m in (
+        "array_cache", "batcher", "cache", "engine", "executor", "levels",
+        "slab", "telemetry")} <= names
+    assert {"repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.trace", "repro_torch.launch.serve"} <= names
+
+
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the no-fallback path is not reachable")
@@ -46,6 +61,10 @@ def test_entry_points_raise_without_cuda():
         RetrievalSystem(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         default_rule_library()
+    from repro_torch.launch.serve import main as serve_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--n-docs", "64", "--n-queries", "16"])
 
 
 def test_lm_entry_points_raise_without_cuda():

@@ -488,3 +488,40 @@ def test_launch_train_policy_writes_both_categories(tmp_path):
     assert [res[c]["policy_version"] for c in ("CAT1", "CAT2")] == [1, 2]
     for c in res.values():
         assert np.isfinite(c["delta_u_pct"]) and np.isfinite(c["delta_ncg_pct"])
+
+
+def _reference_figure2():
+    """``benchmarks/figure2.py`` loaded by path (a script, not a package
+    module), unedited."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "benchmarks" / "figure2.py"
+    spec = importlib.util.spec_from_file_location("reference_figure2", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("keys", [("CAT1_weighted", "CAT2_weighted"),
+                                  ("CAT1_unweighted", "CAT1_weighted")])
+def test_launch_train_figure2_matches_reference_text(tmp_path, keys):
+    """``launch/train.py figure2`` on a per-query record gives the text
+    the reference's ``benchmarks/figure2.py`` gives on the same record
+    (CAT2 weighted where present, else the first key), with shared
+    cells and ties (u drawn from a few values)."""
+    from repro_torch.launch.train import main
+
+    rng = np.random.default_rng(9)
+    data = {k: {"baseline_u": rng.integers(1, 40, 150).tolist(),
+                "policy_u": rng.integers(1, 30, 150).tolist()}
+            for k in keys}
+    per_query = tmp_path / "table1_torch_perquery.json"
+    per_query.write_text(json.dumps(data))
+    ref_out, out = tmp_path / "figure2.txt", tmp_path / "figure2_torch.txt"
+    _reference_figure2().main(str(per_query), str(ref_out))
+    main(["figure2", "--per-query", str(per_query), "--out", str(out)])
+    want = ref_out.read_text()
+    assert out.read_text() == want
+    plot = "".join(want.splitlines()[:16])
+    assert "b" in plot and "p" in plot
