@@ -114,6 +114,36 @@ Phases (any failure raises and the script exits non-zero):
    percentiles, the hit rate, each bucket's split into ``batch_inputs``
    and ``execute``, chunk launches per micro-batch and one profiled
    drain of a bucket of cold arrivals.
+3d. Serve while training: phase 3b's Qs published as v1 (with the
+   shallow-plan fallbacks) into a ``PolicyStore`` whose publishes are
+   recorded through ``subscribe``; a ``ReplicaSet`` of 2 thread replicas
+   (engines as 3c's, ``block_scan``, tracing on, the tap's holdout every
+   4th record, the cold SHALLOW estimate at the smaller shallow cap)
+   and a ``TrainerLoop`` (8 iterations of 64 queries a category, a
+   publish every 4, gated on the tap's holdout) that trains from the
+   cluster's served-traffic tap.  Warmup (serial, before the threads),
+   then with the counts set to 0: waves of 256 arrivals under the log's
+   popularity through ``submit_many`` while the trainer runs, one wave
+   after its join (profiled on the card), then a burst of 256 submits
+   against a finite u budget sized as the reference's smoke sizes it;
+   the counts are read.  Checks: no ``Shed`` for a ``replica_error``
+   (a replica turns any exception into one), no shed at all in the
+   waves (infinite budget), the trainer raised nothing, chunk launches
+   > 0, versions 2 and 3 published by the trainer, version lag within
+   the staleness bound, the trainer's batches from the tap only, the
+   burst degraded to SHALLOW with no hard shed, no serve step prepared
+   after warmup, and every response bit-equal (ids, scores, u,
+   candidates, version, epoch, level) to its query served by a
+   ``reference``-backend engine on its version's snapshot at its level.
+   The Chrome trace and the fleet metrics go under ``results/`` and
+   through ``tools/check_trace.py --require-chain --metrics``; then
+   ``launch/cluster.py --smoke`` runs as a subprocess on the card, its
+   trace through ``check_trace.py`` and its statusz through
+   ``tools/obsctl.py``, each required to exit 0.  Prints queries/s,
+   ticket latency percentiles of the waves and the burst, the admission
+   mix, versions and lag, each replica's micro-batches with their
+   ``batch_inputs``/``execute`` means, the launch counts and the
+   profiled wave's idle share.
 4. LM serve: Mistral-NeMo-12B at full width and depth (40 layers,
    d_model 5120, 32 heads, 8 KV heads, d_head 128, d_ff 14336, vocab
    131072, bf16), random weights from a seeded CUDA generator.  The
@@ -149,8 +179,9 @@ Phases (any failure raises and the script exits non-zero):
    bag (1e-5 + 1e-5|logit|); one ``serve_bulk`` forward of each of the
    two runs under torch.profiler.
 6. Print the kernels' JSON line (the chunk kernel's row also carries
-   the training path's launches, ``train_launches``, and the engine
-   stream's, ``engine_launches``), the card line, and last
+   the training path's launches, ``train_launches``, the engine
+   stream's, ``engine_launches``, and the cluster stream's,
+   ``cluster_launches``), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -1946,6 +1977,391 @@ def engine_phase(dev, sys_, trained):
     return launches
 
 
+# ------------------------------------------------------------ phase 3d
+# Serve while training: the thread-backed ReplicaSet on the serve phase's
+# system, phase 3b's Qs published as v1, a TrainerLoop fed from the
+# served-traffic tap publishing v2 and v3 (8 iterations of 64 queries a
+# category, a publish every 4, gated on the tap's holdout).
+CLUSTER_WAVE = 256                     # arrivals per wave, the log's popularity
+CLUSTER_BURST = 256                    # then a burst against a finite budget
+CLUSTER_REPLICAS = 2
+CLUSTER_STALENESS = 2
+CLUSTER_TRAIN = dict(iters=8, publish_every=4, batch=64, probe_from_tap=True,
+                     publish_initial=False)
+CLUSTER_TIMEOUT_S = 300.0
+
+
+def serve_wave(cluster, qids):
+    """Submit one wave through the slab front door and wait for every
+    ticket; returns the tickets (results and ticket latencies on them)."""
+    tickets = cluster.submit_many(qids)
+    for t in tickets:
+        if t.result(timeout=CLUSTER_TIMEOUT_S) is None:
+            raise AssertionError(f"qid {t.qid} not served in "
+                                 f"{CLUSTER_TIMEOUT_S} s (replica {t.replica})")
+    return tickets
+
+
+def pct_ms(tickets, q):
+    import numpy as np
+
+    return float(np.percentile([t.latency_s for t in tickets], q)) * 1e3
+
+
+def check_against_reference_engine(sys_, snaps, responses):
+    """Every response bit-equal (doc_ids, scores, u, cand_cnt,
+    policy_version, index_epoch, level) to its query served by a
+    ``reference``-backend engine (no cache) on the snapshot of the
+    response's version, at the level that produced it; returns the
+    number of reference rollouts."""
+    import numpy as np
+
+    from repro_torch.policies import PolicyStore
+    from repro_torch.serving import EngineConfig, ServeEngine, ServiceLevel
+
+    groups = {}
+    for r in responses:
+        groups.setdefault((r.policy_version, int(r.level)), []).append(r)
+    n_ref = 0
+    for (version, level), rs in sorted(groups.items()):
+        store = PolicyStore(staleness_bound=0)
+        for v in range(1, version + 1):      # the same version number
+            store.publish(dict(snaps[v].policies),
+                          fallbacks=dict(snaps[v].fallbacks))
+        ref = ServeEngine(sys_, store, EngineConfig(
+            min_bucket=8, max_bucket=256, cache_capacity=0,
+            backend="reference"))
+        qids = np.unique([r.qid for r in rs])
+        want = dict(zip(qids.tolist(), ref.serve_many(qids, ServiceLevel(level))))
+        n_ref += len(qids)
+        for r in rs:
+            w = want[r.qid]
+            if not ((r.u, r.cand_cnt, r.policy_version, r.index_epoch,
+                     int(r.level)) == (w.u, w.cand_cnt, w.policy_version,
+                                       w.index_epoch, int(w.level))
+                    and np.array_equal(r.doc_ids, w.doc_ids)
+                    and np.array_equal(r.scores, w.scores)):
+                raise AssertionError(
+                    f"qid {r.qid} v{version} level {level}: the cluster's "
+                    f"response differs from the 'reference' engine's")
+    return n_ref
+
+
+def cluster_cli(dev):
+    """``launch/cluster.py --smoke`` as a subprocess on ``dev`` (the
+    port's cluster-smoke and the thread half of trace-smoke), its trace
+    through ``tools/check_trace.py --require-chain`` and its statusz
+    through ``tools/obsctl.py``; raises on any non-zero exit."""
+    import os
+
+    out = ROOT / "results"
+    files = {k: str(out / f"cluster_cli_{k}_torch.json")
+             for k in ("trace", "metrics", "statusz", "out")}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = [
+        [sys.executable, "-m", "repro_torch.launch.cluster", "--smoke",
+         "--device", dev.type, "--trace-out", files["trace"],
+         "--metrics-json", files["metrics"], "--statusz-out",
+         files["statusz"], "--out", files["out"]],
+        [sys.executable, str(ROOT / "tools" / "check_trace.py"),
+         files["trace"], "--require-chain", "--metrics", files["metrics"]],
+        [sys.executable, str(ROOT / "tools" / "obsctl.py"), "statusz",
+         files["statusz"]]]
+    for cmd in cmds:
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        name = Path(cmd[1]).name if cmd[1] != "-m" else cmd[2]
+        for line in (res.stdout + res.stderr).strip().splitlines()[-8:]:
+            print(f"[cluster cli] {name}: {line}", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"{name} exited {res.returncode}")
+        print(f"[cluster cli] {name}: rc 0 in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def stream_probe(dev, sys_, policy, reps=5):
+    """Hazard 3, measured: every thread launches on the one default
+    stream, so a rollout's per-chunk sync waits for whatever another
+    thread queued.  Times one bucket-8 serve step (median of ``reps``)
+    alone, beside a thread that keeps fp32 4096^3 GEMMs queued on the
+    same stream, and beside the same thread on a stream of its own;
+    returns the three medians in ms."""
+    import contextlib
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.querylog import CAT1
+    from repro_torch.serving import ShardedExecutor
+
+    exe = ShardedExecutor(sys_, backend="block_scan")
+    qids = np.where(sys_.log.category == CAT1)[0][:8]
+    inputs = sys_.batch_inputs(qids)
+    exe.execute(policy, *inputs)                  # prepared, built, warm
+
+    def median_ms():
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            exe.execute(policy, *inputs)          # ends in a device-to-host copy
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    a = torch.randn(4096, 4096, device=dev)
+    out = {"alone": median_ms()}
+    for label, stream in (("same stream", None),
+                          ("own stream", torch.cuda.Stream(dev))):
+        stop = threading.Event()
+
+        def hog():
+            ctx = (torch.cuda.stream(stream) if stream is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                while not stop.is_set():
+                    for _ in range(4):
+                        torch.mm(a, a)
+                    torch.cuda.current_stream().synchronize()
+
+        th = threading.Thread(target=hog, daemon=True)
+        th.start()
+        try:
+            time.sleep(0.05)
+            out[label] = median_ms()
+        finally:
+            stop.set()
+            th.join(timeout=60)
+    sync(dev)
+    print(f"[cluster] hazard 3 (one stream, many threads): a bucket-8 serve "
+          f"step (8 CAT1 queries, chunk kernel) {out['alone']:.3f} ms alone, "
+          f"{out['same stream']:.3f} ms beside a thread queuing fp32 GEMMs "
+          f"(4096^3, 4 a sync) on the same stream, {out['own stream']:.3f} "
+          f"ms beside it on a stream of its own (medians of {reps})",
+          flush=True)
+    return out
+
+
+def cluster_phase(dev, sys_, trained):
+    """Phase 3d: serve while training through the thread-backed
+    ``ReplicaSet`` (2 replicas) with a ``TrainerLoop`` on the served
+    traffic; check that no fault was read as load, every response
+    against a ``reference`` engine at its version, the trace; run the
+    cluster CLI's smoke; returns the kernels' launch counts of the
+    stream."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.cluster import (ClusterConfig, ReplicaSet, ServiceLevel,
+                                     Shed, TrainerConfig, TrainerLoop)
+    from repro_torch.data.querylog import CAT1, CAT2
+    from repro_torch.index.corpus import N_FIELDS
+    from repro_torch.obs import Tracer
+    from repro_torch.policies import PolicyStore, TabularQPolicy
+    from repro_torch.serving import EngineConfig
+
+    t_phase = time.perf_counter()
+    log = sys_.log
+    tracer = Tracer()
+    store = PolicyStore(staleness_bound=CLUSTER_STALENESS)
+    snaps = {}
+    store.subscribe(lambda snap: snaps.setdefault(snap.version, snap))
+    store.publish({cat: TabularQPolicy(q) for cat, q in trained.items()},
+                  fallbacks=sys_.fallback_policies())
+    shallow_caps = {cat: sys_.shallow_u_cap(cat) for cat in (CAT1, CAT2)}
+    trainer = TrainerLoop(sys_, store, cfg=TrainerConfig(**CLUSTER_TRAIN),
+                          tracer=tracer)
+    cluster = ReplicaSet(sys_, store, ClusterConfig(
+        n_replicas=CLUSTER_REPLICAS, backend="thread", tap_holdout_every=4,
+        prior_shallow_u=float(min(shallow_caps.values()))),
+        EngineConfig(backend="block_scan", **ENGINE_CFG), tracer=tracer)
+    trainer.source = cluster.tap
+    t0 = time.perf_counter()
+    n_warm = cluster.warmup()
+    sync(dev)
+    print(f"[cluster] {CLUSTER_REPLICAS} thread replicas over one system, "
+          f"{ENGINE_CFG}, 'block_scan', tracing on; warmup prepared {n_warm} "
+          f"serve steps in {time.perf_counter() - t0:.2f} s; trainer "
+          f"{CLUSTER_TRAIN} from the tap (holdout every 4th)", flush=True)
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def draw(n):
+        return rng.choice(log.n_queries, size=n, p=log.popularity)
+
+    reset_counts()                # the main path: the stream, after warmup
+    waves, trainer_error = [], None
+    with cluster:
+        t0 = time.perf_counter()
+        trainer.start()
+        while trainer.alive or not waves:
+            waves.append(serve_wave(cluster, draw(CLUSTER_WAVE)))
+        t_train = time.perf_counter() - t0
+        try:
+            trainer.join(timeout=CLUSTER_TIMEOUT_S)
+        except Exception as e:            # noqa: BLE001 — reported below
+            trainer_error = e
+        if trainer.alive:
+            raise AssertionError(f"the trainer ran past {CLUSTER_TIMEOUT_S} s")
+        # One more wave on the last version, under the profiler on the card.
+        last = draw(CLUSTER_WAVE)
+        if dev.type == "cuda":
+            box = []
+            _, busy_us, wall_us = profile_device(
+                f"cluster wave ({CLUSTER_WAVE} arrivals, {CLUSTER_REPLICAS} "
+                f"replicas)", lambda: box.append(serve_wave(cluster, last)),
+                "block_scan_pruned_chunk")
+            final = box[0]
+        else:
+            final = serve_wave(cluster, last)
+        # Burst against a finite budget, sized as the reference smoke
+        # sizes it (src/repro/launch/cluster.py:278-295): FULL may hold
+        # three median queries or one query at the most it can read, the
+        # SHALLOW rung provably fits the whole burst.  "The most it can
+        # read" is the reference's u_budget there (1024 over 8 blocks);
+        # here it is every block's every plane, as the configured
+        # u_budget (65536) never binds at this depth.
+        burst_qids = draw(CLUSTER_BURST)
+        est = cluster.admission.estimator
+        est_med = float(np.median([est.estimate(int(q)) for q in burst_qids]))
+        one_query = min(sys_.cfg.u_budget, sys_.env_cfg.n_blocks
+                        * log.terms.shape[1] * N_FIELDS)
+        cap = max(shallow_caps.values())
+        full_u = max(3 * est_med, one_query)
+        budget = full_u + (CLUSTER_BURST + 1) * cap
+        cluster.admission.u_inflight_budget = budget
+        cluster.admission.full_watermark = min(0.5, full_u / budget)
+        t0 = time.perf_counter()
+        burst = [cluster.submit(int(q)) for q in burst_qids]
+        for t in burst:
+            if t.result(timeout=CLUSTER_TIMEOUT_S) is None:
+                raise AssertionError(f"burst qid {t.qid} not served")
+        t_burst = time.perf_counter() - t0
+        cluster.admission.u_inflight_budget = math.inf
+        sync(dev)
+    launches = read_counts()
+    stats = cluster.stats()
+
+    # Checks.  A replica turns any exception into a Shed and keeps
+    # serving, so a failing kernel would read as load: hazards first.
+    wave_tickets = [t for w in waves for t in w] + final
+    every = wave_tickets + burst
+    results = [t.result() for t in every]
+    err = [r for r in results
+           if isinstance(r, Shed) and r.reason.startswith("replica_error")]
+    if err:
+        raise AssertionError(f"{len(err)} replica_error sheds: {err[:3]}")
+    wave_sheds = [t.result() for t in wave_tickets if t.shed]
+    if wave_sheds:
+        raise AssertionError(f"{len(wave_sheds)} sheds at an infinite budget: "
+                             f"{wave_sheds[:3]}")
+    if trainer_error is not None:
+        raise AssertionError(f"the trainer raised {trainer_error!r}")
+    if dev.type == "cuda" and launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the cluster launched no block_scan kernel")
+    if store.version < 3 or trainer.versions_published != [2, 3]:
+        raise AssertionError(f"versions: head v{store.version}, trainer "
+                             f"{trainer.versions_published}")
+    if stats["version_lag_observed_max"] > CLUSTER_STALENESS:
+        raise AssertionError("served a snapshot beyond the staleness bound")
+    if not (trainer.tap_batches > 0 and trainer.log_batches == 0):
+        raise AssertionError(f"trainer batches: tap {trainer.tap_batches}, "
+                             f"log {trainer.log_batches}")
+    if stats["n_submitted"] != len(every) or \
+            stats["n_submitted"] != stats["n_responses"] + stats["n_shed"]:
+        raise AssertionError("dropped tickets")
+    burst_mix = {l.name: sum(t.level == l for t in burst) for l in ServiceLevel}
+    hard = [t.result() for t in burst if t.shed]
+    if hard or burst_mix["SHALLOW"] <= 0:
+        raise AssertionError(f"burst: mix {burst_mix}, hard sheds {hard[:3]}")
+    compiles = sum(r.engine.compile_count for r in cluster.replicas)
+    if compiles != n_warm:
+        raise AssertionError(f"serve steps {n_warm} -> {compiles} after warmup")
+    n_docs = sys_.index.n_docs
+    responses = [r for r in results if not isinstance(r, Shed)]
+    for r in responses:
+        valid = r.doc_ids >= 0
+        if not (np.isfinite(r.scores[valid]).all()
+                and (r.doc_ids[valid] < n_docs).all()):
+            raise AssertionError(f"qid {r.qid}: ids/scores out of range")
+    t0 = time.perf_counter()
+    n_ref = check_against_reference_engine(sys_, snaps, responses)
+    t_ref = time.perf_counter() - t0
+
+    # Trace and fleet metrics, checked by the repo's own tool.
+    out = ROOT / "results"
+    out.mkdir(exist_ok=True)
+    trace_path = out / "cluster_trace_torch.json"
+    metrics_path = out / "cluster_metrics_torch.json"
+    n_entries = cluster.write_trace(trace_path)
+    metrics_path.write_text(json.dumps(cluster.metrics_snapshot(), indent=1))
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"),
+                          str(trace_path), "--require-chain", "--metrics",
+                          str(metrics_path)], capture_output=True, text=True)
+    print(f"[cluster] trace: {n_entries} span entries; "
+          f"{res.stdout.strip()}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"check_trace exited {res.returncode}")
+
+    # Prints.
+    n_wave = sum(len(w) for w in waves)
+    hits = sum(t.result().cached for t in wave_tickets)
+    print(f"[cluster] serve while training: {len(waves)} waves of "
+          f"{CLUSTER_WAVE} ({n_wave} arrivals) in {t_train:.2f} s while the "
+          f"trainer ran, {n_wave / t_train:.1f} queries/s; ticket latency "
+          f"p50 {pct_ms([t for w in waves for t in w], 50):.3f} ms, p99 "
+          f"{pct_ms([t for w in waves for t in w], 99):.3f} ms; hits "
+          f"{hits} of {len(wave_tickets)}", flush=True)
+    print(f"[cluster] last wave (after join, profiled on the card): p50 "
+          f"{pct_ms(final, 50):.3f} ms, p99 {pct_ms(final, 99):.3f} ms",
+          flush=True)
+    print(f"[cluster] burst: {CLUSTER_BURST} submits against {budget:.0f} u "
+          f"(FULL watermark {cluster.admission.full_watermark:.4f}, median "
+          f"estimate {est_med:.1f} u, shallow cap {cap} u) in {t_burst:.2f} s; "
+          f"mix {burst_mix}; p50 {pct_ms(burst, 50):.3f} ms, p99 "
+          f"{pct_ms(burst, 99):.3f} ms", flush=True)
+    print(f"[cluster] admission mix (all): {stats['admission']['levels']}; "
+          f"router {stats['router']}", flush=True)
+    print(f"[cluster] versions: trainer published {trainer.versions_published} "
+          f"(head v{store.version}), gate recall "
+          f"{[row['probe_recall'] for row in trainer.history]} from "
+          f"{[row['probe_source'] for row in trainer.history]}; version lag "
+          f"observed max {stats['version_lag_observed_max']}, mean "
+          f"{stats['version_lag_observed_mean']:.4f}; trainer batches tap "
+          f"{trainer.tap_batches}, log {trainer.log_batches}", flush=True)
+    for r in cluster.replicas:
+        rows = list(r.engine.telemetry.batches)
+        summ = r.summary()
+        print(f"[cluster] replica {r.idx}: {summ['n_requests']} requests, "
+              f"{len(rows)} micro-batches ({np.mean([b['n_real'] for b in rows]):.1f} "
+              f"real lanes), batch_inputs "
+              f"{np.mean([b['t_inputs_s'] for b in rows]) * 1e3:.1f} ms, execute "
+              f"{np.mean([b['t_execute_s'] for b in rows]) * 1e3:.1f} ms (means), "
+              f"sum of both {sum(b['t_inputs_s'] + b['t_execute_s'] for b in rows):.2f} s; "
+              f"hit rate {summ['cache_hit_rate']:.4f}", flush=True)
+        by_bucket = {}
+        for b in rows:
+            by_bucket.setdefault(b["bucket"], []).append(b)
+        print(f"[cluster] replica {r.idx} by bucket: " + "; ".join(
+            f"{k}: {len(v)} x (batch_inputs "
+            f"{np.mean([b['t_inputs_s'] for b in v]) * 1e3:.1f}, execute "
+            f"{np.mean([b['t_execute_s'] for b in v]) * 1e3:.1f} ms)"
+            for k, v in sorted(by_bucket.items())), flush=True)
+    print(f"[cluster] main path launches: {launches}", flush=True)
+    print(f"[cluster] every response ({len(responses)}) bit-equal to a "
+          f"'reference' engine on its version's snapshot at its level "
+          f"({n_ref} reference rollouts, {t_ref:.2f} s); no replica_error "
+          f"shed, no shed at the infinite budget, trainer raised nothing",
+          flush=True)
+    if dev.type == "cuda":
+        stream_probe(dev, sys_, snaps[1].policies[CAT1])
+    cluster_cli(dev)
+    print(f"[cluster] phase 3d in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 # ------------------------------------------------------------ phase 4
 def count_params(tree) -> int:
     if isinstance(tree, dict):
@@ -2523,6 +2939,9 @@ def main() -> int:
     engine_launches = engine_phase(dev, sys_, trained)
     if engine_launches["block_scan_pruned_chunk"] <= 0:
         raise AssertionError("the engine launched no block_scan kernel")
+    cluster_launches = cluster_phase(dev, sys_, trained)
+    if cluster_launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the cluster launched no block_scan kernel")
     del sys_, trained
     torch.cuda.empty_cache()
 
@@ -2553,7 +2972,8 @@ def main() -> int:
             "src/repro/kernels/block_scan/block_scan_pruned.py:222",
             launches["block_scan_pruned_chunk"],
             rows[4], worst(rows)),      # C=4: the serve path's chunk
-        # (its "train_launches" and "engine_launches" keys are added below)
+        # (its "train_launches", "engine_launches" and "cluster_launches"
+        # keys are added below)
         row("block_scan_tile", "block_scan_tile.cu",
             "src/repro/kernels/block_scan/block_scan.py:65",
             whole_launches["block_scan_tile"], whole_rows[("batched", "deep")],
@@ -2595,6 +3015,7 @@ def main() -> int:
                 if r["kernel"] == "embedding_bag_lanes"))]
     kernels[0]["train_launches"] = train_launches["block_scan_pruned_chunk"]
     kernels[0]["engine_launches"] = engine_launches["block_scan_pruned_chunk"]
+    kernels[0]["cluster_launches"] = cluster_launches["block_scan_pruned_chunk"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

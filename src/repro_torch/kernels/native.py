@@ -9,6 +9,10 @@ with ``ctypes``.
 Every :class:`NativeKernel` keeps ``launches``, a plain count that its
 ``launch`` adds one to each time the kernel is launched, and nowhere
 else, so that a run can show which kernels the main path went through.
+
+Several threads may launch one kernel (the cluster's replicas and its
+trainer): a lock per kernel makes the first launch build and load the
+library once, and no count is lost between threads.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Sequence
 
@@ -62,6 +67,8 @@ class NativeKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        # Reentrant: _load holds it across build().
+        self._lock = threading.RLock()
 
     def _lib_path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -73,33 +80,42 @@ class NativeKernel:
         """Compile the library unless it exists; returns nvcc's output
         (its ``ptxas`` register report), or "" if nothing was built."""
         lib = self._lib_path()
-        if lib.exists():
-            return ""
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        # Written beside the library and renamed, so that an interrupted
-        # build never leaves a library that later loads would take.
-        tmp = lib.with_suffix(".tmp")
-        out = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / self.source)],
-            capture_output=True, text=True)
-        log = out.stdout + out.stderr
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source}:\n{log}")
-        os.replace(tmp, lib)
-        return log
+        with self._lock:
+            if lib.exists():
+                return ""
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            # Written beside the library and renamed, so that an
+            # interrupted build never leaves a library that later loads
+            # would take.
+            tmp = lib.with_suffix(".tmp")
+            out = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC_DIR / self.source)],
+                capture_output=True, text=True)
+            log = out.stdout + out.stderr
+            if out.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {self.source}:\n{log}")
+            os.replace(tmp, lib)
+            return log
 
     def _load(self):
-        if self._fn is None:
-            self.build()
-            fn = getattr(ctypes.CDLL(str(self._lib_path())), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        fn = self._fn
+        if fn is None:
+            with self._lock:
+                if self._fn is None:
+                    self.build()
+                    fn = getattr(ctypes.CDLL(str(self._lib_path())),
+                                 self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    self._fn = fn
+                fn = self._fn
+        return fn
 
     def launch(self, *args) -> None:
         """Call the C entry point; raise if it reports a CUDA error."""
         err = self._load()(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1

@@ -1,11 +1,18 @@
-"""Observability plane of the port: metrics and tracing.
+"""Observability plane of the port: metrics, tracing, health, SLO,
+flight recorder.
 
-`metrics` holds the mergeable counters/gauges/histograms the serving
-engine records into; `trace` holds the Span/Tracer/TraceLog machinery
+`metrics` holds the mergeable counters/gauges/histograms every serving
+layer records into; `trace` holds the Span/Tracer/TraceLog machinery
 that follows a ticket from admission to the serve step and exports a
-Perfetto-loadable Chrome trace.  Host only; the port's copies of the
-reference's ``obs`` modules, as far as one serving process needs them.
+Perfetto-loadable Chrome trace; `health` is the statusz/watchdog
+introspection plane; `slo` computes multi-window error-budget burn over
+merged snapshots; `events` is the bounded flight-recorder ring.  Host
+only; the port's copies of the reference's ``obs`` modules, as far as
+one process needs them (the cross-process trace merge waits for the
+process cell).
 """
+from .events import EventLog, FlightRecorder
+from .health import HeartbeatWatchdog, statusz
 from .metrics import (
     Counter,
     Gauge,
@@ -14,6 +21,7 @@ from .metrics import (
     merge_snapshots,
     metric_key,
 )
+from .slo import SLOConfig, SLOMonitor, fold_snapshot
 from .trace import (
     NULL_SPAN,
     NULL_TRACER,
@@ -26,16 +34,23 @@ from .trace import (
 
 __all__ = [
     "Counter",
+    "EventLog",
+    "FlightRecorder",
     "Gauge",
+    "HeartbeatWatchdog",
     "Histogram",
     "MetricsRegistry",
     "NULL_SPAN",
     "NULL_TRACER",
+    "SLOConfig",
+    "SLOMonitor",
     "Span",
     "TraceLog",
     "Tracer",
     "export_chrome_entries",
+    "fold_snapshot",
     "merge_snapshots",
     "metric_key",
+    "statusz",
     "write_chrome_entries",
 ]

@@ -913,3 +913,56 @@ def test_cuda_engine_matches_executor_and_holds_compile_count(cuda):
         engine.serve(rng.integers(0, sys_.log.n_queries, size=7),
                      ServiceLevel.SHALLOW)
     assert engine.compile_count == n_warm
+
+
+@pytest.mark.gpu
+def test_cuda_cluster_matches_reference_engine(cuda):
+    """Two thread replicas on the card (the chunk kernel) serve a stream
+    — per ticket and by slab, hot keys repeated — whose every response
+    equals a ``reference``-backend ``ServeEngine``'s on the same
+    snapshot (ids, scores, u, candidates, version, level); the chunk
+    kernel launched from the replica threads, no replica prepared a
+    serve step after warmup, and no ticket was shed."""
+    from repro_torch.cluster import ClusterConfig, ReplicaSet, Shed
+    from repro_torch.data.querylog import CAT1, CAT2, QueryLogConfig
+    from repro_torch.index.corpus import CorpusConfig
+    from repro_torch.policies import PolicyStore, TabularQPolicy
+    from repro_torch.serving import EngineConfig, ServeEngine
+    from repro_torch.system import RetrievalSystem, SystemConfig
+
+    cfg = SystemConfig(corpus=CorpusConfig(n_docs=2048, vocab_size=1024),
+                       querylog=QueryLogConfig(n_queries=300), block_docs=256,
+                       p_bins=256, u_budget=2048, rule_du_scale=4,
+                       rule_dv_scale=20, l1_hidden=64)
+    sys_ = RetrievalSystem(cfg, device=cuda)
+    sys_.fit_state_bins(n_queries=32, batch=16)
+    q = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(sys_.bins.p, sys_.env_cfg.n_actions)).astype(np.float32))
+    store = PolicyStore(staleness_bound=1)
+    store.publish({CAT1: TabularQPolicy(q.to(cuda)),
+                   CAT2: TabularQPolicy(q.flip(0).contiguous().to(cuda))},
+                  fallbacks=sys_.fallback_policies())
+    ecfg = dict(min_bucket=8, max_bucket=16, cache_capacity=64)
+    cluster = ReplicaSet(sys_, store, ClusterConfig(n_replicas=2),
+                         EngineConfig(backend="block_scan", **ecfg))
+    n_warm = cluster.warmup()
+    rng = np.random.default_rng(6)
+    waves = [rng.integers(0, sys_.log.n_queries, size=n) for n in (24, 9, 40)]
+    waves.append(waves[0][:12])                      # repeats: cache hits
+    before = BLOCK_SCAN_KERNEL.launches
+    got = []
+    with cluster:
+        for i, wave in enumerate(waves):
+            serve = cluster.serve if i % 2 else cluster.serve_many
+            got += serve(wave, timeout_s=120.0)
+    assert BLOCK_SCAN_KERNEL.launches > before
+    assert sum(r.engine.compile_count for r in cluster.replicas) == n_warm
+    assert not any(isinstance(r, Shed) for r in got)
+    assert any(r.cached for r in got)
+    ref = ServeEngine(sys_, store, EngineConfig(backend="reference", **ecfg))
+    want = ref.serve(np.concatenate(waves))
+    for g, w in zip(got, want, strict=True):
+        assert (g.qid, g.u, g.cand_cnt, g.policy_version, g.level) == \
+            (w.qid, w.u, w.cand_cnt, w.policy_version, w.level)
+        np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
+        np.testing.assert_array_equal(g.scores, w.scores)

@@ -33,7 +33,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
 
 
 def test_probe_walks_the_serving_and_obs_modules():
-    """The import probe above walks the engine's modules too."""
+    """The import probe above walks the engine's and the cluster's
+    modules too."""
     import pkgutil
 
     import repro_torch
@@ -43,8 +44,12 @@ def test_probe_walks_the_serving_and_obs_modules():
     assert {f"repro_torch.serving.{m}" for m in (
         "array_cache", "batcher", "cache", "engine", "executor", "levels",
         "slab", "telemetry")} <= names
-    assert {"repro_torch.obs", "repro_torch.obs.metrics",
-            "repro_torch.obs.trace", "repro_torch.launch.serve"} <= names
+    assert {f"repro_torch.obs.{m}" for m in (
+        "events", "health", "metrics", "slo", "trace")} <= names
+    assert {f"repro_torch.cluster.{m}" for m in (
+        "admission", "cluster", "replica", "router", "tap", "trainer")} <= names
+    assert {"repro_torch.obs", "repro_torch.cluster",
+            "repro_torch.launch.serve", "repro_torch.launch.cluster"} <= names
 
 
 def test_entry_points_raise_without_cuda():
@@ -65,6 +70,19 @@ def test_entry_points_raise_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_main(["--n-docs", "64", "--n-queries", "16"])
+    from repro_torch.launch.cluster import main as cluster_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster_main(["--n-docs", "64", "--n-queries", "16"])
+
+
+def test_cluster_cli_process_backend_raises():
+    """The process cell waits for the live index: the flag raises before
+    anything is built, on any device."""
+    from repro_torch.launch.cluster import main as cluster_main
+
+    with pytest.raises(NotImplementedError, match="live index"):
+        cluster_main(["--replica-backend", "process", "--device", "cpu"])
 
 
 def test_lm_entry_points_raise_without_cuda():
