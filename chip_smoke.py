@@ -144,6 +144,36 @@ Phases (any failure raises and the script exits non-zero):
    mix, versions and lag, each replica's micro-batches with their
    ``batch_inputs``/``execute`` means, the launch counts and the
    profiled wave's idle share.
+3e. Serve while the index mutates: a ``LiveRetrievalSystem`` at phase
+   3's config (the same 64-block base, 262,144 docs, its one cut) with
+   the reference's default capacity, twice the base (128 blocks,
+   524,288 docs), its base generations memmapped from a temporary
+   directory; ``fit_l1`` and ``fit_state_bins`` on it (the capacity
+   planes); the production plans (shallow-plan fallbacks) published
+   into a ``PolicyStore``; a ``ReplicaSet`` of 2 thread replicas with
+   3c's engines on ``block_scan``; a ``MergeDaemon`` compacting at
+   2,048 delta docs.  Warmup, then with the counts set to 0: 8
+   freshness ticks (``FreshnessWorkload``: 1,024 new docs at static
+   rank 0.01 and their chase queries, after 64 base-doc updates through
+   ``update_document``; each tick commits an epoch) each followed by a
+   wave of 256 (70% fresh), a settle while the daemon compacts, one
+   last wave (profiled on the card); the counts are read.  Checks: no shed and nothing
+   dropped, no ``replica_error`` shed, no ``MergeDaemon.last_error``,
+   >= 2 merges and generations, responses across >= 2 epochs, a base
+   that reads as mmapped, chunk launches > 0, every response bit-equal
+   to a ``reference`` rollout at its own pinned epoch and level, and
+   ``check_epoch_parity`` (structure, occupancy, rollouts on
+   ``reference`` and ``block_scan``) at every epoch recorded through
+   ``live.store.subscribe``, 16 queries each.  Prints queries/s, ticket
+   p50/p99, each commit's and merge's ms (the index's spans), the
+   generations' bytes and docs, bytes per query from the base and the
+   delta, epoch swaps and lag, the share of fresh responses whose
+   judged doc is among their rollout's candidates and among the served
+   ids, each replica's ``batch_inputs``/``execute`` means,
+   the occupancy build at capacity beside the static build of the same
+   base, and one compaction of 2,048 new docs timed with no serving
+   thread beside it; then ``launch/live_index.py --smoke`` runs as a
+   subprocess on the card and must exit 0.
 4. LM serve: Mistral-NeMo-12B at full width and depth (40 layers,
    d_model 5120, 32 heads, 8 KV heads, d_head 128, d_ff 14336, vocab
    131072, bf16), random weights from a seeded CUDA generator.  The
@@ -180,8 +210,9 @@ Phases (any failure raises and the script exits non-zero):
    two runs under torch.profiler.
 6. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
-   stream's, ``engine_launches``, and the cluster stream's,
-   ``cluster_launches``), the card line, and last
+   stream's, ``engine_launches``, the cluster stream's,
+   ``cluster_launches``, and the live fleet's, ``live_launches``), the
+   card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -2362,6 +2393,379 @@ def cluster_phase(dev, sys_, trained):
     return launches
 
 
+# ------------------------------------------------------------ phase 3e
+# Serve while the index mutates: a LiveRetrievalSystem at the serve
+# cell's widths, its base the serve cell's 64 blocks and its capacity
+# the reference's default, twice the base; production-plan policies, 2
+# thread replicas with 3c's engines, a MergeDaemon, freshness ticks.
+LIVE_CAPACITY_MULT = 2                 # the reference's default capacity
+LIVE_TICKS = 8
+LIVE_DOCS_PER_TICK = 1024              # 8,192 new docs: blocks 64-65 fill
+LIVE_UPDATES_PER_TICK = 64             # base docs replaced each tick
+LIVE_WAVE = 256                        # the serve cell's query batch
+LIVE_FRAC_FRESH = 0.7
+LIVE_STATIC_RANK_FRESH = 0.01
+LIVE_MERGE_MIN_DOCS = 2048
+LIVE_PARITY_QUERIES = 16
+LIVE_REPLICAS = 2
+LIVE_SETTLE_S = 120.0
+
+
+def updated_doc(rng, vocab):
+    """A replacement for a base doc in the corpus's field shape: a body,
+    a title from it, a url from the title, an anchor term."""
+    import numpy as np
+
+    body = np.unique(rng.integers(0, vocab, size=48)).astype(np.int32)
+    title = np.unique(rng.choice(body, size=6)).astype(np.int32)
+    url = np.unique(rng.choice(title, size=3)).astype(np.int32)
+    anchor = np.unique(rng.choice(title, size=1)).astype(np.int32)
+    return [anchor, url, body, title]
+
+
+def check_live_against_reference(sys_, store, epochs, responses):
+    """Every response bit-equal (doc_ids, scores, u, cand_cnt,
+    policy_version, level) to a ``reference``-backend rollout of its
+    query at the response's own pinned index epoch and level, under the
+    policy of its category; returns the number of reference rollouts."""
+    import numpy as np
+
+    from repro_torch.serving import ServiceLevel, ShardedExecutor
+
+    exe = ShardedExecutor(sys_, n_shards=1, backend="reference")
+    snap = store.snapshot()
+    groups = {}
+    for r in responses:
+        groups.setdefault((r.index_epoch, int(r.level), r.category),
+                          []).append(r)
+    n_ref = 0
+    for (epoch, level, cat), rs in sorted(groups.items()):
+        policy = (snap.policies[cat] if level == int(ServiceLevel.FULL)
+                  else snap.fallbacks[cat])
+        qids = np.unique([r.qid for r in rs])
+        occ, scores, tp = sys_.batch_inputs(qids, epoch=epochs[epoch])
+        ids, sc, u, cnt = exe.execute(policy, occ, scores, tp, level=level)
+        lane = {int(q): i for i, q in enumerate(qids)}
+        n_ref += len(qids)
+        for r in rs:
+            i = lane[r.qid]
+            if not ((r.u, r.cand_cnt, r.policy_version) ==
+                    (int(u[i]), int(cnt[i]), snap.version)
+                    and np.array_equal(r.doc_ids, ids[i])
+                    and np.array_equal(r.scores, sc[i])):
+                raise AssertionError(
+                    f"qid {r.qid} epoch {epoch} level {level}: the fleet's "
+                    "response differs from the 'reference' rollout at its "
+                    "pinned epoch")
+    return n_ref
+
+
+def fresh_in_candidates(sys_, epochs, responses):
+    """How many of the responses' queries have their judged doc among
+    the candidates of their production-plan rollout at the response's
+    pinned epoch (the served ids are the top of those candidates)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.match_plan import plan_rollout
+
+    groups = {}
+    for r in responses:
+        groups.setdefault((r.index_epoch, r.category), set()).add(r.qid)
+    hit = {}
+    for (epoch, cat), qids in sorted(groups.items()):
+        qids = np.array(sorted(qids))
+        occ, scores, tp = sys_.batch_inputs(qids, epoch=epochs[epoch])
+        final, _ = plan_rollout(sys_.env_cfg, sys_.ruleset,
+                                sys_.plan_for_category(cat), occ, scores, tp,
+                                backend="block_scan")
+        judged = torch.from_numpy(sys_.log.judged_ids[qids, :1]).to(occ.device)
+        found = (final.cand == judged).any(dim=1).cpu().numpy()
+        hit.update({(epoch, int(q)): bool(f) for q, f in zip(qids, found)})
+    return sum(hit[(r.index_epoch, r.qid)] for r in responses)
+
+
+def live_cli(dev):
+    """``launch/live_index.py --smoke`` as a subprocess on ``dev`` (the
+    port's index smoke); raises on a non-zero exit."""
+    import os
+
+    out = ROOT / "results"
+    cmd = [sys.executable, "-m", "repro_torch.launch.live_index", "--smoke",
+           "--device", dev.type, "--out",
+           str(out / "live_index_cli_torch.json"), "--metrics-json",
+           str(out / "live_index_cli_metrics_torch.json")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    for line in (res.stdout + res.stderr).strip().splitlines()[-8:]:
+        print(f"[live cli] {line}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"launch/live_index.py --smoke exited "
+                             f"{res.returncode}")
+    print(f"[live cli] rc 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def live_phase(dev, cfg):
+    """Phase 3e: serve the freshness workload through a 2-replica
+    ``ReplicaSet`` while documents are added and updated, epochs
+    hot-swap and a ``MergeDaemon`` compacts; check parity at every
+    recorded epoch on both backends and every response against a
+    ``reference`` rollout at its epoch; run the CLI smoke; returns the
+    kernels' launch counts of the serving run."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.cluster import ClusterConfig, ReplicaSet, Shed
+    from repro_torch.data.freshness import FreshnessConfig, FreshnessWorkload
+    from repro_torch.index.builder import batch_query_occupancy
+    from repro_torch.index.live import (DeltaOp, LiveIndex,
+                                        LiveRetrievalSystem, MergeConfig,
+                                        MergeDaemon, check_epoch_parity)
+    from repro_torch.index.live.live_index import MERGE_MS_EDGES
+    from repro_torch.obs import Tracer
+    from repro_torch.policies import PolicyStore
+    from repro_torch.serving import EngineConfig
+
+    t_phase = time.perf_counter()
+    storage = tempfile.TemporaryDirectory(prefix="live-index-")
+    tracer = Tracer()                        # the live index's spans only
+    base_docs = cfg.corpus.n_docs
+    capacity = LIVE_CAPACITY_MULT * base_docs
+    t0 = time.perf_counter()
+    sys_ = LiveRetrievalSystem(cfg, capacity_docs=capacity,
+                               storage_dir=storage.name, tracer=tracer,
+                               device=dev)
+    live = sys_.live
+    sync(dev)
+    print(f"[live] system built in {time.perf_counter() - t0:.1f} s: base "
+          f"{sys_.index.n_docs} docs ({sys_.index.n_blocks} blocks), capacity "
+          f"{live.capacity_docs} docs ({live.capacity_blocks} blocks), base "
+          f"generation 0 {'mmapped' if live.stats()['base_mmapped'] else 'in memory'} "
+          f"({live.stats()['base_nbytes']} bytes); L1 scoring sub-batch "
+          f"{sys_.scoring_batch_size()} queries", flush=True)
+    t0 = time.perf_counter()
+    losses = sys_.fit_l1(n_queries=QUERY_BATCH)
+    sync(dev)
+    t1 = time.perf_counter()
+    bins = sys_.fit_state_bins(n_queries=QUERY_BATCH, batch=QUERY_BATCH)
+    sync(dev)
+    print(f"[live] fit_l1 on the live system (capacity planes): loss "
+          f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f} in "
+          f"{t1 - t0:.2f} s; fit_state_bins p={bins.p} in "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    if not np.isfinite(float(losses[-1])) or losses[-1] >= losses[0]:
+        raise AssertionError("fit_l1 on the live system did not lower the loss")
+
+    store = PolicyStore(staleness_bound=1)
+    store.publish(sys_.baseline_policies(), fallbacks=sys_.fallback_policies())
+    epochs = {}
+    unsubscribe = live.store.subscribe(lambda e: epochs.setdefault(e.version, e))
+    gens = {}                                # generation -> (bytes, docs, epoch)
+
+    def on_epoch(e):
+        gens.setdefault(e.generation, (e.view.base.nbytes, e.view.base.n_docs,
+                                       e.version))
+    unsub_gens = live.store.subscribe(on_epoch)
+    workload = FreshnessWorkload(sys_, FreshnessConfig(
+        docs_per_tick=LIVE_DOCS_PER_TICK, wave_queries=LIVE_WAVE,
+        frac_fresh=LIVE_FRAC_FRESH, static_rank_fresh=LIVE_STATIC_RANK_FRESH,
+        seed=SEED))
+    cluster = ReplicaSet(sys_, store, ClusterConfig(n_replicas=LIVE_REPLICAS),
+                         EngineConfig(backend="block_scan", **ENGINE_CFG))
+    t0 = time.perf_counter()
+    n_warm = cluster.warmup()
+    sync(dev)
+    print(f"[live] {LIVE_REPLICAS} thread replicas, {ENGINE_CFG}, "
+          f"'block_scan', production-plan policies; warmup prepared {n_warm} "
+          f"serve steps in {time.perf_counter() - t0:.2f} s; MergeDaemon "
+          f"min_delta_docs {LIVE_MERGE_MIN_DOCS}", flush=True)
+
+    urng = np.random.default_rng(SEED + 17)
+    vocab = cfg.corpus.vocab_size
+    waves = []
+    daemon = MergeDaemon(live, MergeConfig(min_delta_docs=LIVE_MERGE_MIN_DOCS,
+                                           poll_interval_s=0.02))
+    reset_counts()            # the main path: ticks, waves, merges
+    t0 = time.perf_counter()
+    with cluster, daemon:
+        for _ in range(LIVE_TICKS):
+            for d in urng.choice(base_docs, size=LIVE_UPDATES_PER_TICK,
+                                 replace=False):
+                sys_.update_document(int(d), updated_doc(urng, vocab))
+            wave = workload.tick()          # docs + queries + commit
+            daemon.trigger()
+            waves.append(serve_wave(cluster, wave))
+        t_settle = time.perf_counter()
+        while (live.delta_docs >= LIVE_MERGE_MIN_DOCS
+               and daemon.last_error is None
+               and time.perf_counter() - t_settle < LIVE_SETTLE_S):
+            time.sleep(0.02)
+        settle = workload.wave()
+        if dev.type == "cuda":               # profiled on the card
+            box = []
+            profile_device(f"live settle wave ({LIVE_WAVE} arrivals, "
+                           f"{LIVE_REPLICAS} replicas)",
+                           lambda: box.append(serve_wave(cluster, settle)),
+                           "block_scan_pruned_chunk")
+            waves.append(box[0])
+        else:
+            waves.append(serve_wave(cluster, settle))
+        sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    unsubscribe()
+    unsub_gens()
+    stats = cluster.stats()
+    istats = live.stats()
+
+    # Checks.  A replica turns any exception into a Shed and the daemon
+    # keeps its exception: hazards first.
+    if daemon.last_error is not None:
+        raise AssertionError(f"the merge daemon raised {daemon.last_error!r}")
+    tickets = [t for w in waves for t in w]
+    results = [t.result() for t in tickets]
+    err = [r for r in results
+           if isinstance(r, Shed) and r.reason.startswith("replica_error")]
+    if err:
+        raise AssertionError(f"{len(err)} replica_error sheds: {err[:3]}")
+    sheds = [r for r in results if isinstance(r, Shed)]
+    if sheds or stats["n_shed"]:
+        raise AssertionError(f"{len(sheds)} sheds while the index mutated")
+    if stats["n_submitted"] != len(tickets) or \
+            stats["n_submitted"] != stats["n_responses"]:
+        raise AssertionError("dropped tickets")
+    if dev.type == "cuda" and launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the live fleet launched no block_scan kernel")
+    if istats["merges"] < 2 or istats["generation"] < 2:
+        raise AssertionError(f"merges {istats['merges']}, generation "
+                             f"{istats['generation']}: expected >= 2 each")
+    resp_epochs = sorted({r.index_epoch for r in results})
+    if len(resp_epochs) < 2:
+        raise AssertionError(f"responses span epochs {resp_epochs}")
+    if not istats["base_mmapped"]:
+        raise AssertionError("the merged base does not read as mmapped")
+    n_docs = live.n_docs
+    for r in results:
+        valid = r.doc_ids >= 0
+        if not (np.isfinite(r.scores[valid]).all()
+                and (r.doc_ids[valid] < n_docs).all()):
+            raise AssertionError(f"qid {r.qid}: ids/scores out of range")
+    t1 = time.perf_counter()
+    n_ref = check_live_against_reference(sys_, store, epochs, results)
+    t_ref = time.perf_counter() - t1
+
+    # Parity at every recorded epoch, on both backends.
+    prng = np.random.default_rng(SEED + 19)
+    before = read_counts()["block_scan_pruned_chunk"]
+    t1 = time.perf_counter()
+    for version in sorted(epochs):
+        qids = prng.choice(sys_.log.n_queries, size=LIVE_PARITY_QUERIES,
+                           replace=False)
+        rep = check_epoch_parity(sys_, epochs[version], qids)
+        if not rep["ok"]:
+            raise AssertionError(f"parity failed at epoch v{version}")
+    t_parity = time.perf_counter() - t1
+    parity_launches = read_counts()["block_scan_pruned_chunk"] - before
+
+    # Prints.
+    n_arrivals = len(tickets)
+    print(f"[live] serve while mutating: {LIVE_TICKS} ticks of "
+          f"{LIVE_DOCS_PER_TICK} new docs (static rank "
+          f"{LIVE_STATIC_RANK_FRESH}) and {LIVE_UPDATES_PER_TICK} base-doc "
+          f"updates, a wave of {LIVE_WAVE} each ({LIVE_FRAC_FRESH} fresh), "
+          f"one settle wave: {n_arrivals} arrivals in {wall:.2f} s, "
+          f"{n_arrivals / wall:.1f} queries/s; ticket p50 "
+          f"{pct_ms(tickets, 50):.3f} ms, p99 {pct_ms(tickets, 99):.3f} ms; "
+          f"hits {sum(r.cached for r in results)} of {n_arrivals}", flush=True)
+    spans = [e for e in tracer.log.snapshot() if e["kind"] == "span"]
+    for name in ("index_commit", "index_merge"):
+        ms = [(e["t1"] - e["t0"]) * 1e3 for e in spans if e["name"] == name]
+        print(f"[live] {name}: {len(ms)} spans, ms each "
+              f"{[round(m, 3) for m in ms]}", flush=True)
+    h = live.registry.histogram("index.merge_ms", MERGE_MS_EDGES).snapshot()
+    print(f"[live] index.merge_ms: count {h['count']}, sum {h['sum']:.3f}, "
+          f"min {h['min']:.3f}, max {h['max']:.3f}; generations (bytes, base "
+          f"docs, first epoch): {dict(sorted(gens.items()))}", flush=True)
+    print(f"[live] index stats: {istats['commits']} commits, "
+          f"{istats['merges']} merges -> generation {istats['generation']}, "
+          f"head epoch {istats['epoch']}, {istats['n_docs']} docs "
+          f"({istats['delta_docs']} in the delta), docs added "
+          f"{istats['docs_added']}, updated {istats['docs_updated']}; "
+          f"bytes_per_query_base {istats['bytes_per_query_base']:.1f}, "
+          f"bytes_per_query_delta {istats['bytes_per_query_delta']:.1f}",
+          flush=True)
+    swaps = [r.engine.summary()["index_epoch_swaps"] for r in cluster.replicas]
+    print(f"[live] epoch swaps per replica {swaps}; responses at epochs "
+          f"{resp_epochs}; epoch_lag_observed_max "
+          f"{stats['epoch_lag_observed_max']}, mean "
+          f"{stats['epoch_lag_observed_mean']:.4f}", flush=True)
+    fresh = [r for r in results if r.qid >= cfg.querylog.n_queries]
+    in_cand = fresh_in_candidates(sys_, epochs, fresh)
+    served = sum(int(sys_.log.judged_ids[r.qid, 0]) in set(r.doc_ids.tolist())
+                 for r in fresh)
+    n_fresh = max(1, len(fresh))
+    print(f"[live] fresh responses {len(fresh)}; their judged (new) doc among "
+          f"the candidates in {in_cand} ({in_cand / n_fresh:.4f}), among the "
+          f"served ids (the top {len(fresh[0].doc_ids) if fresh else 0}) in "
+          f"{served} ({served / n_fresh:.4f})", flush=True)
+    for r in cluster.replicas:
+        rows = list(r.engine.telemetry.batches)
+        print(f"[live] replica {r.idx}: {len(rows)} micro-batches, "
+              f"batch_inputs {np.mean([b['t_inputs_s'] for b in rows]) * 1e3:.1f} "
+              f"ms, execute {np.mean([b['t_execute_s'] for b in rows]) * 1e3:.1f} "
+              f"ms (means)", flush=True)
+    print(f"[live] main path launches: {launches}", flush=True)
+    print(f"[live] every response ({len(results)}) bit-equal to a "
+          f"'reference' rollout at its pinned epoch and level ({n_ref} "
+          f"reference rollouts, {t_ref:.2f} s); parity green at all "
+          f"{len(epochs)} recorded epochs (v{min(epochs)}..v{max(epochs)}) on "
+          f"'reference' and 'block_scan', {LIVE_PARITY_QUERIES} queries each, "
+          f"{t_parity:.2f} s, {parity_launches} chunk launches; no "
+          f"replica_error shed, no merge error", flush=True)
+
+    # The occupancy build at capacity against the static build of the
+    # same base (phase 3's path), on one wave's term lists.
+    log = sys_.log
+    lists = [log.terms[t.qid, : log.n_terms[t.qid]] for t in waves[0]]
+    head = live.store.snapshot().view
+    for name, build in (("static (base index)",
+                         lambda: batch_query_occupancy(sys_.index, lists)),
+                        ("live view at capacity",
+                         lambda: head.batch_query_occupancy(lists))):
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            occ = build()
+            times.append((time.perf_counter() - t1) * 1e3)
+        print(f"[live] occupancy build, {name}: {occ.shape} in "
+              f"{np.median(times):.1f} ms per batch of {len(lists)} (median "
+              f"of 3)", flush=True)
+    # One compaction with no serving thread beside it: the head base and
+    # one trigger's worth of new docs, compacted and written to a scratch
+    # generation that is never published.
+    base = live.store.snapshot().view.base
+    mrng = np.random.default_rng(SEED + 23)
+    ops = [DeltaOp("add", base.n_docs + i, tuple(updated_doc(mrng, vocab)),
+                   LIVE_STATIC_RANK_FRESH) for i in range(LIVE_MERGE_MIN_DOCS)]
+    t1 = time.perf_counter()
+    merged = LiveIndex._compact(base, ops)
+    t2 = time.perf_counter()
+    merged.save(Path(storage.name) / "alone")
+    t3 = time.perf_counter()
+    print(f"[live] one compaction alone (no serving thread): "
+          f"{LIVE_MERGE_MIN_DOCS} new docs onto {base.n_docs}: compact "
+          f"{(t2 - t1) * 1e3:.1f} ms, write and map {(t3 - t2) * 1e3:.1f} ms "
+          f"({merged.nbytes} bytes)", flush=True)
+    live_cli(dev)
+    storage.cleanup()
+    print(f"[live] phase 3e in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 # ------------------------------------------------------------ phase 4
 def count_params(tree) -> int:
     if isinstance(tree, dict):
@@ -2944,6 +3348,10 @@ def main() -> int:
         raise AssertionError("the cluster launched no block_scan kernel")
     del sys_, trained
     torch.cuda.empty_cache()
+    live_launches = live_phase(dev, cfg)
+    if live_launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the live fleet launched no block_scan kernel")
+    torch.cuda.empty_cache()
 
     lm_launches = lm_phase(dev)
     torch.cuda.empty_cache()
@@ -2972,8 +3380,8 @@ def main() -> int:
             "src/repro/kernels/block_scan/block_scan_pruned.py:222",
             launches["block_scan_pruned_chunk"],
             rows[4], worst(rows)),      # C=4: the serve path's chunk
-        # (its "train_launches", "engine_launches" and "cluster_launches"
-        # keys are added below)
+        # (its "train_launches", "engine_launches", "cluster_launches"
+        # and "live_launches" keys are added below)
         row("block_scan_tile", "block_scan_tile.cu",
             "src/repro/kernels/block_scan/block_scan.py:65",
             whole_launches["block_scan_tile"], whole_rows[("batched", "deep")],
@@ -3016,6 +3424,7 @@ def main() -> int:
     kernels[0]["train_launches"] = train_launches["block_scan_pruned_chunk"]
     kernels[0]["engine_launches"] = engine_launches["block_scan_pruned_chunk"]
     kernels[0]["cluster_launches"] = cluster_launches["block_scan_pruned_chunk"]
+    kernels[0]["live_launches"] = live_launches["block_scan_pruned_chunk"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

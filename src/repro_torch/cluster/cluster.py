@@ -27,10 +27,8 @@ policy version lag (bounded by the store's staleness check, surfaced
 in `stats()`), and land in the `ServedTrafficTap` the trainer samples.
 
 The reference's second backend, worker processes over shared-memory
-rings and one mmapped index (``backend="process"``), saves the base
-index through the live index's segments even on a static system; it
-waits for the port's live index and raises ``NotImplementedError``
-here.
+rings and one mmapped index (``backend="process"``), is the process
+cell; it is not ported yet and raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -98,8 +96,8 @@ class ReplicaSet:
         if cfg.backend == "process":
             raise NotImplementedError(
                 "replica backend 'process' is not ported yet: the process "
-                "cell saves the index through the live index's segments, "
-                "which the port has yet to gain; use backend='thread'")
+                "cell (worker processes over shared-memory rings) is the "
+                "next slice; use backend='thread'")
         if cfg.backend != "thread":
             raise ValueError(f"unknown replica backend {cfg.backend!r} "
                              "(expected 'thread')")

@@ -2,8 +2,8 @@
 
 The port's copy of the reference's ``core/versioned.py`` (pure
 Python).  Two serving-plane artifacts hot-swap under load — policy
-snapshots (``PolicyStore``) and, in the reference, index epochs (the
-live index's ``IndexEpochStore``, not ported yet).  Both need the same
+snapshots (``repro_torch.policies.PolicyStore``) and index epochs
+(``repro_torch.index.live.IndexEpochStore``).  Both need the same
 primitive: a producer publishes immutable snapshots with monotonically
 increasing version ids; consumers pin a snapshot and periodically
 refresh, with a *staleness bound* — a consumer more than
@@ -31,10 +31,9 @@ __all__ = ["StaleVersionError", "Subscriber", "VersionedStore"]
 class StaleVersionError(RuntimeError):
     """A consumer's pinned snapshot is older than the staleness bound.
 
-    Base class of `StalePolicyError` (policy snapshots); in the
-    reference also of `StaleIndexEpochError` (index epochs, not ported
-    yet), so serving loops can catch every hot-swap race with one
-    clause."""
+    Base class shared by `StalePolicyError` (policy snapshots) and
+    `StaleIndexEpochError` (index epochs) so serving loops can catch
+    every hot-swap race with one clause."""
 
 
 class Subscriber:
@@ -85,13 +84,24 @@ class VersionedStore:
         self._subscribers: List[Subscriber] = []
 
     # ------------------------------------------------------------ publish
-    def _publish_snapshot(self, build: Callable[[Optional[Any], int], Any]) -> int:
+    def _publish_snapshot(self, build: Callable[[Optional[Any], int], Any],
+                          version: Optional[int] = None) -> int:
         """Install ``build(previous_snapshot, next_version)`` as the new
         head and notify subscribers (outside the lock); returns the new
         version.  The build function runs under the store lock, so it
-        must be cheap — assemble heavy payloads before publishing."""
+        must be cheap — assemble heavy payloads before publishing.
+
+        ``version`` pins an explicit head version instead of the default
+        head+1, so that a consumer's store can mirror a producer's
+        numbering exactly (a late joiner jumps straight to the head
+        version it is sent; gaps are legal, regressions are not)."""
         with self._lock:
-            version = (self._snapshot.version if self._snapshot else 0) + 1
+            head = self._snapshot.version if self._snapshot else 0
+            if version is None:
+                version = head + 1
+            elif version <= head:
+                raise ValueError(
+                    f"explicit version {version} must exceed head {head}")
             snap = build(self._snapshot, version)
             assert snap.version == version, "build must stamp the version"
             self._snapshot = snap

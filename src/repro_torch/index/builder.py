@@ -26,7 +26,8 @@ from .blocks import pack_bits, words_per_block
 from .corpus import Corpus, N_FIELDS
 
 __all__ = ["InvertedIndex", "build_index", "build_index_from_pairs",
-           "query_occupancy", "batch_query_occupancy", "MAX_QUERY_TERMS"]
+           "forward_csr", "query_occupancy", "batch_query_occupancy",
+           "MAX_QUERY_TERMS"]
 
 MAX_QUERY_TERMS = 4  # queries are padded to this many terms
 
@@ -141,6 +142,29 @@ def build_index(corpus: Corpus, block_docs: int = 512) -> InvertedIndex:
         pair_docs, pair_terms, n_docs=n_docs,
         vocab_size=corpus.config.vocab_size,
         static_rank=corpus.static_rank, block_docs=block_docs, dedup=False)
+
+
+def forward_csr(index: InvertedIndex):
+    """Per-field forward CSR (doc → sorted term ids), the transpose of
+    the postings.  Returns ``(fwd_indptr, fwd_terms)`` lists: for field
+    ``f``, ``fwd_terms[f][fwd_indptr[f][d]:fwd_indptr[f][d+1]]`` are
+    doc ``d``'s terms in ascending order.  The live index's base
+    segment stores this sidecar so document *updates* can subtract the
+    old terms (df maintenance, tombstones) without scanning postings.
+    """
+    fwd_indptrs, fwd_terms = [], []
+    for f in range(N_FIELDS):
+        indptr, docs = index.indptr[f], index.doc_ids[f]
+        terms = np.repeat(np.arange(index.vocab_size, dtype=np.int64),
+                          np.diff(indptr))
+        # Stable sort by doc: within a doc, term-major input order is
+        # preserved, i.e. terms come out ascending.
+        order = np.argsort(docs, kind="stable")
+        fi = np.zeros(index.n_docs + 1, dtype=np.int64)
+        np.cumsum(np.bincount(docs, minlength=index.n_docs), out=fi[1:])
+        fwd_indptrs.append(fi)
+        fwd_terms.append(terms[order].astype(np.int32))
+    return fwd_indptrs, fwd_terms
 
 
 def query_occupancy(index: InvertedIndex, terms: Sequence[int]) -> np.ndarray:

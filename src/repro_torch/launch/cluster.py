@@ -97,8 +97,8 @@ def main(argv=None) -> None:
     if args.replica_backend == "process":
         raise NotImplementedError(
             "--replica-backend process is not ported yet: the process cell "
-            "saves the index through the live index's segments, which the "
-            "port has yet to gain; use --replica-backend thread")
+            "(worker processes over shared-memory rings) is the next "
+            "slice; use --replica-backend thread")
     if args.smoke:
         args.replicas = 2
         args.n_docs, args.n_queries = 2048, 200

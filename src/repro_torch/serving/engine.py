@@ -138,7 +138,8 @@ class ServeEngine:
         self.bucket_cfg = BucketConfig(cfg.min_bucket, cfg.max_bucket)
         self.telemetry = Telemetry()
         # Live-index integration: a system with a tiered live index
-        # would expose an IndexEpochStore; static systems expose None
+        # (`repro_torch.index.live.LiveRetrievalSystem`) exposes an
+        # IndexEpochStore; static systems expose None
         # and everything below degrades to a constant epoch 0.  The
         # engine pins one epoch like it pins one policy snapshot, and
         # threads it into batch_inputs so a hot swap mid-batch can't

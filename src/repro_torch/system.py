@@ -72,8 +72,9 @@ class SystemConfig:
 
 class RetrievalSystem:
     # The static system has no live index: one immutable "epoch 0"
-    # forever.  The serving engine probes both with getattr, so that a
-    # live-index system can override them with its epoch store.
+    # forever.  `repro_torch.index.live.LiveRetrievalSystem` overrides
+    # both with its epoch store; the serving layers probe them with
+    # getattr, so they work against either system.
     index_epoch_store = None
 
     @property
@@ -146,7 +147,7 @@ class RetrievalSystem:
     def scoring_batch_size(self) -> int:
         """Queries scored at once: sized so that the per-query scoring
         intermediates fill at most a share of free device memory."""
-        d = self.index.padded_docs
+        d = self.static_rank.shape[0]     # the docs a query is scored over
         planes = self.log.terms.shape[1] * N_FIELDS
         # float32 per doc: the (T, F) hits and ~3 temporaries of them, the
         # features twice (parts and concat), ~3 (hidden,) activations.
@@ -159,15 +160,20 @@ class RetrievalSystem:
             budget = _CPU_SCORING_BYTES
         return max(1, int(budget // per_query))
 
-    def _query_tensors(self, qids: np.ndarray):
+    def _query_tensors(self, qids: np.ndarray, epoch=None):
         """Occupancy (B, nb, T, F, W) int32, term-present masks (B, T)
-        bool and per-slot IDF (B, T) float32, on the device."""
+        bool and per-slot IDF (B, T) float32, on the device.  ``epoch``:
+        the pinned index epoch, which the static index does not have."""
         term_lists = [self.log.terms[q, : self.log.n_terms[q]] for q in qids]
         occ = words_to_tensor(batch_query_occupancy(self.index, term_lists),
                               self.device)
         term_present = torch.from_numpy(self.log.terms[qids] >= 0).to(self.device)
         idf = torch.from_numpy(self.idf_all[qids]).to(self.device)
         return occ, term_present, idf
+
+    def _scoring_planes(self, epoch=None):
+        """(static_rank, doc_len) device planes the L1 scores read."""
+        return self.static_rank, self.doc_len
 
     def batch_inputs(self, query_ids: Sequence[int], epoch=None):
         """Occupancy (B, nb, T, F, W) int32, L1 scores (B, n_pad) float32
@@ -176,12 +182,12 @@ class RetrievalSystem:
         ``epoch`` is the serving engine's pinned index epoch; the static
         index ignores it."""
         qids = np.asarray(query_ids)
-        occ, term_present, idf = self._query_tensors(qids)
+        occ, term_present, idf = self._query_tensors(qids, epoch)
+        static_rank, doc_len = self._scoring_planes(epoch)
         step = self.scoring_batch_size()
         scores = torch.cat([
             score_all_docs(self.l1_params, occ[i:i + step], idf[i:i + step],
-                           term_present[i:i + step], self.static_rank,
-                           self.doc_len)
+                           term_present[i:i + step], static_rank, doc_len)
             for i in range(0, len(qids), step)])
         return occ, scores, term_present
 

@@ -453,9 +453,9 @@ def test_replica_shutdown_sheds_pending_tickets(trained):
 
 
 def test_process_backend_raises(trained):
-    """The process cell waits for the live index."""
+    """The process cell is not ported yet."""
     sys_, policies = trained
-    with pytest.raises(NotImplementedError, match="live index"):
+    with pytest.raises(NotImplementedError, match="process cell"):
         ReplicaSet(sys_, _store(policies), ClusterConfig(backend="process"))
     with pytest.raises(ValueError, match="backend"):
         ReplicaSet(sys_, _store(policies), ClusterConfig(backend="nope"))

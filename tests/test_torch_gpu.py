@@ -966,3 +966,100 @@ def test_cuda_cluster_matches_reference_engine(cuda):
             (w.qid, w.u, w.cand_cnt, w.policy_version, w.level)
         np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
         np.testing.assert_array_equal(g.scores, w.scores)
+
+
+def _live_system(cuda, tmp_path):
+    from repro_torch.data.querylog import QueryLogConfig
+    from repro_torch.index.corpus import CorpusConfig
+    from repro_torch.index.live import LiveRetrievalSystem
+    from repro_torch.system import SystemConfig
+
+    cfg = SystemConfig(corpus=CorpusConfig(n_docs=2048, vocab_size=1024),
+                       querylog=QueryLogConfig(n_queries=300), block_docs=256,
+                       p_bins=256, u_budget=2048, rule_du_scale=4,
+                       rule_dv_scale=20, l1_hidden=64)
+    sys_ = LiveRetrievalSystem(cfg, capacity_docs=4096, storage_dir=tmp_path,
+                               device=cuda)
+    sys_.fit_state_bins(n_queries=32, batch=16)
+    return sys_
+
+
+def _fresh_doc(rng, vocab=1024):
+    return [np.unique(rng.integers(0, vocab, size=k)).astype(np.int32)
+            for k in (2, 3, 40, 6)]
+
+
+@pytest.mark.gpu
+def test_cuda_live_system_parity_through_add_update_commit_merge(cuda,
+                                                                 tmp_path):
+    """A live system on the card through adds, base-doc updates, commits
+    and a merge: ``check_epoch_parity`` is green at every epoch on both
+    backends (structure, occupancy, and the production plans' final
+    state bit-equal between the chunk kernel and ``reference``), the
+    chunk kernel launched, the merged base is mmapped, and each epoch's
+    scoring planes lie on the card at the capacity span."""
+    from repro_torch.index.live import check_epoch_parity
+
+    sys_ = _live_system(cuda, tmp_path)
+    rng = np.random.default_rng(8)
+    qids = rng.choice(sys_.log.n_queries, size=12, replace=False)
+    epochs = []
+    sys_.live.store.subscribe(epochs.append)
+    for _ in range(2):
+        sys_.add_documents([_fresh_doc(rng) for _ in range(40)],
+                           static_rank=[0.01] * 40)
+        for d in rng.choice(2048, size=8, replace=False):
+            sys_.update_document(int(d), _fresh_doc(rng))
+        sys_.commit_index()
+    sys_.merge_index()
+    assert len(epochs) == 4 and epochs[-1].generation == 1
+    assert sys_.live.stats()["base_mmapped"]
+    before = BLOCK_SCAN_KERNEL.launches
+    for ep in epochs:
+        assert check_epoch_parity(sys_, ep, qids)["ok"]
+        sr, dl = sys_._epoch_planes(ep)
+        assert sr.device.type == dl.device.type == "cuda"
+        assert sr.shape == (4096,) and dl.shape[0] == 4096
+    assert BLOCK_SCAN_KERNEL.launches > before
+    occ, scores, _ = sys_.batch_inputs(qids, epoch=epochs[1])
+    assert occ.device.type == "cuda" and occ.shape[1] == 16
+    assert scores.shape == (12, 4096)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_epoch_swap_answers_at_the_new_epoch(cuda, tmp_path):
+    """An engine on a live system on the card: a hit at epoch N, then a
+    commit; the next answer is at N+1, not from the cache, and equal to
+    a ``reference``-backend engine's at N+1 (ids, scores, u, candidates)."""
+    from repro_torch.data.querylog import CAT2
+    from repro_torch.policies import PolicyStore
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    sys_ = _live_system(cuda, tmp_path)
+    store = PolicyStore(staleness_bound=0)
+    store.publish(sys_.baseline_policies(), fallbacks=sys_.fallback_policies())
+    ecfg = dict(min_bucket=4, max_bucket=8, cache_capacity=64)
+    engine = ServeEngine(sys_, store, EngineConfig(backend="block_scan", **ecfg))
+    engine.warmup()
+    qids = [3, 11, 40]
+    first = engine.serve(qids)
+    again = engine.serve(qids)
+    assert all(r.cached for r in again)
+    e0 = first[0].index_epoch
+    rng = np.random.default_rng(9)
+    docs = [_fresh_doc(rng) for _ in range(4)]
+    ids = sys_.add_documents(docs, static_rank=[0.01] * 4)
+    [fresh] = sys_.append_queries([docs[0][3][:2]], [CAT2],
+                                  judged_ids=[[ids[0]]], judged_gains=[[4]])
+    sys_.commit_index()
+    before = BLOCK_SCAN_KERNEL.launches
+    after = engine.serve(qids + [int(fresh)])
+    assert BLOCK_SCAN_KERNEL.launches > before
+    assert all(r.index_epoch == e0 + 1 and not r.cached for r in after)
+    assert engine.summary()["index_epoch_swaps"] == 1
+    ref = ServeEngine(sys_, store, EngineConfig(backend="reference", **ecfg))
+    for g, w in zip(after, ref.serve(qids + [int(fresh)]), strict=True):
+        assert (g.qid, g.u, g.cand_cnt, g.index_epoch) == \
+            (w.qid, w.u, w.cand_cnt, w.index_epoch)
+        np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
+        np.testing.assert_array_equal(g.scores, w.scores)

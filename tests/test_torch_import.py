@@ -33,8 +33,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
 
 
 def test_probe_walks_the_serving_and_obs_modules():
-    """The import probe above walks the engine's and the cluster's
-    modules too."""
+    """The import probe above walks the engine's, the cluster's and the
+    live index's modules too."""
     import pkgutil
 
     import repro_torch
@@ -50,6 +50,10 @@ def test_probe_walks_the_serving_and_obs_modules():
         "admission", "cluster", "replica", "router", "tap", "trainer")} <= names
     assert {"repro_torch.obs", "repro_torch.cluster",
             "repro_torch.launch.serve", "repro_torch.launch.cluster"} <= names
+    assert {f"repro_torch.index.live.{m}" for m in (
+        "live_index", "merge", "parity", "segments", "system")} <= names
+    assert {"repro_torch.index.live", "repro_torch.data.freshness",
+            "repro_torch.launch.live_index"} <= names
 
 
 def test_entry_points_raise_without_cuda():
@@ -74,14 +78,24 @@ def test_entry_points_raise_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         cluster_main(["--n-docs", "64", "--n-queries", "16"])
+    from repro_torch.index.live import LiveRetrievalSystem
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LiveRetrievalSystem(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LiveRetrievalSystem(cfg, device="cuda")
+    from repro_torch.launch.live_index import main as live_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        live_main(["--n-docs", "64", "--n-queries", "16"])
 
 
 def test_cluster_cli_process_backend_raises():
-    """The process cell waits for the live index: the flag raises before
+    """The process cell is not ported yet: the flag raises before
     anything is built, on any device."""
     from repro_torch.launch.cluster import main as cluster_main
 
-    with pytest.raises(NotImplementedError, match="live index"):
+    with pytest.raises(NotImplementedError, match="process cell"):
         cluster_main(["--replica-backend", "process", "--device", "cpu"])
 
 
