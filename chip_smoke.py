@@ -174,6 +174,36 @@ Phases (any failure raises and the script exits non-zero):
    base, and one compaction of 2,048 new docs timed with no serving
    thread beside it; then ``launch/live_index.py --smoke`` runs as a
    subprocess on the card and must exit 0.
+3f. Serve through worker processes: phase 3e's live system (its fleet
+   and daemon stopped; the head at generation >= 2) behind a
+   ``ReplicaSet(backend="process")`` of 2 workers with 3c's engines on
+   ``block_scan``, tracing on, the cell dir in a temporary directory,
+   the production plans published as v1; every worker spawned before
+   the first is waited on, each warmed right after its spawn.  With the
+   counts set to 0 (the parent's and, over the control pipe, the
+   workers'): 2 freshness ticks (each commit relayed as an epoch with
+   the queries it appended), each followed by a wave of 256 (70% fresh);
+   a relayed v2 and a wave of 256; 64 tickets submitted one at a time,
+   a SIGKILL of worker 0 with them in flight, its respawn, and a last
+   wave of 256; the counts are read.  Checks: no shed and nothing
+   dropped (no ``replica_error``), two distinct worker pids, neither
+   the parent's, both on the card with chunk launches > 0 and none in
+   the parent, a worker serving generation >= 2 from a merged
+   generation's dir, the respawned pid new and a ``worker_dead``
+   postmortem bundle, no private-dirty page in the workers' mappings of
+   the cell and the generations, every response bit-equal to a
+   ``reference`` rollout at its epoch, level and policy version, and the
+   merged trace through ``tools/check_trace.py --require-proc-chain``.
+   Prints spawn-to-ready seconds per worker and the respawn's,
+   queries/s and ticket p50/p99 (and before the kill), each worker's
+   ``batch_inputs``/``execute`` means beside phases 3d's and 3e's
+   thread replicas, an A/B of one cold wave through the process cell
+   and a 2-replica thread cell on the same system, epoch and version (4
+   pairs in alternating order, responses equal), the clock offsets and
+   RTTs, Rss/Pss of the mapped files per worker, and the launches; then
+   ``launch/cluster.py --smoke --replica-backend process`` runs as a
+   subprocess on the card, its trace through ``check_trace.py
+   --require-proc-chain``, each required to exit 0.
 4. LM serve: Mistral-NeMo-12B at full width and depth (40 layers,
    d_model 5120, 32 heads, 8 KV heads, d_head 128, d_ff 14336, vocab
    131072, bf16), random weights from a seeded CUDA generator.  The
@@ -211,8 +241,8 @@ Phases (any failure raises and the script exits non-zero):
 6. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
-   ``cluster_launches``, and the live fleet's, ``live_launches``), the
-   card line, and last
+   ``cluster_launches``, the live fleet's, ``live_launches``, and the
+   process cell's workers', ``proc_launches``), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -2020,6 +2050,9 @@ CLUSTER_STALENESS = 2
 CLUSTER_TRAIN = dict(iters=8, publish_every=4, batch=64, probe_from_tap=True,
                      publish_initial=False)
 CLUSTER_TIMEOUT_S = 300.0
+# Per thread replica, (batch_inputs, execute) means in ms of phases 3d
+# and 3e: phase 3f prints its workers' beside them.
+THREAD_MEANS = {}
 
 
 def serve_wave(cluster, qids):
@@ -2364,6 +2397,9 @@ def cluster_phase(dev, sys_, trained):
     for r in cluster.replicas:
         rows = list(r.engine.telemetry.batches)
         summ = r.summary()
+        THREAD_MEANS.setdefault("3d", []).append(
+            (np.mean([b['t_inputs_s'] for b in rows]) * 1e3,
+             np.mean([b['t_execute_s'] for b in rows]) * 1e3))
         print(f"[cluster] replica {r.idx}: {summ['n_requests']} requests, "
               f"{len(rows)} micro-batches ({np.mean([b['n_real'] for b in rows]):.1f} "
               f"real lanes), batch_inputs "
@@ -2423,23 +2459,27 @@ def updated_doc(rng, vocab):
     return [anchor, url, body, title]
 
 
-def check_live_against_reference(sys_, store, epochs, responses):
+def check_live_against_reference(sys_, store, epochs, responses, snaps=None):
     """Every response bit-equal (doc_ids, scores, u, cand_cnt,
     policy_version, level) to a ``reference``-backend rollout of its
     query at the response's own pinned index epoch and level, under the
-    policy of its category; returns the number of reference rollouts."""
+    policy of its category in the snapshot of its version (``snaps``:
+    version -> snapshot; the store's head when None); returns the
+    number of reference rollouts."""
     import numpy as np
 
     from repro_torch.serving import ServiceLevel, ShardedExecutor
 
     exe = ShardedExecutor(sys_, n_shards=1, backend="reference")
-    snap = store.snapshot()
+    head = store.snapshot()
     groups = {}
     for r in responses:
-        groups.setdefault((r.index_epoch, int(r.level), r.category),
+        version = r.policy_version if snaps is not None else head.version
+        groups.setdefault((r.index_epoch, int(r.level), r.category, version),
                           []).append(r)
     n_ref = 0
-    for (epoch, level, cat), rs in sorted(groups.items()):
+    for (epoch, level, cat, version), rs in sorted(groups.items()):
+        snap = snaps[version] if snaps is not None else head
         policy = (snap.policies[cat] if level == int(ServiceLevel.FULL)
                   else snap.fallbacks[cat])
         qids = np.unique([r.qid for r in rs])
@@ -2513,7 +2553,8 @@ def live_phase(dev, cfg):
     hot-swap and a ``MergeDaemon`` compacts; check parity at every
     recorded epoch on both backends and every response against a
     ``reference`` rollout at its epoch; run the CLI smoke; returns the
-    kernels' launch counts of the serving run."""
+    kernels' launch counts of the serving run, the live system and its
+    storage directory (phase 3f serves that system next)."""
     import tempfile
 
     import numpy as np
@@ -2713,6 +2754,9 @@ def live_phase(dev, cfg):
           f"{served} ({served / n_fresh:.4f})", flush=True)
     for r in cluster.replicas:
         rows = list(r.engine.telemetry.batches)
+        THREAD_MEANS.setdefault("3e", []).append(
+            (np.mean([b['t_inputs_s'] for b in rows]) * 1e3,
+             np.mean([b['t_execute_s'] for b in rows]) * 1e3))
         print(f"[live] replica {r.idx}: {len(rows)} micro-batches, "
               f"batch_inputs {np.mean([b['t_inputs_s'] for b in rows]) * 1e3:.1f} "
               f"ms, execute {np.mean([b['t_execute_s'] for b in rows]) * 1e3:.1f} "
@@ -2760,10 +2804,338 @@ def live_phase(dev, cfg):
           f"{(t2 - t1) * 1e3:.1f} ms, write and map {(t3 - t2) * 1e3:.1f} ms "
           f"({merged.nbytes} bytes)", flush=True)
     live_cli(dev)
-    storage.cleanup()
     print(f"[live] phase 3e in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return launches
+    return launches, sys_, storage
+
+
+# ------------------------------------------------------------ phase 3f
+# Serve through worker processes: phase 3e's live system behind a
+# 2-worker process cell (the reference's GIL-free deployment: one
+# mmapped index, replicas that survive a crash), 3c's engines in each
+# worker, tracing on, production plans as v1.
+PROC_REPLICAS = 2
+PROC_TICKS = 2
+PROC_WAVE = 256                        # the serve cell's query batch
+PROC_KILL_INFLIGHT = 64
+PROC_AB_PAIRS = 4          # process/thread pairs of one cold wave each
+
+
+def proc_cli(dev):
+    """``launch/cluster.py --smoke --replica-backend process`` as a
+    subprocess on ``dev`` (the port's proc-smoke and the process half of
+    trace-smoke), its trace through ``tools/check_trace.py
+    --require-proc-chain``; raises on any non-zero exit."""
+    import os
+
+    out = ROOT / "results"
+    files = {k: str(out / f"proc_cli_{k}_torch.json")
+             for k in ("trace", "metrics", "out")}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = [
+        [sys.executable, "-m", "repro_torch.launch.cluster", "--smoke",
+         "--replica-backend", "process", "--device", dev.type,
+         "--trace-out", files["trace"], "--metrics-json", files["metrics"],
+         "--out", files["out"]],
+        [sys.executable, str(ROOT / "tools" / "check_trace.py"),
+         files["trace"], "--require-proc-chain", "--metrics",
+         files["metrics"]]]
+    for cmd in cmds:
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        name = Path(cmd[1]).name if cmd[1] != "-m" else cmd[2]
+        for line in (res.stdout + res.stderr).strip().splitlines()[-6:]:
+            print(f"[proc cli] {name}: {line}", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"{name} exited {res.returncode}")
+        print(f"[proc cli] {name}: rc 0 in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def ab_process_thread(sys_, store, cluster, workload):
+    """The same wave of 256 through the process cell and through a
+    2-replica thread cell on the same system, epoch and policy version,
+    both caches cold (a publish before each pair retires every entry),
+    in alternating order; per pair the wall of each, and the
+    micro-batches' mean ``execute`` of each side over the pairs.  The
+    two sides' responses must agree (ids, scores, u, candidates,
+    versions).  Returns {"proc": [s...], "thread": [s...], "execute":
+    {side: ms}}."""
+    import numpy as np
+
+    from repro_torch.cluster import ClusterConfig, ReplicaSet, Shed
+    from repro_torch.serving import EngineConfig
+
+    thread = ReplicaSet(sys_, store, ClusterConfig(n_replicas=PROC_REPLICAS),
+                        EngineConfig(backend="block_scan", **ENGINE_CFG))
+    thread.warmup()
+    cells = {"proc": cluster, "thread": thread}
+    walls = {"proc": [], "thread": []}
+
+    def batch_sums():
+        return [(s["n_timed_batches"], (s["t_execute_mean_s"] or 0.0)
+                 * s["n_timed_batches"]) for s in cluster.stats()["replicas"]]
+
+    with thread:
+        before = batch_sums()
+        for i in range(PROC_AB_PAIRS):
+            store.publish(sys_.baseline_policies())
+            deadline = time.perf_counter() + CLUSTER_TIMEOUT_S
+            while (min(r.policy_version for r in cluster.replicas)
+                   < store.version and time.perf_counter() < deadline):
+                time.sleep(0.005)
+            wave = workload.wave()
+            got = {}
+            for name in (("proc", "thread") if i % 2 == 0
+                         else ("thread", "proc")):
+                t0 = time.perf_counter()
+                got[name] = [t.result() for t in serve_wave(cells[name], wave)]
+                walls[name].append(time.perf_counter() - t0)
+            for a, b in zip(got["proc"], got["thread"], strict=True):
+                if isinstance(a, Shed) or isinstance(b, Shed) or not (
+                        (a.qid, a.u, a.cand_cnt, a.policy_version,
+                         a.index_epoch) == (b.qid, b.u, b.cand_cnt,
+                                            b.policy_version, b.index_epoch)
+                        and np.array_equal(a.doc_ids, b.doc_ids)
+                        and np.array_equal(a.scores, b.scores)):
+                    raise AssertionError(f"qid {a.qid}: the process and "
+                                         "the thread cell disagree")
+        after = batch_sums()
+        rows = [b for r in thread.replicas for b in r.engine.telemetry.batches]
+    n = sum(a[0] - b[0] for a, b in zip(after, before))
+    t = sum(a[1] - b[1] for a, b in zip(after, before))
+    return {**walls, "execute": {
+        "proc": t / max(n, 1) * 1e3,
+        "thread": float(np.mean([b["t_execute_s"] for b in rows])) * 1e3},
+        "batches": {"proc": n, "thread": len(rows)}}
+
+
+def proc_phase(dev, sys_, storage):
+    """Phase 3f: serve phase 3e's live system through a 2-worker process
+    cell — freshness ticks (each commit relayed as an epoch, with the
+    queries it appended), a relayed policy publish, a SIGKILL of one
+    worker with tickets in flight and its respawn — and check every
+    response against a ``reference`` rollout at its epoch, level and
+    version, the workers' devices, launches and base generation, the
+    postmortem bundle and the merged cross-process trace; run the CLI
+    smoke; returns the chunk kernel's launches inside the workers over
+    the main path."""
+    import json
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import ClusterConfig, ReplicaSet, Shed
+    from repro_torch.data.freshness import FreshnessConfig, FreshnessWorkload
+    from repro_torch.launch.cluster import (_cell_mapping_stats,
+                                            _smaps_counts_sharing)
+    from repro_torch.obs import Tracer
+    from repro_torch.policies import PolicyStore
+    from repro_torch.serving import EngineConfig
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cell = tempfile.TemporaryDirectory(prefix="proc-cell-")
+    store = PolicyStore(staleness_bound=1)
+    store.publish(sys_.baseline_policies(), fallbacks=sys_.fallback_policies())
+    snaps, epochs = {}, {}
+    unsub_p = store.subscribe(lambda sn: snaps.setdefault(sn.version, sn))
+    unsub_e = sys_.live.store.subscribe(
+        lambda e: epochs.setdefault(e.version, e))
+    workload = FreshnessWorkload(sys_, FreshnessConfig(
+        docs_per_tick=LIVE_DOCS_PER_TICK, wave_queries=PROC_WAVE,
+        frac_fresh=LIVE_FRAC_FRESH, static_rank_fresh=LIVE_STATIC_RANK_FRESH,
+        seed=SEED + 29))
+    tracer = Tracer()
+    cluster = ReplicaSet(sys_, store, ClusterConfig(
+        n_replicas=PROC_REPLICAS, backend="process",
+        proc_storage_dir=cell.name),
+        EngineConfig(backend="block_scan", **ENGINE_CFG), tracer=tracer)
+    cluster.warmup()                  # each worker warms right after spawn
+    gen0 = sys_.live.stats()["generation"]
+    waves = []
+    t0 = time.perf_counter()
+    with cluster:
+        t_ready = time.perf_counter() - t0
+        cluster.kernel_launches(reset=True)   # answered after the warmups
+        t_warm = time.perf_counter() - t0
+        print(f"[proc] {PROC_REPLICAS} workers ready in {t_ready:.2f} s "
+              f"(spawn to ready each: "
+              f"{[round(r.spawn_seconds[0], 3) for r in cluster.replicas]} s), "
+              f"warm in {t_warm:.2f} s; {ENGINE_CFG}, 'block_scan', "
+              f"production plans v1; the live head at generation {gen0}, "
+              f"epoch {sys_.index_epoch}, {sys_.log.n_queries} queries in "
+              f"the log", flush=True)
+        reset_counts()                # the main path: ticks, waves, a kill
+        t0 = time.perf_counter()
+        for _ in range(PROC_TICKS):
+            waves.append(serve_wave(cluster, workload.tick()))
+        store.publish(sys_.baseline_policies())           # v2, relayed
+        waves.append(serve_wave(cluster, workload.wave()))
+        t_before_kill = time.perf_counter() - t0
+        victim = cluster.replicas[0]
+        pid_before = victim.worker_pid
+        # One ticket at a time (each with its own admit span, so that
+        # the merged trace holds whole cross-process chains).
+        inflight = [cluster.submit(int(q))
+                    for q in workload.wave()[:PROC_KILL_INFLIGHT]]
+        os.kill(pid_before, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        for t in inflight:
+            if t.result(timeout=CLUSTER_TIMEOUT_S) is None:
+                raise AssertionError(f"qid {t.qid} lost in the kill")
+        while (len(victim.spawn_seconds) < 2
+               and time.perf_counter() - t_kill < CLUSTER_TIMEOUT_S):
+            time.sleep(0.01)
+        t_respawn = time.perf_counter() - t_kill
+        waves.append(inflight)
+        waves.append(serve_wave(cluster, workload.wave()))
+        wall = time.perf_counter() - t0
+        per_replica = [r.kernel_launches() for r in cluster.replicas]
+        parent_launches = read_counts()
+        stats = cluster.stats()
+        summaries = stats["replicas"]
+        pids = [s["worker_pid"] for s in summaries]
+        maps = _cell_mapping_stats(pids, (cell.name, storage.name))
+        sharing = _smaps_counts_sharing(cell.name)
+        offsets = [r.clock_offset() for r in cluster.replicas]
+        trace_path = ROOT / "results" / "proc_phase_trace_torch.json"
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        n_entries = cluster.write_trace(trace_path)
+        base_dir = str(Path(cell.name) / "base")
+        ab = ab_process_thread(sys_, store, cluster, workload)
+    unsub_p()
+    unsub_e()
+    proc_launches = sum(c.get("block_scan_pruned_chunk", 0)
+                        for c in per_replica)
+
+    # Checks: hazards first.
+    tickets = [t for w in waves for t in w]
+    results = [t.result() for t in tickets]
+    err = [r for r in results
+           if isinstance(r, Shed) and r.reason.startswith("replica_error")]
+    if err:
+        raise AssertionError(f"{len(err)} replica_error sheds: {err[:3]}")
+    sheds = [r for r in results if isinstance(r, Shed)]
+    if sheds or stats["n_submitted"] != len(tickets) or \
+            stats["n_responses"] != len(tickets):
+        raise AssertionError(f"{len(sheds)} sheds, {stats['n_submitted']} "
+                             f"submitted, {stats['n_responses']} responses "
+                             f"for {len(tickets)} tickets")
+    if len(set(pids)) != PROC_REPLICAS or os.getpid() in pids:
+        raise AssertionError(f"worker pids {pids}")
+    if {s["device"] for s in summaries} != {str(dev)} and \
+            {s["device"] for s in summaries} != {dev.type}:
+        raise AssertionError(f"workers on {[s['device'] for s in summaries]}")
+    if dev.type == "cuda" and not all(
+            c.get("block_scan_pruned_chunk", 0) > 0 for c in per_replica):
+        raise AssertionError(f"a worker launched no chunk kernel: "
+                             f"{per_replica}")
+    if any(v for v in parent_launches.values()):
+        raise AssertionError(f"the parent launched kernels: {parent_launches}")
+    if not any(s["index_generation"] >= 2 and s["index_gen_dir"]
+               not in (None, base_dir) for s in summaries):
+        raise AssertionError(f"no worker served at generation >= 2 from a "
+                             f"merged generation: "
+                             f"{[(s['index_generation'], s['index_gen_dir']) for s in summaries]}")
+    if victim.worker_pid == pid_before or victim.n_restarts != 1:
+        raise AssertionError(f"no respawn: pid {victim.worker_pid}, "
+                             f"restarts {victim.n_restarts}")
+    bundle = json.loads(Path(victim.last_bundle_path).read_text())
+    if bundle["reason"] != "worker_dead" or bundle["worker_pid"] != pid_before:
+        raise AssertionError(f"postmortem bundle {bundle['reason']}, "
+                             f"pid {bundle['worker_pid']}")
+    if maps["private_dirty_kb_total"] != 0 or not all(
+            w["n_mappings"] > 0 for w in maps["workers"]):
+        raise AssertionError(f"the cell's files are not mapped shared: {maps}")
+    n_docs = sys_.live.n_docs
+    for r in results:
+        valid = r.doc_ids >= 0
+        if not (np.isfinite(r.scores[valid]).all()
+                and (r.doc_ids[valid] < n_docs).all()):
+            raise AssertionError(f"qid {r.qid}: ids/scores out of range")
+    t1 = time.perf_counter()
+    n_ref = check_live_against_reference(sys_, store, epochs, results, snaps)
+    t_ref = time.perf_counter() - t1
+    chk = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_trace.py"),
+         str(trace_path), "--require-proc-chain"],
+        capture_output=True, text=True, timeout=300)
+    print(f"[proc] check_trace: {chk.stdout.strip()[-400:]}", flush=True)
+    if chk.returncode != 0:
+        raise AssertionError(f"check_trace exited {chk.returncode}: "
+                             f"{chk.stderr[-2000:]}")
+
+    # Prints.
+    n_arr = len(tickets)
+    before = [t for w in waves[:PROC_TICKS + 1] for t in w]
+    print(f"[proc] serve through {PROC_REPLICAS} worker processes: "
+          f"{PROC_TICKS} freshness ticks of {LIVE_DOCS_PER_TICK} docs, a wave "
+          f"of {PROC_WAVE} ({LIVE_FRAC_FRESH} fresh) after each, a relayed "
+          f"v2 and a wave, {PROC_KILL_INFLIGHT} tickets across a SIGKILL, a "
+          f"last wave: {n_arr} arrivals in {wall:.2f} s, "
+          f"{n_arr / wall:.1f} queries/s ({len(before) / t_before_kill:.1f} "
+          f"before the kill); ticket p50 {pct_ms(tickets, 50):.3f} ms, p99 "
+          f"{pct_ms(tickets, 99):.3f} ms (before the kill: "
+          f"{pct_ms(before, 50):.3f} / {pct_ms(before, 99):.3f} ms); hits "
+          f"{sum(r.cached for r in results)}", flush=True)
+    print(f"[proc] SIGKILL of worker {pid_before} with "
+          f"{PROC_KILL_INFLIGHT} tickets in flight: every ticket answered and "
+          f"the respawn ready {t_respawn:.2f} s after the kill (spawn to "
+          f"ready {victim.spawn_seconds[1]:.3f} s), new pid "
+          f"{victim.worker_pid}; postmortem bundle "
+          f"{Path(victim.last_bundle_path).name} ({bundle['reason']}, "
+          f"{len(bundle['trace_tail'])} trace entries)", flush=True)
+    for i, s in enumerate(summaries):
+        print(f"[proc] worker {i} (pid {s['worker_pid']}, {s['device']}, "
+              f"restarts {s['n_restarts']}): {s['n_timed_batches']} "
+              f"micro-batches, batch_inputs "
+              f"{(s['t_inputs_mean_s'] or 0) * 1e3:.1f} ms, execute "
+              f"{(s['t_execute_mean_s'] or 0) * 1e3:.1f} ms (means); "
+              f"chunk launches {per_replica[i]}; scoring sub-batch "
+              f"{s['scoring_batch_size']} queries; serves generation "
+              f"{s['index_generation']} from {Path(s['index_gen_dir']).name}; "
+              f"policy v{s['policy_version']}, epoch {s['index_epoch']}",
+              flush=True)
+    for phase, rows in sorted(THREAD_MEANS.items()):
+        print(f"[proc] beside phase {phase}'s thread replicas: "
+              + "; ".join(f"batch_inputs {a:.1f} ms, execute {b:.1f} ms"
+                          for a, b in rows), flush=True)
+    print(f"[proc] A/B, the same cold wave of {PROC_WAVE} on the same epoch "
+          f"and version, {PROC_AB_PAIRS} pairs in alternating order: process "
+          f"cell {[round(x, 3) for x in ab['proc']]} s, thread cell "
+          f"{[round(x, 3) for x in ab['thread']]} s (medians "
+          f"{np.median(ab['proc']):.3f} / {np.median(ab['thread']):.3f} s); "
+          f"execute per micro-batch {ab['execute']['proc']:.1f} / "
+          f"{ab['execute']['thread']:.1f} ms (means over "
+          f"{ab['batches']['proc']} / {ab['batches']['thread']}); responses "
+          f"equal", flush=True)
+    print(f"[proc] clock offsets and RTTs (s): "
+          f"{[(round(o, 6), round(rt, 6)) for o, rt in offsets]}", flush=True)
+    print(f"[proc] mapped cell and generations per worker (kB): "
+          + "; ".join(f"pid {w['pid']}: {w['n_mappings']} maps, Rss "
+                      f"{w['rss_kb']}, Pss {w['pss_kb']}, private dirty "
+                      f"{w['private_dirty_kb']}" for w in maps["workers"])
+          + ("" if sharing else " (this host's smaps reports Pss = Rss for "
+             "every shared page: the Pss of a shared mapping is not "
+             "observable here)"), flush=True)
+    print(f"[proc] proc_launches {proc_launches} (per replica {per_replica}; "
+          f"the parent's {parent_launches}); {n_entries} trace entries merged; "
+          f"every response ({len(results)}) bit-equal to a 'reference' "
+          f"rollout at its epoch, level and version ({n_ref} reference "
+          f"rollouts, {t_ref:.2f} s); epochs served "
+          f"{sorted({r.index_epoch for r in results})}, versions "
+          f"{sorted({r.policy_version for r in results})}", flush=True)
+    cell.cleanup()
+    proc_cli(dev)
+    print(f"[proc] phase 3f in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return proc_launches
 
 
 # ------------------------------------------------------------ phase 4
@@ -3348,9 +3720,15 @@ def main() -> int:
         raise AssertionError("the cluster launched no block_scan kernel")
     del sys_, trained
     torch.cuda.empty_cache()
-    live_launches = live_phase(dev, cfg)
+    live_launches, live_sys, storage = live_phase(dev, cfg)
     if live_launches["block_scan_pruned_chunk"] <= 0:
         raise AssertionError("the live fleet launched no block_scan kernel")
+    torch.cuda.empty_cache()
+    proc_launches = proc_phase(dev, live_sys, storage)
+    if proc_launches <= 0:
+        raise AssertionError("the process cell launched no block_scan kernel")
+    del live_sys
+    storage.cleanup()
     torch.cuda.empty_cache()
 
     lm_launches = lm_phase(dev)
@@ -3380,8 +3758,8 @@ def main() -> int:
             "src/repro/kernels/block_scan/block_scan_pruned.py:222",
             launches["block_scan_pruned_chunk"],
             rows[4], worst(rows)),      # C=4: the serve path's chunk
-        # (its "train_launches", "engine_launches", "cluster_launches"
-        # and "live_launches" keys are added below)
+        # (its "train_launches", "engine_launches", "cluster_launches",
+        # "live_launches" and "proc_launches" keys are added below)
         row("block_scan_tile", "block_scan_tile.cu",
             "src/repro/kernels/block_scan/block_scan.py:65",
             whole_launches["block_scan_tile"], whole_rows[("batched", "deep")],
@@ -3425,6 +3803,7 @@ def main() -> int:
     kernels[0]["engine_launches"] = engine_launches["block_scan_pruned_chunk"]
     kernels[0]["cluster_launches"] = cluster_launches["block_scan_pruned_chunk"]
     kernels[0]["live_launches"] = live_launches["block_scan_pruned_chunk"]
+    kernels[0]["proc_launches"] = proc_launches
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,4 +1,4 @@
-"""Online learning cluster (the port of ``repro.cluster``, thread backend).
+"""Online learning cluster (the port of ``repro.cluster``).
 
 A background `TrainerLoop` publishes versioned policy snapshots (live
 policies + their SHALLOW fallbacks, atomically) into a shared
@@ -7,8 +7,10 @@ threads serves continuously — queue-aware/cache-affinity routing in
 front, a pressure-tiered admission ladder (FULL → SHALLOW → CACHED_ONLY
 → explicit `Shed`) priced in u at the door, per-response policy-version
 lag accounting throughout, and a `ServedTrafficTap` feeding the trainer
-the queries the fleet actually served.  The reference's process cell
-(`FollowerSystem`, `ProcessReplica`, `ShmRing`) is not ported yet.
+the queries the fleet actually served.  With
+``ClusterConfig(backend="process")`` the replicas are worker processes
+over shared-memory rings and one mapped index (`repro_torch.cluster.proc`:
+`FollowerSystem`, `ProcessReplica`, `ShmRing`).
 """
 from repro_torch.serving.levels import ServiceLevel
 

@@ -1,5 +1,5 @@
 """`ReplicaSet`: the online-learning cluster front door (the port's copy
-of the reference's ``cluster/cluster.py``, thread backend only).
+of the reference's ``cluster/cluster.py``).
 
 Topology (the reference's docs/cluster.md has the full diagram):
 
@@ -26,16 +26,17 @@ release the u reservation, feed the realized u back into the
 policy version lag (bounded by the store's staleness check, surfaced
 in `stats()`), and land in the `ServedTrafficTap` the trainer samples.
 
-The reference's second backend, worker processes over shared-memory
-rings and one mmapped index (``backend="process"``), is the process
-cell; it is not ported yet and raises ``NotImplementedError`` here.
+The second backend, ``backend="process"``, is the process cell
+(`repro_torch.cluster.proc`): worker processes over shared-memory rings
+and one mmapped index.  Each worker builds its system on the parent
+system's device.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 from collections import OrderedDict, deque
-from typing import Deque, List, Optional, Sequence, Union
+from typing import Deque, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -63,9 +64,15 @@ Result = Union[ServeResponse, Shed]
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
     n_replicas: int = 2
-    # "thread": N ServeEngines on worker threads in this process.
-    # "process" (the reference's worker processes) is not ported yet.
+    # "thread": N ServeEngines on worker threads in this process (the
+    # default and the parity oracle).  "process": N worker processes,
+    # each mmapping the cell's saved base generation (one physical
+    # copy fleet-wide), fed over binary shared-memory rings with
+    # policy/epoch publishes relayed per-worker (repro_torch.cluster.proc).
     backend: str = "thread"
+    proc_ring_slots: int = 64             # per-direction SPSC ring slots
+    proc_storage_dir: Optional[str] = None  # cell dir (tempdir when None)
+    max_worker_restarts: int = 2          # respawns before shedding
     routing: str = "queue_aware"          # or "round_robin"
     spill_margin: int = 4                 # depth gap before spilling
     owner_spill_depth: Optional[int] = 32  # sticky-owner saturation gauge
@@ -93,14 +100,10 @@ class ReplicaSet:
                  tracer: Tracer = NULL_TRACER):
         if cfg.n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
-        if cfg.backend == "process":
-            raise NotImplementedError(
-                "replica backend 'process' is not ported yet: the process "
-                "cell (worker processes over shared-memory rings) is the "
-                "next slice; use backend='thread'")
-        if cfg.backend != "thread":
-            raise ValueError(f"unknown replica backend {cfg.backend!r} "
-                             "(expected 'thread')")
+        if cfg.backend not in ("thread", "process"):
+            raise ValueError(
+                f"unknown replica backend {cfg.backend!r} "
+                "(expected 'thread' or 'process')")
         self.system = system
         self.store = store
         self.cfg = cfg
@@ -115,14 +118,15 @@ class ReplicaSet:
         self._c_shed_replica = self.registry.counter("cluster.shed",
                                                      where="replica")
         # Flight recorder: bounded structured event ring (publishes,
-        # epoch swaps, level transitions, sheds); the thread backend
-        # records events and writes no bundle.
+        # epoch swaps, level transitions, sheds, worker restarts) that
+        # ships inside postmortem bundles when a worker dies.
         self.events = EventLog(registry=self.registry)
         self.recorder = FlightRecorder(
             self.events,
             config={"backend": cfg.backend, "n_replicas": cfg.n_replicas,
                     "routing": cfg.routing, "ladder": cfg.ladder,
-                    "u_inflight_budget": cfg.u_inflight_budget})
+                    "u_inflight_budget": cfg.u_inflight_budget,
+                    "max_worker_restarts": cfg.max_worker_restarts})
         self._last_level: Optional[int] = None
         self._last_generation: Optional[int] = None
         self.router = make_router(cfg.routing, spill_margin=cfg.spill_margin,
@@ -143,12 +147,16 @@ class ReplicaSet:
                                     holdout_every=cfg.tap_holdout_every,
                                     holdout_capacity=cfg.tap_holdout_capacity)
         self._unsubscribes: List = []
-        self.replicas: List[Replica] = [
-            Replica(i, system, store, engine_cfg,
-                    on_complete=self._on_complete, tracer=tracer)
-            for i in range(cfg.n_replicas)
-        ]
+        self._engine_cfg = engine_cfg
         self._lock = threading.Lock()
+        if cfg.backend == "thread":
+            self.replicas: List[Replica] = [
+                Replica(i, system, store, engine_cfg,
+                        on_complete=self._on_complete, tracer=tracer)
+                for i in range(cfg.n_replicas)
+            ]
+        else:
+            self.replicas = self._build_process_cell(engine_cfg)
         # (key, policy_version, index_epoch) -> replica whose result
         # cache owns it (LRU-bounded); repeats route back there
         # regardless of depth — a hit is nearly free, a balanced miss
@@ -170,11 +178,153 @@ class ReplicaSet:
         self.n_shed = 0
         self._started = False
 
+    # -------------------------------------------------------- process cell
+    def _build_process_cell(self, engine_cfg: EngineConfig) -> List:
+        """Spawn-side of ``backend="process"``: save the base index
+        once (every worker ``np.memmap``s that ONE copy), build the
+        per-replica spec factory, and subscribe relay fan-outs so each
+        policy snapshot / index epoch publish reaches every worker over
+        its control pipe."""
+        import tempfile
+        from pathlib import Path
+
+        from repro_torch.index.live.segments import BaseSegment, MANIFEST_NAME
+
+        from .proc import ProcessReplica
+        from .proc.follower import save_log
+
+        self._proc_root = Path(self.cfg.proc_storage_dir
+                               or tempfile.mkdtemp(prefix="repro-proc-cell-"))
+        base_dir = self._proc_root / "base"
+        if not (base_dir / MANIFEST_NAME).exists():
+            # system.index is the PRISTINE corpus-built index even on a
+            # live system (LiveIndex wraps a copy as generation 0) — the
+            # workers derive their env shapes and IDF table from it.
+            BaseSegment.from_index(self.system.index).save(base_dir)
+        self._proc_base_dir = str(base_dir)
+        # The query log too, once: a worker loads it instead of
+        # regenerating the corpus and the log from the config (rows the
+        # live system appends later follow as log tails).
+        self._proc_log_path = str(self._proc_root / "log.npz")
+        self._proc_log_rows = save_log(self.system, self._proc_log_path)
+        # The log rows each worker holds or has been sent: set from its
+        # spec at every (re)spawn, advanced by the relays it takes, both
+        # under that replica's relay_mu.
+        self._worker_log_rows: Dict[int, int] = {}
+        # Postmortem bundles land next to the cell's segments — one
+        # durable artifact per salvaged worker death (obs.FlightRecorder).
+        self.recorder.bundle_dir = self._proc_root / "postmortem"
+        replicas = [
+            ProcessReplica(i, self._worker_spec,
+                           on_complete=self._on_complete,
+                           keep=engine_cfg.keep,
+                           ring_slots=self.cfg.proc_ring_slots,
+                           max_restarts=self.cfg.max_worker_restarts,
+                           cache_mirror_capacity=engine_cfg.cache_capacity,
+                           tracer=self.tracer,
+                           recorder=self.recorder)
+            for i in range(self.cfg.n_replicas)
+        ]
+        return replicas
+
+    def _epoch_gen_dir(self, epoch) -> str:
+        """On-disk home of an epoch's base generation — saved under the
+        cell dir once if the live index is storage-less."""
+        from repro_torch.index.live.segments import MANIFEST_NAME
+
+        base = epoch.view.base
+        if base.path:
+            return str(base.path)
+        gen_dir = self._proc_root / f"gen-{base.generation:05d}"
+        if not (gen_dir / MANIFEST_NAME).exists():
+            base.save(gen_dir)
+        return str(gen_dir)
+
+    def _worker_spec(self, idx: int, req_info, resp_info):
+        """Capture the head serving state for one worker (re)spawn, as
+        host values (``to_host``): nothing in the spec holds a tensor.
+        Runs under the replica's ``relay_mu``."""
+        from .proc import WorkerSpec, to_host
+        from .proc.follower import log_tail
+
+        snap = self.store.snapshot()
+        index_store = getattr(self.system, "index_epoch_store", None)
+        live = index_store is not None
+        init_epoch = None
+        capacity = None
+        index_sb = 64
+        tail = None
+        if live:
+            epoch = index_store.snapshot()
+            init_epoch = (epoch.version, epoch.generation,
+                          self._epoch_gen_dir(epoch), tuple(epoch.ops))
+            capacity = epoch.view.capacity_docs
+            index_sb = index_store.staleness_bound
+            # Taken after the epoch: the rows appended before its
+            # commit are in the tail.
+            tail = log_tail(self.system, self._proc_log_rows)
+        self._worker_log_rows[idx] = _rows_after(self._proc_log_rows, tail)
+        return WorkerSpec(
+            replica_idx=idx,
+            sys_cfg=self.system.cfg,
+            base_dir=self._proc_base_dir,
+            live=live,
+            capacity_docs=capacity,
+            init_epoch=init_epoch,
+            # MappingProxyType snapshots aren't picklable; plain dicts
+            # of host values are.
+            init_policy=(snap.version, to_host(dict(snap.policies)),
+                         to_host(dict(snap.fallbacks))),
+            l1_params=to_host(self.system.l1_params),
+            bins=to_host(self.system.bins),
+            qcfg=self.system.qcfg,
+            engine_cfg=self._engine_cfg,
+            policy_staleness_bound=self.store.staleness_bound,
+            index_staleness_bound=index_sb,
+            req_ring=req_info,
+            resp_ring=resp_info,
+            trace=self.tracer.enabled,
+            device=str(self.system.device),
+            log_path=self._proc_log_path,
+            log_tail=tail)
+
+    def _relay_epoch_to(self, replica, epoch) -> None:
+        """Relay ``epoch`` to one worker with the query-log rows it has
+        not been sent (appends precede their commit); the worker's row
+        count moves only if the relay was taken."""
+        from .proc.follower import log_tail
+
+        gen_dir = self._epoch_gen_dir(epoch)
+        with replica.relay_mu:
+            q0 = self._worker_log_rows[replica.idx]
+            tail = log_tail(self.system, q0)
+            if replica.relay_epoch(epoch.version, epoch.generation, gen_dir,
+                                   tuple(epoch.ops), tail):
+                self._worker_log_rows[replica.idx] = _rows_after(q0, tail)
+
+    def _subscribe_relays(self) -> None:
+        """Fan every publish out to the worker processes.  Deliveries
+        run on the publisher's thread; per-worker pipes keep FIFO order,
+        so a worker always applies versions monotonically."""
+        def relay_policy(snap) -> None:
+            policies, fallbacks = dict(snap.policies), dict(snap.fallbacks)
+            for r in self.replicas:
+                r.relay_policy(snap.version, policies, fallbacks)
+
+        self._unsubscribes.append(self.store.subscribe(relay_policy))
+        index_store = getattr(self.system, "index_epoch_store", None)
+        if index_store is not None:
+            def relay_epoch(epoch) -> None:
+                for r in self.replicas:
+                    self._relay_epoch_to(r, epoch)
+
+            self._unsubscribes.append(index_store.subscribe(relay_epoch))
+
     def _subscribe_events(self) -> None:
-        """Record every publish into the flight recorder: policy
-        publishes, and index epoch swaps split into plain swaps vs
-        merges (a merge publishes a NEW base generation — the
-        generation bump is the tell; a static system has no epoch
+        """Record every publish into the flight recorder (both
+        backends): policy publishes, and index epoch swaps split into
+        plain swaps vs merges (a merge publishes a NEW base generation
+        — the generation bump is the tell; a static system has no epoch
         store, so only policy publishes land)."""
         def on_policy(snap) -> None:
             self.events.record("policy_publish", version=snap.version,
@@ -203,8 +353,17 @@ class ReplicaSet:
 
     # ------------------------------------------------------------ control
     def start(self) -> "ReplicaSet":
-        for r in self.replicas:
-            r.start()
+        if self.cfg.backend == "process":
+            # Every worker spawns before the first is waited on: their
+            # start-up (interpreter, torch, device, log, base) overlaps.
+            for r in self.replicas:
+                r.launch()
+            for r in self.replicas:
+                r.wait_ready()
+            self._subscribe_relays()
+        else:
+            for r in self.replicas:
+                r.start()
         self._subscribe_events()
         self._started = True
         return self
@@ -226,7 +385,8 @@ class ReplicaSet:
     def warmup(self) -> int:
         """Prepare every replica's serve steps (serially, before the
         worker threads start: the first launch of a kernel builds and
-        loads it); returns the steps prepared."""
+        loads it; a process replica prepares in its worker); returns
+        the steps prepared."""
         return sum(r.warmup() for r in self.replicas)
 
     # ------------------------------------------------------------- submit
@@ -542,6 +702,27 @@ class ReplicaSet:
                                 reason=getattr(result, "reason", None))
 
     # -------------------------------------------------------------- stats
+    @property
+    def proc_cell_dir(self):
+        """Storage dir shared by the process cell's workers (the mmap'd
+        base, the saved query log, postmortem bundles); None on the
+        thread backend."""
+        root = getattr(self, "_proc_root", None)
+        return str(root) if root is not None else None
+
+    def kernel_launches(self, reset: bool = False) -> dict:
+        """Kernel launches inside the process cell's workers, summed
+        over the fleet (``ProcessReplica.kernel_launches``); ``reset``
+        sets them to 0 once read.  Empty on the thread backend, whose
+        launches are this process's own."""
+        out: dict = {}
+        if self.cfg.backend != "process":
+            return out
+        for r in self.replicas:
+            for k, v in r.kernel_launches(reset=reset).items():
+                out[k] = out.get(k, 0) + v
+        return out
+
     def metrics_snapshot(self) -> dict:
         """The fleet metrics view: every replica registry (request/
         latency/u/queue-wait instruments, cache counters) folded into
@@ -558,13 +739,19 @@ class ReplicaSet:
         return _health.statusz(self, watchdog)
 
     def trace_entries(self) -> list:
-        """The fleet's span entries: the shared tracer's log (admit and
-        route on the submit thread, engine spans on the replica
-        threads) — one timeline on one clock."""
-        return self.tracer.log.snapshot() if self.tracer.enabled else []
+        """The fleet's merged span entries: the parent tracer's log
+        (admit/route/ring spans, thread-replica engine spans) plus every
+        process replica's rebased worker tail — one coherent timeline on
+        the parent clock."""
+        entries: list = []
+        if self.tracer.enabled:
+            entries.extend(self.tracer.log.snapshot())
+        for r in self.replicas:
+            entries.extend(r.trace_entries())
+        return entries
 
     def write_trace(self, path, process_name: str = "repro-cluster") -> int:
-        """Export the fleet timeline as one Chrome/Perfetto
+        """Export the merged fleet timeline as one Chrome/Perfetto
         trace; returns the number of span entries written."""
         entries = self.trace_entries()
         write_chrome_entries(path, entries, process_name=process_name)
@@ -616,3 +803,9 @@ class ReplicaSet:
             "tap": self.tap.stats(),
             "replicas": [r.summary() for r in self.replicas],
         }
+
+
+def _rows_after(q0: int, tail) -> int:
+    """The rows a log of ``q0`` rows holds once ``tail`` (a
+    ``follower.log_tail`` payload from ``q0``, or None) is appended."""
+    return q0 if tail is None else tail[0] + tail[1]["terms"].shape[0]

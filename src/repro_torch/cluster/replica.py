@@ -63,9 +63,14 @@ class ClusterTicket:
         self.replica: Optional[int] = None
         # Trace context (repro_torch.obs): the cluster opens ``span``
         # (the ticket's root) at admission and ends it at completion;
-        # ``inbox_span`` covers route → replica-thread pickup.
+        # ``inbox_span`` covers route → replica-thread pickup (or, on
+        # the process backend, route → ring push); ``ring_span`` is the
+        # process backend's parent-side cover of the worker round trip
+        # (ring push → response pop), which encloses every span the
+        # worker records for this ticket.
         self.span = None
         self.inbox_span = None
+        self.ring_span = None
         self.t_submit = Telemetry.now()
         self.t_done: Optional[float] = None
         # The Event is created LAZILY, only when a waiter arrives before
@@ -81,10 +86,11 @@ class ClusterTicket:
 
     def complete(self, result: Result) -> bool:
         """Install the result; the FIRST completion wins.  Returns False
-        for late duplicates (a ticket shed at shutdown while its
-        response was in flight).  Callers that do per-completion
-        accounting (telemetry, tap records, ledger releases) must gate
-        on the return value, or a ticket is double-counted."""
+        for late duplicates — e.g. the original response of a ticket
+        that was requeued after a worker death and already answered by
+        the respawned worker.  Callers that do per-completion accounting
+        (telemetry, tap records, ledger releases) must gate on the
+        return value, or a retried ticket is double-counted."""
         with self._done_lock:
             if self._done:
                 return False
@@ -240,8 +246,10 @@ class Replica:
     def index_epoch(self) -> int:
         return self.engine.index_epoch
 
-    # Replica protocol: the ReplicaSet talks to replicas only through
-    # these, never through ``.engine`` directly.
+    # Replica protocol (shared with cluster.proc.ProcessReplica): the
+    # ReplicaSet talks to replicas only through these, never through
+    # ``.engine`` directly — a process-backed replica has no in-process
+    # engine to reach into.
     def cache_has(self, base_key) -> bool:
         return self.engine.cache_has(base_key)
 
@@ -258,9 +266,9 @@ class Replica:
         return out
 
     def health(self) -> dict:
-        """Statusz liveness signals, in the reference's shape (the
-        process cell's fields ``worker_pid``/``n_restarts`` are None/0
-        here).  A thread replica shares the parent's fault domain, so
+        """Statusz liveness signals, shape-compatible with
+        `ProcessReplica.health` (``worker_pid``/``n_restarts`` are
+        None/0 here).  A thread replica shares the parent's fault domain, so
         liveness is just the worker thread's and the heartbeat age is
         definitionally zero while it runs."""
         alive = self._thread is not None and self._thread.is_alive()
@@ -270,6 +278,12 @@ class Replica:
             "heartbeat_age_s": 0.0 if alive else None,
             "pending": self.depth(),
         }
+
+    def trace_entries(self) -> list:
+        """Protocol parity with `ProcessReplica`: a thread replica's
+        spans land directly in the shared tracer's log — nothing to
+        merge."""
+        return []
 
     # -------------------------------------------------------------- worker
     def _take_inbox(self):

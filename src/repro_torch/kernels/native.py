@@ -12,7 +12,11 @@ else, so that a run can show which kernels the main path went through.
 
 Several threads may launch one kernel (the cluster's replicas and its
 trainer): a lock per kernel makes the first launch build and load the
-library once, and no count is lost between threads.
+library once, and no count is lost between threads.  Several processes
+may too (the process cell's workers, each with its own lock and count):
+each builds into a temporary file of its own name and renames it over
+the library, so two first builds at once never write one file, and a
+process that finds the library already there loads it.
 """
 from __future__ import annotations
 
@@ -86,8 +90,9 @@ class NativeKernel:
             lib.parent.mkdir(parents=True, exist_ok=True)
             # Written beside the library and renamed, so that an
             # interrupted build never leaves a library that later loads
-            # would take.
-            tmp = lib.with_suffix(".tmp")
+            # would take; named per process, so that two processes
+            # building at once never write into one file.
+            tmp = lib.parent / f"{lib.name}.{os.getpid()}.tmp"
             out = subprocess.run(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                  str(CSRC_DIR / self.source)],

@@ -6,10 +6,12 @@ layer records into; `trace` holds the Span/Tracer/TraceLog machinery
 that follows a ticket from admission to the serve step and exports a
 Perfetto-loadable Chrome trace; `health` is the statusz/watchdog
 introspection plane; `slo` computes multi-window error-budget burn over
-merged snapshots; `events` is the bounded flight-recorder ring.  Host
-only; the port's copies of the reference's ``obs`` modules, as far as
-one process needs them (the cross-process trace merge waits for the
-process cell).
+merged snapshots; `events` is the bounded flight-recorder ring behind
+postmortem bundles.  Host only; the port's copies of the reference's
+``obs`` modules.  A ticket's trace follows it across the process
+boundary of the process cell (``repro_torch.cluster.proc``): workers
+ship entry deltas and the parent rebases them with
+:func:`adjust_remote_entries`.
 """
 from .events import EventLog, FlightRecorder
 from .health import HeartbeatWatchdog, statusz
@@ -28,6 +30,7 @@ from .trace import (
     Span,
     TraceLog,
     Tracer,
+    adjust_remote_entries,
     export_chrome_entries,
     write_chrome_entries,
 )
@@ -47,6 +50,7 @@ __all__ = [
     "Span",
     "TraceLog",
     "Tracer",
+    "adjust_remote_entries",
     "export_chrome_entries",
     "fold_snapshot",
     "merge_snapshots",

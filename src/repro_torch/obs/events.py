@@ -12,9 +12,10 @@ the tail is cheap to keep forever and cheap to dump.
 The :class:`FlightRecorder` owns one event log plus the static run
 config and writes **postmortem bundles**: a single JSON file with the
 event-ring tail, the last metrics snapshot, the trace tail, and
-whatever the caller adds.  The port's copy of the reference's
-``obs/events.py``: the thread-backed ``ReplicaSet`` records into the
-event log and never writes a bundle (it has no worker to salvage).
+whatever the caller adds — written by ``ProcessReplica`` whenever it
+salvages a dead worker, so a SIGKILL'd replica leaves forensics behind
+instead of just a respawn counter.  The port's copy of the reference's
+``obs/events.py``.
 """
 from __future__ import annotations
 

@@ -1,22 +1,26 @@
 """Health/introspection plane: per-cell statusz + heartbeat watchdog.
 
-The port's copy of the reference's ``obs/health.py``, for the thread
-backend.  ``statusz(cluster)`` is the cell's one-page answer to "what
-state is the fleet in RIGHT NOW": head policy version and index epoch,
-per replica the versions it has actually applied (and the lag against
-the head), queue depths and a watchdog verdict per replica.  It reads
-only replica state — no call into a worker — so it is safe to dump
-from a monitoring loop.  `tools/obsctl.py` renders the JSON;
+The port's copy of the reference's ``obs/health.py``.
+``statusz(cluster)`` is the cell's one-page answer to "what state is
+the fleet in RIGHT NOW": head policy version and index epoch, per
+replica the versions it has actually applied (and the lag against the
+head), queue depths, ring occupancy/park counters straight from the
+shm ring headers, restart counts, and a watchdog verdict per worker.
+It reads only parent-side state (ring headers, cached acks, process
+liveness) — no control-pipe round trips — so it is safe to dump from a
+monitoring loop.  `tools/obsctl.py` renders the JSON;
 ``repro_torch.launch.cluster --statusz-out`` writes it.
 
-The :class:`HeartbeatWatchdog` classifies a replica from its liveness,
-the age of its last heartbeat and the work waiting for it.  A stale
-heartbeat alone is NOT a hang: a parked idle consumer may
-legitimately stop stamping.  The watchdog therefore folds in the
-pending-work signal and only calls "wedged" when the heartbeat is
-stale *while work is waiting*:
+The :class:`HeartbeatWatchdog` reads the worker heartbeat each worker
+stamps into its request ring header (``time.monotonic``, comparable
+across processes — CLOCK_MONOTONIC is system-wide).  The subtlety is
+that a stale heartbeat alone is NOT a hang: a parked idle consumer
+blocks in ``conn.poll`` with an empty ring and may legitimately stop
+stamping.  The watchdog therefore folds in the pending-work signal
+(ring occupancy + the worker's published engine depth) and only calls
+"wedged" when the heartbeat is stale *while work is waiting*:
 
-    dead         worker gone
+    dead         process gone (or restarts exhausted)
     healthy      heartbeat fresh (< stale_after_s)
     parked_idle  heartbeat stale, but nothing pending — parked, fine
     busy         heartbeat stale with work pending, but within the
@@ -24,8 +28,7 @@ stale *while work is waiting*:
     wedged       heartbeat stale past wedge_after_s with work pending
 
 A thread replica shares its process, so its heartbeat age is zero
-while its thread runs; the state machine is kept whole for the
-process cell the port has yet to gain.
+while its thread runs.
 """
 from __future__ import annotations
 
@@ -61,8 +64,9 @@ class HeartbeatWatchdog:
         if heartbeat_age_s is None or heartbeat_age_s < self.stale_after_s:
             return "healthy"
         if pending <= 0:
-            # The no-false-positive case: an idle parked consumer is
-            # healthy no matter how old its last stamp is.
+            # The no-false-positive case: an idle parked consumer
+            # (empty ring, blocked on its control pipe) is healthy
+            # no matter how old its last stamp is.
             return "parked_idle"
         if heartbeat_age_s < self.wedge_after_s:
             return "busy"
@@ -77,10 +81,11 @@ def _worst(states) -> str:
 
 
 def statusz(cluster, watchdog: Optional[HeartbeatWatchdog] = None) -> dict:
-    """One-page cell status JSON for a ``ReplicaSet``.
+    """One-page cell status JSON for a ``ReplicaSet`` (either backend).
 
     Field reference lives in the reference's docs/observability.md;
-    calling this never blocks on a replica.
+    everything here is parent-side state only — calling this never
+    blocks on a worker.
     """
     wd = watchdog or HeartbeatWatchdog()
     head_version = cluster.store.version
@@ -110,4 +115,7 @@ def statusz(cluster, watchdog: Optional[HeartbeatWatchdog] = None) -> dict:
         "events_recorded": cluster.events.n_recorded,
         "events_tail_kinds": [e["kind"] for e in cluster.events.tail(16)],
     }
+    cell_dir = getattr(cluster, "proc_cell_dir", None)
+    if cell_dir:
+        doc["cell_dir"] = cell_dir
     return doc

@@ -19,6 +19,19 @@ Thread-level work (micro-batches, serve-step preparations) lands on the
 owning thread's track.  Everything shares one clock
 (``time.perf_counter``).
 
+Multi-process cells merge several logs into one timeline: each worker
+ships entry deltas (:meth:`TraceLog.drain_since`) over its control
+pipe, the parent rebases them onto its own clock and id space
+(:func:`adjust_remote_entries` — the offset comes from a ping handshake
+at worker startup), and :func:`export_chrome_entries` namespaces tracks
+by (pid, track) so worker threads from different processes never share
+a tid.  Entries whose track is a ticket track (``ticket #<id>``) keep
+the parent's pid — the worker-side execute/respond spans land on the
+SAME Perfetto row as the parent's admit/ring spans.  Residual
+clock-offset error is absorbed at export by clamping a shipped span to
+the bounds of the span that encloses it on its track, so B/E stacks
+nest by construction no matter how skewed the estimate was.
+
 Cost model: tracing is **off by default** — a disabled tracer returns
 the ``NULL_SPAN`` singleton from every call, so instrumentation costs
 one attribute check per site.  Enabled, spans are plain ``__slots__``
@@ -40,10 +53,16 @@ import json
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["Span", "TraceLog", "Tracer", "NULL_SPAN", "NULL_TRACER",
-           "export_chrome_entries", "write_chrome_entries"]
+           "adjust_remote_entries", "export_chrome_entries",
+           "write_chrome_entries"]
+
+#: Track-name prefix of per-ticket rows (``Tracer.root_span("ticket")``
+#: makes ``ticket #<id>``); merged remote entries on these tracks join
+#: the parent process's row instead of opening a per-worker one.
+TICKET_TRACK_PREFIX = "ticket #"
 
 
 class Span:
@@ -184,6 +203,25 @@ class TraceLog:
                  "t0": t0, "t1": t1, "args": args}
                 for kind, name, track, sid, parent, t0, t1, args in entries]
 
+    def drain_since(self, cursor: int) -> Tuple[List[dict], int]:
+        """Entries recorded after ``cursor`` (a previous return's new
+        cursor; 0 for everything), as snapshot-shaped dicts.  The
+        worker→parent shipping primitive: each control-pipe stats reply
+        carries only the delta, and entries the ring already evicted
+        are silently skipped (the parent's tail is best-effort by
+        design).  Parent ids are NOT re-rooted here — earlier deltas
+        may hold the parent; the exporter re-roots whatever is still
+        dangling at merge time."""
+        with self._lock:
+            total = self.n_recorded
+            ring = list(self._ring)
+        start = max(int(cursor), total - len(ring))
+        entries = ring[len(ring) - (total - start):] if start < total else []
+        return ([{"kind": kind, "name": name, "track": track, "id": sid,
+                  "parent": parent, "t0": t0, "t1": t1, "args": args}
+                 for kind, name, track, sid, parent, t0, t1, args in entries],
+                total)
+
     def export_chrome(self, process_name: str = "repro_torch") -> dict:
         """Chrome trace-event JSON (Perfetto-loadable) of this log's
         entries — see :func:`export_chrome_entries`."""
@@ -193,6 +231,41 @@ class TraceLog:
     def write_chrome(self, path, process_name: str = "repro_torch") -> None:
         write_chrome_entries(path, self.snapshot(),
                              process_name=process_name)
+
+
+# ---------------------------------------------------------------- merge
+def adjust_remote_entries(entries: Iterable[dict], *, dt: float = 0.0,
+                          id_offset: int = 0, pid: Optional[int] = None,
+                          ticket_args: Optional[dict] = None) -> List[dict]:
+    """Rebase another process's trace entries into the local timeline.
+
+    - ``dt`` shifts every timestamp onto the local clock (local ≈
+      remote + dt, estimated from the ping handshake's min-RTT sample);
+    - ``id_offset`` moves span/parent ids into a per-worker range so
+      two processes' independent id counters can't collide;
+    - entries on ticket tracks (``ticket #<id>``) stay pid-less — they
+      join the parent's Perfetto row under the parent-side ring span —
+      and pick up ``ticket_args`` (e.g. ``{"wpid": 1234}``) so the
+      chain checker can count worker pids; every other track is stamped
+      with ``pid`` and becomes its own (pid, track) row at export.
+    """
+    out = []
+    for e in entries:
+        e = dict(e)
+        e["t0"] = e["t0"] + dt
+        if e["t1"] is not None:
+            e["t1"] = e["t1"] + dt
+        if e["id"] is not None:
+            e["id"] = e["id"] + id_offset
+        if e["parent"] is not None:
+            e["parent"] = e["parent"] + id_offset
+        if e["track"].startswith(TICKET_TRACK_PREFIX):
+            if ticket_args:
+                e["args"] = {**(e["args"] or {}), **ticket_args}
+        elif pid is not None:
+            e["pid"] = pid
+        out.append(e)
+    return out
 
 
 def _clamp_nesting(entries: List[dict]) -> None:

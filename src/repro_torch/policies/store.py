@@ -67,7 +67,8 @@ class PolicyStore(VersionedStore):
 
     # ------------------------------------------------------------ publish
     def publish(self, policies: Dict[int, Policy],
-                fallbacks: Optional[Dict[int, Policy]] = None) -> int:
+                fallbacks: Optional[Dict[int, Policy]] = None,
+                version: Optional[int] = None) -> int:
         """Install a new snapshot; returns its (strictly increasing)
         version id and notifies subscribers.
 
@@ -76,6 +77,11 @@ class PolicyStore(VersionedStore):
         When omitted, the previous snapshot's fallbacks are carried
         forward — live policies and their fallbacks always travel in
         the same snapshot, so replicas hot-swap them atomically.
+
+        ``version`` pins an explicit version id (must exceed the head):
+        the process-cell relay republishes the producer's snapshots into
+        worker-local stores under the producer's own numbering, so
+        version-lag accounting means the same thing on both sides.
         """
         _validate_policies(policies)
         if fallbacks is not None:
@@ -89,4 +95,4 @@ class PolicyStore(VersionedStore):
                 prev.fallbacks if prev else _EMPTY)
             return PolicySnapshot(ver, frozen, fb)
 
-        return self._publish_snapshot(build)
+        return self._publish_snapshot(build, version=version)

@@ -6,9 +6,11 @@ moves these around and only materializes per-request objects where a
 response must exist.  The slab is deliberately *dumb*: it owns no
 behavior beyond construction, so every layer interprets the same four
 columns (qid, category, level, epoch).  The reference's fifth, the
-trace root a process worker needs, returns with the process cell; in
-one process the cluster hands the engine its tickets' spans instead
-(``ServeEngine.submit_slab(spans=)``).
+trace root, has no reader in either package: in one process the
+cluster hands the engine its tickets' spans
+(``ServeEngine.submit_slab(spans=)``), and a process worker gets each
+ticket's root in its request record (``proc.messages``), where its
+spans join the ticket's track by that id.
 
 `QueryKeyCache` memoizes qid → canonical cache key.  The query log is
 append-only (a qid's term set never mutates), so memoized keys stay

@@ -81,14 +81,27 @@ class RetrievalSystem:
     def index_epoch(self) -> int:
         return 0
 
-    def __init__(self, cfg: SystemConfig, device=None):
+    def __init__(self, cfg: SystemConfig, index: Optional[InvertedIndex] = None,
+                 device=None, log: Optional[QueryLog] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.corpus: Corpus = generate_corpus(cfg.corpus)
-        self.index: InvertedIndex = build_index(self.corpus,
-                                                block_docs=cfg.block_docs)
-        self.log: QueryLog = generate_querylog(self.corpus, self.index,
-                                               cfg.querylog)
+        # ``index`` injects a pre-built index instead of building one:
+        # the process cell hands each worker the parent's saved base
+        # generation (np.memmap'd read-only), so N worker processes map
+        # ONE physical copy of the postings and skip the build.  ``log``
+        # injects the parent's query log (saved once in the cell dir);
+        # with both given, the corpus is not generated at all (None).
+        # Every path below copies what it reads of the index before it
+        # reaches torch.from_numpy, so a memmap is never aliased.
+        self.corpus: Optional[Corpus] = (
+            generate_corpus(cfg.corpus)
+            if index is None or log is None else None)
+        self.index: InvertedIndex = (
+            index if index is not None
+            else build_index(self.corpus, block_docs=cfg.block_docs))
+        self.log: QueryLog = (
+            log if log is not None
+            else generate_querylog(self.corpus, self.index, cfg.querylog))
         self.ruleset: RuleSet = default_rule_library(
             cfg.rule_du_scale, cfg.rule_dv_scale, device=self.device)
         self.plans: Dict[str, MatchPlan] = production_plans(self.ruleset)

@@ -1,8 +1,9 @@
 """The port's thread-backed cluster (``repro_torch.cluster``) and the rest
 of its observability plane (``obs.events``, ``obs.health``, ``obs.slo``)
 on ``tiny_system``: every case of ``tests/test_cluster.py`` and the cases
-of ``tests/test_obs.py`` that need no process cell, ported case for
-case, plus three gates against the JAX package.
+of ``tests/test_obs.py`` that need no process cell (those are in
+``tests/test_torch_proc_cell.py``), ported case for case, plus three
+gates against the JAX package.
 
 C1 holds the host-side decision code bit for bit: on the same inputs
 the router's picks, the u estimator's features and float64 estimates
@@ -452,11 +453,10 @@ def test_replica_shutdown_sheds_pending_tickets(trained):
     assert t2.done() and t2.shed
 
 
-def test_process_backend_raises(trained):
-    """The process cell is not ported yet."""
+def test_unknown_replica_backend_raises(trained):
+    """A backend that is neither 'thread' nor 'process' (the process
+    cell: tests/test_torch_proc_cell.py) is refused."""
     sys_, policies = trained
-    with pytest.raises(NotImplementedError, match="process cell"):
-        ReplicaSet(sys_, _store(policies), ClusterConfig(backend="process"))
     with pytest.raises(ValueError, match="backend"):
         ReplicaSet(sys_, _store(policies), ClusterConfig(backend="nope"))
 
@@ -661,9 +661,9 @@ def test_watchdog_state_machine():
 def test_watchdog_no_false_positive_on_idle_parked_ring():
     """A consumer that stopped stamping with nothing pending classifies
     parked_idle however old its stamp — never wedged; the same silence
-    with queued work is a wedge.  The reference stamps a shared-memory
-    ring (process cell, not ported); here a monotonic stamp and a
-    pending count stand in for the ring header."""
+    with queued work is a wedge.  Here a monotonic stamp and a pending
+    count stand in for the ring header; the real shared-memory ring's
+    case is in tests/test_torch_proc_cell.py."""
     wd = HeartbeatWatchdog(stale_after_s=0.01, wedge_after_s=0.05)
     last_stamp = time.monotonic()              # last sign of life
     pending = 0

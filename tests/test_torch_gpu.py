@@ -15,6 +15,7 @@ one launch of the kernel its route names (decode: ``tensor_core_route``;
 bag: ``bag_route``) and none of the other.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -1063,3 +1064,66 @@ def test_cuda_engine_epoch_swap_answers_at_the_new_epoch(cuda, tmp_path):
             (w.qid, w.u, w.cand_cnt, w.index_epoch)
         np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
         np.testing.assert_array_equal(g.scores, w.scores)
+
+
+@pytest.mark.gpu
+def test_cuda_process_cell_matches_thread_cell(cuda, tmp_path):
+    """Two worker processes on the card (each its own CUDA context) over
+    a live system, across a relayed commit: every response equal to a
+    thread cell's on the same system and store (every field but
+    latency, waves of distinct keys served to completion), and the
+    chunk kernel launched inside both workers."""
+    import os
+
+    from repro_torch.cluster import ClusterConfig, ReplicaSet, Shed
+    from repro_torch.policies import PolicyStore
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.cache import canonical_query_key
+
+    sys_ = _live_system(cuda, tmp_path / "gens")
+    store = PolicyStore()
+    store.publish(sys_.baseline_policies(), fallbacks=sys_.fallback_policies())
+    ecfg = EngineConfig(min_bucket=8, max_bucket=16, cache_capacity=256,
+                        backend="block_scan")
+    proc = ReplicaSet(sys_, store, ClusterConfig(
+        n_replicas=2, backend="process", spill_margin=64,
+        proc_storage_dir=str(tmp_path / "cell")), ecfg)
+    thread = ReplicaSet(sys_, store, ClusterConfig(n_replicas=2,
+                                                   spill_margin=64), ecfg)
+    keys, qids = set(), []
+    for q in np.random.default_rng(5).permutation(sys_.log.n_queries):
+        key = canonical_query_key(sys_.log.terms[q], int(sys_.log.category[q]))
+        if key not in keys:
+            keys.add(key)
+            qids.append(int(q))
+    got = {"proc": [], "thread": []}
+    with proc, thread:
+        proc.kernel_launches(reset=True)
+        for wave in (qids[:24], qids[:8] + qids[24:40]):
+            for name, c in (("proc", proc), ("thread", thread)):
+                got[name] += c.serve(wave, timeout_s=300.0)
+        rng = np.random.default_rng(6)
+        sys_.add_documents([_fresh_doc(rng) for _ in range(8)],
+                           static_rank=[0.01] * 8)
+        sys_.commit_index()
+        for _ in range(3000):
+            if min(r.index_epoch for r in proc.replicas) >= sys_.index_epoch:
+                break
+            time.sleep(0.01)
+        for name, c in (("proc", proc), ("thread", thread)):
+            got[name] += c.serve(qids[:24], timeout_s=300.0)
+        launches = [r.kernel_launches()["block_scan_pruned_chunk"]
+                    for r in proc.replicas]
+        summaries = proc.stats()["replicas"]
+    assert all(n > 0 for n in launches), launches
+    assert {s["device"] for s in summaries} == {"cuda"}
+    pids = {s["worker_pid"] for s in summaries}
+    assert len(pids) == 2 and os.getpid() not in pids
+    assert len(got["proc"]) == len(got["thread"]) == 72
+    for a, b in zip(got["proc"], got["thread"], strict=True):
+        assert not isinstance(a, Shed) and not isinstance(b, Shed)
+        for f in dataclasses.fields(a):
+            if f.name != "latency_s":
+                np.testing.assert_array_equal(getattr(a, f.name),
+                                              getattr(b, f.name), f.name)
+    assert {r.index_epoch for r in got["proc"][-24:]} == {sys_.index_epoch}

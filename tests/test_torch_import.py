@@ -33,8 +33,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
 
 
 def test_probe_walks_the_serving_and_obs_modules():
-    """The import probe above walks the engine's, the cluster's and the
-    live index's modules too."""
+    """The import probe above walks the engine's, the cluster's, the
+    live index's and the process cell's modules too."""
     import pkgutil
 
     import repro_torch
@@ -54,6 +54,9 @@ def test_probe_walks_the_serving_and_obs_modules():
         "live_index", "merge", "parity", "segments", "system")} <= names
     assert {"repro_torch.index.live", "repro_torch.data.freshness",
             "repro_torch.launch.live_index"} <= names
+    assert {f"repro_torch.cluster.proc.{m}" for m in (
+        "follower", "messages", "replica", "ring", "worker")} <= names
+    assert "repro_torch.cluster.proc" in names
 
 
 def test_entry_points_raise_without_cuda():
@@ -90,13 +93,23 @@ def test_entry_points_raise_without_cuda():
         live_main(["--n-docs", "64", "--n-queries", "16"])
 
 
-def test_cluster_cli_process_backend_raises():
-    """The process cell is not ported yet: the flag raises before
-    anything is built, on any device."""
+def test_cluster_cli_process_backend_raises_without_cuda(monkeypatch):
+    """The process cell on the default device raises before it builds a
+    system or spawns a worker: no quiet CPU fallback in the parent, and
+    none in a worker (it builds on the parent's device)."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the no-fallback path is not reachable")
+    import multiprocessing
+
     from repro_torch.launch.cluster import main as cluster_main
 
-    with pytest.raises(NotImplementedError, match="process cell"):
-        cluster_main(["--replica-backend", "process", "--device", "cpu"])
+    def no_spawn(*a, **k):
+        raise AssertionError("a worker was spawned")
+
+    monkeypatch.setattr(multiprocessing.context.SpawnProcess, "start",
+                        no_spawn)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster_main(["--replica-backend", "process", "--smoke"])
 
 
 def test_lm_entry_points_raise_without_cuda():
