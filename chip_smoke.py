@@ -34,6 +34,7 @@ Phases (any failure raises and the script exits non-zero):
    routes (bf16 at D 64 or 128: the tensor-core kernel; fp32 and other
    D: the CUDA-core kernel; each row prints its route): at the LM
    path's shape (B=2, Hq=32, Hkv=8, S=8192, D=128, bf16, causal), at
+   Grok-1's (phase 4b: Hq=48, group 6, otherwise the same), at
    ``prefill_32k``'s length (B=1, S=32768; held on its first and last
    512 rows, as the (S, S) plain scores would take 137 GB, so no plain
    time), at the fp32 route's LM shape (B=2, S=1024, fp32), the five
@@ -45,7 +46,8 @@ Phases (any failure raises and the script exits non-zero):
    fp32: the CUDA-core kernel) at the LM decode path's shape (B=2,
    Hq=32, Hkv=8, S=8208, D=128, bf16, kv_len 8193, through the
    transposed view of a (B, S, Hkv, D) cache; the tensor-core kernel
-   also under two other split plans), phase 4's fp32-route launch
+   also under two other split plans) and at Grok-1's (phase 4b: Hq=48,
+   group 6, otherwise the same), phase 4's fp32-route launch
    (B=2, S=1026, kv_len 1025, fp32; one call under torch.profiler: one
    kernel), the LM path's cache in fp32 (S=8208, kv_len 8193: bytes,
    not the launch, set the time), both fp32 rows also under half and
@@ -225,6 +227,34 @@ Phases (any failure raises and the script exits non-zero):
    launch per layer per call), held against the plain chunked prefill
    and the plain decode step (1e-4 + 1e-4|logit|, the CPU tests' fp32
    tolerance).
+4b. MoE and MLA LM serve, phase 4's traffic through the same entry
+   points.  DeepSeek-V2-Lite-16B at full width and depth (27 layers,
+   d_model 2048, MLA with kv_lora_rank 512, 64 experts top-6 + 2 shared,
+   vocab 102400, bf16; its path runs no kernel, as the reference's runs
+   no Pallas kernel for MLA or MoE): between a reset and a read of the
+   counts (all 0), a prefill of B=2 x 8192 and 16 greedy decode steps;
+   (a) every logits finite and (2, vocab); a profiled decode step; (e)
+   layer 0's absorbed MLA decode against attention over K/V
+   materialised from the c cache (fp32, 1e-4); a second prefill, timed,
+   (b) its logits bit-equal to the first's; a profiled prefill; one
+   more with the routing recorded (layer 0's least and most tokens per
+   expert, drops per layer); (c) at S = 1023 with a capacity of at
+   least T, decode for token S from prefill(S)'s cache against
+   prefill(S + 1): each layer on the same input within 2e-2 relative
+   L2 (bf16), and on a full-width 8-layer fp32 copy each layer within
+   1e-4 and the logits end to end (1e-4, argmax equal); (d) layer 0's
+   MoE FFN on 64 tokens against every expert on every token (fp32,
+   1e-4).  Then Grok-1-314B at full width (d_model 6144, GQA 48:8,
+   d_head 128, 8 experts top-2, d_ff 32768, vocab 131072, bf16) cut to
+   4 of its 64 layers (633 GB in bf16), ``use_flash=True``: the same
+   traffic with one tensor-core flash launch per layer per prefill and
+   one tensor-core decode launch per layer per step (none on the CUDA
+   cores); each layer's attention in one decode step through the
+   kernel and the plain einsums on the same input and copies of its
+   cache, row by row within 1e-2 relative L2 (out x 0.9 must fail);
+   the whole step both ways (max |dlogit|, ms per step); a profiled
+   decode step; a second prefill, timed, and a profiled one; the
+   routing; layer 0's flash attention against plain within 2e-2.
 5. Recsys serve: Wide&Deep, DeepFM, DCN-v2 and BERT4Rec at their full
    configs (no width cut), random fp32 weights from a seeded CUDA
    generator, ids uniform per field from a seeded generator.  With the
@@ -242,7 +272,8 @@ Phases (any failure raises and the script exits non-zero):
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
    ``cluster_launches``, the live fleet's, ``live_launches``, and the
-   process cell's workers', ``proc_launches``), the card line, and last
+   process cell's workers', ``proc_launches``; the tensor-core flash and
+   decode rows also Grok-1's, ``moe_lm_launches``), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -732,8 +763,11 @@ LM_PROMPT_32K = 32768
 LM_FP32_LAYERS, LM_FP32_PROMPT, LM_FP32_STEPS = 2, 1024, 2
 LM_FP32_TOL = 1e-4                  # tests/test_torch_lm.py:32
 FLASH_SLICE = 512   # rows per check of path32k, whose (S, S) scores are 137 GB
+# (name, B, Hq, Hkv, Sq, Skv, D, causal, dtype): "path" is Mistral-NeMo's
+# prefill (phase 4), "grok" Grok-1's (phase 4b: group 6).
 FLASH_CASES = [
     ("path", LM_BATCH, 32, 8, LM_PROMPT, LM_PROMPT, 128, True, "bfloat16"),
+    ("grok", LM_BATCH, 48, 8, LM_PROMPT, LM_PROMPT, 128, True, "bfloat16"),
     ("path32k", 1, 32, 8, LM_PROMPT_32K, LM_PROMPT_32K, 128, True,
      "bfloat16"),
     ("path_fp32", LM_BATCH, 32, 8, LM_FP32_PROMPT, LM_FP32_PROMPT, 128, True,
@@ -848,7 +882,7 @@ def flash_phase(dev, flush):
         err, row_err = flash_check(name, q, k, v, causal, tol, ROW_TOL[dtype])
         masked = max(sq - skv, 0) if causal else 0
 
-        reps = 3 if name in ("path", "path32k") else 20
+        reps = 3 if name in ("path", "grok", "path32k") else 20
         ms = time_cuda(lambda: flash_attention(q, k, v, causal=causal), reps,
                        flush)
         plain_ms = None     # path32k: the plain (S, S) scores would be 137 GB
@@ -894,9 +928,12 @@ def flash_phase(dev, flush):
 # phase 4's fp32-route decode launch (its first step: kv_len prompt + 1
 # over the cache padded by its steps), the fp32 kernel's own path, and
 # the bf16 path's cache at the fp32 route's type (134 MB: bytes, not
-# the launch, set the time; a measurement row, not a path).
+# the launch, set the time; a measurement row, not a path), and Grok-1's
+# decode path's first step (phase 4b: group 6).
 DECODE_CASES = [
     ("path", LM_BATCH, 32, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
+     [LM_PROMPT + 1] * LM_BATCH, True),
+    ("grok", LM_BATCH, 48, 8, LM_PROMPT + LM_DECODE_STEPS, 128, "bfloat16",
      [LM_PROMPT + 1] * LM_BATCH, True),
     ("mha", 2, 8, 8, 512, 64, "float32", None, False),
     ("gqa4", 2, 8, 2, 1024, 64, "float32", None, False),
@@ -3369,6 +3406,457 @@ def lm_fp32_route(dev, cfg=None, layers=LM_FP32_LAYERS, batch=LM_BATCH,
     return launches
 
 
+# ------------------------------------------------------------ phase 4b
+# The MoE and MLA LMs (src/repro/configs/deepseek_v2_lite_16b.py,
+# grok1_314b.py) through the same entry points, with phase 4's traffic.
+MLA_ARCH, GQA_MOE_ARCH = "deepseek-v2-lite-16b", "grok-1-314b"
+GROK_LAYERS = 4        # of 64: 316.5 B parameters are 633 GB in bf16
+MOE_FP32_LAYERS = 8    # check (c) again on a full-width fp32 copy
+# Check (c): decode_step for token S from prefill(S)'s cache against
+# prefill(S + 1)'s last position.  S + 1 = 1024 splits into two query
+# chunks of 512 (8193 would not split: the chunked attention raises).
+DECODE_CHECK_PROMPT = 1023
+# Check (c), layer by layer: each layer's decode output for token S
+# (``layer_decode`` on prefill(S)'s cache) against its prefill output at
+# position S (``layer_forward``), both given prefill(S + 1)'s input to
+# that layer; relative L2 of the (B, d) outputs.  bf16 keeps 8
+# significant bits (2**-9 relative a rounding), and the two paths round
+# different intermediates of a layer: prefill the materialised per-head
+# K/V and its (B*S)-row GEMM outputs, decode the absorbed W_uk/W_uv
+# products (in fp32) and its B-row GEMM outputs, about ten roundings
+# deep, so a few 2**-9, ~1e-2.  That catches gross faults (in a CPU
+# rehearsal at the reduced widths a decode routed to the wrong experts
+# gives 1.13, a RoPE position off by one 6e-2) but not every subtle one
+# (the new c row written one row early: 1.6e-2, among 1,024 keys); the
+# fp32 copy's 1e-4 catches those (1.2e-2 there), as only the summation
+# order differs in fp32 (~1e-6).
+MOE_LAYER_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# The logits end to end are held only in fp32: with random weights the
+# bf16 model at full depth is chaotic (on an H100, scaling the
+# embeddings by 1 + 2**-8 moves its logits by ~5, as much as decode
+# against prefill, and its argmax), so bf16 logits carry no agreement
+# to hold.
+MOE_DENSE_TOKENS = 64  # check (d): tokens of layer 0's FFN input
+MOE_CHECK_TOL = 1e-4   # checks (c) in fp32, (d) and (e): float32, order only
+
+
+def routing_recorder(stats):
+    """A stand-in for ``transformer.moe_ffn`` that appends each call's
+    (tokens per expert (E,), assignments dropped past capacity, capacity)
+    as device tensors, then runs the real one."""
+    from repro_torch.models.moe import (build_dispatch, moe_capacity, moe_ffn,
+                                        router_topk)
+
+    def recording(params, x, cfg, capacity=None):
+        cap = capacity or moe_capacity(cfg, x.shape[0])
+        _, idx, _ = router_topk(params["router"], x, cfg.top_k)
+        _, keep, counts = build_dispatch(idx, cfg.n_experts, cap)
+        stats.append((counts, (~keep).sum(), cap))
+        return moe_ffn(params, x, cfg, capacity)
+
+    return recording
+
+
+def moe_lm_serve(dev, cfg, name, batch, prompt, steps, flash_per_layer):
+    """The main path of one MoE LM: init, a timed prefill of ``batch`` x
+    ``prompt`` random tokens, the cache padded by ``steps``, ``steps``
+    greedy decode steps, between a reset and a read of the launch
+    counts; the launch counts per prefill and per step asserted (one
+    flash and one tensor-core decode launch per layer where
+    ``flash_per_layer``, none of any kernel otherwise) and every logits
+    finite and (batch, vocab) (check (a)).  Returns (params, tokens,
+    first prefill logits, cache, last token, pos, launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_TC_KERNEL as dec
+    from repro_torch.models.transformer import decode_step, init_params, prefill
+
+    on_card = dev.type == "cuda"
+    per_layer = cfg.n_layers if (on_card and flash_per_layer) else 0
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    sync(dev)
+    router = params["layers"]["ffn"]["router"]
+    print(f"[moe] {name}: {count_params(params) / 1e9:.3f} B parameters drawn "
+          f"in {time.perf_counter() - t0:.1f} s ({cfg.param_dtype}, router "
+          f"{router.dtype})", flush=True)
+    if router.dtype != torch.float32:
+        raise AssertionError(f"{name}: the router is not float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens, cfg, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    after_prefill = read_counts()
+    print(f"[moe] {name} prefill (first call): {secs * 1e3:.1f} ms, "
+          f"{batch * prompt / secs:.0f} prompt tokens/s", flush=True)
+    first = logits
+    cache = {f: F.pad(c, (0, 0) * (c.dim() - 3) + (0, steps))
+             for f, c in cache.items()}
+    token = logits.argmax(dim=-1)
+    pos = torch.full((batch,), prompt, dtype=torch.int64, device=dev)
+    outs, step_ms = [logits], []
+    for _ in range(steps):
+        before = dec.launches
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, token, cache, pos, cfg, device=dev)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if dec.launches - before != per_layer:
+            raise AssertionError(f"{name}: {dec.launches - before} decode "
+                                 f"launches in a step, want {per_layer}")
+        outs.append(logits)
+        token = logits.argmax(dim=-1)
+        pos = pos + 1
+    launches = read_counts()
+    print(f"[moe] {name} main path launches: {launches}", flush=True)
+    want = {k: 0 for k in launches}
+    want["flash_attention_tc"] = per_layer
+    want["decode_attention_tc"] = per_layer * steps
+    if after_prefill["flash_attention_tc"] != per_layer or launches != want:
+        raise AssertionError(f"{name}: launches {launches} (after prefill "
+                             f"{after_prefill}), want {want}")
+    for out in outs:
+        if out.shape != (batch, cfg.vocab) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: logits are not finite or misshapen")
+    print(f"[moe] {name} check (a): {len(outs)} logits ({batch} x {cfg.vocab}) "
+          f"finite", flush=True)
+    rest = step_ms[1:] or step_ms
+    print(f"[moe] {name} decode: {steps} greedy steps at B={batch}, first "
+          f"{step_ms[0]:.2f} ms, then mean {sum(rest) / len(rest):.2f} ms/step "
+          f"(min {min(rest):.2f}); {batch * len(rest) / sum(rest) * 1e3:.1f} "
+          f"tokens/s", flush=True)
+    return params, tokens, first, cache, token, pos, launches
+
+
+def steady_prefill(dev, params, tokens, cfg, name, first, require_equal,
+                   kernel):
+    """A second prefill, timed: its logits against the first's bit for
+    bit (check (b) where ``require_equal``); then a third under
+    torch.profiler (``kernel``'s share of busy time)."""
+    import torch
+
+    from repro_torch.models.transformer import prefill
+
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens, cfg, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    b, s = tokens.shape
+    print(f"[moe] {name} prefill (steady): {secs * 1e3:.1f} ms, "
+          f"{b * s / secs:.0f} prompt tokens/s", flush=True)
+    del cache
+    same = torch.equal(logits, first)
+    print(f"[moe] {name}{' check (b):' if require_equal else ''} second "
+          f"prefill bit-equal to the first: {same} (max |dlogit| "
+          f"{float((logits - first).abs().max()):.3g})", flush=True)
+    if require_equal and not same:
+        raise AssertionError(f"{name}: two prefills gave different logits")
+    del logits
+    if dev.type == "cuda":
+        profile_device(f"{name} prefill", lambda: prefill(
+            params, tokens, cfg, device=dev), kernel)
+
+
+def routing_stats(dev, params, tokens, cfg, name):
+    """One more prefill, untimed, with each MoE layer's routing recorded:
+    prints layer 0's least and most tokens per expert and every layer's
+    drops, and the prefill's ms with the recorder's extra router and
+    dispatch in every layer."""
+    from repro_torch.models import transformer
+
+    stats = []
+    with mock.patch.object(transformer, "moe_ffn", routing_recorder(stats)):
+        t0 = time.perf_counter()
+        transformer.prefill(params, tokens, cfg, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+    b, s = tokens.shape
+    counts0, _, cap = stats[0]
+    drops = [int(d) for _, d, _ in stats]
+    assigned = b * s * cfg.moe.top_k
+    print(f"[moe] {name} prefill with the routing recorded (one more router "
+          f"and dispatch a layer; not a serve time): {secs * 1e3:.1f} ms",
+          flush=True)
+    print(f"[moe] {name} layer 0 routing: {assigned} assignments over "
+          f"{cfg.moe.n_experts} experts, capacity {cap}: least "
+          f"{int(counts0.min())}, most {int(counts0.max())} tokens per expert",
+          flush=True)
+    print(f"[moe] {name} dropped past capacity per layer: {drops} (of "
+          f"{assigned} each; {sum(drops)} in all, "
+          f"{100 * sum(drops) / (assigned * len(drops)):.2f}%)", flush=True)
+
+
+def decode_equals_prefill(dev, params, tokens, cfg, label):
+    """Check (c) at S = DECODE_CHECK_PROMPT and no MoE drop
+    (``no_drop``: prefill(S + 1) ranks 2(S + 1) tokens against its
+    capacity and drops the last ones' assignments past it, a decode step
+    of B tokens does not): layer by layer, decode against prefill on the
+    same input within MOE_LAYER_TOL; in fp32 also ``decode_step`` for
+    token S from prefill(S)'s cache against prefill(S + 1)'s last
+    logits (argmax equal, |dlogit| <= tol + tol|logit|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import no_drop
+    from repro_torch.models.transformer import (decode_step, layer_decode,
+                                                layer_forward, layer_params,
+                                                prefill)
+
+    s = DECODE_CHECK_PROMPT
+    cfg = dataclasses.replace(cfg, moe=no_drop(cfg.moe))
+    b = tokens.shape[0]
+    fp32 = cfg.param_dtype == torch.float32
+    layer_tol = MOE_LAYER_TOL["float32" if fp32 else "bfloat16"]
+    _, cache = prefill(params, tokens[:, :s], cfg, device=dev)
+    cache = {f: F.pad(c, (0, 0) * (c.dim() - 3) + (0, 1)) for f, c in cache.items()}
+    pos = torch.full((b,), s, dtype=torch.int64, device=dev)
+
+    x = params["embed"][tokens[:, :s + 1]]
+    errs = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        x_in = x[:, s].clone()
+        x, _, _ = layer_forward(cfg, lp, x)
+        got = layer_decode(cfg, lp, x_in, {f: c[i].clone() for f, c in cache.items()},
+                           pos)
+        want = x[:, s].float()
+        errs.append(float((got.float() - want).norm() / want.norm()))
+    print(f"[moe] {label} check (c), layer by layer on the same input: "
+          f"decode against prefill at pos {s}, relative L2 per layer "
+          f"{[float(f'{e:.3g}') for e in errs]} (tol {layer_tol})", flush=True)
+    if not max(errs) <= layer_tol:
+        raise AssertionError(f"{label}: a decode layer != its prefill layer")
+    if not fp32:
+        return
+
+    got, _ = decode_step(params, tokens[:, s], cache, pos, cfg, device=dev)
+    want, _ = prefill(params, tokens[:, :s + 1], cfg, device=dev)
+    diff = (got - want).abs()
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    print(f"[moe] {label} check (c), end to end: decode at pos {s} from "
+          f"prefill({s})'s cache against prefill({s + 1})'s last position: "
+          f"max |dlogit| {float(diff.max()):.4g} (logits up to "
+          f"{float(want.abs().max()):.3g}), argmax agrees on {agree} of {b}; "
+          f"tol {MOE_CHECK_TOL} + {MOE_CHECK_TOL}|logit|", flush=True)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: decode logits are not finite")
+    if agree != b or not bool((diff <= MOE_CHECK_TOL * (1 + want.abs())).all()):
+        raise AssertionError(f"{label}: decode != prefill within tol")
+
+
+def layer0_ffn_input(params, tokens, cfg):
+    """Layer 0's FFN input (T, d) for ``tokens`` (B, S): embed, ln1,
+    attention, residual, ln2."""
+    from repro_torch.models.attention import gqa_forward, mla_forward
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import layer_params
+
+    lp = layer_params(params["layers"], 0)
+    x = params["embed"][tokens]
+    h = rms_norm(x, lp["ln1"])
+    h = (mla_forward(lp["attn"], h, cfg.mla) if cfg.attn_kind == "mla"
+         else gqa_forward(lp["attn"], h, cfg.attn_cfg()))
+    return rms_norm(x + h, lp["ln2"]).reshape(-1, cfg.d_model)
+
+
+def upcast(tree):
+    return {k: upcast(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def moe_dense_check(params, tokens, cfg, name):
+    """Check (d): layer 0's ``moe_ffn`` on MOE_DENSE_TOKENS prompt tokens
+    against ``moe_ffn_dense`` (every expert on every token, gates zeroed
+    outside the top-k), both in fp32 on layer 0's weights, at a capacity
+    of T (nothing drops)."""
+    from repro_torch.models.moe import moe_ffn, moe_ffn_dense
+    from repro_torch.models.transformer import layer_params
+
+    x = layer0_ffn_input(params, tokens[:1, :MOE_DENSE_TOKENS], cfg).float()
+    ffn = upcast(layer_params(params["layers"]["ffn"], 0))
+    got, _ = moe_ffn(ffn, x, cfg.moe, capacity=x.shape[0])
+    want = moe_ffn_dense(ffn, x, cfg.moe)
+    diff = (got - want).abs()
+    print(f"[moe] {name} check (d): layer-0 MoE FFN on {x.shape[0]} tokens "
+          f"against every expert on every token (fp32): max |d| "
+          f"{float(diff.max()):.4g} (values up to {float(want.abs().max()):.4g}; "
+          f"tol {MOE_CHECK_TOL} + {MOE_CHECK_TOL}|dense|)", flush=True)
+    if not bool((diff <= MOE_CHECK_TOL * (1 + want.abs())).all()):
+        raise AssertionError(f"{name}: moe_ffn != dense formulation")
+
+
+def mla_absorbed_check(params, cache, token, pos, cfg):
+    """Check (e): at layer 0, the absorbed scores and output of
+    ``mla_decode`` (``mla_absorbed_attention``) against attention over
+    K/V materialised from the c cache, both in fp32, on the main path's
+    cache, for the decode input of ``token`` at ``pos`` (keys 0..pos)."""
+    import torch
+
+    from repro_torch.models.attention import (mla_absorbed_attention,
+                                              mla_materialised_attention)
+    from repro_torch.models.layers import apply_rope, rms_norm, rope_angles
+    from repro_torch.models.transformer import layer_params
+
+    m = cfg.mla
+    lp = layer_params(params["layers"], 0)
+    attn = upcast(lp["attn"])
+    h = rms_norm(params["embed"][token], lp["ln1"]).float()
+    q = (h @ attn["wq"]).reshape(h.shape[0], m.n_heads, m.d_nope + m.d_rope)
+    cos, sin = rope_angles(pos[:, None], m.d_rope, m.rope_theta)
+    q_rope = apply_rope(q[..., m.d_nope:][:, None], cos, sin)[:, 0]
+    args = (attn, q[..., :m.d_nope], q_rope, cache["c"][0], cache["k_rope"][0],
+            pos, m)
+    o, sc = mla_absorbed_attention(*args)
+    want_o, want_sc = mla_materialised_attention(*args)
+    valid = torch.isfinite(want_sc)
+    if not torch.equal(valid, torch.isfinite(sc)):
+        raise AssertionError("MLA absorbed scores: the key mask differs")
+    d_sc = (sc[valid] - want_sc[valid]).abs()
+    d_o = (o - want_o).abs()
+    print(f"[moe] {MLA_ARCH} check (e): layer-0 absorbed decode against K/V "
+          f"materialised from c (fp32, {int(valid[0, 0].sum())} keys): scores "
+          f"max |d| {float(d_sc.max()):.4g} (up to "
+          f"{float(want_sc[valid].abs().max()):.3g}), output max |d| "
+          f"{float(d_o.max()):.4g} (up to {float(want_o.abs().max()):.3g}); tol "
+          f"{MOE_CHECK_TOL} + {MOE_CHECK_TOL}|want|", flush=True)
+    if not (bool((d_sc <= MOE_CHECK_TOL * (1 + want_sc[valid].abs())).all())
+            and bool((d_o <= MOE_CHECK_TOL * (1 + want_o.abs())).all())):
+        raise AssertionError("MLA absorbed decode != materialised attention")
+
+
+def print_moe_cuts(name, cfg, batch, prompt, steps, depth):
+    m = cfg.moe
+    attn = (f"MLA {cfg.n_heads} heads, kv_lora_rank {cfg.mla.kv_lora_rank}, "
+            f"d_nope {cfg.mla.d_nope}, d_rope {cfg.mla.d_rope}, d_v {cfg.mla.d_v}"
+            if cfg.attn_kind == "mla" else
+            f"GQA {cfg.n_heads} heads, {cfg.n_kv} kv heads, d_head {cfg.d_head}")
+    print(f"[moe] {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{attn}; {m.n_experts} experts top-{m.top_k}, {m.n_shared} shared, "
+          f"expert d_ff {m.d_ff}; vocab {cfg.vocab}, {cfg.param_dtype}, random "
+          f"weights (seed {SEED}); {depth}", flush=True)
+    print(f"[moe] {name} traffic cut: prefill {batch} x {prompt} tokens instead "
+          f"of prefill_32k's 32 x 32768, and decode batch {batch} instead of "
+          f"decode_32k's 128 ({steps} steps from a cache padded to "
+          f"{prompt + steps}), phase 4's traffic", flush=True)
+
+
+def deepseek_phase(dev, cfg=None, batch=LM_BATCH, prompt=LM_PROMPT,
+                   steps=LM_DECODE_STEPS, fp32_layers=MOE_FP32_LAYERS):
+    """DeepSeek-V2-Lite (MLA + 64-expert MoE) at full width and depth in
+    bf16: the main path (``moe_lm_serve``; no kernel: the reference runs
+    no Pallas kernel for MLA or MoE), checks (a)-(e), a profiled decode
+    step, a second prefill and a profiled one, the routing; then check
+    (c) on a full-width ``fp32_layers``-layer fp32 copy."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import decode_step
+
+    cfg = cfg or get_arch(MLA_ARCH).model_cfg(False)
+    print_moe_cuts(MLA_ARCH, cfg, batch, prompt, steps, "no width or depth cut")
+    params, tokens, first, cache, token, pos, launches = moe_lm_serve(
+        dev, cfg, MLA_ARCH, batch, prompt, steps, flash_per_layer=False)
+    if dev.type == "cuda":
+        print(f"[moe] {MLA_ARCH} peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+              f"(torch.cuda.max_memory_allocated)", flush=True)
+        profile_device(f"{MLA_ARCH} decode step", lambda: decode_step(
+            params, token, cache, pos, cfg, device=dev), "gemm")
+    mla_absorbed_check(params, cache, token, pos - 1, cfg)
+    del cache
+    steady_prefill(dev, params, tokens, cfg, MLA_ARCH, first,
+                   require_equal=True, kernel="gemm")
+    routing_stats(dev, params, tokens, cfg, MLA_ARCH)
+    decode_equals_prefill(dev, params, tokens, cfg, f"{MLA_ARCH} bf16")
+    moe_dense_check(params, tokens, cfg, MLA_ARCH)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    from repro_torch.models.transformer import init_params
+
+    f32 = dataclasses.replace(cfg, n_layers=fp32_layers, param_dtype=torch.float32)
+    params = init_params(f32, seed=SEED, device=dev)
+    decode_equals_prefill(dev, params, tokens, f32,
+                          f"{MLA_ARCH} fp32 {fp32_layers} layers")
+    del params
+    return launches
+
+
+def grok_phase(dev, cfg=None, layers=GROK_LAYERS, batch=LM_BATCH,
+               prompt=LM_PROMPT, steps=LM_DECODE_STEPS):
+    """Grok-1 (GQA 48:8, 8-expert MoE) at full width, cut to ``layers``
+    layers, bf16, ``use_flash=True``: the main path through the
+    tensor-core flash kernel (one launch per layer per prefill) and the
+    tensor-core decode kernel (one per layer per step, none on the CUDA
+    cores), check (a); each layer's decode attention held against the
+    plain einsums (``decode_attention_held``); one decode step through
+    the kernel and the plain einsums from copies of one cache; a
+    profiled decode step; a second prefill and a profiled one; the
+    routing; layer-0 flash attention against plain within BF16_TOL.
+    Returns the main path's launch counts."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import decode_step
+
+    full = cfg or get_arch(GQA_MOE_ARCH).model_cfg(False)
+    cfg = dataclasses.replace(full, n_layers=layers, use_flash=True)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    print_moe_cuts(GQA_MOE_ARCH, cfg, batch, prompt, steps,
+                   f"depth cut to {layers} of {full.n_layers} layers: 316.5 B "
+                   f"parameters are 633 GB in bf16, more than the card's 80 GB")
+    params, tokens, first, cache, token, pos, launches = moe_lm_serve(
+        dev, cfg, GQA_MOE_ARCH, batch, prompt, steps, flash_per_layer=True)
+    if dev.type == "cuda":
+        print(f"[moe] {GQA_MOE_ARCH} peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+              f"(torch.cuda.max_memory_allocated)", flush=True)
+    decode_attention_held(params, token, cache, pos - 1, cfg, plain_cfg, dev)
+    decode_both_ways(params, token, cache, pos - 1, cfg, plain_cfg, dev)
+    if dev.type == "cuda":  # pos is past the cache: this step stores nothing
+        profile_device(f"{GQA_MOE_ARCH} decode step", lambda: decode_step(
+            params, token, cache, pos, cfg, device=dev), "decode_attention_tc")
+    del cache
+    steady_prefill(dev, params, tokens, cfg, GQA_MOE_ARCH, first,
+                   require_equal=False, kernel="flash_attention_tc")
+    routing_stats(dev, params, tokens, cfg, GQA_MOE_ARCH)
+    got = attention_layer0(params, tokens, cfg).float()
+    want = attention_layer0(params, tokens, plain_cfg).float()
+    diff = (got - want).abs()
+    print(f"[moe] {GQA_MOE_ARCH} layer-0 attention output, flash against plain: "
+          f"max |d| {float(diff.max()):.4g} (values up to "
+          f"{float(want.abs().max()):.3g}; tol {BF16_TOL} + {BF16_TOL}|plain|)",
+          flush=True)
+    if not bool((diff <= BF16_TOL + BF16_TOL * want.abs()).all()):
+        raise AssertionError("grok-1 layer-0 attention: flash != plain")
+    del params
+    return launches
+
+
+def moe_phase(dev):
+    """Phase 4b: DeepSeek-V2-Lite, then Grok-1; returns Grok-1's launch
+    counts (DeepSeek-V2-Lite's path launches no kernel)."""
+    import torch
+
+    t0 = time.perf_counter()
+    deepseek_phase(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = grok_phase(dev)
+    print(f"[moe] phase 4b in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 # ------------------------------------------------------------ phase 5
 def recsys_runs(arch_id):
     """The (shape name, batch) runs of one arch: serve_p99 for every
@@ -3568,6 +4056,60 @@ def bert4rec_check(shape, out, params, cfg, seq, n_cand, recsys, dev):
           f"{float(vals.min()):.4g}..{float(vals.max()):.4g}{note}", flush=True)
 
 
+def decode_attention_held(params, token, cache, pos, cfg, plain_cfg, dev):
+    """Each layer's attention in one decode step at ``pos``, through the
+    decode kernel (``cfg``: one tensor-core launch, none on the CUDA
+    cores) and through the plain einsums (``plain_cfg``), on the same
+    input (the kernel path's residual stream) and copies of the layer's
+    cache: the (B, d_model) outputs row by row within ROW_TOL (out x
+    PLANTED_SCALE must fail), the caches written alike.  A step's logits
+    go through every later layer and the routing, so this holds the
+    kernel where the logits cannot."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (
+        DECODE_ATTENTION_KERNEL, DECODE_ATTENTION_TC_KERNEL)
+    from repro_torch.models.attention import gqa_decode
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import layer_decode, layer_params
+
+    row_tol = ROW_TOL["bfloat16"]
+    want_launches = 1 if dev.type == "cuda" else 0
+    x = params["embed"][token]
+    errs = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(x, lp["ln1"])
+        kern, plain = ({f: c[i].clone() for f, c in cache.items()}
+                       for _ in range(2))
+        tc, cc = (DECODE_ATTENTION_TC_KERNEL.launches,
+                  DECODE_ATTENTION_KERNEL.launches)
+        got, _ = gqa_decode(lp["attn"], h, kern, pos, cfg.attn_cfg())
+        sync(dev)
+        if (DECODE_ATTENTION_TC_KERNEL.launches - tc != want_launches
+                or DECODE_ATTENTION_KERNEL.launches != cc):
+            raise AssertionError(f"decode layer {i}: not one launch of the "
+                                 f"tensor-core decode kernel alone")
+        want, _ = gqa_decode(lp["attn"], h, plain, pos, plain_cfg.attn_cfg())
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"decode layer {i}: attention not finite")
+        if not all(torch.equal(kern[f], plain[f]) for f in kern):
+            raise AssertionError(f"decode layer {i}: caches written apart")
+        errs.append(row_rel_err(got, want))
+        if errs[-1] > row_tol:
+            raise AssertionError(f"decode layer {i}: kernel attention != plain "
+                                 f"(row relative error {errs[-1]}, tol "
+                                 f"{row_tol})")
+        if row_rel_err(got.float() * PLANTED_SCALE, want) <= row_tol:
+            raise AssertionError(f"decode layer {i}: the row check passes out "
+                                 f"scaled by {PLANTED_SCALE}")
+        x = layer_decode(cfg, lp, x, kern, pos)
+    print(f"[moe] {GQA_MOE_ARCH} decode attention at pos {pos.tolist()}, kernel "
+          f"against plain einsums on the same input, layer by layer: row "
+          f"relative error {[float(f'{e:.3g}') for e in errs]} (tol {row_tol}; "
+          f"out x{PLANTED_SCALE} rejected)", flush=True)
+
+
 def decode_both_ways(params, token, cache, pos, cfg, plain_cfg, dev, reps=3):
     """One decode step at ``pos`` from two copies of ``cache``: through
     the decode kernel (``cfg``) and through the plain einsums
@@ -3735,6 +4277,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fp32_launches = lm_fp32_route(dev)
     torch.cuda.empty_cache()
+    moe_launches = moe_phase(dev)
+    torch.cuda.empty_cache()
     recsys_launches = recsys_phase(dev)
     for name in ("embedding_bag", "embedding_bag_lanes"):
         if recsys_launches[name] <= 0:
@@ -3804,6 +4348,9 @@ def main() -> int:
     kernels[0]["cluster_launches"] = cluster_launches["block_scan_pruned_chunk"]
     kernels[0]["live_launches"] = live_launches["block_scan_pruned_chunk"]
     kernels[0]["proc_launches"] = proc_launches
+    by_name = {r["name"]: r for r in kernels}
+    for name in ("flash_attention_tc", "decode_attention_tc"):
+        by_name[name]["moe_lm_launches"] = moe_launches[name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,6 +1,6 @@
 """Arch registry: importing this package registers the ported configs
-(the paper's websearch-rl system, the dense GQA LMs and the recsys
-models so far)."""
+(the paper's websearch-rl system, the five LMs and the recsys models;
+the reference's graphsage-reddit is not ported yet)."""
 from .base import ArchDef, ShapeSpec, get_arch, list_archs
 
 __all__ = ["ArchDef", "ShapeSpec", "get_arch", "list_archs"]
@@ -17,6 +17,8 @@ def _load_all():
         mistral_nemo_12b,
         starcoder2_3b,
         phi4_mini_3_8b,
+        deepseek_v2_lite_16b,
+        grok1_314b,
         wide_deep,
         deepfm,
         dcn_v2,

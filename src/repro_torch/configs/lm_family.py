@@ -1,14 +1,12 @@
-"""Shared shape set + builder for the dense GQA LM archs.
-
-The reference's builder also makes MoE and MLA archs
-(deepseek-v2-lite-16b, grok-1-314b); the port does not run them yet.
-"""
+"""Shared shape set + builder for the 5 LM-family transformer archs."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
 
+from repro_torch.models.attention import MLAConfig
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
 from .base import ArchDef, ShapeSpec, register
 
@@ -44,28 +42,49 @@ def make_lm_arch(
     vocab: int,
     d_head: Optional[int] = None,
     mlp_kind: str = "swiglu",
-    moe: Optional[dict] = None,
-    mla: Optional[dict] = None,
+    moe: Optional[dict] = None,          # dict(n_experts, top_k, n_shared, d_ff)
+    mla: Optional[dict] = None,          # dict(kv_lora_rank, d_nope, d_rope, d_v)
     rope_theta: float = 1e6,
     fsdp: bool = False,
     notes: str = "",
 ) -> ArchDef:
-    if moe is not None or mla is not None:
-        raise NotImplementedError(
-            f"{arch_id}: MoE and MLA layers are not ported yet")
     d_head = d_head or d_model // n_heads
 
     def model_cfg(reduced: bool) -> TransformerConfig:
         if reduced:
+            moe_cfg = (
+                MoEConfig(n_experts=4, top_k=min(2, moe["top_k"]), d_model=128,
+                          d_ff=128, n_shared=min(1, moe.get("n_shared", 0)))
+                if moe else None
+            )
+            mla_cfg = (
+                MLAConfig(d_model=128, n_heads=4, kv_lora_rank=32, d_nope=16,
+                          d_rope=8, d_v=16, q_chunk=64)
+                if mla else None
+            )
             return TransformerConfig(
                 n_layers=2, d_model=128, n_heads=4, n_kv=(2 if n_kv < n_heads else 4),
-                d_head=32, d_ff=256, vocab=512, mlp_kind=mlp_kind,
-                max_seq=128, q_chunk=64, loss_chunk=128, remat=False,
-                param_dtype=torch.float32,
+                d_head=32, d_ff=256, vocab=512,
+                mlp_kind=mlp_kind, attn_kind="mla" if mla else "gqa",
+                moe=moe_cfg, mla=mla_cfg, max_seq=128, q_chunk=64, loss_chunk=128,
+                remat=False, param_dtype=torch.float32,
             )
+        moe_cfg = (
+            MoEConfig(n_experts=moe["n_experts"], top_k=moe["top_k"],
+                      d_model=d_model, d_ff=moe["d_ff"],
+                      n_shared=moe.get("n_shared", 0))
+            if moe else None
+        )
+        mla_cfg = (
+            MLAConfig(d_model=d_model, n_heads=n_heads,
+                      kv_lora_rank=mla["kv_lora_rank"], d_nope=mla["d_nope"],
+                      d_rope=mla["d_rope"], d_v=mla["d_v"], q_chunk=512)
+            if mla else None
+        )
         return TransformerConfig(
             n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv=n_kv,
             d_head=d_head, d_ff=d_ff, vocab=vocab, mlp_kind=mlp_kind,
+            attn_kind="mla" if mla else "gqa", moe=moe_cfg, mla=mla_cfg,
             rope_theta=rope_theta, max_seq=4096, q_chunk=512, loss_chunk=4096,
             remat=True, param_dtype=torch.bfloat16, sp_carry=True, microbatch=4,
             fsdp=fsdp, grad_accum_dtype=torch.bfloat16 if fsdp else torch.float32,

@@ -1,5 +1,5 @@
-"""GQA attention for the dense LMs (the reference's ``models/attention.py``,
-GQA half; MLA is not ported yet).
+"""Attention modules: GQA (the dense LMs and grok-1) and MLA
+(DeepSeek-V2-Lite), as the reference's ``models/attention.py``.
 
 Two prefill paths, as in the reference:
 - ``use_flash=False``: chunked causal attention in plain torch (a loop
@@ -30,7 +30,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 
 from .layers import apply_rope, dense_init, rope_angles
 
-__all__ = ["AttnConfig", "gqa_init", "gqa_forward", "gqa_decode",
+__all__ = ["AttnConfig", "gqa_init", "gqa_forward", "gqa_decode", "MLAConfig",
+           "mla_init", "mla_forward", "mla_decode", "mla_absorbed_attention",
+           "mla_materialised_attention",
            "chunked_causal_attention"]
 
 
@@ -115,6 +117,16 @@ def gqa_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
     return out
 
 
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
+    """cache (B, S, ...)[b, pos[b]] = new[b], in place.  No host sync:
+    every lane writes one row, a lane with pos >= S writes back the row
+    it read, so it stores nothing, as the reference's select does."""
+    lanes = torch.arange(cache.shape[0], device=cache.device)
+    row = pos.clamp(max=cache.shape[1] - 1)
+    keep = (pos < cache.shape[1]).view(-1, *([1] * (new.dim() - 1)))
+    cache[lanes, row] = torch.where(keep, new.to(cache.dtype), cache[lanes, row])
+
+
 def gqa_decode(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
                cache: Dict[str, torch.Tensor], pos: torch.Tensor,
                cfg: AttnConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -137,15 +149,8 @@ def gqa_decode(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
     q = apply_rope(q, cos, sin)[:, 0]                            # (B, h, dh)
     k_new = apply_rope(k_new, cos, sin)
 
-    # No host sync: every lane writes one row, a lane out of range
-    # writes back the row it read.
-    lanes = torch.arange(b, device=x_tok.device)
-    row = pos.clamp(max=s_max - 1)
-    keep = (pos < s_max)[:, None, None]
-    k_cache[lanes, row] = torch.where(keep, k_new[:, 0].to(k_cache.dtype),
-                                      k_cache[lanes, row])
-    v_cache[lanes, row] = torch.where(keep, v_new[:, 0].to(v_cache.dtype),
-                                      v_cache[lanes, row])
+    _write_rows(k_cache, k_new[:, 0], pos)
+    _write_rows(v_cache, v_new[:, 0], pos)
 
     if cfg.use_flash:
         # keys 0..pos are valid; a lane with pos >= S sees all S keys
@@ -164,3 +169,139 @@ def gqa_decode(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
 
     out = o.to(x_tok.dtype) @ params["wo"]
     return out, {"k": k_cache, "v": v_cache}
+
+
+# --------------------------------------------------------------------- MLA
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+    rope_theta: float = 10000.0
+    q_chunk: int = 512
+
+
+def mla_init(gen: torch.Generator, cfg: MLAConfig,
+             dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq": dense_init(gen, (d, h * (cfg.d_nope + cfg.d_rope)), dtype=dtype),
+        "w_dkv": dense_init(gen, (d, cfg.kv_lora_rank + cfg.d_rope), dtype=dtype),
+        "w_uk": dense_init(gen, (cfg.kv_lora_rank, h * cfg.d_nope), dtype=dtype),
+        "w_uv": dense_init(gen, (cfg.kv_lora_rank, h * cfg.d_v), dtype=dtype),
+        "wo": dense_init(gen, (h * cfg.d_v, d), scale=(h * cfg.d_v) ** -0.5,
+                         dtype=dtype),
+    }
+
+
+def mla_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                cfg: MLAConfig, return_cache: bool = False):
+    """Training / prefill with the per-head K/V materialised; with
+    ``return_cache`` also {"c": (B, S, r), "k_rope": (B, S, d_rope)}
+    after RoPE."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    dn, dr, dv, r = cfg.d_nope, cfg.d_rope, cfg.d_v, cfg.kv_lora_rank
+
+    q = (x @ params["wq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    ckv = x @ params["w_dkv"]                                    # (B, S, r + dr)
+    c, k_rope = ckv[..., :r], ckv[..., r:]
+
+    pos = torch.arange(s, device=x.device)[None]
+    cos, sin = rope_angles(pos, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)         # (B, S, 1, dr)
+
+    k_nope = (c @ params["w_uk"]).reshape(b, s, h, dn)
+    v = (c @ params["w_uv"]).reshape(b, s, h, dv)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], -1)
+    q_full = torch.cat([q_nope, q_rope], -1)
+
+    o = chunked_causal_attention(q_full, k_full, v, cfg.q_chunk)
+    out = o.to(x.dtype).reshape(b, s, h * dv) @ params["wo"]
+    if return_cache:
+        return out, {"c": c, "k_rope": k_rope[:, :, 0, :]}
+    return out
+
+
+def mla_absorbed_attention(params: Dict[str, torch.Tensor],
+                           q_nope: torch.Tensor, q_rope: torch.Tensor,
+                           c_cache: torch.Tensor, kr_cache: torch.Tensor,
+                           pos: torch.Tensor, cfg: MLAConfig):
+    """Attention of one query per lane against the compressed cache, in
+    float32: q_nope (B, h, d_nope) is mapped into c-space through W_uk,
+    and the values stay compressed until W_uv.  Keys 0..pos[b] are
+    valid.  Returns (out (B, h * d_v) f32, scores (B, h, S) f32, the
+    invalid keys at -inf)."""
+    b, h = q_nope.shape[:2]
+    dn, dr, dv, r = cfg.d_nope, cfg.d_rope, cfg.d_v, cfg.kv_lora_rank
+    s_max = c_cache.shape[1]
+    cf = c_cache.float()
+    w_uk = params["w_uk"].reshape(r, h, dn).float()
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk)
+    sc = torch.einsum("bhr,bsr->bhs", q_c, cf)
+    sc = sc + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
+    sc = sc * ((dn + dr) ** -0.5)
+    valid = torch.arange(s_max, device=c_cache.device)[None] <= pos[:, None]
+    sc = sc.masked_fill(~valid[:, None], NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", p, cf)                   # (B, h, r)
+    w_uv = params["w_uv"].reshape(r, h, dv).float()
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv).reshape(b, h * dv)
+    return o, sc
+
+
+def mla_materialised_attention(params: Dict[str, torch.Tensor],
+                               q_nope: torch.Tensor, q_rope: torch.Tensor,
+                               c_cache: torch.Tensor, kr_cache: torch.Tensor,
+                               pos: torch.Tensor, cfg: MLAConfig):
+    """``mla_absorbed_attention`` written as ``mla_forward`` attends, to
+    check it by: per-head K = [c W_uk, k_rope] and V = c W_uv
+    materialised from the cache, in float32.  Same arguments and
+    returns."""
+    b, h = q_nope.shape[:2]
+    dn, dr, dv = cfg.d_nope, cfg.d_rope, cfg.d_v
+    s_max = c_cache.shape[1]
+    cf = c_cache.float()
+    k_nope = (cf @ params["w_uk"].float()).reshape(b, s_max, h, dn)
+    v = (cf @ params["w_uv"].float()).reshape(b, s_max, h, dv)
+    k = torch.cat([k_nope, kr_cache.float()[:, :, None].expand(b, s_max, h, dr)],
+                  -1)
+    q = torch.cat([q_nope.float(), q_rope.float()], -1)
+    sc = torch.einsum("bhd,bshd->bhs", q, k) * ((dn + dr) ** -0.5)
+    valid = torch.arange(s_max, device=c_cache.device)[None] <= pos[:, None]
+    sc = sc.masked_fill(~valid[:, None], NEG_INF)
+    o = torch.einsum("bhs,bshd->bhd", torch.softmax(sc, dim=-1), v)
+    return o.reshape(b, h * dv), sc
+
+
+def mla_decode(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
+               cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+               cfg: MLAConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-matmul MLA decode.  x_tok: (B, d_model); cache c:
+    (B, S, r), k_rope: (B, S, d_rope); pos: (B,) tokens already cached.
+    Writes the new row into ``cache`` IN PLACE at ``pos`` (a lane with
+    pos >= S stores nothing) and returns it, as ``gqa_decode`` does."""
+    b, d = x_tok.shape
+    h = cfg.n_heads
+    dn, dr, r = cfg.d_nope, cfg.d_rope, cfg.kv_lora_rank
+
+    q = (x_tok @ params["wq"]).reshape(b, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    cos, sin = rope_angles(pos[:, None], dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope[:, None], cos, sin)[:, 0]          # (B, h, dr)
+
+    ckv = x_tok @ params["w_dkv"]
+    c_new, k_rope_new = ckv[..., :r], ckv[..., r:]
+    k_rope_new = apply_rope(k_rope_new[:, None, None, :], cos, sin)[:, 0, 0]
+    _write_rows(cache["c"], c_new, pos)
+    _write_rows(cache["k_rope"], k_rope_new, pos)
+
+    o, _ = mla_absorbed_attention(params, q_nope, q_rope, cache["c"],
+                                  cache["k_rope"], pos, cfg)
+    out = o.to(x_tok.dtype) @ params["wo"]
+    return out, {"c": cache["c"], "k_rope": cache["k_rope"]}

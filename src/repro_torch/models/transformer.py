@@ -1,11 +1,15 @@
-"""Decoder-only transformer LM, dense GQA part (the reference's
-``models/transformer.py`` without MoE, MLA, the mesh paths, ``lm_loss``
+"""Decoder-only transformer LM family, dense GQA / MoE / MLA (the
+reference's ``models/transformer.py`` without the mesh paths, ``lm_loss``
 and the train step).
 
 Parameters are a nested dict whose layer leaves are stacked over layers,
 ``(n_layers, ...)``, as the reference's ``init_params`` builds them; the
 layers run in a Python loop over views of those leaves.  The KV cache is
-{"k", "v"}: (n_layers, B, S, Hkv, D).
+{"k", "v"}: (n_layers, B, S, Hkv, D) for GQA, and MLA's compressed
+{"c", "k_rope"}: (n_layers, B, S, r) and (n_layers, B, S, d_rope).  An
+MoE FFN runs over the flattened (B*S, d) tokens in prefill and forward
+(capacity and drops over all of them, as the reference's), over (B, d)
+in decode.
 
 Entry points (``init_params``, ``init_kv_cache``, ``forward``,
 ``prefill``, ``decode_step``) run on ``cuda`` unless given
@@ -14,22 +18,25 @@ Entry points (``init_params``, ``init_kv_cache``, ``forward``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import entry_device, resolve_device
 
-from .attention import AttnConfig, gqa_decode, gqa_forward, gqa_init
+from .attention import (AttnConfig, MLAConfig, gqa_decode, gqa_forward,
+                        gqa_init, mla_decode, mla_forward, mla_init)
 from .layers import dense_init, mlp_apply, mlp_init, rms_norm
+from .moe import MoEConfig, moe_ffn, moe_init
 
 __all__ = ["TransformerConfig", "init_params", "forward", "prefill",
-           "decode_step", "init_kv_cache"]
+           "decode_step", "init_kv_cache", "cache_shapes", "layer_params",
+           "layer_forward", "layer_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's config, dense GQA fields.  ``loss_chunk``,
+    """The reference's config.  ``loss_chunk``,
     ``remat``, ``sp_carry``, ``microbatch``, ``fsdp``,
     ``grad_accum_dtype`` and ``zero3`` are training and sharding knobs,
     kept so that a config carries the reference's values; the
@@ -42,6 +49,9 @@ class TransformerConfig:
     d_ff: int
     vocab: int
     mlp_kind: str = "swiglu"          # swiglu | gelu
+    attn_kind: str = "gqa"            # gqa | mla
+    moe: Optional[MoEConfig] = None   # None = dense FFN
+    mla: Optional[MLAConfig] = None
     rope_theta: float = 10000.0
     max_seq: int = 4096
     q_chunk: int = 512
@@ -65,10 +75,19 @@ class TransformerConfig:
 
 # ---------------------------------------------------------------- params
 def _layer_init(gen: torch.Generator, cfg: TransformerConfig) -> Dict:
+    """One layer; an MoE router stays float32 under any param_dtype."""
     dt = cfg.param_dtype
+    if cfg.attn_kind == "mla":
+        attn = mla_init(gen, cfg.mla, dtype=dt)
+    else:
+        attn = gqa_init(gen, cfg.attn_cfg(), dtype=dt)
+    if cfg.moe is not None:
+        ffn = moe_init(gen, cfg.moe, dtype=dt)
+    else:
+        ffn = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype=dt)
     return {
-        "attn": gqa_init(gen, cfg.attn_cfg(), dtype=dt),
-        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype=dt),
+        "attn": attn,
+        "ffn": ffn,
         "ln1": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
         "ln2": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
     }
@@ -87,9 +106,9 @@ def _copy_layer(dst: Dict, src: Dict, i: int) -> None:
             dst[k][i].copy_(v)
 
 
-def _layer(layers: Dict, i: int) -> Dict:
+def layer_params(layers: Dict, i: int) -> Dict:
     """Layer i's parameters: views into the stacked leaves."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
 
 
@@ -97,7 +116,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     on the target device.  Layers are drawn one at a time (in float32,
     then cast) into the stacked leaves, so the float32 transient is one
-    layer's leaf, not a stacked one."""
+    layer's leaf, not a stacked one (grok-1's expert leaf, (8, 6144, 32768),
+    is 6.4 GB in float32)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -120,36 +140,65 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Dict:
 
 
 # --------------------------------------------------------------- forward
-def _layer_fwd(cfg: TransformerConfig, lp: Dict, x: torch.Tensor,
-               return_cache: bool = False):
-    """One block: pre-norm attn + pre-norm FFN.  x: (B, S, d)."""
-    out = gqa_forward(lp["attn"], rms_norm(x, lp["ln1"]), cfg.attn_cfg(),
-                      return_cache=return_cache)
+def _ffn(cfg: TransformerConfig, ffn: Dict, h: torch.Tensor):
+    """The FFN on h (..., d) -> (out, aux loss () f32, or None when
+    dense).  An MoE FFN routes all of h's tokens as one (T, d) batch."""
+    if cfg.moe is None:
+        return mlp_apply(ffn, h, cfg.mlp_kind), None
+    out, aux = moe_ffn(ffn, h.reshape(-1, h.shape[-1]), cfg.moe)
+    return out.view(h.shape), aux
+
+
+def layer_forward(cfg: TransformerConfig, lp: Dict, x: torch.Tensor,
+                  return_cache: bool = False):
+    """One block of ``forward`` and ``prefill``: pre-norm attn + pre-norm
+    FFN.  x: (B, S, d) -> (x, the layer's cache or None, aux loss or
+    None when dense)."""
+    h = rms_norm(x, lp["ln1"])
+    if cfg.attn_kind == "mla":
+        out = mla_forward(lp["attn"], h, cfg.mla, return_cache=return_cache)
+    else:
+        out = gqa_forward(lp["attn"], h, cfg.attn_cfg(),
+                          return_cache=return_cache)
     h, cache = out if return_cache else (out, None)
     x = x + h
-    h = mlp_apply(lp["ffn"], rms_norm(x, lp["ln2"]), cfg.mlp_kind)
-    return x + h, cache
+    h, aux = _ffn(cfg, lp["ffn"], rms_norm(x, lp["ln2"]))
+    return x + h, cache, aux
 
 
 def forward(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (final hidden (B, S, d), aux_loss = 0)."""
+    """tokens (B, S) -> (final hidden (B, S, d), aux loss: the sum of
+    the MoE layers' load-balance losses, 0 for a dense model)."""
     dev = entry_device(params["embed"], mesh, device)
     x = params["embed"][torch.as_tensor(tokens, device=dev).long()]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(cfg.n_layers):
-        x, _ = _layer_fwd(cfg, _layer(params["layers"], i), x)
-    return (rms_norm(x, params["ln_f"]),
-            torch.zeros((), dtype=torch.float32, device=dev))
+        x, _, layer_aux = layer_forward(cfg, layer_params(params["layers"], i), x)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return rms_norm(x, params["ln_f"]), aux
 
 
 # ----------------------------------------------------------------- decode
+def cache_shapes(cfg: TransformerConfig, batch: int, seq: int
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """The KV cache's fields and shapes: GQA's {"k", "v"} (L, B, S, Hkv,
+    D), MLA's {"c": (L, B, S, r), "k_rope": (L, B, S, d_rope)}."""
+    lead = (cfg.n_layers, batch, seq)
+    if cfg.attn_kind == "mla":
+        return {"c": (*lead, cfg.mla.kv_lora_rank),
+                "k_rope": (*lead, cfg.mla.d_rope)}
+    return {"k": (*lead, cfg.n_kv, cfg.d_head),
+            "v": (*lead, cfg.n_kv, cfg.d_head)}
+
+
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                   dtype=None, device=None) -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.d_head)
     dt = dtype or cfg.param_dtype
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    return {f: torch.zeros(shape, dtype=dt, device=dev)
+            for f, shape in cache_shapes(cfg, batch, max_seq).items()}
 
 
 def prefill(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
@@ -161,17 +210,30 @@ def prefill(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape
     x = params["embed"][tokens]
-    shape = (cfg.n_layers, b, s, cfg.n_kv, cfg.d_head)
-    cache = {"k": torch.empty(shape, dtype=x.dtype, device=dev),
-             "v": torch.empty(shape, dtype=x.dtype, device=dev)}
+    cache = {f: torch.empty(shape, dtype=x.dtype, device=dev)
+             for f, shape in cache_shapes(cfg, b, s).items()}
     for i in range(cfg.n_layers):
-        x, layer_cache = _layer_fwd(cfg, _layer(params["layers"], i), x,
-                                    return_cache=True)
-        cache["k"][i] = layer_cache["k"]
-        cache["v"][i] = layer_cache["v"]
+        x, layer_cache, _ = layer_forward(cfg, layer_params(params["layers"], i),
+                                          x, return_cache=True)
+        for f, c in layer_cache.items():
+            cache[f][i] = c
     h_last = rms_norm(x[:, -1], params["ln_f"])
     logits = (h_last @ params["lm_head"]).float()
     return logits, cache
+
+
+def layer_decode(cfg: TransformerConfig, lp: Dict, x: torch.Tensor,
+                 layer_cache: Dict[str, torch.Tensor], pos: torch.Tensor
+                 ) -> torch.Tensor:
+    """One block of ``decode_step``: x (B, d) -> x; writes the layer's
+    cache row at ``pos`` in place."""
+    h = rms_norm(x, lp["ln1"])
+    if cfg.attn_kind == "mla":
+        h, _ = mla_decode(lp["attn"], h, layer_cache, pos, cfg.mla)
+    else:
+        h, _ = gqa_decode(lp["attn"], h, layer_cache, pos, cfg.attn_cfg())
+    x = x + h
+    return x + _ffn(cfg, lp["ffn"], rms_norm(x, lp["ln2"]))[0]
 
 
 def decode_step(params: Dict, token, cache: Dict[str, torch.Tensor], pos,
@@ -185,12 +247,8 @@ def decode_step(params: Dict, token, cache: Dict[str, torch.Tensor], pos,
     pos = torch.as_tensor(pos, device=dev)
     x = params["embed"][token]                                   # (B, d)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h = rms_norm(x, lp["ln1"])
-        h, _ = gqa_decode(lp["attn"], h, {"k": cache["k"][i], "v": cache["v"][i]},
-                          pos, cfg.attn_cfg())
-        x = x + h
-        x = x + mlp_apply(lp["ffn"], rms_norm(x, lp["ln2"]), cfg.mlp_kind)
+        x = layer_decode(cfg, layer_params(params["layers"], i), x,
+                         {f: c[i] for f, c in cache.items()}, pos)
     h = rms_norm(x, params["ln_f"])
     logits = (h @ params["lm_head"]).float()
     return logits, cache

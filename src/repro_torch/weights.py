@@ -81,19 +81,26 @@ def from_reference(
     return out
 
 
+# Leaves that the port's init draws in float32 under any param_dtype,
+# as the reference does: the MoE router (``models/moe.py``).
+_FLOAT32_LEAVES = ("router",)
+
+
 def lm_params_from_reference(params: Mapping, cfg, device=None) -> Dict:
     """The reference's LM parameter tree (nested dicts of numpy arrays,
     layer leaves stacked ``(n_layers, ...)``) as the port's, each leaf in
-    ``cfg.param_dtype`` (a ``TransformerConfig``).  The recsys trees of
-    the four archs (``RecsysConfig``, ``B4RConfig``) convert leaf for
+    the dtype the port's ``init_params`` gives it: ``cfg.param_dtype``
+    (a ``TransformerConfig``), the MoE router float32.  The recsys trees
+    of the four archs (``RecsysConfig``, ``B4RConfig``) convert leaf for
     leaf the same way: ``recsys_params_from_reference``."""
     dev = resolve_device(device)
 
-    def convert(tree):
+    def convert(tree, name=None):
         if isinstance(tree, Mapping):
-            return {k: convert(v) for k, v in tree.items()}
+            return {k: convert(v, k) for k, v in tree.items()}
         arr = np.array(tree, dtype=np.float32)       # bf16 leaves too
-        return torch.from_numpy(arr).to(dev, cfg.param_dtype)
+        dt = torch.float32 if name in _FLOAT32_LEAVES else cfg.param_dtype
+        return torch.from_numpy(arr).to(dev, dt)
 
     return convert(params)
 

@@ -42,6 +42,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention, tensor_core_route)
 from repro_torch.models import recsys
 from repro_torch.models.attention import gqa_forward
+from repro_torch.models.moe import moe_ffn, moe_ffn_dense, moe_init, no_drop
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import decode_step, init_params, prefill
 
@@ -776,6 +777,117 @@ def test_cuda_mistral_nemo_two_layer_decode_kernel_and_plain(cuda):
     torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)
     for f in ("k", "v"):
         assert torch.equal(cache[f][0], other[f][0])
+
+
+@pytest.mark.gpu
+def test_cuda_deepseek_two_layer_fp32_decode_equals_prefill(cuda):
+    """DeepSeek-V2-Lite at full width (MLA, 64-expert MoE), 2 layers, in
+    fp32: a decode step for token S from prefill(S)'s compressed cache
+    (the absorbed form) gives prefill(S + 1)'s last logits (the
+    materialised form) within 1e-4 + 1e-4|logit|: float32 on both sides,
+    TF32 off, only the summation order differs (a wrong cache row, RoPE
+    position or mask moves logits by 1e-2 or more)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("deepseek-v2-lite-16b").model_cfg(False)
+    cfg = dataclasses.replace(cfg, n_layers=2, param_dtype=torch.float32,
+                              moe=no_drop(cfg.moe))
+    params = init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 513))).to(cuda)
+    _, cache = prefill(params, tokens[:, :512], cfg)
+    assert cache["c"].shape == (2, 2, 512, cfg.mla.kv_lora_rank)
+    assert cache["k_rope"].shape == (2, 2, 512, cfg.mla.d_rope)
+    cache = {f: torch.nn.functional.pad(c, (0, 0, 0, 8)) for f, c in cache.items()}
+    pos = torch.full((2,), 512, device=cuda)
+    got, cache = decode_step(params, tokens[:, 512], cache, pos, cfg)
+    want, full = prefill(params, tokens, cfg)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    for f in ("c", "k_rope"):       # the decoded row is prefill's row 512
+        torch.testing.assert_close(cache[f][:, :, 512], full[f][:, :, 512],
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_ffn_matches_dense_and_reruns_bit_equal(cuda):
+    """DeepSeek-V2-Lite's MoE FFN at full width (64 experts, top-6, 2
+    shared), fp32: ``moe_ffn`` at a capacity of T against the dense
+    formulation (every expert on every token, gates zeroed outside the
+    top-k) within 1e-4 + 1e-4|out| (float32, summation order only); then
+    bf16 over 4096 tokens at the config's own capacity, where some
+    assignments drop: two calls give the same bits (no atomics)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("deepseek-v2-lite-16b").model_cfg(False).moe
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe_init(gen, cfg)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(64, cfg.d_model)).astype(np.float32)).to(cuda)
+    got, aux = moe_ffn(params, x, cfg, capacity=64)
+    want = moe_ffn_dense(params, x, cfg)
+    assert torch.isfinite(got).all() and aux.item() > 0
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    bf = moe_init(gen, cfg, dtype=torch.bfloat16)
+    assert bf["router"].dtype == torch.float32
+    xb = torch.from_numpy(rng.normal(size=(4096, cfg.d_model)).astype(np.float32)
+                          ).to(cuda, torch.bfloat16)
+    first, _ = moe_ffn(bf, xb, cfg)
+    again, _ = moe_ffn(bf, xb, cfg)
+    assert first.dtype == torch.bfloat16 and torch.isfinite(first).all()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+def test_cuda_grok1_one_layer_flash_and_decode_kernels_and_plain(cuda):
+    """Grok-1 at full width (GQA 48:8, group 6, d_head 128, 8-expert
+    MoE), 1 layer, bf16, random weights: prefill through the tensor-core
+    flash kernel (one launch) and through the plain chunked attention;
+    layer 0's attention output within the bf16 tolerance 2e-2, the
+    logits within the bound of the Mistral-NeMo tests (0.1 +
+    0.05|logit|); then one decode step from copies of one cache through
+    the tensor-core decode kernel (one launch, none on the CUDA cores)
+    and the plain einsums, within the same bound, the caches written
+    alike.  Capacity >= T (``no_drop``), so a token's routing never
+    hangs on another's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("grok-1-314b").model_cfg(False)
+    cfg = dataclasses.replace(cfg, n_layers=1, use_flash=True,
+                              moe=no_drop(cfg.moe))
+    plain = dataclasses.replace(cfg, use_flash=False)
+    params = init_params(cfg, seed=0, device=cuda)
+    assert params["layers"]["ffn"]["router"].dtype == torch.float32
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 700))).to(cuda)
+    before = FLASH_ATTENTION_TC_KERNEL.launches
+    logits, cache = prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_TC_KERNEL.launches == before + 1
+    plain_logits, plain_cache = prefill(params, tokens, plain)
+    assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits).all()
+    for f in ("k", "v"):
+        assert torch.equal(cache[f], plain_cache[f])
+    lp = params["layers"]
+    h = rms_norm(params["embed"][tokens], lp["ln1"][0])
+    attn0 = {k: w[0] for k, w in lp["attn"].items()}
+    torch.testing.assert_close(gqa_forward(attn0, h, cfg.attn_cfg()).float(),
+                               gqa_forward(attn0, h, plain.attn_cfg()).float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(logits, plain_logits, atol=0.1, rtol=0.05)
+
+    cache = {f: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8))
+             for f, c in cache.items()}
+    other = {f: c.clone() for f, c in cache.items()}
+    token, pos = logits.argmax(-1), torch.tensor([700, 650], device=cuda)
+    tc, cc = DECODE_ATTENTION_TC_KERNEL.launches, DECODE_ATTENTION_KERNEL.launches
+    got, cache = decode_step(params, token, cache, pos, cfg)
+    torch.cuda.synchronize()
+    assert DECODE_ATTENTION_TC_KERNEL.launches == tc + 1
+    assert DECODE_ATTENTION_KERNEL.launches == cc
+    want, other = decode_step(params, token, other, pos, plain)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)
+    for f in ("k", "v"):
+        assert torch.equal(cache[f], other[f])
 
 
 # ------------------------------------------------------------ training

@@ -131,15 +131,23 @@ def test_lm_entry_points_raise_without_cuda():
     _, cache = prefill(params, tokens, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         decode_step(params, tokens[:, 0], cache, torch.tensor([8]), cfg)
+    mla = get_arch("deepseek-v2-lite-16b").model_cfg(True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(mla)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_kv_cache(mla, 1, 8)
+    assert sorted(init_kv_cache(mla, 1, 8, device="cpu")) == ["c", "k_rope"]
 
 
 _NEW_MODULES = """
 import importlib, sys
 for name in ("repro_torch.kernels.decode_attention",
              "repro_torch.kernels.embedding_bag",
-             "repro_torch.models.recsys",
+             "repro_torch.models.recsys", "repro_torch.models.moe",
              "repro_torch.configs.wide_deep", "repro_torch.configs.deepfm",
-             "repro_torch.configs.dcn_v2", "repro_torch.configs.bert4rec"):
+             "repro_torch.configs.dcn_v2", "repro_torch.configs.bert4rec",
+             "repro_torch.configs.deepseek_v2_lite_16b",
+             "repro_torch.configs.grok1_314b"):
     importlib.import_module(name)
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")))
 """
