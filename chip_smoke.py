@@ -154,7 +154,7 @@ Phases (any failure raises and the script exits non-zero):
    planes); the production plans (shallow-plan fallbacks) published
    into a ``PolicyStore``; a ``ReplicaSet`` of 2 thread replicas with
    3c's engines on ``block_scan``; a ``MergeDaemon`` compacting at
-   2,048 delta docs.  Warmup, then with the counts set to 0: 8
+   2,048 delta docs.  Warmup, then with the counts set to 0: 4
    freshness ticks (``FreshnessWorkload``: 1,024 new docs at static
    rank 0.01 and their chase queries, after 64 base-doc updates through
    ``update_document``; each tick commits an epoch) each followed by a
@@ -171,11 +171,10 @@ Phases (any failure raises and the script exits non-zero):
    generations' bytes and docs, bytes per query from the base and the
    delta, epoch swaps and lag, the share of fresh responses whose
    judged doc is among their rollout's candidates and among the served
-   ids, each replica's ``batch_inputs``/``execute`` means,
+   ids, each replica's ``batch_inputs``/``execute`` means, and
    the occupancy build at capacity beside the static build of the same
-   base, and one compaction of 2,048 new docs timed with no serving
-   thread beside it; then ``launch/live_index.py --smoke`` runs as a
-   subprocess on the card and must exit 0.
+   base; then ``launch/live_index.py --smoke`` runs as a subprocess on
+   the card and must exit 0.
 3f. Serve through worker processes: phase 3e's live system (its fleet
    and daemon stopped; the head at generation >= 2) behind a
    ``ReplicaSet(backend="process")`` of 2 workers with 3c's engines on
@@ -255,6 +254,25 @@ Phases (any failure raises and the script exits non-zero):
    the whole step both ways (max |dlogit|, ms per step); a profiled
    decode step; a second prefill, timed, and a profiled one; the
    routing; layer 0's flash attention against plain within 2e-2.
+4c. LM train (``launch/steps.py``: loss, microbatched gradients, clip,
+   in-place AdamW; the plain attention, as the reference trains: no
+   kernel runs, the counts read 0): (a) starcoder2-3b at full width and
+   depth (30 layers, d_model 3072, GQA 24:2, d_head 128, d_ff 12288,
+   vocab 49152), bf16 with bf16 moments, microbatch 4 accumulated in
+   float32, remat, batch 8 x 4096 (cut from ``train_4k``'s 256 x 4096):
+   3 steps on one batch (the loss finite and falling), 2 timed steps on
+   fresh batches (ms, tokens/s, peak memory, 6 N D over time against the
+   bf16 peak), one profiled step; (c) DeepSeek-V2-Lite at full width,
+   4 of its 27 layers (16 B parameters with AdamW state do not fit the
+   card), the same traffic: two steps from copies of one state
+   bit-equal (parameters, moments, loss), the loss falling over 3 steps
+   on one batch, 2 timed steps, drops per layer, peak memory; (d)
+   ``launch/train.py lm --arch starcoder2-3b --steps 40`` on the card
+   with ``--inject-failure`` and without: one restart, the loss falls,
+   the final state bit-equal; then (b) the same starcoder2-3b at full
+   width cut to 2 layers, fp32, 2 x 256 in 2 microbatches, one step on
+   the card and one on the CPU: loss, grad norm and every gradient leaf
+   within 1e-4 (relative L2 for the leaves).
 5. Recsys serve: Wide&Deep, DeepFM, DCN-v2 and BERT4Rec at their full
    configs (no width cut), random fp32 weights from a seeded CUDA
    generator, ids uniform per field from a seeded generator.  With the
@@ -268,12 +286,26 @@ Phases (any failure raises and the script exits non-zero):
    kernel-path forward is held against the same forward with the plain
    bag (1e-5 + 1e-5|logit|); one ``serve_bulk`` forward of each of the
    two runs under torch.profiler.
+5b. Recsys train (``build_cell(arch, "train_batch").fn``: loss,
+   gradients, AdamW; the bag's backward is plain torch in a fixed
+   order): Wide&Deep and DeepFM at full config and 65,536, one loss and
+   gradient through the bag kernel and one through the plain bag on one
+   state (one column-route launch in the forward, none in the backward;
+   the loss within 1e-5 + 1e-5|loss|, the ``wide`` / ``first_order``
+   gradient within 1e-5 + 1e-5|g|, every leaf within 1e-4 relative L2);
+   then, between a reset and a read of the counts, each of the four
+   archs at its full config (the CTR labels a function of the ids: 1
+   where more than half are odd) (BERT4Rec's batch cut to 4,096: its fp32
+   scores at 65,536 would be 21 GB a layer) takes 3 steps on one batch:
+   the loss finite and falling, ms/step, one bag launch a step for the
+   two archs with a bag.
 6. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
    ``cluster_launches``, the live fleet's, ``live_launches``, and the
    process cell's workers', ``proc_launches``; the tensor-core flash and
-   decode rows also Grok-1's, ``moe_lm_launches``), the card line, and last
+   decode rows also Grok-1's, ``moe_lm_launches``; the column bag row
+   5b's, ``train_launches``), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -2472,8 +2504,8 @@ def cluster_phase(dev, sys_, trained):
 # the reference's default, twice the base; production-plan policies, 2
 # thread replicas with 3c's engines, a MergeDaemon, freshness ticks.
 LIVE_CAPACITY_MULT = 2                 # the reference's default capacity
-LIVE_TICKS = 8
-LIVE_DOCS_PER_TICK = 1024              # 8,192 new docs: blocks 64-65 fill
+LIVE_TICKS = 4                         # 4,096 new docs cross the 2,048 of
+LIVE_DOCS_PER_TICK = 1024              # LIVE_MERGE_MIN_DOCS twice: 2 merges
 LIVE_UPDATES_PER_TICK = 64             # base docs replaced each tick
 LIVE_WAVE = 256                        # the serve cell's query batch
 LIVE_FRAC_FRESH = 0.7
@@ -2599,8 +2631,7 @@ def live_phase(dev, cfg):
     from repro_torch.cluster import ClusterConfig, ReplicaSet, Shed
     from repro_torch.data.freshness import FreshnessConfig, FreshnessWorkload
     from repro_torch.index.builder import batch_query_occupancy
-    from repro_torch.index.live import (DeltaOp, LiveIndex,
-                                        LiveRetrievalSystem, MergeConfig,
+    from repro_torch.index.live import (LiveRetrievalSystem, MergeConfig,
                                         MergeDaemon, check_epoch_parity)
     from repro_torch.index.live.live_index import MERGE_MS_EDGES
     from repro_torch.obs import Tracer
@@ -2824,22 +2855,6 @@ def live_phase(dev, cfg):
         print(f"[live] occupancy build, {name}: {occ.shape} in "
               f"{np.median(times):.1f} ms per batch of {len(lists)} (median "
               f"of 3)", flush=True)
-    # One compaction with no serving thread beside it: the head base and
-    # one trigger's worth of new docs, compacted and written to a scratch
-    # generation that is never published.
-    base = live.store.snapshot().view.base
-    mrng = np.random.default_rng(SEED + 23)
-    ops = [DeltaOp("add", base.n_docs + i, tuple(updated_doc(mrng, vocab)),
-                   LIVE_STATIC_RANK_FRESH) for i in range(LIVE_MERGE_MIN_DOCS)]
-    t1 = time.perf_counter()
-    merged = LiveIndex._compact(base, ops)
-    t2 = time.perf_counter()
-    merged.save(Path(storage.name) / "alone")
-    t3 = time.perf_counter()
-    print(f"[live] one compaction alone (no serving thread): "
-          f"{LIVE_MERGE_MIN_DOCS} new docs onto {base.n_docs}: compact "
-          f"{(t2 - t1) * 1e3:.1f} ms, write and map {(t3 - t2) * 1e3:.1f} ms "
-          f"({merged.nbytes} bytes)", flush=True)
     live_cli(dev)
     print(f"[live] phase 3e in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -4153,22 +4168,522 @@ def decode_both_ways(params, token, cache, pos, cfg, plain_cfg, dev, reps=3):
     del copies
 
 
+# ------------------------------------------------------------ phase 4c
+# Train the LMs (launch/steps.py make_lm_train_step: loss, microbatched
+# grads, clip, in-place AdamW), through the plain attention as the
+# reference trains (its Pallas kernels have no VJP): no kernel runs.
+LM_TRAIN_ARCH = "starcoder2-3b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 4096   # cut from train_4k's 256 x 4096
+LM_TRAIN_FALL_STEPS = 3                  # on one fixed batch
+LM_TRAIN_TIMED_STEPS = 2                 # on fresh batches
+# (b): the same model at full width, cut in depth, fp32, card against CPU
+LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_SEQ, LM_CHECK_MB = 2, 2, 256, 2
+# float32 on both sides, summation order only (tests/test_torch_train_step.py)
+LM_CHECK_TOL = 1e-4
+MOE_TRAIN_LAYERS = 4                     # of 27: 16 B parameters with AdamW
+                                         # state do not fit 80 GB
+LM_CLI_STEPS = 40
+
+
+def lm_tokens(gen, vocab, b, s, dev):
+    """(tokens, targets) (b, s) int32 from ``gen``: one random sequence of
+    s + 1 tokens a row, shifted by one."""
+    import torch
+
+    toks = torch.randint(0, vocab, (b, s + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def falling_steps(step, state, batch, n, name, first=()):
+    """``n`` steps of ``step(params, opt, *batch)`` (the loss as its
+    third output, or its "loss" entry) on one batch, after the losses
+    ``first`` of steps already taken on it: every loss finite and each
+    below the one before; returns the losses."""
+    import math
+
+    losses = list(first)
+    for _ in range(n):
+        out = step(*state, *batch)[2]
+        losses.append(float(out["loss"] if isinstance(out, dict) else out))
+    if not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{name}: loss not finite and falling over "
+                             f"{len(losses)} steps on one batch: {losses}")
+    print(f"[train] {name}: loss over {len(losses)} steps on one batch "
+          f"{[round(x, 6) for x in losses]} (finite, falling)", flush=True)
+    return losses
+
+
+def timed_steps(dev, step, state, batches, name, tokens_per_step=None):
+    """One step per batch, each timed on the host clock to a synchronize;
+    returns the ms of each."""
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        step(*state, *batch)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rate = (f", {tokens_per_step / (min(times) / 1e3):.0f} tokens/s at the "
+            f"fastest" if tokens_per_step else "")
+    print(f"[train] {name}: {len(times)} steps on fresh batches, ms/step "
+          f"{[round(t, 1) for t in times]}{rate}", flush=True)
+    return times
+
+
+def peak_text(dev) -> str:
+    import torch
+
+    if dev.type != "cuda":
+        return "n/a (CPU)"
+    return f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+
+
+def lm_train_full(dev, cfg=None, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ):
+    """(a) starcoder2-3b at full width and depth, bf16, _lm_opt_cfg's bf16
+    moments, microbatch 4 with float32 accumulation, remat, the plain
+    attention: 3 steps on one batch (the loss falls), 2 timed steps on
+    fresh batches (ms, tokens/s, peak memory, 6 N D / time against the
+    bf16 peak), one profiled step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import _lm_opt_cfg, make_lm_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = cfg or get_arch(LM_TRAIN_ARCH).model_cfg(False)
+    opt_cfg = _lm_opt_cfg(False)
+    print(f"[train] {LM_TRAIN_ARCH}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, GQA {cfg.n_heads}:{cfg.n_kv}, d_head {cfg.d_head}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}, moments "
+          f"{opt_cfg.state_dtype}, microbatch {cfg.microbatch} accumulated in "
+          f"{cfg.grad_accum_dtype}, remat {cfg.remat}, plain attention; no "
+          f"width or depth cut; traffic cut: batch {batch} x {seq} instead of "
+          f"train_4k's 256 x 4096 (a step of 256 would take minutes)",
+          flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, seed=SEED, device=dev)
+    opt = adamw_init(params, opt_cfg)
+    n = count_params(params)
+    step = make_lm_train_step(cfg, opt_cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 41)
+    falling_steps(step, (params, opt), lm_tokens(gen, cfg.vocab, batch, seq, dev),
+                  LM_TRAIN_FALL_STEPS, f"{LM_TRAIN_ARCH} full")
+    batches = [lm_tokens(gen, cfg.vocab, batch, seq, dev)
+               for _ in range(LM_TRAIN_TIMED_STEPS)]
+    times = timed_steps(dev, step, (params, opt), batches,
+                        f"{LM_TRAIN_ARCH} full", batch * seq)
+    flops = 6 * n * batch * seq
+    best = min(times) / 1e3
+    print(f"[train] {LM_TRAIN_ARCH} full: {n / 1e9:.3f} B parameters; peak "
+          f"device memory {peak_text(dev)}; 6 N D = {flops:.4g} FLOP a step, "
+          f"{flops / best / 1e12:.1f} TFLOP/s at the fastest, "
+          f"{100 * flops / best / BF16_FLOPS_PER_S:.2f}% of the {BF16_FLOPS_PER_S:.3g} "
+          f"bf16 peak (remat and the quadratic attention not counted)",
+          flush=True)
+    if dev.type == "cuda":
+        tk, tg = batches[0]
+        t0 = time.perf_counter()
+        profile_device(f"{LM_TRAIN_ARCH} train step",
+                       lambda: step(params, opt, tk, tg), "gemm", host=False)
+        print(f"[train] the profiled step and its tables in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params, opt
+
+
+def lm_train_card_vs_cpu(dev, cfg=None, layers=LM_CHECK_LAYERS,
+                         batch=LM_CHECK_BATCH, seq=LM_CHECK_SEQ,
+                         mb=LM_CHECK_MB):
+    """(b) The same model at full width, cut to ``layers``, fp32, batch
+    ``batch`` x ``seq`` in ``mb`` microbatches: one step on the card and
+    one on the CPU from the same weights and tokens; the loss, the grad
+    norm and every (clipped) gradient leaf within LM_CHECK_TOL (relative
+    L2 for the leaves); the new parameters' relative L2 printed."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.tree import leaf_paths, tree_leaves, tree_map
+
+    cfg = dataclasses.replace(cfg or get_arch(LM_TRAIN_ARCH).model_cfg(False),
+                              n_layers=layers, param_dtype=torch.float32,
+                              microbatch=mb)
+    opt_cfg = steps._lm_opt_cfg(True)
+    params = init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 43)
+    tokens, targets = lm_tokens(gen, cfg.vocab, batch, seq, dev)
+    step = steps.make_lm_train_step(cfg, opt_cfg)
+    cpu = torch.device("cpu")
+    runs = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        o = adamw_init(p, opt_cfg)
+        seen = []
+        real = steps.lm_loss_and_grads
+
+        def recording(*a, **k):
+            out = real(*a, **k)
+            seen.append(out[1])           # clipped in place by the step
+            return out
+
+        t0 = time.perf_counter()
+        with mock.patch.object(steps, "lm_loss_and_grads", recording):
+            _, _, m = step(p, o, tokens.to(d), targets.to(d))
+        sync(dev)
+        runs[where] = (m, seen[0], p, time.perf_counter() - t0)
+    (mg, gg, pg, tg_), (mc, gc, pc, tc_) = runs["card"], runs["cpu"]
+    errs = {}
+    for key in ("loss", "grad_norm"):
+        a, b = float(mg[key]), float(mc[key])
+        errs[key] = abs(a - b)
+        if errs[key] > LM_CHECK_TOL * (1 + abs(b)):
+            raise AssertionError(f"card vs CPU {key}: {a} against {b}")
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    grad_err = max((rel(a, b), path) for a, b, path in zip(
+        tree_leaves(gg), tree_leaves(gc), leaf_paths(gc)))
+    if grad_err[0] > LM_CHECK_TOL:
+        raise AssertionError(f"card vs CPU: gradient {grad_err} (relative L2, "
+                             f"tol {LM_CHECK_TOL})")
+    # not held: an element whose gradient is near 0 may step the other
+    # way on one side (tests/test_torch_train_step.py's exemption)
+    param_err = max(rel(a, b) for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    print(f"[train] {LM_TRAIN_ARCH} at full width, {layers} layers, fp32, "
+          f"{batch} x {seq} in {mb} microbatches, card against CPU: loss "
+          f"{float(mg['loss']):.6f} (|d| {errs['loss']:.3g}), grad norm "
+          f"{float(mg['grad_norm']):.6f} (|d| {errs['grad_norm']:.3g}), worst "
+          f"gradient leaf relative L2 {grad_err[0]:.3g} ({grad_err[1]}; tol "
+          f"{LM_CHECK_TOL}), worst new parameter leaf {param_err:.3g}; step "
+          f"{tg_ * 1e3:.1f} ms card (first call), {tc_ * 1e3:.1f} ms CPU",
+          flush=True)
+
+
+def moe_train(dev, cfg=None, layers=MOE_TRAIN_LAYERS, batch=LM_TRAIN_BATCH,
+              seq=LM_TRAIN_SEQ):
+    """(c) DeepSeek-V2-Lite at full width, cut to ``layers``, bf16, (a)'s
+    traffic and step: two steps from copies of one state bit-equal
+    (parameters, moments, loss); the loss finite and falling over 3
+    steps on one batch; 2 timed steps; drops per layer; peak memory."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import _lm_opt_cfg, make_lm_train_step
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(cfg or get_arch(MLA_ARCH).model_cfg(False),
+                              n_layers=layers)
+    opt_cfg = _lm_opt_cfg(False)
+    print(f"[train] {MLA_ARCH}: full width (MLA r {cfg.mla.kv_lora_rank}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.n_shared} shared), {cfg.param_dtype}, moments "
+          f"{opt_cfg.state_dtype}, microbatch {cfg.microbatch}, remat "
+          f"{cfg.remat}; depth cut: {layers} of 27 layers (16 B parameters "
+          f"with AdamW state do not fit 80 GB); traffic as {LM_TRAIN_ARCH}'s",
+          flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, seed=SEED, device=dev)
+    opt = adamw_init(params, opt_cfg)
+    step = make_lm_train_step(cfg, opt_cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 47)
+    batch0 = lm_tokens(gen, cfg.vocab, batch, seq, dev)
+    twin = (tree_map(torch.clone, params), tree_map(torch.clone, opt))
+    _, _, m = step(params, opt, *batch0)
+    _, _, m2 = step(*twin, *batch0)
+    same = (torch.equal(m["loss"], m2["loss"])
+            and torch.equal(m["grad_norm"], m2["grad_norm"])
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves((params, opt)), tree_leaves(twin))))
+    print(f"[train] {MLA_ARCH}: two steps from copies of one state bit-equal "
+          f"(parameters, moments, loss, norm): {same}; loss "
+          f"{float(m['loss']):.6f}", flush=True)
+    if not same:
+        raise AssertionError(f"{MLA_ARCH}: two steps from one state differ")
+    del twin
+    falling_steps(step, (params, opt), batch0, LM_TRAIN_FALL_STEPS - 1,
+                  f"{MLA_ARCH} {layers} layers", first=[float(m["loss"])])
+    batches = [lm_tokens(gen, cfg.vocab, batch, seq, dev)
+               for _ in range(LM_TRAIN_TIMED_STEPS)]
+    timed_steps(dev, step, (params, opt), batches, f"{MLA_ARCH} {layers} layers",
+                batch * seq)
+    stats = []
+    mb_rows = batch // cfg.microbatch
+    with torch.no_grad(), mock.patch.object(transformer, "moe_ffn",
+                                            routing_recorder(stats)):
+        transformer.lm_loss(params, *(t[:mb_rows] for t in batches[0]), cfg,
+                            device=dev)
+    drops = [int(d) for _, d, _ in stats]
+    assigned = mb_rows * seq * cfg.moe.top_k
+    print(f"[train] {MLA_ARCH}: dropped past capacity {stats[0][2]} per layer "
+          f"in one microbatch's forward: {drops} of {assigned} assignments "
+          f"each; peak device memory {peak_text(dev)}", flush=True)
+    del params, opt
+
+
+def lm_train_cli(dev, steps=LM_CLI_STEPS):
+    """(d) ``launch/train.py lm --arch starcoder2-3b`` on ``dev`` for
+    ``steps`` steps with ``--inject-failure`` and without, from fresh
+    checkpoint directories: one restart, the loss falls (the command
+    asserts it), and the final parameters and state bit-equal."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train.tree import tree_leaves
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="ckpt-lm-") as tmp:
+        for name, extra in (("injected", ["--inject-failure"]), ("clean", [])):
+            t0 = time.perf_counter()
+            runs[name] = train_main(["lm", "--arch", LM_TRAIN_ARCH, "--steps",
+                                     str(steps), "--device", dev.type,
+                                     "--ckpt-dir", f"{tmp}/{name}", *extra])
+            runs[name]["secs"] = time.perf_counter() - t0
+    inj, clean = runs["injected"], runs["clean"]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(inj["state"]),
+                                                  tree_leaves(clean["state"])))
+    print(f"[train] launch/train.py lm --arch {LM_TRAIN_ARCH} --steps {steps} "
+          f"on {dev.type}: with --inject-failure {inj['restarts']} restart, "
+          f"{inj['steps_replayed']} steps replayed, loss "
+          f"{inj['losses'][0]:.4f} -> {inj['losses'][-1]:.4f}, "
+          f"{inj['secs']:.1f} s; clean {clean['secs']:.1f} s; final state "
+          f"bit-equal: {same}", flush=True)
+    if inj["restarts"] != 1 or clean["restarts"] != 0 or not same:
+        raise AssertionError("launch/train.py lm: the injected run did not "
+                             "restart once and end bit-equal to the clean one")
+
+
+def lm_train_phase(dev):
+    """Phase 4c: (a)-(d), the main path (a, c, d) between a reset and a
+    read of the launch counts: no kernel runs (the plain attention)."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    for part in (lm_train_full, moe_train, lm_train_cli):
+        t0 = time.perf_counter()
+        part(dev)
+        print(f"[train] {part.__name__} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the LM train path launched kernels: {launches}")
+    print(f"[train] LM train path launches: {launches} (none: the reference "
+          f"trains through the plain attention)", flush=True)
+    lm_train_card_vs_cpu(dev)
+    print(f"[train] phase 4c in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+# ------------------------------------------------------------ phase 5b
+RECSYS_TRAIN_B4R_BATCH = 4096    # cut from 65,536: its fp32 scores would
+                                 # be 21 GB a layer
+RECSYS_TRAIN_STEPS = 3
+
+
+def recsys_train_batch(arch_id, cfg, b, gen, dev):
+    """One seeded train batch: the CTR archs' (ids, dense, labels: 1
+    where more than half the ids are odd);
+    BERT4Rec's (seq with 16 positions set to [MASK], those positions,
+    their targets, 256 shared negatives a row)."""
+    import torch
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    if arch_id == "bert4rec":
+        seq = ints(cfg.n_items, (b, cfg.seq_len))
+        pos = ints(cfg.seq_len, (b, 16))
+        seq.scatter_(1, pos, cfg.n_items + 1)
+        return seq, pos, ints(cfg.n_items, (b, 16)), ints(cfg.n_items, (b, 256))
+    dense = torch.randn((b, max(cfg.n_dense, 1)), generator=gen, device=dev)
+    ids = ints(cfg.vocab_per_field, (b, cfg.n_sparse))
+    # a label the ids determine (more odd ids than even), so that a step
+    # has a signal to fit beyond memorising random labels
+    labels = ((ids % 2).sum(1) * 2 > cfg.n_sparse).float()
+    return ids, dense, labels
+
+
+def recsys_train_init(arch_id, cfg, dev):
+    from repro_torch.models import recsys
+
+    init = {"wide-deep": recsys.wide_deep_init, "deepfm": recsys.deepfm_init,
+            "dcn-v2": recsys.dcn_init, "bert4rec": recsys.bert4rec_init}[arch_id]
+    return init(cfg, seed=SEED, device=dev)
+
+
+def bag_train_check(arch_id, cfg, params, batch, dev):
+    """One loss and gradient through the bag kernel and one through the
+    plain bag, on one state: one column-route launch in the forward and
+    none in the backward; the loss within RECSYS_TOL + RECSYS_TOL|loss|,
+    the bag table's gradient within RECSYS_TOL + RECSYS_TOL|g|
+    elementwise, every leaf within 1e-4 relative L2."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import (EMBEDDING_BAG_KERNEL,
+                                                   EMBEDDING_BAG_LANES_KERNEL,
+                                                   embedding_bag_ref)
+    from repro_torch.launch.steps import recsys_loss, value_and_grad
+    from repro_torch.models import recsys
+    from repro_torch.train.tree import leaf_paths, tree_leaves, tree_map
+
+    bags = (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)
+    on_card = dev.type == "cuda"
+    req = tree_map(lambda p: p.detach().requires_grad_(), params)
+    before = [k.launches for k in bags]
+    loss = recsys_loss(arch_id, cfg, req, *batch)
+    sync(dev)
+    fwd = [k.launches - b for k, b in zip(bags, before)]
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        tree_leaves(req), torch.autograd.grad(loss, tree_leaves(req),
+                                              allow_unused=True))]
+    sync(dev)
+    bwd = [k.launches - b - f for k, b, f in zip(bags, before, fwd)]
+    if fwd != ([1, 0] if on_card else [0, 0]) or bwd != [0, 0]:
+        raise AssertionError(f"{arch_id} train: bag launches {fwd} in the "
+                             f"forward, {bwd} in the backward")
+    with mock.patch.object(recsys, "embedding_bag", embedding_bag_ref):
+        want_loss, want = value_and_grad(
+            lambda p: recsys_loss(arch_id, cfg, p, *batch), params)
+    if [k.launches for k in bags] != [b + f for b, f in zip(before, fwd)]:
+        raise AssertionError("the plain-bag train step launched a bag kernel")
+    table = "wide" if arch_id == "wide-deep" else "first_order"
+    loss = loss.detach()
+    d_loss = abs(float(loss) - float(want_loss))
+    worst_rel, worst_table = 0.0, 0.0
+    for path, g, w in zip(leaf_paths(want), grads, tree_leaves(want)):
+        err = float((g.double() - w.double()).norm()
+                    / w.double().norm().clamp_min(1e-30))
+        worst_rel = max(worst_rel, err)
+        if err > 1e-4:
+            raise AssertionError(f"{arch_id} train: kernel-bag gradient of "
+                                 f"{path} != plain ({err} relative L2)")
+        if path == table:
+            diff = (g - w).abs()
+            worst_table = float(diff.max())
+            if not bool((diff <= RECSYS_TOL + RECSYS_TOL * w.abs()).all()):
+                raise AssertionError(f"{arch_id} train: {table} gradient, "
+                                     f"kernel bag != plain ({worst_table})")
+    if d_loss > RECSYS_TOL * (1 + abs(float(want_loss))):
+        raise AssertionError(f"{arch_id} train: loss kernel bag {float(loss)} "
+                             f"!= plain {float(want_loss)}")
+    print(f"[recsys train] {arch_id}: kernel bag against plain bag on one "
+          f"state: loss {float(loss):.8f} (|d| {d_loss:.3g}), {table} "
+          f"gradient max |d| {worst_table:.3g} (tol {RECSYS_TOL} + "
+          f"{RECSYS_TOL}|g|), worst leaf relative L2 {worst_rel:.3g} (tol "
+          f"1e-4); bag launches {fwd} in the forward (column, lanes), {bwd} "
+          f"in the backward", flush=True)
+
+
+def recsys_train_phase(dev, reduced=False, batch_cap=None):
+    """Phase 5b: the bag kernel against the plain bag in one loss and
+    gradient of Wide&Deep and DeepFM at train_batch (uncounted); then the
+    main path between a reset and a read of the launch counts: each of
+    the four archs at its full config, 3 train steps on one batch (the
+    loss finite and falling, the last two timed), one bag launch per
+    step where the arch has a bag.  ``reduced``/``batch_cap`` cut it for
+    a rehearsal on the CPU.  Returns the main path's launch counts."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import EMBEDDING_BAG_KERNEL
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    def setup(arch_id):
+        cfg = get_arch(arch_id).model_cfg(reduced)
+        b = get_arch(arch_id).shape("train_batch").params["batch"]
+        if arch_id == "bert4rec":
+            b = min(b, RECSYS_TRAIN_B4R_BATCH)
+        b = min(b, batch_cap or b)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 51)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        return cfg, b, recsys_train_init(arch_id, cfg, dev), \
+            recsys_train_batch(arch_id, cfg, b, gen, dev)
+
+    print(f"[recsys train] full configs at train_batch (65,536); cut: "
+          f"BERT4Rec's batch to {RECSYS_TRAIN_B4R_BATCH} (its fp32 attention "
+          f"scores at 65,536 x 200 x 200 x 2 heads are 21 GB a layer)",
+          flush=True)
+    for arch_id in BAG_ARCHS:
+        cfg, b, params, batch = setup(arch_id)
+        bag_train_check(arch_id, cfg, params, batch, dev)
+        del params, batch
+    reset_counts()
+    for arch_id in RECSYS_ARCHS:
+        cfg, b, params, batch = setup(arch_id)
+        opt = adamw_init(params, AdamWConfig(lr=1e-3))
+        step = build_cell(arch_id, "train_batch", cfg_override=cfg).fn
+        before = EMBEDDING_BAG_KERNEL.launches
+        times = []
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        falling_steps(timed, (params, opt), batch, RECSYS_TRAIN_STEPS,
+                      f"{arch_id} (batch {b})")
+        bag = EMBEDDING_BAG_KERNEL.launches - before
+        want = RECSYS_TRAIN_STEPS if (on_card and arch_id in BAG_ARCHS) else 0
+        if bag != want:
+            raise AssertionError(f"{arch_id} train: {bag} column-route bag "
+                                 f"launches over {RECSYS_TRAIN_STEPS} steps, "
+                                 f"want {want}")
+        print(f"[recsys train] {arch_id} (batch {b}): ms/step "
+              f"{[round(t, 1) for t in times]} (the first with its "
+              f"allocations), {b / (min(times[1:]) / 1e3):.0f} examples/s at "
+              f"the fastest; {bag / RECSYS_TRAIN_STEPS:g} bag launches a step; "
+              f"{count_params(params) / 1e6:.1f} M parameters; peak device "
+              f"memory {peak_text(dev)}", flush=True)
+        del params, opt, batch, step
+    launches = read_counts()
+    print(f"[recsys train] main path launches: {launches}; phase 5b in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def profile_batch(exe, name, policy, inp):
     """One served batch under torch.profiler."""
     profile_device(name, lambda: exe.execute(policy, *inp),
                    "block_scan_pruned_chunk")
 
 
-def profile_device(name, fn, kernel):
+def profile_device(name, fn, kernel, host=True):
     """Run ``fn`` under torch.profiler and print the device's busy and
     idle share of the wall time, ``kernel``'s share of busy time, and
-    where the device and host time go; returns (kernel us, busy us,
-    wall us)."""
+    where the device and (with ``host``) host time go; returns (kernel
+    us, busy us, wall us).  Without ``host`` only the device is traced:
+    a call of ~10^5 launches then takes seconds to read, not a minute."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -4200,6 +4715,8 @@ def profile_device(name, fn, kernel):
     for key, (n, us) in top:
         print(f"[profile] {name} top by device: {key[:60]!r} n={n} "
               f"{us / 1e3:.3f} ms", flush=True)
+    if not host:
+        return kern_us, busy_us, wall_us
     events = prof.key_averages()
     top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     for e in top:
@@ -4279,11 +4796,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches = moe_phase(dev)
     torch.cuda.empty_cache()
+    lm_train_phase(dev)
+    torch.cuda.empty_cache()
     recsys_launches = recsys_phase(dev)
     for name in ("embedding_bag", "embedding_bag_lanes"):
         if recsys_launches[name] <= 0:
             raise AssertionError(f"the recsys path launched no {name} kernel")
     print(f"[recsys] main path launches: {recsys_launches}", flush=True)
+    torch.cuda.empty_cache()
+    recsys_train_launches = recsys_train_phase(dev)
+    if recsys_train_launches["embedding_bag"] <= 0:
+        raise AssertionError("the recsys train path launched no embedding_bag "
+                             "kernel")
 
     def row(name, source, replaces, n, r, err):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -4351,6 +4875,8 @@ def main() -> int:
     by_name = {r["name"]: r for r in kernels}
     for name in ("flash_attention_tc", "decode_attention_tc"):
         by_name[name]["moe_lm_launches"] = moe_launches[name]
+    by_name["embedding_bag"]["train_launches"] = (
+        recsys_train_launches["embedding_bag"])
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

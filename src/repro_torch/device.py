@@ -3,12 +3,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "entry_device"]
+__all__ = ["resolve_device", "entry_device", "seeded_generator"]
 
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``.  Raises if CUDA is asked for (or
-    defaulted to) and absent: there is no quiet CPU fallback.
+    defaulted to) and absent: there is no quiet CPU fallback.  ``meta``
+    makes shape-only tensors (nothing is computed; the torch form of the
+    reference's ``jax.eval_shape``).
 
     On CUDA, float32 matmuls and convolutions run in full float32: TF32
     is switched off (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -21,9 +23,28 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device, so that the
+    initialisers, which make their tensors on ``gen.device``, make
+    shape-only ones (a random fill of a meta tensor draws nothing)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def seeded_generator(seed: int, device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``resolve_device(device)`` seeded with
+    ``seed``; on ``meta``, one whose initialisers make meta tensors."""
+    dev = resolve_device(device)
+    gen = _MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
 
 
 def entry_device(param: torch.Tensor, mesh=None, device=None) -> torch.device:

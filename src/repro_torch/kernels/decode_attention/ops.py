@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.common import cdiv, refuse_grad
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import decode_attention_ref, merge_partials_ref
@@ -187,7 +187,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (fp32 FMAs on the CUDA cores).  Either is one launch, whose last CTA
     per (sequence, KV head) merges the slices.  If the chosen kernel
     fails to build or to launch, the call raises; nothing tries the
-    other."""
+    other.  On CUDA it raises under grad mode when an input requires
+    grad (``refuse_grad``): the kernels have no backward."""
     _check(q, k, v)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -201,6 +202,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     return_partial=return_partial)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k, v)
     _check_cuda(q, k, v, kv_len)
     lens, kv_all = None, s
     if isinstance(kv_len, torch.Tensor):

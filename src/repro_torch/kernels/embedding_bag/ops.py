@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
+from .backward import embedding_bag_backward
 from .ref import embedding_bag_ref
 
 __all__ = ["embedding_bag", "embedding_bag_kernel", "bag_route",
@@ -87,6 +88,25 @@ def _check(table, indices, weights, mode):
         raise ValueError("table, indices and weights lie on different devices")
 
 
+class _Bag(torch.autograd.Function):
+    """The bag's forward (``_bag_forward``) and its fixed-order backward
+    (``embedding_bag_backward``), which launches nothing."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights, mode):
+        ctx.mode, ctx.n_rows = mode, table.shape[0]
+        need_w = weights is not None and ctx.needs_input_grad[2]
+        ctx.save_for_backward(indices, weights, table if need_w else None)
+        return _bag_forward(table, indices, weights, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        indices, weights, table = ctx.saved_tensors
+        grad_table, grad_w = embedding_bag_backward(
+            grad, indices, weights, ctx.n_rows, ctx.mode, table=table)
+        return grad_table, None, grad_w, None
+
+
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   weights: torch.Tensor | None = None, mode: str = "sum"
                   ) -> torch.Tensor:
@@ -97,8 +117,14 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     NaN, as in the reference (whose ``jnp.take`` fills NaN), and counts
     in the mean's divisor; the kernels never read outside the table.  On
     CUDA the indices must be int32 and every tensor contiguous; the route
-    is ``bag_route``'s."""
+    is ``bag_route``'s.  Differentiable in the table and the weights
+    (``embedding_bag_backward``)."""
     _check(table, indices, weights, mode)
+    return _Bag.apply(table, indices, weights, mode)
+
+
+def _bag_forward(table, indices, weights, mode):
+    """The plain version on the CPU, one kernel route on CUDA."""
     if table.device.type == "cpu":
         return embedding_bag_ref(table, indices, weights, mode=mode)
     if table.device.type != "cuda":

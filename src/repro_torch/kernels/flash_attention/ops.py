@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.common import cdiv, refuse_grad
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import attention_ref
@@ -96,7 +96,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     where 128-row tiles would leave SMs idle, through a cp.async ring on
     fp32 rows of 16-byte multiples, register loads otherwise).  If the
     chosen kernel fails to build or to launch, the call raises; nothing
-    tries the other kernel.
+    tries the other kernel.  On CUDA it raises under grad mode when an
+    input requires grad (``refuse_grad``): the kernels have no backward.
 
     The blocks are validated as the reference chooses them: ``block_q``
     (``block_k``) shrunk to the next power of two >= 8 above Sq (Skv),
@@ -114,6 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     out = torch.empty_like(q)

@@ -1,13 +1,18 @@
 """End-to-end training commands of the port (the reference's
-``launch/train.py`` ``policy`` mode, and its ``benchmarks/table1.py``).
+``launch/train.py`` ``policy`` and ``lm`` modes, and its
+``benchmarks/table1.py``).
 
   policy  — the paper: build corpus/index/query log, train the L1
             ranker, fit state bins, Q-learn per-category match policies,
-            publish each into a ``PolicyStore``, evaluate against the
-            production plans, print and write Δu / ΔNCG.  The
-            reference also checkpoints the Q-table and resumes; that
-            waits for the port of ``distributed/`` (its
-            ``CheckpointManager``).
+            publish each into a ``PolicyStore``, checkpoint each trained
+            Q-table (``--ckpt-dir``), evaluate against the production
+            plans, print and write Δu / ΔNCG.
+
+  lm      — train a reduced LM config for a few hundred steps on
+            synthetic data through the cell's train step
+            (``launch/steps.py``), with checkpoint/restart through the
+            resilient loop (``distributed/``); ``--inject-failure``
+            kills the step at half way, once.
 
   table1  — Table 1: ΔNCG@100 and Δu of the learned policy against the
             production plans, per category × weighted/unweighted eval
@@ -18,11 +23,12 @@
             per-query u that ``table1`` wrote, sorted per treatment,
             learned policy against production plan, as an ASCII plot.
 
-The first two run on ``--device`` (``cuda`` unless asked) and every
-rollout through ``--backend`` (``block_scan``: the chunked CUDA
-kernel); ``figure2`` only reads a file::
+The first three run on ``--device`` (``cuda`` unless asked), ``policy``
+and ``table1`` every rollout through ``--backend`` (``block_scan``: the
+chunked CUDA kernel); ``figure2`` only reads a file::
 
     PYTHONPATH=src python -m repro_torch.launch.train policy --iters 200
+    PYTHONPATH=src python -m repro_torch.launch.train lm --arch starcoder2-3b --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train table1 --scale small
     PYTHONPATH=src python -m repro_torch.launch.train figure2
 """
@@ -52,6 +58,7 @@ def device_name(dev) -> str:
 
 def train_policy_cmd(args) -> dict:
     from repro_torch.data.querylog import CAT1, CAT2, QueryLogConfig
+    from repro_torch.distributed.checkpoint import CheckpointManager
     from repro_torch.index.corpus import CorpusConfig
     from repro_torch.policies import PolicyStore, TabularQPolicy
     from repro_torch.ranking.metrics import relative_delta
@@ -75,11 +82,13 @@ def train_policy_cmd(args) -> dict:
     # every snapshot covers every category, so not-yet-trained ones
     # serve the hand-tuned static plan.
     store = PolicyStore(staleness_bound=1)
+    mgr = CheckpointManager(args.ckpt_dir, keep=2)
     out = {}
     trained = sys_.baseline_policies((CAT1, CAT2))
     for cat, name in ((CAT1, "CAT1"), (CAT2, "CAT2")):
         q, _ = sys_.train_policy(cat, iters=args.iters, batch=args.batch,
                                  log_every=max(args.iters // 8, 1))
+        mgr.save(cat, {"q": q})
         trained[cat] = TabularQPolicy(q)
         version = store.publish(dict(trained))
         qids = np.where(sys_.log.category == cat)[0][:256]
@@ -96,6 +105,60 @@ def train_policy_cmd(args) -> dict:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))
     return out
+
+
+# ---------------------------------------------------------------------- lm
+def train_lm_cmd(args) -> dict:
+    """The reference's ``train_lm_cmd``: the reduced config's
+    ``train_4k`` cell, data seeded by step (``default_rng(1234 + step)``),
+    a checkpoint every 25 steps (async), and the loss must fall.  Returns
+    the resilient loop's result with the per-step losses (replayed steps
+    included)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed.fault_tolerance import (
+        FailureInjector, FaultToleranceConfig, run_resilient_loop)
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.tree import tree_map
+
+    dev = resolve_device(args.device)
+    cell = build_cell(args.arch, "train_4k", mesh=None, reduced=True)
+    cfg = get_arch(args.arch).model_cfg(True)
+    params = init_params(cfg, seed=0, device=dev)
+    opt_state = tree_map(lambda x: torch.zeros(x.shape, dtype=x.dtype,
+                                               device=dev), cell.args[1])
+    b, s = cell.args[2].shape
+    losses = []
+
+    def data_for(step: int):
+        r = np.random.default_rng(1234 + step)        # stateless, seeded by step
+        toks = torch.from_numpy(r.integers(0, cfg.vocab, size=(b, s + 1)))
+        toks = toks.to(dev, torch.int32)
+        return toks[:, :-1], toks[:, 1:]
+
+    def step_fn(state, step):
+        tokens, targets = data_for(step)
+        p, o, metrics = cell.fn(state["params"], state["opt"], tokens, targets)
+        losses.append(float(metrics["loss"]))
+        if step % 10 == 0:
+            print(f"step {step:4d} loss {losses[-1]:.4f}")
+        return {"params": p, "opt": o}
+
+    ft = FaultToleranceConfig(ckpt_dir=args.ckpt_dir, ckpt_every=25,
+                              async_save=True)
+    injector = (FailureInjector(fail_at=(args.steps // 2,))
+                if args.inject_failure else None)
+    res = run_resilient_loop({"params": params, "opt": opt_state}, step_fn,
+                             args.steps, ft, injector=injector)
+    print(f"[done] steps={args.steps} restarts={res['restarts']} "
+          f"first_loss={losses[0]:.3f} last_loss={losses[-1]:.3f} "
+          f"wall={res['wall_s']:.0f}s on {device_name(dev)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss should decrease")
+    return dict(res, losses=losses)
 
 
 # ------------------------------------------------------------------ table1
@@ -251,7 +314,7 @@ def figure2_cmd(args) -> str:
     return txt
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
 
@@ -264,6 +327,7 @@ def main(argv=None) -> None:
     p.add_argument("--u-budget", type=int, default=1024)
     p.add_argument("--iters", type=int, default=200)
     p.add_argument("--batch", type=int, default=48)
+    p.add_argument("--ckpt-dir", default="results/ckpt_policy_torch")
     p.add_argument("--out", default="results/train_policy_torch.json")
     p.set_defaults(fn=train_policy_cmd)
 
@@ -273,18 +337,27 @@ def main(argv=None) -> None:
     p.set_defaults(fn=table1_cmd)
 
     for p in sub.choices.values():
-        p.add_argument("--device", default="cuda",
-                       help="cuda (default) or cpu")
         p.add_argument("--backend", default="block_scan",
                        help="index-scan backend of every rollout "
                             "(repro_torch.core.scan_backends)")
+
+    p = sub.add_parser("lm")
+    p.add_argument("--arch", default="starcoder2-3b")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--ckpt-dir", default="results/ckpt_lm_torch")
+    p.add_argument("--inject-failure", action="store_true")
+    p.set_defaults(fn=train_lm_cmd)
+
+    for p in sub.choices.values():
+        p.add_argument("--device", default="cuda",
+                       help="cuda (default) or cpu")
 
     p = sub.add_parser("figure2")
     p.add_argument("--per-query", default="results/table1_torch_perquery.json")
     p.add_argument("--out", default="results/figure2_torch.txt")
     p.set_defaults(fn=figure2_cmd)
     args = ap.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,11 @@ The combine is deterministic: kept rows are scattered into an
 ``(E, C, d)`` buffer at unique indices (no atomics), the expert SwiGLU
 runs as batched matmuls, and each token's k weighted outputs are summed
 in slot order over a ``(T, k, d)`` view (no ``index_add_``), so two runs
-give the same bits.
+give the same bits.  So is the backward: a token's k copies are an
+``expand``, whose gradient sums the k slots in order, and the expert
+rows are read back through ``take_rows``, whose gradient sums the rows
+that several assignments read (a dropped assignment reads its expert's
+last row) in a fixed order.
 
 The reference's ``moe_ffn_sharded`` (expert and tensor parallelism over
 a mesh) is not ported: the model entry points raise for a ``mesh``.
@@ -23,6 +27,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.embedding_bag import take_rows
 
 from .layers import dense_init, mlp_apply, mlp_init
 
@@ -127,9 +133,8 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: MoEConfig,
     # its spare last row, which is never read.  No host sync.
     flat_e, flat_pos, flat_keep = idx.reshape(-1), pos.reshape(-1), keep.reshape(-1)
     rows = torch.where(flat_keep, flat_e * cap + flat_pos, e * cap)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = x.new_zeros((e * cap + 1, d))
-    buf[rows] = x[tok]
+    buf[rows] = x[:, None].expand(t, k, d).reshape(t * k, d)    # x[tok]
     buf = buf[:e * cap].view(e, cap, d)
 
     ex = params["experts"]
@@ -137,7 +142,7 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: MoEConfig,
     y = torch.bmm(h, ex["w_down"]).view(e * cap, d)
 
     # A dropped assignment reads its expert's last row, weighted by 0.
-    out_rows = y[flat_e * cap + flat_pos.clamp(max=cap - 1)]     # (T*k, d)
+    out_rows = take_rows(y, flat_e * cap + flat_pos.clamp(max=cap - 1))
     wflat = (w.reshape(-1) * flat_keep).to(x.dtype)
     out = (out_rows * wflat[:, None]).view(t, k, d).sum(1)
 

@@ -5,14 +5,17 @@ Sparse features use one table of (n_fields · vocab_per_field, dim) rows
 indexed with per-field offsets, as in the reference.  The wide and
 first-order terms are bag sums through the EmbeddingBag wrapper
 (``kernels/embedding_bag``), which launches the hand-written CUDA kernel
-on CUDA tensors; the per-field embedding lookups are a plain
-``index_select``, as the reference's are a ``jnp.take`` outside any
-kernel.
+on CUDA tensors; the per-field embedding lookups are a plain gather
+(``take_rows``), as the reference's are a ``jnp.take`` outside any
+kernel.  Both sum their gradients in a fixed order
+(``kernels/embedding_bag/backward.py``), so a train step gives the same
+bits twice.
 
 Parameters are nested dicts of tensors with the reference's tree.  Entry
 points (the ``*_init`` functions and the forwards) run on ``cuda``
-unless given ``device="cpu"``, and raise without CUDA; ``mesh`` must be
-None (one device).
+unless given ``device="cpu"``, and raise without CUDA (the inits also
+take ``device="meta"``, shapes only); ``mesh`` must be None (one
+device).
 """
 from __future__ import annotations
 
@@ -22,8 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import entry_device, resolve_device
-from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.device import entry_device, seeded_generator
+from repro_torch.kernels.embedding_bag import embedding_bag, take_rows
 
 from .layers import dense_init, layer_norm
 
@@ -63,22 +66,11 @@ class B4RConfig:
     param_dtype: Any = torch.float32
 
 
-def _generator(seed: int, device) -> torch.Generator:
-    gen = torch.Generator(device=resolve_device(device))
-    gen.manual_seed(seed)
-    return gen
-
-
 def _global_ids(sparse_ids, cfg: RecsysConfig, dev) -> torch.Tensor:
     """(B, n_sparse) per-field ids → int32 rows of the shared table."""
     ids = torch.as_tensor(sparse_ids, device=dev).to(torch.int32)
     offsets = torch.arange(cfg.n_sparse, dtype=torch.int32, device=dev)
     return ids + offsets * cfg.vocab_per_field
-
-
-def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """idx (B, F) → (B, F, dim)."""
-    return table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, -1)
 
 
 def _bag_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -115,7 +107,7 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def wide_deep_init(cfg: RecsysConfig, seed: int = 0, device=None) -> Dict:
     """Random parameters, one leaf at a time from a generator seeded
     with ``seed`` on the target device."""
-    gen = _generator(seed, device)
+    gen = seeded_generator(seed, device)
     dt = cfg.param_dtype
     mlp_dims = (cfg.n_sparse * cfg.embed_dim + cfg.n_dense,) + cfg.mlp_dims + (1,)
     return {
@@ -136,7 +128,7 @@ def wide_deep_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
     dev = entry_device(params["embed"], mesh, device)
     idx = _global_ids(sparse_ids, cfg, dev)
     wide = _bag_sum(params["wide"], idx)[:, 0]                          # (B,)
-    emb = _lookup(params["embed"], idx)                                 # (B, F, E)
+    emb = take_rows(params["embed"], idx)                                 # (B, F, E)
     deep_in = emb.reshape(emb.shape[0], -1)
     if cfg.n_dense:
         deep_in = torch.cat([dense, deep_in], dim=1)
@@ -147,7 +139,7 @@ def wide_deep_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
 
 # ------------------------------------------------------------------ DeepFM
 def deepfm_init(cfg: RecsysConfig, seed: int = 0, device=None) -> Dict:
-    gen = _generator(seed, device)
+    gen = seeded_generator(seed, device)
     dt = cfg.param_dtype
     mlp_dims = (cfg.n_sparse * cfg.embed_dim,) + cfg.mlp_dims + (1,)
     return {
@@ -166,7 +158,7 @@ def deepfm_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
     dev = entry_device(params["embed"], mesh, device)
     idx = _global_ids(sparse_ids, cfg, dev)
     first = _bag_sum(params["first_order"], idx)[:, 0]
-    emb = _lookup(params["embed"], idx)                                 # (B, F, E)
+    emb = take_rows(params["embed"], idx)                                 # (B, F, E)
     # FM second order: ½((Σv)² − Σv²) summed over dims
     s = emb.sum(1)
     fm = 0.5 * (s * s - (emb * emb).sum(1)).sum(-1)
@@ -177,7 +169,7 @@ def deepfm_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
 
 # ------------------------------------------------------------------ DCN-v2
 def dcn_init(cfg: RecsysConfig, seed: int = 0, device=None) -> Dict:
-    gen = _generator(seed, device)
+    gen = seeded_generator(seed, device)
     dt = cfg.param_dtype
     d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
     cross = {}
@@ -197,7 +189,7 @@ def dcn_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
                 dense: torch.Tensor, mesh=None, device=None) -> torch.Tensor:
     dev = entry_device(params["embed"], mesh, device)
     idx = _global_ids(sparse_ids, cfg, dev)
-    emb = _lookup(params["embed"], idx).reshape(idx.shape[0], -1)
+    emb = take_rows(params["embed"], idx).reshape(idx.shape[0], -1)
     x0 = torch.cat([dense, emb], dim=1)                                 # (B, d0)
     x = x0
     for i in range(cfg.n_cross_layers):
@@ -208,7 +200,7 @@ def dcn_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
 
 # ---------------------------------------------------------------- BERT4Rec
 def bert4rec_init(cfg: B4RConfig, seed: int = 0, device=None) -> Dict:
-    gen = _generator(seed, device)
+    gen = seeded_generator(seed, device)
     dt = cfg.param_dtype
     e = cfg.embed_dim
     # +2 for [PAD]=n_items, [MASK]=n_items+1; rows padded to a multiple of
@@ -245,7 +237,8 @@ def bert4rec_forward(params: Dict, item_seq, cfg: B4RConfig, mesh=None,
     b, s = item_seq.shape
     e, h = cfg.embed_dim, cfg.n_heads
     dh = e // h
-    x = params["item_embed"][item_seq.long()] + params["pos_embed"][None, :s]
+    x = (take_rows(params["item_embed"], item_seq.long())
+         + params["pos_embed"][None, :s])
     pad_mask = item_seq != cfg.n_items                                  # PAD id
 
     for bi in range(cfg.n_blocks):

@@ -1,6 +1,5 @@
 """Decoder-only transformer LM family, dense GQA / MoE / MLA (the
-reference's ``models/transformer.py`` without the mesh paths, ``lm_loss``
-and the train step).
+reference's ``models/transformer.py`` without the mesh paths).
 
 Parameters are a nested dict whose layer leaves are stacked over layers,
 ``(n_layers, ...)``, as the reference's ``init_params`` builds them; the
@@ -11,9 +10,18 @@ MoE FFN runs over the flattened (B*S, d) tokens in prefill and forward
 (capacity and drops over all of them, as the reference's), over (B, d)
 in decode.
 
+``forward`` and ``lm_loss`` are differentiable: the token embedding's
+gather sums its gradient in a fixed order (``take_rows``), and with
+``cfg.remat`` each layer's activations are recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
+``nothing_saveable``).  They train through the plain attention: the
+flash and decode kernels have no backward, as the reference's have no
+VJP.
+
 Entry points (``init_params``, ``init_kv_cache``, ``forward``,
-``prefill``, ``decode_step``) run on ``cuda`` unless given
-``device="cpu"``, and raise without CUDA.
+``lm_loss``, ``prefill``, ``decode_step``) run on ``cuda`` unless given
+``device="cpu"``, and raise without CUDA; ``init_params`` also takes
+``device="meta"`` (shapes only).
 """
 from __future__ import annotations
 
@@ -21,26 +29,30 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import entry_device, resolve_device
+from repro_torch.device import entry_device, resolve_device, seeded_generator
+from repro_torch.kernels.embedding_bag import take_rows
 
 from .attention import (AttnConfig, MLAConfig, gqa_decode, gqa_forward,
                         gqa_init, mla_decode, mla_forward, mla_init)
 from .layers import dense_init, mlp_apply, mlp_init, rms_norm
 from .moe import MoEConfig, moe_ffn, moe_init
 
-__all__ = ["TransformerConfig", "init_params", "forward", "prefill",
+__all__ = ["TransformerConfig", "init_params", "forward", "lm_loss", "prefill",
            "decode_step", "init_kv_cache", "cache_shapes", "layer_params",
            "layer_forward", "layer_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's config.  ``loss_chunk``,
-    ``remat``, ``sp_carry``, ``microbatch``, ``fsdp``,
-    ``grad_accum_dtype`` and ``zero3`` are training and sharding knobs,
-    kept so that a config carries the reference's values; the
-    single-device forward, prefill and decode here ignore them."""
+    """The reference's config.  ``loss_chunk`` (rows per chunk of
+    ``lm_loss``), ``remat`` (recompute each layer in ``forward``'s
+    backward), ``microbatch`` and ``grad_accum_dtype`` (the gradient
+    accumulation of ``launch/steps.make_lm_train_step``) act as in the
+    reference; ``sp_carry``, ``fsdp`` and ``zero3`` are sharding knobs,
+    kept so that a config carries the reference's values, and ignored
+    on one device."""
     n_layers: int
     d_model: int
     n_heads: int
@@ -119,8 +131,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Dict:
     layer's leaf, not a stacked one (grok-1's expert leaf, (8, 6144, 32768),
     is 6.4 GB in float32)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = seeded_generator(seed, dev)
     embed = dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02,
                        dtype=cfg.param_dtype)
     layers = None
@@ -166,18 +177,62 @@ def layer_forward(cfg: TransformerConfig, lp: Dict, x: torch.Tensor,
     return x + h, cache, aux
 
 
+def _unbind_layers(layers: Dict, n: int):
+    """The stacked layer leaves as n per-layer dicts of views, through
+    one ``unbind`` a leaf: its backward stacks the n layer gradients
+    into one tensor, where n ``select``s would each add a zero-filled
+    copy of the whole stacked leaf."""
+    out = [{} for _ in range(n)]
+    for k, v in layers.items():
+        parts = (_unbind_layers(v, n) if isinstance(v, dict)
+                 else torch.unbind(v, 0))
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
 def forward(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (final hidden (B, S, d), aux loss: the sum of
-    the MoE layers' load-balance losses, 0 for a dense model)."""
+    the MoE layers' load-balance losses, 0 for a dense model).  With
+    ``cfg.remat`` under grad mode, each layer is recomputed in the
+    backward instead of keeping its activations."""
     dev = entry_device(params["embed"], mesh, device)
-    x = params["embed"][torch.as_tensor(tokens, device=dev).long()]
+    x = take_rows(params["embed"], torch.as_tensor(tokens, device=dev).long())
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(cfg.n_layers):
-        x, _, layer_aux = layer_forward(cfg, layer_params(params["layers"], i), x)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _unbind_layers(params["layers"], cfg.n_layers):
+        if remat:
+            x, _, layer_aux = checkpoint(layer_forward, cfg, lp, x,
+                                         use_reentrant=False)
+        else:
+            x, _, layer_aux = layer_forward(cfg, lp, x)
         if layer_aux is not None:
             aux = aux + layer_aux
     return rms_norm(x, params["ln_f"]), aux
+
+
+def lm_loss(params: Dict, tokens, targets, cfg: TransformerConfig, mesh=None,
+            device=None) -> torch.Tensor:
+    """Next-token cross-entropy () float32, plus 0.01 x the aux loss.
+    The (B*S, d) hidden rows are cut into whole chunks of
+    min(cfg.loss_chunk, B*S) rows (a tail that fills no chunk is
+    dropped, as the reference drops it); each chunk's logits are float32,
+    so no (tokens, vocab) tensor is made whole."""
+    h, aux = forward(params, tokens, cfg, mesh, device)
+    b, s, d = h.shape
+    flat_h = h.reshape(b * s, d)
+    flat_t = torch.as_tensor(targets, device=h.device).long().reshape(b * s)
+    chunk = min(cfg.loss_chunk, b * s)
+    n_chunks = (b * s) // chunk
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        logits = (flat_h[rows] @ params["lm_head"]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(1, flat_t[rows, None])[:, 0]
+        total = total + torch.sum(lse - gold)
+    return total / (n_chunks * chunk) + 0.01 * aux
 
 
 # ----------------------------------------------------------------- decode

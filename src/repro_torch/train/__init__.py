@@ -1,1 +1,1 @@
-"""Optimizers (AdamW, as the L1 ranker's fit uses it)."""
+"""Optimizers (``optimizer.py``) over nested trees of tensors (``tree.py``)."""

@@ -1239,3 +1239,151 @@ def test_cuda_process_cell_matches_thread_cell(cuda, tmp_path):
                 np.testing.assert_array_equal(getattr(a, f.name),
                                               getattr(b, f.name), f.name)
     assert {r.index_epoch for r in got["proc"][-24:]} == {sys_.index_epoch}
+
+
+# ------------------------------------------------------------ train slice
+def _tree_to(tree, dev):
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,e", [(64, 1), (150_000, 1), (64, 5)])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_cuda_embedding_bag_gradient_equals_cpu(cuda, b, e, mode, weighted):
+    """The bag wrapper's gradient on the card (forward on the kernel: the
+    lane route at 64 bags, the column route at 150,000, the warp route at
+    E = 5) against the same call on the CPU (the plain version, the same
+    backward), table and weights, within 1e-6; ids repeat across bags,
+    with -1 padding.  The backward launches no kernel, and a second
+    backward gives the same bits."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward
+
+    rng = np.random.default_rng(b + e)
+    v, l = 1000, 40
+    table = torch.from_numpy(rng.normal(size=(v, e)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, v, (b, l)).astype(np.int32))
+    idx[:, -3:] = -1
+    w = (torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32))
+         if weighted else None)
+    g = torch.from_numpy(rng.normal(size=(b, e)).astype(np.float32))
+    grads = {}
+    for dev in (torch.device("cpu"), cuda):
+        t = table.to(dev).requires_grad_()
+        ww = w.to(dev).requires_grad_() if weighted else None
+        out = embedding_bag(t, idx.to(dev), ww, mode=mode)
+        launches = (EMBEDDING_BAG_KERNEL.launches,
+                    EMBEDDING_BAG_LANES_KERNEL.launches)
+        grads[dev.type] = torch.autograd.grad(
+            out, [t] + ([ww] if weighted else []), grad_outputs=g.to(dev))
+        assert (EMBEDDING_BAG_KERNEL.launches,
+                EMBEDDING_BAG_LANES_KERNEL.launches) == launches
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert got.grad_fn is None and got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=1e-6)
+    again = embedding_bag_backward(g.to(cuda), idx.to(cuda),
+                                   None if w is None else w.to(cuda), v, mode,
+                                   table=table.to(cuda))
+    assert torch.equal(again[0], grads["cuda"][0])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_and_decode_refuse_grad(cuda):
+    """The attention kernels have no backward: under grad mode with an
+    input that requires grad they raise; under no_grad they run."""
+    q = torch.randn(1, 4, 16, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 16, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, k)
+    with torch.no_grad():
+        assert flash_attention(q, k, k).shape == q.shape
+    qd = torch.randn(1, 4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention(qd, k, k)
+    with torch.no_grad():
+        assert decode_attention(qd, k, k)[0].shape == qd.shape
+
+
+def _lm_step(dev, arch_id, np_seed=3):
+    from repro_torch.launch.steps import _lm_opt_cfg, build_cell
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = get_arch(arch_id).model_cfg(True)
+    params = _tree_to(init_params(cfg, seed=0, device="cpu"), dev)
+    opt = adamw_init(params, _lm_opt_cfg(True))
+    cell = build_cell(arch_id, "train_4k", reduced=True)
+    toks = torch.from_numpy(np.random.default_rng(np_seed).integers(
+        0, cfg.vocab, (4, 65)).astype(np.int32)).to(dev)
+    params, opt, m = cell.fn(params, opt, toks[:, :-1], toks[:, 1:])
+    return params, opt, m
+
+
+def _rel_l2(got, want):
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", ["starcoder2-3b", "deepseek-v2-lite-16b"])
+def test_cuda_lm_train_step_matches_cpu_and_reruns_bit_equal(cuda, arch_id):
+    """A reduced LM train step (fp32, the plain attention) on the card
+    against the CPU: loss and grad norm within 1e-4, every new parameter
+    and moment leaf within 1e-4 relative L2 (float32, summation order
+    only; the first Adam step moves elements by about lr); two card steps
+    from the same state give the same bits (every backward in a fixed
+    order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.train.tree import tree_leaves
+
+    cpu = _lm_step(torch.device("cpu"), arch_id)
+    gpu = _lm_step(cuda, arch_id)
+    again = _lm_step(cuda, arch_id)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(gpu[2][key].cpu(), cpu[2][key],
+                                   atol=1e-4, rtol=1e-4)
+        assert torch.equal(gpu[2][key], again[2][key])
+    for a, b, c in zip(tree_leaves(gpu[:2]), tree_leaves(cpu[:2]),
+                       tree_leaves(again[:2])):
+        assert _rel_l2(a.cpu().float(), b.float()) <= 1e-4
+        assert torch.equal(a, c)
+
+
+def _wd_step(dev):
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = get_arch("wide-deep").model_cfg(True)
+    params = _tree_to(recsys.wide_deep_init(cfg, seed=0, device="cpu"), dev)
+    opt = adamw_init(params, AdamWConfig(lr=1e-3))
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_per_field,
+                                        (64, cfg.n_sparse)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, 2, 64).astype(np.float32))
+    cell = build_cell("wide-deep", "train_batch", reduced=True)
+    params, opt, loss = cell.fn(params, opt, ids.to(dev),
+                                torch.zeros((64, 1), device=dev), labels.to(dev))
+    return params, opt, loss
+
+
+@pytest.mark.gpu
+def test_cuda_wide_deep_train_step_matches_cpu_and_reruns_bit_equal(cuda):
+    """A reduced Wide&Deep train step on the card (one bag launch, in the
+    forward) against the CPU: the loss within 1e-5, every leaf within
+    1e-4 relative L2; two card steps give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.train.tree import tree_leaves
+
+    cpu = _wd_step(torch.device("cpu"))
+    before = EMBEDDING_BAG_LANES_KERNEL.launches
+    gpu = _wd_step(cuda)
+    torch.cuda.synchronize()
+    assert EMBEDDING_BAG_LANES_KERNEL.launches == before + 1
+    again = _wd_step(cuda)
+    torch.testing.assert_close(gpu[2].cpu(), cpu[2], atol=1e-5, rtol=1e-5)
+    assert torch.equal(gpu[2], again[2])
+    for a, b, c in zip(tree_leaves(gpu[:2]), tree_leaves(cpu[:2]),
+                       tree_leaves(again[:2])):
+        assert _rel_l2(a.cpu(), b) <= 1e-4
+        assert torch.equal(a, c)

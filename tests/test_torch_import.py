@@ -17,13 +17,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "repro"
-             or m.startswith("repro."))
+             if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
 print(len(names), bad)
 """
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
+    """Nor ``ml_dtypes`` (JAX's bf16 for numpy), which the card's machine
+    lacks: the checkpoints cross bf16 as int16 bits."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, check=True)
@@ -191,3 +192,25 @@ def test_block_scan_ops_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _BLOCK_SCAN_OPS], env=env,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def test_train_modules_import_and_lm_cli_raises_without_cuda():
+    """The train slice's modules are walked by the probe; the ``lm``
+    command on the default device raises before it builds anything."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.launch.steps", "repro_torch.distributed",
+            "repro_torch.distributed.checkpoint",
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.train.tree", "repro_torch.kernels.embedding_bag.backward",
+            } <= names
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the no-fallback path is not reachable")
+    from repro_torch.launch.train import main as train_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["lm", "--steps", "2", "--ckpt-dir", "unused"])

@@ -479,15 +479,25 @@ def test_training_entry_points_raise_without_cuda():
 def test_launch_train_policy_writes_both_categories(tmp_path):
     from repro_torch.launch.train import main
 
+    from repro_torch.data.querylog import CAT1, CAT2
+    from repro_torch.distributed.checkpoint import latest_step, restore
+
     out = tmp_path / "train_policy.json"
+    ckpt = tmp_path / "ckpt"
     main(["policy", "--n-docs", "1024", "--vocab", "512", "--n-queries",
           "200", "--iters", "3", "--batch", "8", "--p-bins", "64",
-          "--device", "cpu", "--out", str(out)])
+          "--device", "cpu", "--out", str(out), "--ckpt-dir", str(ckpt)])
     res = json.loads(out.read_text())
     assert set(res) == {"CAT1", "CAT2"}
     assert [res[c]["policy_version"] for c in ("CAT1", "CAT2")] == [1, 2]
     for c in res.values():
         assert np.isfinite(c["delta_u_pct"]) and np.isfinite(c["delta_ncg_pct"])
+    # each category's trained Q-table checkpointed under its category id,
+    # as the reference's policy mode saves it
+    assert latest_step(ckpt) == max(CAT1, CAT2)
+    for cat in (CAT1, CAT2):
+        q = restore(ckpt, cat, {"q": torch.zeros(0)})["q"]
+        assert q.dim() == 2 and torch.isfinite(q).all()
 
 
 def _reference_figure2():
