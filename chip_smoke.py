@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Print the card's name and power limit; build the nine CUDA kernels
+1. Print the card's name and power limit; build the ten CUDA kernels
    of the paths from ``src/repro_torch/csrc``, one ``nvcc`` per kernel,
    all started together.
 2. Hold every kernel against its plain torch version on the card, at
@@ -299,13 +299,52 @@ Phases (any failure raises and the script exits non-zero):
    scores at 65,536 would be 21 GB a layer) takes 3 steps on one batch:
    the loss finite and falling, ms/step, one bag launch a step for the
    two archs with a bag.
-6. Print the kernels' JSON line (the chunk kernel's row also carries
+6. The websearch-rl cells at full width and depth
+   (``build_cell("websearch-rl", ...).fn``: 256 queries x 4096 blocks x
+   4096 docs, the block_scan backend) on synthetic inputs seeded on the
+   card, not the corpus's (occupancy 8.59 GB with each (query, term,
+   field) plane at bit density 2^-k, k uniform in [3, 13]; 2-4 present
+   terms; normal scores, 17.18 GB; a seeded q table; geometric bin
+   edges).  With the counts set to 0: ``serve_queries`` 3 times (ms per
+   call, median, queries/s; mean u, blocks scanned and cand_cnt; chunk
+   launches a call; peak memory; one call profiled), its first 8
+   queries through the ``reference`` backend on the same tensors (cand,
+   u, cand_cnt bit-equal); ``rl_rollout`` 3 times from one q and one
+   set of draws (ε 0.1): ms/step, q_new and metrics bit-equal; the
+   counts read.
+7. The four graphsage-reddit cells at their published shapes
+   (``build_cell("graphsage-reddit", ...).fn``; the mean aggregation
+   through the segment gather-sum kernel, its gradient through the same
+   kernel over the transposed CSR) on seeded synthetic graphs:
+   full_graph_sm (2,708 nodes, 10,556 edges, d 1433), minibatch_lg
+   (232,965 nodes, 114,615,892 edges in a CSR built on the host, the
+   port's ``sample_blocks`` from 1,024 seeds at fanout 15-10, blocks
+   padded to the cell's budgets: 180,224 frontier rows, d 602),
+   ogb_products (2,449,029 nodes, 61,859,140 edges, d 100) and molecule
+   (128 graphs of 30 nodes and 64 edges); in-degrees skewed (the
+   largest ~200x the mean) but the molecules'; labels a function of the
+   features.  First, uncounted: the kernel against its plain version at
+   every cell's aggregate shapes (ogb_products on its first 8 M edges,
+   so that the plain (E, d) fits): each element within 1e-5 of its sum
+   of absolute values, empty segments 0, a x0.9 planted on one segment
+   rejected, and the gradient through the kernel against the plain one
+   the same way; a reduced step card vs CPU
+   (1e-4); the kernel cold at ogb_products' layer 0 beside its bound,
+   the plain version and ``F.embedding_bag``.  Then, with the counts set
+   to 0: each cell 3 steps on one batch (the loss falling) and 2 timed
+   (ms/step, edges/s, peak memory), its launches a step against a count
+   written down before the run; two ogb_products runs of 2 steps from
+   one seed bit-equal; a profiled ogb_products step (busy, idle, the
+   kernel's share and the sorts'); the counts read.
+8. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
-   ``cluster_launches``, the live fleet's, ``live_launches``, and the
-   process cell's workers', ``proc_launches``; the tensor-core flash and
-   decode rows also Grok-1's, ``moe_lm_launches``; the column bag row
-   5b's, ``train_launches``), the card line, and last
+   ``cluster_launches``, the live fleet's, ``live_launches``, the
+   process cell's workers', ``proc_launches``, and phase 6's,
+   ``websearch_launches``; the tensor-core flash and decode rows also
+   Grok-1's, ``moe_lm_launches``; the column bag row 5b's,
+   ``train_launches``; the segment gather row, which replaces no TPU
+   kernel, phase 7's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -370,8 +409,8 @@ def path_kernels():
     """The CUDA kernels of the paths: the websearch serve path's block
     scan, the whole-index block scans behind ``kernels/block_scan/ops``,
     the LM path's flash attention and decode attention (both routes
-    each), and the recsys path's embedding bag (both E = 1 routes; the
-    column kernel also takes E > 1)."""
+    each), the recsys path's embedding bag (both E = 1 routes; the
+    column kernel also takes E > 1) and the GNN's segment gather-sum."""
     from repro_torch.kernels.block_scan import (BLOCK_SCAN_KERNEL,
                                                 BLOCK_SCAN_STATIC_KERNEL,
                                                 BLOCK_SCAN_TILE_KERNEL)
@@ -381,12 +420,13 @@ def path_kernels():
                                                    EMBEDDING_BAG_LANES_KERNEL)
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION_KERNEL,
                                                      FLASH_ATTENTION_TC_KERNEL)
+    from repro_torch.kernels.segment_gather import SEGMENT_GATHER_KERNEL
 
     return [BLOCK_SCAN_KERNEL, BLOCK_SCAN_TILE_KERNEL,
             BLOCK_SCAN_STATIC_KERNEL, FLASH_ATTENTION_KERNEL,
             FLASH_ATTENTION_TC_KERNEL, DECODE_ATTENTION_KERNEL,
             DECODE_ATTENTION_TC_KERNEL, EMBEDDING_BAG_KERNEL,
-            EMBEDDING_BAG_LANES_KERNEL]
+            EMBEDDING_BAG_LANES_KERNEL, SEGMENT_GATHER_KERNEL]
 
 
 def reset_counts():
@@ -4058,7 +4098,7 @@ def bert4rec_check(shape, out, params, cfg, seq, n_cand, recsys, dev):
             user, cand = h[0, -1], params["item_embed"][:n_cand]
             _, idx = out
             order = torch.sort(cand @ user, descending=True, stable=True)[1]
-            if not torch.equal(idx, order[:100]):
+            if not torch.equal(idx.long(), order[:100]):
                 raise AssertionError("bert4rec retrieval: indices differ from "
                                      "a stable descending sort's")
             ms = time_warm(lambda: recsys.retrieval_topk(user, cand, k=100))
@@ -4248,6 +4288,7 @@ def lm_train_full(dev, cfg=None, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ):
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.launch.roofline import model_flops
     from repro_torch.launch.steps import _lm_opt_cfg, make_lm_train_step
     from repro_torch.models.transformer import init_params
     from repro_torch.train.optimizer import adamw_init
@@ -4267,7 +4308,7 @@ def lm_train_full(dev, cfg=None, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ):
         torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, seed=SEED, device=dev)
     opt = adamw_init(params, opt_cfg)
-    n = count_params(params)
+    n = model_flops(LM_TRAIN_ARCH, "train_4k", cfg=cfg)["n_active"]
     step = make_lm_train_step(cfg, opt_cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 41)
@@ -4667,18 +4708,641 @@ def recsys_train_phase(dev, reduced=False, batch_cap=None):
     return launches
 
 
+# ------------------------------------------------------------ phase 6
+WS_HELD = 8                    # queries held against the reference backend
+WS_REPS = 3                    # timed serve calls (median) and train steps
+WS_DENSITY_K = (3, 13)         # plane bit density 2^-k, k uniform here
+WS_SLICE = 16                  # queries per occupancy fill
+
+
+def ws_inputs(dev, wcfg, b, seed):
+    """The websearch cells' inputs, synthetic and seeded on the device
+    (not the corpus's occupancy: the corpus generator is a per-document
+    Python loop, too slow for 16.7 M docs): each (query, term, field) plane of
+    occupancy has bit density 2^-k, k uniform in WS_DENSITY_K (the AND of
+    k random words); 2-4 present terms a query, the absent terms' planes
+    empty; normal scores; a normal q table (rules 0.1 above reset and
+    stop); geometric bin edges; the production plan's step rewards and
+    the ε-greedy draws."""
+    import math
+
+    import torch
+
+    from repro_torch.core.state_bins import StateBins
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t, f, w = 4, 4, wcfg.block_docs // 32
+    n_act = wcfg.k_rules + 2
+    lo, hi = WS_DENSITY_K
+    k = torch.randint(lo, hi + 1, (b, 1, t, f, 1), generator=gen, device=dev)
+    n_terms = torch.randint(2, 5, (b,), generator=gen, device=dev)
+    tp = torch.arange(t, device=dev)[None] < n_terms[:, None]
+    occ = torch.empty((b, wcfg.n_blocks, t, f, w), dtype=torch.int32, device=dev)
+    for q0 in range(0, b, WS_SLICE):
+        part = occ[q0:q0 + WS_SLICE]
+        part.fill_(-1)
+        kk = k[q0:q0 + WS_SLICE]
+        for i in range(1, hi + 1):
+            words = torch.randint(-2**31, 2**31, part.shape, generator=gen,
+                                  device=dev, dtype=torch.int32)
+            part &= torch.where(kk >= i, words, -1)
+        part &= torch.where(tp[q0:q0 + WS_SLICE, None, :, None, None], -1, 0)
+    scores = torch.randn((b, wcfg.n_blocks * wcfg.block_docs), generator=gen,
+                         device=dev)
+    q = 0.05 * torch.randn((wcfg.p_bins, n_act), generator=gen, device=dev)
+    q[:, wcfg.k_rules:] -= 0.1
+    pu = int(math.sqrt(wcfg.p_bins))
+    pv = wcfg.p_bins // pu
+    bins = StateBins(
+        torch.logspace(1, math.log2(wcfg.u_budget), pu - 1, base=2.0,
+                       device=dev),
+        torch.logspace(0, 20, pv - 1, base=2.0, device=dev).repeat(pu, 1))
+    prod_r = 0.1 * torch.randn((b, wcfg.t_max), generator=gen, device=dev)
+    draws = (torch.randint(0, n_act, (wcfg.t_max, b), generator=gen,
+                           device=dev, dtype=torch.int32),
+             torch.rand((wcfg.t_max, b), generator=gen, device=dev))
+    return q, bins, occ, scores, tp, prod_r, draws
+
+
+def ws_blocks_scanned(wcfg, q, bins, occ, scores, tp):
+    """Blocks scanned per query by the greedy policy: each step's Δu over
+    its rule's planes per block (``block_cost``), summed over the steps
+    that ran a rule (an untimed rollout of the serve cell's)."""
+    import torch
+
+    from repro_torch.core.environment import EnvConfig
+    from repro_torch.core.match_rules import block_cost, default_rule_library
+    from repro_torch.core.rollout import unified_rollout
+    from repro_torch.policies import TabularQPolicy
+
+    env = EnvConfig(n_blocks=wcfg.n_blocks, block_docs=wcfg.block_docs,
+                    k_rules=wcfg.k_rules, max_candidates=wcfg.max_candidates,
+                    n_top=wcfg.n_top, u_budget=wcfg.u_budget)
+    rules = default_rule_library(device=occ.device)
+    res = unified_rollout(env, rules, bins, TabularQPolicy(q), wcfg.t_max, occ,
+                          scores, tp, backend=wcfg.backend)
+    u = res.trajectory["u"]                                   # (T, B)
+    du = torch.diff(u, dim=0, prepend=torch.zeros_like(u[:1]))
+    a = res.transitions["a"].long()                           # (T, B)
+    is_rule = a < wcfg.k_rules
+    cost = block_cost(rules.allowed[a.clamp(max=wcfg.k_rules - 1)],
+                      tp[None].expand(a.shape[0], -1, -1))
+    blocks = torch.where(is_rule & (cost > 0), du / cost.clamp_min(1), 0.0)
+    return float(blocks.sum(0).float().mean())
+
+
+def websearch_phase(dev, reduced=False):
+    """Phase 6: the websearch-rl cells at full width through
+    ``build_cell("websearch-rl", ...).fn`` on synthetic inputs
+    (``ws_inputs``): ``serve_queries`` (ms per call, median of WS_REPS,
+    queries/s, mean u, blocks scanned and cand_cnt, chunk launches a
+    call, peak memory, a profiled call) with WS_HELD queries held bit
+    for bit against the ``reference`` backend on the same tensors; then
+    ``rl_rollout`` (ms/step; WS_REPS runs from the same q and draws give
+    the same bits).  The chunk kernel's launches are read between a reset
+    before the timed serve calls and a read after the train steps.
+    ``reduced`` runs the reduced cells (a CPU rehearsal).  Returns the
+    launch counts."""
+    import dataclasses as dc
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL
+    from repro_torch.launch.steps import REDUCED_SHAPES, build_cell
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    arch = get_arch("websearch-rl")
+    wcfg = arch.model_cfg(reduced)
+    b = (REDUCED_SHAPES["serve_websearch"] if reduced
+         else arch.shape("serve_queries").params)["query_batch"]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    q, bins, occ, scores, tp, prod_r, draws = ws_inputs(dev, wcfg, b, SEED + 61)
+    sync(dev)
+    print(f"[websearch] synthetic inputs (seeded on the device, not the "
+          f"corpus's): {b} queries x {wcfg.n_blocks} blocks x "
+          f"{wcfg.block_docs} docs, occupancy {occ.numel() * 4 / 1e9:.2f} GB "
+          f"(plane density 2^-k, k in {WS_DENSITY_K}), scores "
+          f"{scores.numel() * 4 / 1e9:.2f} GB; {int(tp.sum())} present terms; "
+          f"made in {time.perf_counter() - t_phase:.1f} s; no cut of width "
+          f"or depth", flush=True)
+    serve = build_cell("websearch-rl", "serve_queries", reduced=reduced).fn
+    train = build_cell("websearch-rl", "rl_rollout", reduced=reduced).fn
+    serve(q, bins, occ, scores, tp)                       # warm, uncounted
+    sync(dev)
+    reset_counts()
+    times, outs = [], []
+    for _ in range(WS_REPS):
+        t0 = time.perf_counter()
+        outs.append(serve(q, bins, occ, scores, tp))
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    serve_launches = BLOCK_SCAN_KERNEL.launches
+    cand, u, cand_cnt = outs[0]
+    for other in outs[1:]:
+        if not all(torch.equal(x, y) for x, y in zip(outs[0], other)):
+            raise AssertionError("websearch serve: two calls differ")
+    if not (cand.shape == (b, wcfg.max_candidates) and u.shape == (b,)
+            and int(cand_cnt.sum()) > 0 and bool((cand < wcfg.n_blocks
+                                                   * wcfg.block_docs).all())):
+        raise AssertionError("websearch serve: outputs out of shape or range, "
+                             "or no candidate")
+    ms = statistics.median(times)
+    print(f"[websearch] serve_queries: ms per call {[round(t, 1) for t in times]}"
+          f" (median {ms:.1f}), {b / (ms / 1e3):.0f} queries/s; mean u "
+          f"{float(u.float().mean()):.1f} plane-blocks, mean cand_cnt "
+          f"{float(cand_cnt.float().mean()):.1f}; block_scan_pruned_chunk "
+          f"{serve_launches / WS_REPS:g} launches a call; peak device memory "
+          f"{peak_text(dev)}", flush=True)
+    print(f"[websearch] serve_queries: mean blocks scanned per query "
+          f"{ws_blocks_scanned(wcfg, q, bins, occ, scores, tp):.2f} (of "
+          f"{wcfg.n_blocks}; an untimed rollout)", flush=True)
+    held = min(WS_HELD, b)
+    ref_cfg = dc.replace(wcfg, backend="reference")
+    ref = build_cell("websearch-rl", "serve_queries", reduced=reduced,
+                     cfg_override=ref_cfg).fn
+    t0 = time.perf_counter()
+    want = ref(q, bins, occ[:held], scores[:held], tp[:held])
+    sync(dev)
+    for name, x, y in zip(("cand", "u", "cand_cnt"), outs[0], want):
+        if not torch.equal(x[:held], y):
+            raise AssertionError(f"websearch serve: {name} of the first "
+                                 f"{held} queries differs from the reference "
+                                 f"backend's")
+    cut = (f"; {held} queries, not {b}: the reference backend scans a "
+           f"block a step" if held < b else "")
+    print(f"[websearch] serve_queries: the first {held} of {b} queries "
+          f"through the reference backend on the same tensors: cand, u and "
+          f"cand_cnt bit-equal ({time.perf_counter() - t0:.1f} s{cut})",
+          flush=True)
+    if on_card:
+        profile_device("websearch serve_queries",
+                       lambda: serve(q, bins, occ, scores, tp),
+                       "block_scan_pruned_chunk")
+    before = BLOCK_SCAN_KERNEL.launches
+    times, runs = [], []
+    for _ in range(WS_REPS):
+        t0 = time.perf_counter()
+        runs.append(train(q, bins, occ, scores, tp, prod_r, draws))
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    q_new, metrics = runs[0]
+    for q2, m2 in runs[1:]:
+        if not (torch.equal(q_new, q2)
+                and all(torch.equal(metrics[k], m2[k]) for k in metrics)):
+            raise AssertionError("websearch rl_rollout: two runs from the "
+                                 "same q and draws differ")
+    if not (bool(torch.isfinite(q_new).all()) and not torch.equal(q_new, q)):
+        raise AssertionError("websearch rl_rollout: q_new not finite or "
+                             "unchanged")
+    train_launches = BLOCK_SCAN_KERNEL.launches - before
+    launches = read_counts()
+    print(f"[websearch] rl_rollout: ms/step {[round(t, 1) for t in times]} "
+          f"(the cell's ε 0.1, {b} queries), {WS_REPS} runs from one q and draws "
+          f"bit-equal; metrics "
+          f"{ {k: round(float(v), 4) for k, v in metrics.items()} }; "
+          f"{train_launches / WS_REPS:g} chunk launches a step; peak device "
+          f"memory {peak_text(dev)}", flush=True)
+    print(f"[websearch] main path launches: {launches}; phase 6 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del q, bins, occ, scores, tp, prod_r, draws, outs, runs, want
+    return launches
+
+
+# ------------------------------------------------------------ phase 7
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+GNN_FALL_STEPS, GNN_TIMED_STEPS = 3, 2
+GNN_EQUAL_STEPS = 2            # steps of each of two ogb_products runs
+# segment_gather launches a step, written down before the first card
+# run: each layer's forward and the hidden layer's backward (the
+# features need no gradient); the molecule cell's readout adds one each
+# way.
+GNN_LAUNCHES_PER_STEP = {"train_graph": 3, "train_minibatch": 3,
+                         "train_batched_graphs": 5}
+GNN_SKEW = 200                 # the largest in-degree, in mean in-degrees
+GNN_CHECK_EDGES = 8_000_000    # ogb_products' check: its first 8 M edges
+# Kernel against plain on the card: each element within GNN_TOL of the
+# same sum of absolute values (scale * sum |x[idx]|), the size of the
+# rounding of a float32 sum in another order (the plain version's
+# index_add_ adds through atomics), however much the terms cancel; a
+# planted x0.9 on one segment must fail it.
+GNN_TOL = 1e-5
+GNN_CARD_CPU_TOL = 1e-4        # a reduced step, card vs CPU (float32 GEMMs)
+
+
+def skewed_degrees(rng, n, e):
+    """n in-degrees summing to e: lognormal(0, 1.5) weights with the
+    largest raised to GNN_SKEW times their mean, floored, the remainder
+    one each to the largest fractional parts."""
+    import numpy as np
+
+    w = rng.lognormal(0.0, 1.5, n)
+    w[np.argmax(w)] = max(w.max(), GNN_SKEW * w.mean())
+    x = w / w.sum() * e
+    deg = np.floor(x).astype(np.int64)
+    deg[np.argsort(deg - x)[:e - int(deg.sum())]] += 1
+    return deg
+
+
+def gnn_cfg(arch, sp, reduced):
+    return dataclasses.replace(arch.model_cfg(reduced), d_in=sp["d_feat"],
+                               n_classes=sp["n_classes"])
+
+
+def gnn_batch(dev, shape, sp, seed):
+    """A seeded synthetic batch at the cell's own shape (not a real
+    graph): features normal, labels the argmax of the first n_classes
+    features (so that the loss can fall); in-degrees ``skewed_degrees``
+    (the largest ~GNN_SKEW means) with uniform sources, except in the
+    molecule cell, whose 30-node graphs hold 64 uniform edges each.
+    minibatch_lg: the whole graph's CSR built on the host, the port's
+    ``sample_blocks`` from seeds, blocks padded to the cell's fixed
+    budgets (src: the dummy row, dst: the dummy segment).  Returns (the
+    batch, edges a step, a note)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import minibatch_budgets
+    from repro_torch.models.gnn import sample_blocks
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = sp["n_classes"]
+    if "batch_nodes" in sp:
+        n, e, bn = sp["n_nodes"], sp["n_edges"], sp["batch_nodes"]
+        e1, fr1, e0, fr0 = minibatch_budgets(bn, sp["fanout"])
+        t0 = time.perf_counter()
+        deg = skewed_degrees(rng, n, e)
+        indptr = np.concatenate([[0], np.cumsum(deg)])
+        nbrs = rng.integers(0, n, e, dtype=np.int32)
+        t_csr = time.perf_counter() - t0
+        seeds = rng.choice(n, bn, replace=False)
+        t0 = time.perf_counter()
+        frontier, blocks = sample_blocks(indptr, nbrs, seeds, sp["fanout"], rng)
+        t_sample = time.perf_counter() - t0
+        feats_all = torch.randn((n, sp["d_feat"]), generator=gen, device=dev)
+        feats = torch.zeros((fr0, sp["d_feat"]), device=dev)
+        feats[:len(frontier)] = feats_all[torch.from_numpy(frontier).to(dev)]
+        labels = feats[:bn, :c].argmax(1).to(torch.int32)
+
+        def pad(a, size, fill):
+            out = np.full(size, fill, np.int32)
+            out[:len(a)] = a
+            return torch.from_numpy(out).to(dev)
+
+        b0, b1 = blocks
+        batch = (feats, pad(b0.src, e0, fr0), pad(b0.dst, e0, fr1),
+                 pad(b1.src, e1, fr1), pad(b1.dst, e1, bn), labels)
+        note = (f"host CSR of {e:,} edges in {t_csr:.1f} s (largest in-degree "
+                f"{deg.max() / deg.mean():.0f}x the mean); sample_blocks "
+                f"{t_sample:.2f} s: frontier {len(frontier):,} of {fr0:,}, "
+                f"blocks {len(b0.src):,} of {e0:,} and {len(b1.src):,} of "
+                f"{e1:,} edges")
+        del feats_all, nbrs
+        return batch, len(b0.src) + len(b1.src), note
+    if "batch" in sp:                       # molecule
+        bsz, npg, epg = sp["batch"], sp["n_nodes"], sp["n_edges"]
+        base = torch.arange(bsz, device=dev).repeat_interleave(epg) * npg
+        edges = torch.stack([
+            base + torch.randint(0, npg, (bsz * epg,), generator=gen, device=dev),
+            base + torch.randint(0, npg, (bsz * epg,), generator=gen, device=dev),
+        ]).to(torch.int32)
+        feats = torch.randn((bsz * npg, sp["d_feat"]), generator=gen, device=dev)
+        graph_id = torch.arange(bsz, dtype=torch.int32,
+                                device=dev).repeat_interleave(npg)
+        labels = (feats[:, 0].reshape(bsz, npg).mean(1) > 0).to(torch.int32)
+        return ((feats, edges, graph_id, labels), bsz * epg,
+                f"{bsz} graphs of {npg} nodes and {epg} uniform edges (no "
+                f"100x skew fits a 64-edge graph)")
+    n, e = sp["n_nodes"], sp["n_edges"]
+    deg = skewed_degrees(rng, n, e)
+    dst = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dev),
+        torch.from_numpy(deg).to(dev), output_size=e)
+    dst = dst[torch.randperm(e, generator=gen, device=dev)]
+    src = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+    feats = torch.randn((n, sp["d_feat"]), generator=gen, device=dev)
+    labels = feats[:, :c].argmax(1).to(torch.int32)
+    mask = torch.ones(n, device=dev)
+    return ((feats, torch.stack([src, dst]), labels, mask), e,
+            f"largest in-degree {deg.max() / deg.mean():.0f}x the mean "
+            f"({deg.max():,} of {e:,} edges)")
+
+
+def gnn_state(dev, arch, sp, reduced, molecule, seed=SEED):
+    """Fresh parameters (seeded), the readout for the molecule cell, and
+    zero AdamW state: the arguments before the batch."""
+    import torch
+
+    from repro_torch.models.gnn import sage_init
+    from repro_torch.models.layers import dense_init
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = gnn_cfg(arch, sp, reduced)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 71)
+    params = sage_init(cfg, gen=gen)
+    if not molecule:
+        return params, adamw_init(params, AdamWConfig(lr=1e-3))
+    readout = {"w": dense_init(gen, (cfg.n_classes, sp["n_classes"])),
+               "b": torch.zeros(sp["n_classes"], device=dev)}
+    return params, readout, adamw_init((params, readout), AdamWConfig(lr=1e-3))
+
+
+def gnn_layer_graphs(shape, cfg, batch, dev):
+    """(x, src, dst, n_dst) of each aggregate of the cell's step: layer
+    0 on the features, layer 1 on a seeded (rows, d_hidden) input over
+    the same (or the inner block's) edges, and the molecule readout."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 81)
+
+    def hidden(rows):
+        return torch.randn((rows, cfg.d_hidden), generator=gen, device=dev)
+
+    if shape == "minibatch_lg":
+        feats, s0, d0, s1, d1, labels = batch
+        fr1, bn = s1.numel() + labels.numel(), labels.numel()
+        return [("layer 0", feats, s0, d0, fr1),
+                ("layer 1", hidden(fr1), s1, d1, bn)]
+    feats, edges = batch[0], batch[1]
+    n = feats.shape[0]
+    out = [("layer 0", feats, edges[0], edges[1], n),
+           ("layer 1", hidden(n), edges[0], edges[1], n)]
+    if shape == "molecule":
+        graph_id = batch[2]
+        out.append(("readout", torch.randn((n, cfg.n_classes), generator=gen,
+                                           device=dev),
+                    torch.arange(n, dtype=torch.int32, device=dev), graph_id,
+                    int(graph_id.max()) + 1))
+    if shape == "ogb_products":          # the plain (E, d) must fit
+        out = [(f"{name}, first {GNN_CHECK_EDGES:,} edges", x,
+                src[:GNN_CHECK_EDGES], dst[:GNN_CHECK_EDGES], n_dst)
+               for name, x, src, dst, n_dst in out]
+    return out
+
+
+def gather_check(name, x, src, dst, n_dst):
+    """The kernel against its plain version on the same tensors, forward
+    (with scale) and backward (the transposed CSR, through
+    ``segment_mean``'s gradient against autograd of the plain gather and
+    index_add_): each element within GNN_TOL of its sum of absolute
+    values, empty segments exactly 0, and a planted x0.9 on the largest
+    segment rejected; the rows' relative L2 error is printed.  Returns
+    the largest |kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels.segment_gather import (SegmentCSR,
+                                                    segment_gather_sum,
+                                                    segment_gather_sum_ref,
+                                                    segment_mean)
+
+    def within(a, b, size):
+        return bool(((a - b).abs() <= GNN_TOL * size).all())
+
+    csr = SegmentCSR(src, dst, x.shape[0], n_dst)
+    got = segment_gather_sum(x, csr.idx, csr.ptr, csr.scale)
+    want = segment_gather_sum_ref(x, csr.idx, csr.ptr, csr.scale)
+    size = segment_gather_sum_ref(x.abs(), csr.idx, csr.ptr, csr.scale)
+    empty = want.norm(dim=-1) == 0
+    err = row_rel_err(got, want)
+    bad = got.clone()
+    bad[int(want.norm(dim=-1).argmax())] *= PLANTED_SCALE
+    if not (within(got, want, size) and bool((got[empty] == 0).all())
+            and not within(bad, want, size)):
+        raise AssertionError(f"segment_gather {name}: kernel vs plain past "
+                             f"{GNN_TOL} of the sum of |x| (row error "
+                             f"{err:.3g}), or the planted fault passed")
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(SEED + 91)
+    g = torch.randn(want.shape, generator=gen, device=x.device)
+    xk = x.detach().clone().requires_grad_()
+    (gk,) = torch.autograd.grad(segment_mean(xk, csr), xk, g)
+    xp = x.detach().clone().requires_grad_()
+    keep = (dst.long() >= 0) & (dst.long() < n_dst) & (src.long() < x.shape[0])
+    msgs = xp[src.long()[keep]]
+    plain = torch.zeros(want.shape, device=x.device).index_add(
+        0, dst.long()[keep], msgs) * csr.scale[:, None]
+    (gp,) = torch.autograd.grad(plain, xp, g, retain_graph=True)
+    (gsize,) = torch.autograd.grad(plain, xp, g.abs())
+    gerr = row_rel_err(gk, gp)
+    if not within(gk, gp, gsize):
+        raise AssertionError(f"segment_gather {name}: gradient through the "
+                             f"kernel vs the plain version past {GNN_TOL} of "
+                             f"the sum of |g| (row error {gerr:.3g})")
+    e_valid = int(csr.ptr[-1])
+    mx = float((got - want).abs().max()) if got.numel() else 0.0
+    print(f"[gnn] check {name}: x {tuple(x.shape)}, {e_valid:,} edges into "
+          f"{n_dst:,} segments; kernel vs plain within {GNN_TOL} of the sum "
+          f"of |x|, row rel err {err:.3g}, max |d| {mx:.3g}, empty segments "
+          f"exactly 0, x0.9 planted on one segment rejected; gradient within "
+          f"{GNN_TOL} of the sum of |g|, row rel err {gerr:.3g}", flush=True)
+    return mx
+
+
+def gnn_kernel_times(feats, edges, flush):
+    """The kernel's row: ogb_products' layer-0 aggregate timed cold
+    (after a 1 GiB read) beside its bound (x, idx, ptr and scale read
+    once, out written once, over the memory rate; E d fp32 adds over the
+    fp32 rate), the plain version and ``F.embedding_bag`` (sum, unscaled;
+    the port never calls it); the layer-1 width too."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.segment_gather import (SegmentCSR,
+                                                    segment_gather_sum,
+                                                    segment_gather_sum_ref)
+
+    n, d = feats.shape
+    csr = SegmentCSR(edges[0], edges[1], n, n)
+    e, r = int(csr.ptr[-1]), n
+    ms = time_cuda(lambda: segment_gather_sum(feats, csr.idx, csr.ptr,
+                                              csr.scale), 5, flush)
+    bytes_moved = 4 * n * d + 4 * e + 8 * (r + 1) + 4 * r + 4 * r * d
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = e * d / FP32_FLOPS_PER_S * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                      "operations")
+    offsets = csr.ptr[:-1].to(torch.int32)
+    lib_ms = time_cuda(lambda: F.embedding_bag(csr.idx, feats, offsets,
+                                               mode="sum"), 5, flush)
+    plain_ms = time_cuda(lambda: segment_gather_sum_ref(
+        feats, csr.idx, csr.ptr, csr.scale), 2, flush)
+    h = torch.randn((n, 128), device=feats.device)
+    ms_128 = time_cuda(lambda: segment_gather_sum(h, csr.idx, csr.ptr,
+                                                  csr.scale), 5, flush)
+    print(f"[kernel] segment_gather ogb_products layer 0 (N {n:,}, d {d}, "
+          f"E {e:,}): {ms:.6f} ms cold, bound {bound:.6f} ms ({by}: "
+          f"{bytes_moved / 1e9:.3f} GB compulsory; the gathered rows E d 4 = "
+          f"{4 * e * d / 1e9:.2f} GB), {bytes_moved / ms / 1e6:.1f} GB/s "
+          f"compulsory, {4 * e * d / ms / 1e6:.1f} GB/s gathered; plain "
+          f"{plain_ms:.3f} ms; F.embedding_bag (sum, unscaled) {lib_ms:.6f} "
+          f"ms; at d 128 (layer 1) {ms_128:.6f} ms", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, ms_d128=ms_128)
+
+
+def gnn_card_vs_cpu(dev, shape="full_graph_sm"):
+    """A reduced cell's step on the card against the port on the CPU from
+    one state and batch: the loss and every leaf within GNN_CARD_CPU_TOL
+    relative L2."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import REDUCED_SHAPES, build_cell
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    arch = get_arch("graphsage-reddit")
+    sp = REDUCED_SHAPES[arch.shape(shape).kind]
+    cpu = torch.device("cpu")
+    state = gnn_state(cpu, arch, sp, True, False)
+    batch, _, _ = gnn_batch(cpu, shape, sp, SEED + 101)
+    fn = build_cell("graphsage-reddit", shape, reduced=True).fn
+    on_dev = fn(*tree_map(lambda t: t.to(dev, copy=True), state),
+                *[t.to(dev) for t in batch])
+    on_cpu = fn(*state, *batch)
+    worst = 0.0
+    for a, b in zip(tree_leaves(on_dev), tree_leaves(on_cpu)):
+        diff = (a.cpu().double() - b.double()).norm()
+        worst = max(worst, float(diff / b.double().norm().clamp_min(1e-30)))
+    if worst > GNN_CARD_CPU_TOL:
+        raise AssertionError(f"graphsage {shape} reduced: card vs CPU {worst:.3g}")
+    print(f"[gnn] {shape} reduced: one step card vs CPU, loss "
+          f"{float(on_dev[-1]):.6f} vs {float(on_cpu[-1]):.6f}, worst leaf "
+          f"relative L2 {worst:.3g} (tol {GNN_CARD_CPU_TOL})", flush=True)
+
+
+def gnn_phase(dev, reduced=False):
+    """Phase 7: the four graphsage-reddit cells at their published shapes
+    (``gnn_batch``) through ``build_cell("graphsage-reddit", ...).fn``.
+    First, uncounted: the kernel against its plain version at every
+    cell's aggregate shapes (``gather_check``), a reduced step card vs
+    CPU, and the kernel's row (``gnn_kernel_times``).  Then the main path
+    between a reset and a read of the counts: each cell 3 steps on one
+    batch (the loss falling), 2 timed steps (ms/step, edges/s, peak
+    memory), segment_gather launches a step against
+    GNN_LAUNCHES_PER_STEP; ogb_products also two fresh runs of 2 steps
+    bit-equal and a profiled step.  ``reduced`` runs the reduced cells
+    (a CPU rehearsal).  Returns (launch counts, the kernel's row)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.segment_gather import SEGMENT_GATHER_KERNEL
+    from repro_torch.launch.steps import REDUCED_SHAPES, build_cell
+    from repro_torch.train.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    arch = get_arch("graphsage-reddit")
+    specs = {s: (arch.shape(s).kind, dict(REDUCED_SHAPES[arch.shape(s).kind])
+                 if reduced else dict(arch.shape(s).params))
+             for s in GNN_SHAPES}
+    batches = {}
+    worst = 0.0
+    for i, shape in enumerate(GNN_SHAPES):
+        t0 = time.perf_counter()
+        batch, edges, note = gnn_batch(dev, shape, specs[shape][1], SEED + 63 + i)
+        sync(dev)
+        batches[shape] = (batch, edges)
+        print(f"[gnn] {shape} ({specs[shape][0]}): {specs[shape][1]}; "
+              f"synthetic, seeded: {note}; made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cfg = gnn_cfg(arch, specs[shape][1], reduced)
+        if on_card:
+            for args in gnn_layer_graphs(shape, cfg, batch, dev):
+                worst = max(worst, gather_check(f"{shape} {args[0]}", *args[1:]))
+                torch.cuda.empty_cache()
+    row = {"max_abs_err": worst}
+    if on_card:
+        gnn_card_vs_cpu(dev)
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        feats, edges = batches["ogb_products"][0][:2]
+        row.update(gnn_kernel_times(feats, edges, flush))
+        del flush
+        torch.cuda.empty_cache()
+    print(f"[gnn] checks and kernel times in {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+
+    reset_counts()
+    for shape in GNN_SHAPES:
+        kind, sp = specs[shape]
+        batch, edges = batches[shape]
+        molecule = kind == "train_batched_graphs"
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        cell = build_cell("graphsage-reddit", shape, reduced=reduced)
+
+        def step(*args):
+            return cell.fn(*args)[-3:]      # (..., opt_state, loss)
+
+        state = gnn_state(dev, arch, sp, reduced, molecule)
+        before = SEGMENT_GATHER_KERNEL.launches
+        falling_steps(step, state, batch, GNN_FALL_STEPS, f"graphsage {shape}")
+        times = []
+        for _ in range(GNN_TIMED_STEPS):         # on the same batch
+            t0 = time.perf_counter()
+            step(*state, *batch)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = ((SEGMENT_GATHER_KERNEL.launches - before)
+                    / (GNN_FALL_STEPS + GNN_TIMED_STEPS))
+        want = GNN_LAUNCHES_PER_STEP[kind] if on_card else 0
+        if per_step != want:
+            raise AssertionError(f"graphsage {shape}: {per_step:g} "
+                                 f"segment_gather launches a step, want {want}")
+        print(f"[gnn] {shape}: ms/step {[round(t, 3) for t in times]}, "
+              f"{edges / (min(times) / 1e3):.4g} edges/s at the fastest "
+              f"({edges:,} edges a step); segment_gather {per_step:g} "
+              f"launches a step (written down before the run: {want}); peak "
+              f"device memory {peak_text(dev)}", flush=True)
+        if shape == "ogb_products":
+            runs = []
+            for _ in range(2):
+                st = gnn_state(dev, arch, sp, reduced, molecule)
+                for _ in range(GNN_EQUAL_STEPS):
+                    step(*st, *batch)
+                runs.append([t.clone() for t in tree_leaves(st)])
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError("graphsage ogb_products: two runs from "
+                                     "one seed differ")
+            print(f"[gnn] ogb_products: two runs of {GNN_EQUAL_STEPS} steps "
+                  f"from one seed: parameters and moments bit-equal",
+                  flush=True)
+            if on_card:
+                profile_device("graphsage ogb_products train step",
+                               lambda: step(*state, *batch), "segment_gather",
+                               host=False, shares=("sort", "elementwise",
+                                                   "gemm"))
+        del state, cell
+    launches = read_counts()
+    print(f"[gnn] main path launches: {launches}; phase 7 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del batches
+    return launches, row
+
+
 def profile_batch(exe, name, policy, inp):
     """One served batch under torch.profiler."""
     profile_device(name, lambda: exe.execute(policy, *inp),
                    "block_scan_pruned_chunk")
 
 
-def profile_device(name, fn, kernel, host=True):
+def profile_device(name, fn, kernel, host=True, shares=()):
     """Run ``fn`` under torch.profiler and print the device's busy and
-    idle share of the wall time, ``kernel``'s share of busy time, and
-    where the device and (with ``host``) host time go; returns (kernel
-    us, busy us, wall us).  Without ``host`` only the device is traced:
-    a call of ~10^5 launches then takes seconds to read, not a minute."""
+    idle share of the wall time, ``kernel``'s share of busy time (and
+    that of the device kernels whose names hold each of ``shares``, case
+    aside), and where the device and (with ``host``) host time go;
+    returns (kernel us, busy us, wall us).  Without ``host`` only the
+    device is traced: a call of ~10^5 launches then takes seconds to
+    read, not a minute."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4711,6 +5375,12 @@ def profile_device(name, fn, kernel, host=True):
           f"device events; {kernel} kernel {kern_us / 1e3:.3f} ms over "
           f"{sum(n for n, _ in kern)} launches "
           f"({100 * kern_us / max(busy_us, 1e-9):.1f}% of busy)", flush=True)
+    for part in shares:
+        hit = [v for k, v in per_name.items() if part.lower() in k.lower()]
+        us = sum(u for _, u in hit)
+        print(f"[profile] {name}: kernels named *{part}* {us / 1e3:.3f} ms "
+              f"over {sum(n for n, _ in hit)} launches "
+              f"({100 * us / max(busy_us, 1e-9):.1f}% of busy)", flush=True)
     top = sorted(per_name.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
     for key, (n, us) in top:
         print(f"[profile] {name} top by device: {key[:60]!r} n={n} "
@@ -4808,6 +5478,14 @@ def main() -> int:
     if recsys_train_launches["embedding_bag"] <= 0:
         raise AssertionError("the recsys train path launched no embedding_bag "
                              "kernel")
+    torch.cuda.empty_cache()
+    ws_launches = websearch_phase(dev)
+    if ws_launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the websearch cells launched no block_scan kernel")
+    torch.cuda.empty_cache()
+    gnn_launches, gnn_row = gnn_phase(dev)
+    if gnn_launches["segment_gather"] <= 0:
+        raise AssertionError("the GNN cells launched no segment_gather kernel")
 
     def row(name, source, replaces, n, r, err):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -4866,12 +5544,17 @@ def main() -> int:
             "src/repro/kernels/embedding_bag/embedding_bag.py:48",
             recsys_launches["embedding_bag_lanes"], bag_rows["wd_p99"],
             max(r["max_abs_err"] for r in bag_rows.values()
-                if r["kernel"] == "embedding_bag_lanes"))]
+                if r["kernel"] == "embedding_bag_lanes")),
+        row("segment_gather", "segment_gather.cu",
+            "replaces no TPU kernel (src/repro/models/gnn.py:52 _aggregate: "
+            "jnp.take + jax.ops.segment_sum)",
+            gnn_launches["segment_gather"], gnn_row, gnn_row["max_abs_err"])]
     kernels[0]["train_launches"] = train_launches["block_scan_pruned_chunk"]
     kernels[0]["engine_launches"] = engine_launches["block_scan_pruned_chunk"]
     kernels[0]["cluster_launches"] = cluster_launches["block_scan_pruned_chunk"]
     kernels[0]["live_launches"] = live_launches["block_scan_pruned_chunk"]
     kernels[0]["proc_launches"] = proc_launches
+    kernels[0]["websearch_launches"] = ws_launches["block_scan_pruned_chunk"]
     by_name = {r["name"]: r for r in kernels}
     for name in ("flash_attention_tc", "decode_attention_tc"):
         by_name[name]["moe_lm_launches"] = moe_launches[name]

@@ -1,6 +1,6 @@
-"""Arch registry: importing this package registers the ported configs
-(the paper's websearch-rl system, the five LMs and the recsys models;
-the reference's graphsage-reddit is not ported yet)."""
+"""Arch registry: importing this package registers every config of the
+reference (the paper's websearch-rl system, the five LMs, the GNN and
+the recsys models)."""
 from .base import ArchDef, ShapeSpec, get_arch, list_archs
 
 __all__ = ["ArchDef", "ShapeSpec", "get_arch", "list_archs"]
@@ -19,6 +19,7 @@ def _load_all():
         phi4_mini_3_8b,
         deepseek_v2_lite_16b,
         grok1_314b,
+        graphsage_reddit,
         wide_deep,
         deepfm,
         dcn_v2,

@@ -40,14 +40,10 @@ def register(arch: ArchDef) -> ArchDef:
 
 
 def get_arch(arch_id: str) -> ArchDef:
-    """The ported arch ``arch_id``; raises ``NotImplementedError`` for
-    an arch the reference has and the port does not yet."""
+    """The arch ``arch_id``; ``KeyError`` for an unknown id, as in the
+    reference."""
     from . import _load_all
     _load_all()
-    if arch_id not in _REGISTRY:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ported: "
-            f"{', '.join(sorted(_REGISTRY))})")
     return _REGISTRY[arch_id]
 
 

@@ -5,8 +5,10 @@ abstract inputs and its donated arguments.
 The reference's ``CellSpec.args`` are ``jax.ShapeDtypeStruct``s; here
 they are ``device="meta"`` tensors (shapes and dtypes, no data), and the
 shardings are None: the port runs on one device, and a ``mesh`` raises.
-The GNN and websearch builders (``_build_gnn``, ``_build_websearch``)
-are not ported yet and raise.
+Every family has its builder: ``_build_lm``, ``_build_gnn``,
+``_build_recsys`` and ``_build_websearch``.  Where a reference step
+takes a ``jax.random`` key (the websearch train step), the port's takes
+the draws that key would give (``core/qlearning.py``'s ``Draws``).
 
 A train step takes its parameters and optimizer state as the
 reference's donated arguments (``donate_argnums=(0, 1)``): it
@@ -16,6 +18,7 @@ step runs on the device its tensors lie on.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import torch
@@ -26,7 +29,8 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["CellSpec", "build_cell", "REDUCED_SHAPES", "make_lm_train_step",
-           "lm_loss_and_grads", "recsys_loss", "value_and_grad"]
+           "lm_loss_and_grads", "recsys_loss", "value_and_grad", "ce_loss",
+           "minibatch_budgets"]
 
 
 @dataclasses.dataclass
@@ -173,6 +177,110 @@ def _build_lm(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
                     donate_argnums=(2,))
 
 
+# ======================================================================= GNN
+def ce_loss(logits, labels, mask) -> torch.Tensor:
+    """The GNN cells' masked mean cross-entropy of (N, C) logits."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gold = logp.gather(1, labels.long()[:, None])[:, 0]
+    return -torch.sum(gold * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def minibatch_budgets(batch_nodes: int, fanout) -> Tuple[int, int, int, int]:
+    """The minibatch cell's fixed budgets (e1, fr1, e0, fr0): the
+    seeds' block has at most e1 edges into a frontier of fr1 rows, the
+    inner block e0 edges into fr0 rows; a sampler pads up to them (src
+    fr0 or fr1, the dummy row; dst n_dst, the dummy segment)."""
+    f_out, f_in = fanout                   # e.g. (15, 10): inner, outer
+    e1 = batch_nodes * f_in
+    fr1 = batch_nodes + e1
+    e0 = fr1 * f_out
+    return e1, fr1, e0, fr1 + e0
+
+
+def _build_gnn(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
+    from repro_torch.models.gnn import (SAGEConfig, sage_block_forward,
+                                        sage_full_forward, sage_graph_forward,
+                                        sage_init)
+
+    spec = arch.shape(shape_name)
+    sp = dict(REDUCED_SHAPES[spec.kind]) if reduced else dict(spec.params)
+    base = arch.model_cfg(reduced)
+    cfg = SAGEConfig(d_in=sp["d_feat"], d_hidden=base.d_hidden,
+                     n_classes=sp["n_classes"], n_layers=base.n_layers,
+                     aggregator=base.aggregator)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    p_abs = sage_init(cfg, device="meta")
+
+    def step(params, opt_state, loss_fn):
+        loss, grads = value_and_grad(loss_fn, params)
+        adamw_update_(params, grads, opt_state, opt_cfg)
+        return loss
+
+    def on(dev, *xs):
+        return [torch.as_tensor(x, device=dev) for x in xs]
+
+    if spec.kind == "train_graph":
+        n, e = sp["n_nodes"], sp["n_edges"]
+
+        def fn(params, opt_state, feats, edges, labels, mask):
+            feats, edges, labels, mask = on(_dev(params), feats, edges,
+                                            labels, mask)
+            loss = step(params, opt_state, lambda p: ce_loss(
+                sage_full_forward(p, cfg, feats, edges), labels, mask))
+            return params, opt_state, loss
+
+        args = (p_abs, adamw_init(p_abs, opt_cfg),
+                _sd((n, sp["d_feat"]), torch.float32), _sd((2, e), torch.int32),
+                _sd((n,), torch.int32), _sd((n,), torch.float32))
+        return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+                        donate_argnums=(0, 1))
+
+    if spec.kind == "train_minibatch":
+        bn = sp["batch_nodes"]
+        e1, fr1, e0, fr0 = minibatch_budgets(bn, sp["fanout"])
+
+        def fn(params, opt_state, feats, src0, dst0, src1, dst1, labels):
+            dev = _dev(params)
+            feats, src0, dst0, src1, dst1, labels = on(
+                dev, feats, src0, dst0, src1, dst1, labels)
+            blocks = [(src0, dst0, fr1), (src1, dst1, bn)]
+            ones = torch.ones((bn,), dtype=torch.float32, device=dev)
+            loss = step(params, opt_state, lambda p: ce_loss(
+                sage_block_forward(p, cfg, feats, blocks), labels, ones))
+            return params, opt_state, loss
+
+        args = (p_abs, adamw_init(p_abs, opt_cfg),
+                _sd((fr0, sp["d_feat"]), torch.float32),
+                _sd((e0,), torch.int32), _sd((e0,), torch.int32),
+                _sd((e1,), torch.int32), _sd((e1,), torch.int32),
+                _sd((bn,), torch.int32))
+        return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+                        donate_argnums=(0, 1))
+
+    if spec.kind != "train_batched_graphs":
+        raise ValueError(spec.kind)
+    # molecule: block-diagonal batches of small graphs, a readout per graph
+    bsz, npg, epg = sp["batch"], sp["n_nodes"], sp["n_edges"]
+    n, e = bsz * npg, bsz * epg
+    readout_abs = {"w": _sd((cfg.n_classes, sp["n_classes"]), torch.float32),
+                   "b": _sd((sp["n_classes"],), torch.float32)}
+
+    def fn(params, readout, opt_state, feats, edges, graph_id, labels):
+        dev = _dev(params)
+        feats, edges, graph_id, labels = on(dev, feats, edges, graph_id, labels)
+        ones = torch.ones((bsz,), dtype=torch.float32, device=dev)
+        loss = step((params, readout), opt_state, lambda pr: ce_loss(
+            sage_graph_forward(pr[0], cfg, feats, edges, graph_id, bsz, pr[1]),
+            labels, ones))
+        return params, readout, opt_state, loss
+
+    args = (p_abs, readout_abs, adamw_init((p_abs, readout_abs), opt_cfg),
+            _sd((n, sp["d_feat"]), torch.float32), _sd((2, e), torch.int32),
+            _sd((n,), torch.int32), _sd((bsz,), torch.int32))
+    return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+                    donate_argnums=(0, 1, 2))
+
+
 # ==================================================================== recsys
 def recsys_loss(arch_id: str, cfg, params, *batch) -> torch.Tensor:
     """The loss of a recsys train cell: the CTR archs' BCE of
@@ -292,24 +400,90 @@ def _build_recsys(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
 
 def _top100(scores: torch.Tensor):
     """``jax.lax.top_k(scores, 100)`` over the last axis: largest first,
-    ties to the lower index (a stable descending sort)."""
+    ties to the lower index (a stable descending sort), int32 indices."""
     v, i = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return v[..., :100], i[..., :100]
+    return v[..., :100], i[..., :100].to(torch.int32)
+
+
+# ================================================================= websearch
+def _build_websearch(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
+    """The paper's system on one index shard: ``serve_websearch`` runs
+    the greedy learned policy over a query batch and returns (cand, u,
+    cand_cnt); ``train_websearch`` is one ε-greedy episode (ε 0.1) and
+    its TD update, returning (q_new, metrics).  The train step takes the
+    episode's draws, the (explore, uniform) pair of (t_max, B) tensors
+    (or a ``torch.Generator``), where the reference takes a key."""
+    from repro_torch.core.environment import EnvConfig
+    from repro_torch.core.match_rules import default_rule_library
+    from repro_torch.core.qlearning import QConfig, train_batch
+    from repro_torch.core.rollout import unified_rollout
+    from repro_torch.core.state_bins import StateBins
+    from repro_torch.index.builder import MAX_QUERY_TERMS
+    from repro_torch.index.corpus import N_FIELDS
+    from repro_torch.policies import TabularQPolicy
+
+    wcfg = arch.model_cfg(reduced)
+    spec = arch.shape(shape_name)
+    sp = dict(REDUCED_SHAPES[spec.kind]) if reduced else dict(spec.params)
+    q_batch = sp["query_batch"]
+    w = wcfg.block_docs // 32
+    env_cfg = EnvConfig(n_blocks=wcfg.n_blocks, block_docs=wcfg.block_docs,
+                        k_rules=wcfg.k_rules, max_candidates=wcfg.max_candidates,
+                        n_top=wcfg.n_top, u_budget=wcfg.u_budget)
+    qcfg = QConfig(p=wcfg.p_bins, n_actions=env_cfg.n_actions, t_max=wcfg.t_max)
+    rulesets = {}
+
+    def ruleset(dev):
+        if dev not in rulesets:
+            rulesets[dev] = default_rule_library(device=dev)
+        return rulesets[dev]
+
+    pu = int(math.sqrt(wcfg.p_bins))
+    pv = wcfg.p_bins // pu
+    bins_abs = StateBins(u_edges=_sd((pu - 1,), torch.float32),
+                         v_edges=_sd((pu, pv - 1), torch.float32))
+    occ_abs = _sd((q_batch, wcfg.n_blocks, MAX_QUERY_TERMS, N_FIELDS, w),
+                  torch.int32)
+    scores_abs = _sd((q_batch, wcfg.n_blocks * wcfg.block_docs), torch.float32)
+    tp_abs = _sd((q_batch, MAX_QUERY_TERMS), torch.bool)
+    q_abs = _sd((wcfg.p_bins, env_cfg.n_actions), torch.float32)
+
+    if spec.kind == "serve_websearch":
+        def fn(qt, bins, occ, scores, tp):
+            final = unified_rollout(env_cfg, ruleset(occ.device), bins,
+                                    TabularQPolicy(qt), qcfg.t_max, occ,
+                                    scores, tp, backend=wcfg.backend).final_state
+            return final.cand, final.u, final.cand_cnt
+
+        args = (q_abs, bins_abs, occ_abs, scores_abs, tp_abs)
+        return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
+
+    if spec.kind != "train_websearch":
+        raise ValueError(spec.kind)
+
+    def fn(qt, bins, occ, scores, tp, prod_r, draws):
+        return train_batch(env_cfg, qcfg, ruleset(occ.device), bins, qt, occ,
+                           scores, tp, prod_r, 0.1, draws,
+                           backend=wcfg.backend)
+
+    draws_abs = (_sd((wcfg.t_max, q_batch), torch.int32),
+                 _sd((wcfg.t_max, q_batch), torch.float32))
+    args = (q_abs, bins_abs, occ_abs, scores_abs, tp_abs,
+            _sd((q_batch, wcfg.t_max), torch.float32), draws_abs)
+    return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
 
 
 # =================================================================== dispatch
 def build_cell(arch_id: str, shape_name: str, mesh=None, reduced: bool = False,
                cfg_override=None) -> CellSpec:
-    """The (arch, shape) cell on one device.  Raises for a ``mesh`` (the
-    sharded cells wait for the mesh port) and for the GNN and websearch
-    families (their builders are not ported yet)."""
+    """The (arch, shape) cell on one device, for every family of the
+    reference (lm, gnn, recsys, websearch).  Raises for a ``mesh``: the
+    sharded cells wait for the mesh port."""
     if mesh is not None:
         raise NotImplementedError("a sharded cell waits for the mesh port")
     arch = get_arch(arch_id)
     if cfg_override is not None:
         arch = dataclasses.replace(arch, model_cfg=lambda reduced_: cfg_override)
-    builders = {"lm": _build_lm, "recsys": _build_recsys}
-    if arch.family not in builders:
-        raise NotImplementedError(
-            f"the {arch.family} cells (_build_{arch.family}) are not ported yet")
-    return builders[arch.family](arch, shape_name, reduced)
+    builder = {"lm": _build_lm, "gnn": _build_gnn, "recsys": _build_recsys,
+               "websearch": _build_websearch}[arch.family]
+    return builder(arch, shape_name, reduced)

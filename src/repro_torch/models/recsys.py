@@ -267,7 +267,8 @@ def bert4rec_score_items(params: Dict, hidden_at_mask: torch.Tensor,
 def retrieval_topk(query_vec: torch.Tensor, cand_emb: torch.Tensor,
                    k: int = 100) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score N candidates (N, E) against one query (E,) with a batched
-    dot and take the top k: (values (k,), indices (k,)), largest first
+    dot and take the top k: (values (k,), int32 indices (k,), as the
+    reference's), largest first
     and, among equal scores, lower index first, as the reference's
     ``jax.lax.top_k``.  ``torch.topk`` leaves the order of ties open, so
     the top k is taken over unique int64 keys: the score's bits mapped to
@@ -279,4 +280,4 @@ def retrieval_topk(query_vec: torch.Tensor, cand_emb: torch.Tensor,
     n = scores.shape[0]
     below = n - 1 - torch.arange(n, device=scores.device)
     _, idx = torch.topk((bits.long() << 32) + below, k)
-    return scores[idx], idx
+    return scores[idx], idx.to(torch.int32)

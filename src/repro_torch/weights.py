@@ -4,8 +4,10 @@ The reference's parameters cannot be re-drawn here (its ``jax.random``
 streams have no torch counterpart), so they cross as numpy arrays:
 ``np.asarray`` of each leaf on the reference side,
 :func:`from_reference` (retrieval system),
-:func:`lm_params_from_reference` (LM parameter tree) or
-:func:`recsys_params_from_reference` (recsys parameter trees) here.
+:func:`lm_params_from_reference` (LM parameter tree),
+:func:`recsys_params_from_reference` (recsys parameter trees) or
+:func:`gnn_params_from_reference` (GraphSAGE parameters and readout)
+here.
 Among them are the reference trainer's outputs, a trained ``q`` table
 and trained ``l1_params``; the port also trains its own
 (``RetrievalSystem.fit_l1``, ``train_policy``).
@@ -24,7 +26,7 @@ from repro_torch.core.state_bins import StateBins
 from repro_torch.device import resolve_device
 
 __all__ = ["ReferenceWeights", "from_reference", "lm_params_from_reference",
-           "recsys_params_from_reference"]
+           "recsys_params_from_reference", "gnn_params_from_reference"]
 
 _L1_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 _RULESET_KEYS = ("allowed", "required", "du_quota", "dv_quota")
@@ -106,3 +108,25 @@ def lm_params_from_reference(params: Mapping, cfg, device=None) -> Dict:
 
 
 recsys_params_from_reference = lm_params_from_reference
+
+
+def gnn_params_from_reference(params, cfg, device=None):
+    """The reference's GraphSAGE tree ({"layer_l": {w_self, w_neigh,
+    b}}; numpy leaves) as the port's float32 tensors, the structure kept:
+    a (params, readout) pair converts too, readout {"w", "b"} included.
+    ``cfg`` is the ``SAGEConfig``: the tree must hold its n_layers
+    layers (every leaf is float32)."""
+    dev = resolve_device(device)
+    layers = params[0] if isinstance(params, (tuple, list)) else params
+    if set(layers) != {f"layer_{l}" for l in range(cfg.n_layers)}:
+        raise ValueError(f"want layers 0..{cfg.n_layers - 1}; got "
+                         f"{sorted(layers)}")
+
+    def convert(tree):
+        if isinstance(tree, Mapping):
+            return {k: convert(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(convert(v) for v in tree)
+        return _tensor(tree, np.float32, dev)
+
+    return convert(params)

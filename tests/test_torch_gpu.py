@@ -1387,3 +1387,188 @@ def test_cuda_wide_deep_train_step_matches_cpu_and_reruns_bit_equal(cuda):
                        tree_leaves(again[:2])):
         assert _rel_l2(a.cpu(), b) <= 1e-4
         assert torch.equal(a, c)
+
+
+# ------------------------------------------------- segment gather (GNN)
+def _segments(seed, n, d, lengths, offset=0):
+    """x (n, d) at a float ``offset`` into its buffer (offset 1: not on a
+    16-byte boundary, the scalar path), ids with the dummy row (n) and
+    -1 mixed in, segments of the given lengths."""
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.normal(size=n * d + offset).astype(np.float32))
+    x = buf[offset:].view(n, d)
+    ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64))
+    idx = rng.integers(0, n, int(ptr[-1])).astype(np.int32)
+    idx[::17] = n
+    idx[5::23] = -1
+    scale = torch.from_numpy((1.0 / np.maximum(lengths, 1)).astype(np.float32))
+    return x, torch.from_numpy(idx), ptr, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,offset", [(128, 0), (100, 0), (16, 0), (1433, 0),
+                                      (602, 0), (128, 1)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_cuda_segment_gather_equals_plain_bit_for_bit(cuda, d, offset, scaled):
+    """The kernel (both load paths: 16-byte where d % 4 == 0 and x is
+    aligned, else scalar) against the plain version on the CPU, which
+    adds in the kernel's order: the same bits; one launch a call, and
+    two launches give the same bits."""
+    from repro_torch.kernels.segment_gather import (SEGMENT_GATHER_KERNEL,
+                                                    segment_gather_sum,
+                                                    segment_gather_sum_ref)
+
+    lengths = np.array([0, 1, 31, 32, 33, 700, 0, 5, 64] * 20)
+    x, idx, ptr, scale = _segments(d + offset, 300, d, lengths, offset)
+    sc = scale if scaled else None
+    want = segment_gather_sum_ref(x, idx, ptr, sc)
+    xc = torch.empty(x.numel() + offset, device=cuda)[offset:].view_as(x)
+    xc.copy_(x)
+    args = (xc, idx.to(cuda), ptr.to(cuda), None if sc is None else sc.to(cuda))
+    before = SEGMENT_GATHER_KERNEL.launches
+    got = segment_gather_sum(*args)
+    again = segment_gather_sum(*args)
+    torch.cuda.synchronize()
+    assert SEGMENT_GATHER_KERNEL.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_cuda_segment_mean_gradient_equals_cpu(cuda):
+    """``segment_mean``'s forward and backward on the card (one launch
+    each) give the CPU's bits."""
+    from repro_torch.kernels.segment_gather import (SEGMENT_GATHER_KERNEL,
+                                                    SegmentCSR, segment_mean)
+
+    rng = np.random.default_rng(3)
+    n, e, n_dst, d = 500, 6000, 300, 128
+    h = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    src = torch.from_numpy(rng.integers(0, n + 1, e).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(0, n_dst + 1, e).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=(n_dst, d)).astype(np.float32))
+
+    def run(dev):
+        x = h.to(dev).requires_grad_()
+        out = segment_mean(x, SegmentCSR(src.to(dev), dst.to(dev), n, n_dst))
+        (grad,) = torch.autograd.grad(out, x, g.to(dev))
+        return out.detach().cpu(), grad.cpu()
+
+    want = run(torch.device("cpu"))
+    before = SEGMENT_GATHER_KERNEL.launches
+    got = run(cuda)
+    assert SEGMENT_GATHER_KERNEL.launches == before + 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_segment_gather_rejects_unsupported_inputs(cuda):
+    from repro_torch.kernels.segment_gather import segment_gather_sum
+
+    x = torch.zeros((4, 8), device=cuda)
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    ptr = torch.tensor([0, 2], device=cuda)
+    with pytest.raises(ValueError, match="x dtype"):
+        segment_gather_sum(x.double(), idx, ptr)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_gather_sum(x[:, ::2], idx, ptr)
+    with pytest.raises(ValueError, match="different devices"):
+        segment_gather_sum(x, idx.cpu(), ptr)
+
+
+def _gnn_step(dev, shape):
+    """One reduced GraphSAGE cell step from a fixed state and batch."""
+    from repro_torch.launch.steps import (REDUCED_SHAPES, build_cell,
+                                          minibatch_budgets)
+    from repro_torch.models.gnn import sage_init
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    arch = get_arch("graphsage-reddit")
+    kind = arch.shape(shape).kind
+    sp = REDUCED_SHAPES[kind]
+    cfg = dataclasses.replace(arch.model_cfg(True), d_in=sp["d_feat"],
+                              n_classes=sp["n_classes"])
+    params = _tree_to(sage_init(cfg, seed=0, device="cpu"), dev)
+    rng = np.random.default_rng(5)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    if kind == "train_graph":
+        n, e = sp["n_nodes"], sp["n_edges"]
+        feats = rng.normal(size=(n, sp["d_feat"])).astype(np.float32)
+        batch = (feats, rng.integers(0, n, (2, e)).astype(np.int32),
+                 np.argmax(feats[:, :sp["n_classes"]], 1).astype(np.int32),
+                 np.ones(n, np.float32))
+    else:
+        e1, fr1, e0, fr0 = minibatch_budgets(sp["batch_nodes"], sp["fanout"])
+        feats = rng.normal(size=(fr0, sp["d_feat"])).astype(np.float32)
+        bn = sp["batch_nodes"]
+        batch = (feats, rng.integers(0, fr0 + 1, e0).astype(np.int32),
+                 rng.integers(0, fr1 + 1, e0).astype(np.int32),
+                 rng.integers(0, fr1 + 1, e1).astype(np.int32),
+                 rng.integers(0, bn + 1, e1).astype(np.int32),
+                 np.argmax(feats[:bn, :sp["n_classes"]], 1).astype(np.int32))
+    opt = adamw_init(params, AdamWConfig(lr=1e-3))
+    cell = build_cell("graphsage-reddit", shape, reduced=True)
+    return cell.fn(params, opt, *[t(b) for b in batch])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["ogb_products", "minibatch_lg"])
+def test_cuda_gnn_train_step_matches_cpu_and_reruns_bit_equal(cuda, shape):
+    """A reduced GraphSAGE step on the card (3 gather launches: two
+    forwards, the hidden layer's backward) against the CPU: the loss and
+    every leaf within 1e-4 relative L2 (float32 GEMMs in another order);
+    two card steps give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.segment_gather import SEGMENT_GATHER_KERNEL
+    from repro_torch.train.tree import tree_leaves
+
+    cpu = _gnn_step(torch.device("cpu"), shape)
+    before = SEGMENT_GATHER_KERNEL.launches
+    gpu = _gnn_step(cuda, shape)
+    torch.cuda.synchronize()
+    assert SEGMENT_GATHER_KERNEL.launches == before + 3
+    again = _gnn_step(cuda, shape)
+    torch.testing.assert_close(gpu[2].cpu(), cpu[2], atol=1e-4, rtol=1e-4)
+    assert torch.equal(gpu[2], again[2])
+    for a, b, c in zip(tree_leaves(gpu[:2]), tree_leaves(cpu[:2]),
+                       tree_leaves(again[:2])):
+        assert _rel_l2(a.cpu(), b) <= 1e-4
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_cuda_websearch_serve_cell_matches_cpu(cuda):
+    """The reduced websearch serve cell on the card (block_scan: chunk
+    launches) gives the CPU's cand, u and cand_cnt bit for bit."""
+    from repro_torch.core.state_bins import StateBins
+    from repro_torch.launch.steps import build_cell
+
+    wcfg = get_arch("websearch-rl").model_cfg(True)
+    rng = np.random.default_rng(6)
+    b, w = 8, wcfg.block_docs // 32
+    occ = (rng.integers(0, 2**32, (b, wcfg.n_blocks, T, F, w), dtype=np.uint32)
+           & rng.integers(0, 2**32, (b, wcfg.n_blocks, T, F, w), dtype=np.uint32))
+    tp = np.arange(T)[None] < rng.integers(2, 5, b)[:, None]
+    scores = rng.normal(size=(b, wcfg.n_blocks * wcfg.block_docs)).astype(np.float32)
+    q = rng.normal(scale=0.05, size=(wcfg.p_bins, wcfg.k_rules + 2)).astype(np.float32)
+    q[:, wcfg.k_rules:] -= 0.1
+    pu = int(np.sqrt(wcfg.p_bins))
+    ue = np.geomspace(2, wcfg.u_budget, pu - 1).astype(np.float32)
+    ve = np.tile(np.geomspace(1, 4096, wcfg.p_bins // pu - 1), (pu, 1)).astype(np.float32)
+    cell = build_cell("websearch-rl", "serve_queries", reduced=True)
+
+    def run(dev):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return [x.cpu() for x in cell.fn(t(q), StateBins(t(ue), t(ve)),
+                                         t(occ.view(np.int32)), t(scores), t(tp))]
+
+    want = run(torch.device("cpu"))
+    before = BLOCK_SCAN_KERNEL.launches
+    got = run(cuda)
+    assert BLOCK_SCAN_KERNEL.launches > before
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)

@@ -35,7 +35,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
 
 def test_probe_walks_the_serving_and_obs_modules():
     """The import probe above walks the engine's, the cluster's, the
-    live index's and the process cell's modules too."""
+    live index's and the process cell's modules too, and the GNN's, its
+    kernel's and the roofline's."""
     import pkgutil
 
     import repro_torch
@@ -58,6 +59,11 @@ def test_probe_walks_the_serving_and_obs_modules():
     assert {f"repro_torch.cluster.proc.{m}" for m in (
         "follower", "messages", "replica", "ring", "worker")} <= names
     assert "repro_torch.cluster.proc" in names
+    assert {"repro_torch.models.gnn", "repro_torch.configs.graphsage_reddit",
+            "repro_torch.kernels.segment_gather",
+            "repro_torch.kernels.segment_gather.ops",
+            "repro_torch.kernels.segment_gather.ref",
+            "repro_torch.launch.roofline", "repro_torch.launch.steps"} <= names
 
 
 def test_entry_points_raise_without_cuda():

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jax_get_arch
+from repro.configs import list_archs as jax_list_archs
 from repro.launch.steps import REDUCED_SHAPES
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
@@ -393,9 +394,13 @@ def test_configs_equal_reference(arch_id, reduced):
 
 
 def test_unported_archs_raise():
-    """Every reference arch but the GNN is ported."""
-    others = ["wide-deep", "deepfm", "dcn-v2", "bert4rec", "websearch-rl"]
+    """Every reference arch is ported (the port lists the reference's
+    archs); an id neither package has raises KeyError in both."""
+    others = ["wide-deep", "deepfm", "dcn-v2", "bert4rec", "websearch-rl",
+              "graphsage-reddit"]
     assert sorted(list_archs()) == sorted(ARCHS + MOE_ARCHS + others)
-    jax_get_arch("graphsage-reddit")              # the reference has it
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("graphsage-reddit")
+    assert sorted(list_archs()) == sorted(jax_list_archs())
+    assert get_arch("graphsage-reddit").family == "gnn"
+    for getter in (get_arch, jax_get_arch):
+        with pytest.raises(KeyError):
+            getter("graphsage-cora")

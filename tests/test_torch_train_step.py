@@ -223,7 +223,13 @@ def test_lm_cells_are_abstract_and_mesh_raises():
     assert dec.donate_argnums == (2,) and dec.args[2]["k"].shape[:3] == (40, 128, 32768)
     with pytest.raises(NotImplementedError, match="mesh"):
         build_cell("mistral-nemo-12b", "train_4k", mesh=object())
-    with pytest.raises(NotImplementedError):
-        build_cell("websearch-rl", "rl_rollout")
-    with pytest.raises(NotImplementedError):
+    # the GNN and websearch cells build too, their args meta at the
+    # published shapes (tests/test_torch_cells.py holds every cell)
+    ws = build_cell("websearch-rl", "rl_rollout")
+    assert ws.args[2].device.type == "meta"
+    assert tuple(ws.args[2].shape) == (256, 4096, 4, 4, 128)
+    gnn = build_cell("graphsage-reddit", "ogb_products")
+    assert gnn.donate_argnums == (0, 1) and gnn.args[3].device.type == "meta"
+    assert tuple(gnn.args[3].shape) == (2, 61_859_140)
+    with pytest.raises(KeyError):
         build_cell("graphsage-reddit", "train_full")
