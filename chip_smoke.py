@@ -336,15 +336,34 @@ Phases (any failure raises and the script exits non-zero):
    written down before the run; two ogb_products runs of 2 steps from
    one seed bit-equal; a profiled ogb_products step (busy, idle, the
    kernel's share and the sorts'); the counts read.
-8. Print the kernels' JSON line (the chunk kernel's row also carries
+8. The mesh: a one-rank NCCL world (a ``FileStore`` rendezvous in a
+   temporary directory) and a 1 x 1 ``make_local_mesh`` on the card;
+   NCCL's version and the card line printed.  At world size 1 every
+   collective is an identity (multi-card NCCL, the TP regime and the
+   cost of collectives are not measured).  Each check computes the
+   unsharded result first, uncounted, then runs the sharded path
+   between a reset and a read of the counts: websearch-rl's
+   ``serve_queries`` and ``rl_rollout`` through the sharded
+   ``build_cell`` at full width (256 queries x 4096 blocks, phase 6's
+   synthetic inputs placed as DTensors): cand, u, cand_cnt, q_new and
+   the metrics bit-equal to the unsharded cells', chunk launches > 0;
+   Wide&Deep at its full config, ``serve_bulk`` (262,144) and one
+   ``train_batch`` step (65,536) through the sharded cells from one
+   state: logits within 1e-5 + 1e-5|x|, the loss and every leaf within
+   1e-4 relative L2, bag launches > 0; ``moe_ffn_sharded`` at
+   DeepSeek-V2-Lite's FFN widths (64 experts, top-6, d 2048, ff 1408, 2
+   shared) on 4,096 float32 tokens against ``moe_ffn``: within 1e-5.
+   Each call's ms printed beside the unsharded one's.
+9. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
    ``cluster_launches``, the live fleet's, ``live_launches``, the
-   process cell's workers', ``proc_launches``, and phase 6's,
-   ``websearch_launches``; the tensor-core flash and decode rows also
-   Grok-1's, ``moe_lm_launches``; the column bag row 5b's,
-   ``train_launches``; the segment gather row, which replaces no TPU
-   kernel, phase 7's), the card line, and last
+   process cell's workers', ``proc_launches``, phase 6's,
+   ``websearch_launches``, and phase 8's, ``mesh_launches``; the
+   tensor-core flash and decode rows also Grok-1's,
+   ``moe_lm_launches``; the column bag row 5b's, ``train_launches``;
+   both bag rows phase 8's, ``mesh_launches``; the segment gather row,
+   which replaces no TPU kernel, phase 7's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -5329,6 +5348,234 @@ def gnn_phase(dev, reduced=False):
     return launches, row
 
 
+# ------------------------------------------------------------ phase 8
+MESH_LOGIT_TOL = 1e-5          # sharded vs unsharded logits: atol + rtol
+MESH_LEAF_TOL = 1e-4           # each leaf after one step, relative L2
+MESH_MOE_TOKENS = 4096         # tokens through DeepSeek-V2-Lite's FFN
+MESH_MOE_TOL = 1e-5            # float32 experts, atol
+
+
+def mesh_timed(dev, fn):
+    """(result, ms) of one call, ending in a synchronise."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_websearch(dev, mesh, reduced):
+    """The websearch-rl cells through the sharded ``build_cell`` on a
+    one-rank mesh, against the unsharded cells on the same inputs (phase
+    6's synthetic occupancy): cand, u, cand_cnt and q_new (and the
+    metrics) bit-equal.  The sharded calls run between a reset and a read
+    of the launch counts."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import place_tree
+    from repro_torch.launch.steps import REDUCED_SHAPES, build_cell
+
+    arch = get_arch("websearch-rl")
+    wcfg = arch.model_cfg(reduced)
+    b = (REDUCED_SHAPES["serve_websearch"] if reduced
+         else arch.shape("serve_queries").params)["query_batch"]
+    q, bins, occ, scores, tp, prod_r, draws = ws_inputs(dev, wcfg, b, SEED + 81)
+    serve = build_cell("websearch-rl", "serve_queries", reduced=reduced)
+    train = build_cell("websearch-rl", "rl_rollout", reduced=reduced)
+    want_s, ms_s = mesh_timed(dev, lambda: serve.fn(q, bins, occ, scores, tp))
+    want_t, ms_t = mesh_timed(dev, lambda: train.fn(q, bins, occ, scores, tp,
+                                                    prod_r, draws))
+    s_serve = build_cell("websearch-rl", "serve_queries", mesh=mesh,
+                         reduced=reduced)
+    s_train = build_cell("websearch-rl", "rl_rollout", mesh=mesh, reduced=reduced)
+    # the cell's arguments as DTensors placed by its shardings: copies,
+    # one at a time, each original freed as its copy replaces it
+    occ = place_tree(occ, s_serve.in_shardings[2])
+    scores = place_tree(scores, s_serve.in_shardings[3])
+    tp = place_tree(tp, s_serve.in_shardings[4])
+    sync(dev)
+    reset_counts()
+    got_s, sms_s = mesh_timed(dev, lambda: s_serve.fn(q, bins, occ, scores, tp))
+    got_t, sms_t = mesh_timed(dev, lambda: s_train.fn(q, bins, occ, scores, tp,
+                                                      prod_r, draws))
+    launches = read_counts()
+    for name, g, w in zip(("cand", "u", "cand_cnt"), got_s, want_s):
+        if not torch.equal(g.full_tensor(), w):
+            raise AssertionError(f"mesh websearch serve: {name} differs from "
+                                 f"the unsharded cell's")
+    q_new, metrics = got_t
+    if not (torch.equal(q_new.full_tensor(), want_t[0]) and all(
+            torch.equal(metrics[k].full_tensor(), want_t[1][k])
+            for k in want_t[1])):
+        raise AssertionError("mesh websearch rl_rollout: q_new or a metric "
+                             "differs from the unsharded cell's")
+    print(f"[mesh] websearch-rl at {b} queries x {wcfg.n_blocks} blocks x "
+          f"{wcfg.block_docs} docs (phase 6's synthetic inputs, seed "
+          f"{SEED + 81}): sharded serve_queries {sms_s:.1f} ms (unsharded "
+          f"{ms_s:.1f} ms), cand, u and cand_cnt bit-equal; sharded "
+          f"rl_rollout {sms_t:.1f} ms (unsharded {ms_t:.1f} ms), q_new and "
+          f"the metrics bit-equal; launches {launches}", flush=True)
+    return launches
+
+
+def mesh_wide_deep(dev, mesh, reduced, batch_cap=None):
+    """Wide&Deep at its config through the sharded cells on a one-rank
+    mesh against the unsharded cells on one state: serve_bulk's logits
+    within MESH_LOGIT_TOL + MESH_LOGIT_TOL|x|, and one train_batch step's
+    loss and every leaf within MESH_LEAF_TOL relative L2.  The sharded
+    calls run between a reset and a read of the launch counts (``main``
+    requires a bag launch there)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import place_tree
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.tree import leaf_paths, tree_leaves
+
+    arch = get_arch("wide-deep")
+    cfg = arch.model_cfg(reduced)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 82)
+    b_serve = min(arch.shape("serve_bulk").params["batch"], batch_cap or 1 << 30)
+    b_train = min(arch.shape("train_batch").params["batch"], batch_cap or 1 << 30)
+    sparse, dense, _ = recsys_train_batch("wide-deep", cfg, b_serve, gen, dev)
+    batch = recsys_train_batch("wide-deep", cfg, b_train, gen, dev)
+    params = recsys_train_init("wide-deep", cfg, dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    s_serve = build_cell("wide-deep", "serve_bulk", mesh=mesh, reduced=reduced)
+    s_train = build_cell("wide-deep", "train_batch", mesh=mesh, reduced=reduced)
+    s_params = place_tree(params, s_train.in_shardings[0])
+    s_opt = place_tree(adamw_init(params, opt_cfg), s_train.in_shardings[1])
+    with torch.no_grad():
+        want, ms_s = mesh_timed(dev, lambda: build_cell(
+            "wide-deep", "serve_bulk", reduced=reduced).fn(params, sparse, dense))
+    opt = adamw_init(params, opt_cfg)
+    (params, _, loss), ms_t = mesh_timed(dev, lambda: build_cell(
+        "wide-deep", "train_batch", reduced=reduced).fn(params, opt, *batch))
+    del opt
+    sync(dev)
+    reset_counts()
+    with torch.no_grad():
+        got, sms_s = mesh_timed(dev, lambda: s_serve.fn(s_params, sparse, dense))
+    (s_params, s_opt, s_loss), sms_t = mesh_timed(
+        dev, lambda: s_train.fn(s_params, s_opt, *batch))
+    launches = read_counts()
+    got = got.full_tensor()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=MESH_LOGIT_TOL, atol=MESH_LOGIT_TOL):
+        raise AssertionError(f"mesh wide-deep serve_bulk: logits differ from "
+                             f"the unsharded cell's by {err:g}")
+    if not abs(float(s_loss) - float(loss)) <= MESH_LEAF_TOL * abs(float(loss)):
+        raise AssertionError(f"mesh wide-deep train: loss {float(s_loss)} != "
+                             f"{float(loss)}")
+    worst = 0.0
+    for path, p, sp in zip(leaf_paths(params), tree_leaves(params),
+                           tree_leaves(s_params)):
+        rel = float(torch.linalg.vector_norm((sp.full_tensor() - p).float())
+                    / torch.linalg.vector_norm(p.float()).clamp_min(1e-30))
+        worst = max(worst, rel)
+        if rel > MESH_LEAF_TOL:
+            raise AssertionError(f"mesh wide-deep train: leaf {path} off by "
+                                 f"{rel:g} relative L2")
+    bags = launches["embedding_bag"] + launches["embedding_bag_lanes"]
+    print(f"[mesh] wide-deep ({'reduced' if reduced else 'full'} config): "
+          f"sharded serve_bulk at {b_serve} {sms_s:.1f} ms (unsharded "
+          f"{ms_s:.1f} ms), logits max |diff| {err:g}; sharded train_batch at "
+          f"{b_train} {sms_t:.1f} ms (unsharded {ms_t:.1f} ms), loss "
+          f"{float(s_loss):.6f} vs {float(loss):.6f}, worst leaf relative L2 "
+          f"{worst:g}; launches {launches} (bag kernels {bags})", flush=True)
+    return launches
+
+
+def mesh_moe(dev, mesh, reduced, tokens=MESH_MOE_TOKENS):
+    """``moe_ffn_sharded`` (EP: E % 1 == 0) at DeepSeek-V2-Lite's FFN
+    widths in float32 against ``moe_ffn`` on the same tokens."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import moe_ffn, moe_ffn_sharded, moe_init
+
+    mcfg = get_arch("deepseek-v2-lite-16b").model_cfg(reduced).moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 83)
+    params = moe_init(gen, mcfg, dtype=torch.float32)
+    x = torch.randn((tokens, mcfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        (want, _), ms = mesh_timed(dev, lambda: moe_ffn(params, x, mcfg))
+        reset_counts()
+        (got, _), sms = mesh_timed(dev, lambda: moe_ffn_sharded(params, x, mcfg,
+                                                                 mesh))
+        launches = read_counts()
+    err = float((got.full_tensor() - want).abs().max())
+    if not err <= MESH_MOE_TOL:
+        raise AssertionError(f"mesh moe_ffn_sharded differs from moe_ffn by {err:g}")
+    print(f"[mesh] moe_ffn_sharded at DeepSeek-V2-Lite's widths ("
+          f"{dc.asdict(mcfg)}), {tokens} tokens, float32: {sms:.1f} ms "
+          f"(moe_ffn {ms:.1f} ms), max |diff| {err:g} (tolerance "
+          f"{MESH_MOE_TOL:g}); launches {launches} (no kernel on this path: "
+          f"the MoE FFN is plain torch, as in the reference)", flush=True)
+    return launches
+
+
+def mesh_phase(dev, reduced=False, batch_cap=None, moe_tokens=MESH_MOE_TOKENS):
+    """Phase 8: the mesh on one card.  A one-rank world (NCCL on the card,
+    gloo for a CPU rehearsal; a ``FileStore`` rendezvous in a temporary
+    directory) and a 1 x 1 ``make_local_mesh``; then the sharded
+    websearch-rl cells at full width, Wide&Deep's sharded serve_bulk and
+    one sharded train_batch step, and ``moe_ffn_sharded`` at
+    DeepSeek-V2-Lite's widths, each against its unsharded counterpart.
+    At world size 1 every collective is an identity.  Returns the summed
+    launch counts of the sharded paths."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import psum
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    tmp = tempfile.mkdtemp(prefix="mesh_store_")
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+    try:
+        mesh = make_local_mesh(1, 1, device=dev.type)
+        # build each axis's communicator before any timed call
+        one = torch.ones((), device=dev)
+        for axis in mesh.mesh_dim_names:
+            psum(one, mesh, axis)
+        sync(dev)
+        nccl = ".".join(map(str, torch.cuda.nccl.version())) if on_card else "n/a"
+        print(f"[mesh] a one-rank {backend} world (FileStore rendezvous) and a "
+              f"1 x 1 make_local_mesh on {dev.type}; NCCL {nccl}; card "
+              f"{card_line() if on_card else 'n/a (CPU)'}.  At world size 1 "
+              f"every collective is an identity: multi-card NCCL, the TP "
+              f"regime (it needs M > E) and the cost of collectives are not "
+              f"measured here", flush=True)
+        parts = [mesh_websearch(dev, mesh, reduced)]
+        if on_card:
+            torch.cuda.empty_cache()
+        parts.append(mesh_wide_deep(dev, mesh, reduced, batch_cap))
+        if on_card:
+            torch.cuda.empty_cache()
+        parts.append(mesh_moe(dev, mesh, reduced, moe_tokens))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    print(f"[mesh] sharded paths' launches: {launches}; phase 8 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def profile_batch(exe, name, policy, inp):
     """One served batch under torch.profiler."""
     profile_device(name, lambda: exe.execute(policy, *inp),
@@ -5486,6 +5733,12 @@ def main() -> int:
     gnn_launches, gnn_row = gnn_phase(dev)
     if gnn_launches["segment_gather"] <= 0:
         raise AssertionError("the GNN cells launched no segment_gather kernel")
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(dev)
+    if mesh_launches["block_scan_pruned_chunk"] <= 0:
+        raise AssertionError("the sharded websearch cells launched no chunk kernel")
+    if mesh_launches["embedding_bag"] + mesh_launches["embedding_bag_lanes"] <= 0:
+        raise AssertionError("the sharded wide-deep cells launched no bag kernel")
 
     def row(name, source, replaces, n, r, err):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -5555,11 +5808,14 @@ def main() -> int:
     kernels[0]["live_launches"] = live_launches["block_scan_pruned_chunk"]
     kernels[0]["proc_launches"] = proc_launches
     kernels[0]["websearch_launches"] = ws_launches["block_scan_pruned_chunk"]
+    kernels[0]["mesh_launches"] = mesh_launches["block_scan_pruned_chunk"]
     by_name = {r["name"]: r for r in kernels}
     for name in ("flash_attention_tc", "decode_attention_tc"):
         by_name[name]["moe_lm_launches"] = moe_launches[name]
     by_name["embedding_bag"]["train_launches"] = (
         recsys_train_launches["embedding_bag"])
+    for name in ("embedding_bag", "embedding_bag_lanes"):
+        by_name[name]["mesh_launches"] = mesh_launches[name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

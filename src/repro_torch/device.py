@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "entry_device", "seeded_generator"]
+__all__ = ["resolve_device", "entry_device", "seeded_generator", "mesh_device",
+           "refuse_mesh"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -47,13 +48,41 @@ def seeded_generator(seed: int, device=None) -> torch.Generator:
     return gen
 
 
+def mesh_device(mesh) -> torch.device:
+    """This rank's device of a ``DeviceMesh``: its card on ``cuda``
+    (``launch/mesh.py`` sets rank r on card r), else the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def entry_device(param: torch.Tensor, mesh=None, device=None) -> torch.device:
-    """The device of a model entry point (``resolve_device(device)``),
-    checked against a parameter's: raises if they differ, and for a
-    ``mesh`` (the port runs on one device)."""
-    if mesh is not None:
-        raise NotImplementedError("the port runs on one device: mesh must be None")
-    dev = resolve_device(device)
+    """The device of a model entry point, checked against a parameter's
+    (a tensor or a DTensor's local block): raises if they differ.  With
+    no ``mesh``, ``resolve_device(device)``; with a ``DeviceMesh``, the
+    mesh's device type on this rank's card (``device``, if given, must
+    name the same type).  Anything else as ``mesh`` raises."""
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
+                            f"not {type(mesh).__name__}")
+        dev = mesh_device(mesh)
+        if device is not None and resolve_device(device).type != dev.type:
+            raise ValueError(f"device {device} is not the mesh's {dev.type}")
     if param.device.type != dev.type:
         raise ValueError(f"parameters lie on {param.device}, not on {dev}")
     return dev
+
+
+def refuse_mesh(mesh, what: str) -> None:
+    """Raises for a ``mesh``: ``what``'s sharded path waits for the next
+    slice of the port (tensor, sequence and edge sharding)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} on a mesh waits for the next slice of the port (the "
+            f"LM's tensor/FSDP/sequence sharding and the GNN's edge "
+            f"sharding); the recsys and websearch cells run on one")

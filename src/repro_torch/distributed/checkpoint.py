@@ -130,10 +130,11 @@ def _restored(a: np.ndarray, logical: str, like):
 def restore(directory: str | Path, step: int, like: Any,
             shardings: Any = None) -> Any:
     """Restore into the structure of ``like``, each leaf in the dtype and
-    on the device of ``like``'s.  ``shardings`` must be None: the port
-    runs on one device."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto shardings waits for the mesh port")
+    on the device of ``like``'s.  With ``shardings`` (a matching tree of
+    ``NamedSharding``s, or None where a leaf stays whole) each restored
+    leaf, the same logical tensor on every rank, is placed as the DTensor
+    of its sharding (``elastic.place_tree``) — the elastic-rescale
+    path: logical shapes are mesh-independent."""
     d = Path(directory) / f"step_{step:09d}"
     manifest = json.loads((d / "manifest.json").read_text())
     leaves_like = tree_leaves(like)
@@ -142,7 +143,12 @@ def restore(directory: str | Path, step: int, like: Any,
                          f"expected {len(leaves_like)}")
     arrs = [_restored(np.load(d / rec["file"]), rec["dtype"], l)
             for rec, l in zip(manifest["leaves"], leaves_like)]
-    return tree_unflatten(like, arrs)
+    restored = tree_unflatten(like, arrs)
+    if shardings is None:
+        return restored
+    from .elastic import place_tree
+
+    return place_tree(restored, shardings)
 
 
 class CheckpointManager:

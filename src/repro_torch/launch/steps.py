@@ -1,14 +1,22 @@
-"""Per-cell step builders (the single-device half of the reference's
-``launch/steps.py``): for an (arch, shape) pair, the step function, its
-abstract inputs and its donated arguments.
+"""Per-cell step builders (the reference's ``launch/steps.py``): for an
+(arch, shape) pair, the step function, its abstract inputs, their
+shardings and its donated arguments.
 
 The reference's ``CellSpec.args`` are ``jax.ShapeDtypeStruct``s; here
-they are ``device="meta"`` tensors (shapes and dtypes, no data), and the
-shardings are None: the port runs on one device, and a ``mesh`` raises.
-Every family has its builder: ``_build_lm``, ``_build_gnn``,
-``_build_recsys`` and ``_build_websearch``.  Where a reference step
-takes a ``jax.random`` key (the websearch train step), the port's takes
-the draws that key would give (``core/qlearning.py``'s ``Draws``).
+they are ``device="meta"`` tensors (shapes and dtypes, no data, at the
+global shapes).  Every family has its builder: ``_build_lm``,
+``_build_gnn``, ``_build_recsys`` and ``_build_websearch``.  Where a
+reference step takes a ``jax.random`` key (the websearch train step),
+the port's takes the draws that key would give (``core/qlearning.py``'s
+``Draws``).
+
+With a ``mesh`` (a ``DeviceMesh``: ``launch/mesh.py``) the websearch and
+recsys cells run sharded, rank by rank, and ``in_shardings`` /
+``out_shardings`` are trees of ``NamedSharding``s (spec and mesh; their
+``placements`` are the DTensor ones): the arguments are DTensors placed
+by them (``distributed/elastic.py``'s ``reshard_tree``) or global
+tensors, and the outputs DTensors.  The LM and GNN cells raise for a
+mesh: their tensor, sequence and edge sharding wait for the next slice.
 
 A train step takes its parameters and optimizer state as the
 reference's donated arguments (``donate_argnums=(0, 1)``): it
@@ -24,12 +32,18 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch.configs.base import ArchDef, get_arch
+from repro_torch.device import refuse_mesh
+from repro_torch.distributed.sharding_rules import (P, NamedSharding,
+                                                    data_axes, mesh_shape,
+                                                    recsys_param_specs)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update_, clip_by_global_norm_)
-from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.train.tree import (leaf_paths, tree_leaves, tree_map,
+                                    tree_unflatten)
 
 __all__ = ["CellSpec", "build_cell", "REDUCED_SHAPES", "make_lm_train_step",
-           "lm_loss_and_grads", "recsys_loss", "value_and_grad", "ce_loss",
+           "lm_loss_and_grads", "recsys_loss", "recsys_loss_and_grads",
+           "value_and_grad", "sharded_value_and_grad", "ce_loss",
            "minibatch_budgets"]
 
 
@@ -39,7 +53,7 @@ class CellSpec:
     shape_name: str
     fn: Callable                     # the step
     args: Tuple[Any, ...]            # meta tensors (shapes and dtypes)
-    in_shardings: Any                # None: one device
+    in_shardings: Any                # NamedSharding trees; None: one device
     out_shardings: Any
     donate_argnums: Tuple[int, ...] = ()
     static_note: str = ""
@@ -69,6 +83,23 @@ def _sd(shape, dtype) -> torch.Tensor:
 
 def _dev(params) -> torch.device:
     return tree_leaves(params)[0].device
+
+
+def _named(mesh, spec_tree_):
+    if mesh is None:
+        return None
+    return tree_map(lambda sp: NamedSharding(mesh, sp), spec_tree_)
+
+
+def _dp(mesh) -> Tuple[str, ...]:
+    return data_axes(mesh) if mesh is not None else ()
+
+
+def _dp_size(mesh) -> int:
+    n = 1
+    for a in _dp(mesh):
+        n *= mesh_shape(mesh)[a]
+    return n
 
 
 def value_and_grad(loss_fn: Callable, params):
@@ -282,47 +313,136 @@ def _build_gnn(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
 
 
 # ==================================================================== recsys
-def recsys_loss(arch_id: str, cfg, params, *batch) -> torch.Tensor:
+def recsys_loss(arch_id: str, cfg, params, *batch, mesh=None) -> torch.Tensor:
     """The loss of a recsys train cell: the CTR archs' BCE of
     (sparse, dense, labels); BERT4Rec's sampled softmax of (seq,
     mask_pos, mask_tgt, negs): each masked position's hidden state
-    against its target item and the shared negatives."""
+    against its target item and the shared negatives.  On a ``mesh``,
+    this rank's part: the sum over its rows divided by the global count,
+    so that the parts of the ranks along the batch's axes add up to the
+    mean."""
+    from repro_torch.distributed.collectives import shard_in
     from repro_torch.kernels.embedding_bag import take_rows
     from repro_torch.models import recsys as R
 
     dev = _dev(params)
     if arch_id != "bert4rec":
         sparse, dense, labels = batch
-        return R.bce_loss(_ctr_forward(arch_id, cfg, params, sparse, dense),
-                          torch.as_tensor(labels, device=dev))
+        logits = _ctr_forward(arch_id, cfg, params, sparse, dense, mesh)
+        labels = torch.as_tensor(labels, device=dev)
+        if mesh is None:
+            return R.bce_loss(logits, labels)
+        sh = R.Shards.of(mesh, cfg)
+        local = logits.to_local()
+        terms = R.bce_loss(local, shard_in(labels, mesh, sh.spec(sh.tower, 1)))
+        return terms * local.shape[0] / labels.shape[0]
     seq, mask_pos, mask_tgt, negs = (torch.as_tensor(x, device=dev)
                                      for x in batch)
-    h = R.bert4rec_forward(params, seq, cfg, device=dev)       # (B, S, E)
+    h = R.bert4rec_forward(params, seq, cfg, mesh=mesh, device=dev.type)
+    emb = params["item_embed"]
+    if mesh is not None:
+        sh = R.Shards.of(mesh, n_rows=seq.shape[0])
+        h = h.to_local()
+        mask_pos, mask_tgt, negs = (shard_in(x, mesh, sh.spec(sh.batch, 2))
+                                    for x in (mask_pos, mask_tgt, negs))
+        emb = shard_in(emb, mesh, P())       # whole: the loss reads any row
     b, s, e = h.shape
     rows = torch.arange(b, device=dev)[:, None] * s + mask_pos.long()
     hm = take_rows(h.reshape(b * s, e), rows)                   # (B, M, E)
-    emb = params["item_embed"]
     pos_e = take_rows(emb, mask_tgt.long())                     # (B, M, E)
     neg_e = take_rows(emb, negs.long())                         # (B, N, E)
     pos_s = torch.sum(hm * pos_e, -1)                           # (B, M)
     neg_s = torch.einsum("bme,bne->bmn", hm, neg_e)
     alls = torch.cat([pos_s[..., None], neg_s], -1)
-    return -torch.mean(torch.log_softmax(alls.float(), dim=-1)[..., 0])
+    loss = -torch.mean(torch.log_softmax(alls.float(), dim=-1)[..., 0])
+    if mesh is None:
+        return loss
+    return loss * b / seq.shape[0]
 
 
-def _ctr_forward(arch_id: str, cfg, params, sparse, dense):
+def recsys_loss_and_grads(arch_id: str, cfg, params, *batch, mesh=None):
+    """(loss, grads) of a recsys train cell.  On a ``mesh`` the grads are
+    this rank's blocks of the global gradient: a table's summed over the
+    data axes, which split the batch that reaches it; a dense leaf's also
+    over ``model`` under ``batch_over_model``, where the tower's rows lie
+    over it."""
+    def loss_fn(p):
+        return recsys_loss(arch_id, cfg, p, *batch, mesh=mesh)
+
+    if mesh is None:
+        return value_and_grad(loss_fn, params)
+    from repro_torch.models import recsys as R
+
+    dp = data_axes(mesh)
+    tower = dp + ("model",) if getattr(cfg, "batch_over_model", False) else dp
+
+    def grad_axes(path):
+        # the reduce-scatter's backward gathers the rows back over model
+        return dp if path.split("/")[0] in R.TABLES else tower
+
+    return sharded_value_and_grad(loss_fn, params, mesh, grad_axes, tower)
+
+
+def _ctr_forward(arch_id: str, cfg, params, sparse, dense, mesh=None):
     from repro_torch.models import recsys as R
 
     dev = _dev(params)
-    dense = torch.as_tensor(dense, device=dev)
+    if not _is_dtensor(dense):
+        dense = torch.as_tensor(dense, device=dev)
     if arch_id == "wide-deep":
-        return R.wide_deep_forward(params, sparse, cfg, dense, device=dev)
+        return R.wide_deep_forward(params, sparse, cfg, dense, mesh=mesh,
+                                   device=dev.type)
     if arch_id == "deepfm":
-        return R.deepfm_forward(params, sparse, cfg, device=dev)
-    return R.dcn_forward(params, sparse, cfg, dense, device=dev)
+        return R.deepfm_forward(params, sparse, cfg, mesh=mesh, device=dev.type)
+    return R.dcn_forward(params, sparse, cfg, dense, mesh=mesh, device=dev.type)
 
 
-def _build_recsys(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def sharded_value_and_grad(loss_fn: Callable, params, mesh, grad_axes,
+                           loss_axes):
+    """``value_and_grad`` of a sharded loss, rank by rank: ``params`` are
+    DTensors; ``loss_fn`` gets them again as DTensors over this rank's
+    blocks, which need grad, and returns this rank's part of the loss.
+    Each leaf's local gradient is summed over ``grad_axes(path)``: the
+    mesh axes over which the batch that reaches the leaf is split and the
+    leaf is not.  Returns (loss: the parts summed over ``loss_axes``;
+    grads: a tree of local blocks)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    if not all(_is_dtensor(p) for p in tree_leaves(params)):
+        raise TypeError("a sharded step takes DTensor parameters "
+                        "(distributed.reshard_tree)")
+    local = tree_map(lambda p: p.to_local().detach().requires_grad_(), params)
+    wrapped = tree_map(lambda l, p: DTensor.from_local(
+        l, mesh, p.placements, run_check=False), local, params)
+    loss = loss_fn(wrapped)
+    leaves = tree_leaves(local)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g.contiguous()
+             for p, g in zip(leaves, grads)]
+    for g, path in zip(grads, leaf_paths(params)):
+        for a in grad_axes(path):
+            dist.all_reduce(g, group=mesh.get_group(a))
+    loss = loss.detach().clone()
+    for a in loss_axes:
+        dist.all_reduce(loss, group=mesh.get_group(a))
+    return loss, tree_unflatten(params, grads)
+
+
+def _local_tree(tree):
+    """Each DTensor leaf's local block (the tensor itself, so that an
+    in-place update writes the DTensor), other leaves as they are."""
+    with torch.no_grad():
+        return tree_map(lambda t: t.to_local() if _is_dtensor(t) else t, tree)
+
+
+def _build_recsys(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> CellSpec:
     from repro_torch.models import recsys as R
 
     spec = arch.shape(shape_name)
@@ -331,6 +451,8 @@ def _build_recsys(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
     cfg = arch.model_cfg(reduced)
     opt_cfg = AdamWConfig(lr=1e-3)
     is_b4r = arch.arch_id == "bert4rec"
+    dp = _dp(mesh)
+    bspec = P(dp if dp else None, None)
 
     if is_b4r:
         p_abs = R.bert4rec_init(cfg, device="meta")
@@ -338,17 +460,34 @@ def _build_recsys(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
         init = {"wide-deep": R.wide_deep_init, "deepfm": R.deepfm_init,
                 "dcn-v2": R.dcn_init}[arch.arch_id]
         p_abs = init(cfg, device="meta")
+    p_specs = recsys_param_specs(p_abs, mesh_shape(mesh)["model"] if mesh else None)
 
     def ctr_forward(params, sparse, dense):
-        return _ctr_forward(arch.arch_id, cfg, params, sparse, dense)
+        return _ctr_forward(arch.arch_id, cfg, params, sparse, dense, mesh)
+
+    def items(params):
+        """The item table's first n_items rows, whole on every rank."""
+        emb = params["item_embed"]
+        if mesh is not None:
+            from repro_torch.distributed.collectives import shard_in
+            emb = shard_in(emb, mesh, P())
+        return emb[: cfg.n_items]
+
+    def local(x):
+        return x.to_local() if mesh is not None else x
 
     n_dense = getattr(cfg, "n_dense", 0)
+    dev_of = (lambda params: _dev(params).type)
 
     if spec.kind == "train":
         def fn(params, opt_state, *batch):
-            loss, grads = value_and_grad(
-                lambda p: recsys_loss(arch.arch_id, cfg, p, *batch), params)
-            adamw_update_(params, grads, opt_state, opt_cfg)
+            loss, grads = recsys_loss_and_grads(arch.arch_id, cfg, params,
+                                                *batch, mesh=mesh)
+            if mesh is None:
+                adamw_update_(params, grads, opt_state, opt_cfg)
+            else:
+                adamw_update_(_local_tree(params), grads,
+                              _local_tree(opt_state), opt_cfg)
             return params, opt_state, loss
 
         b = sp["batch"]
@@ -357,45 +496,74 @@ def _build_recsys(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
             batch = (_sd((b, cfg.seq_len), torch.int32),
                      _sd((b, n_mask), torch.int32), _sd((b, n_mask), torch.int32),
                      _sd((b, n_neg), torch.int32))
+            b_specs = (bspec,) * 4
         else:
             batch = (_sd((b, cfg.n_sparse), torch.int32),
                      _sd((b, max(n_dense, 1)), torch.float32),
                      _sd((b,), torch.float32))
+            b_specs = (bspec, bspec, P(dp if dp else None))
+        o_specs = {"mu": p_specs, "nu": p_specs, "count": P()}
+        in_sh = (_named(mesh, p_specs), _named(mesh, o_specs),
+                 *(_named(mesh, x) for x in b_specs))
         return CellSpec(arch.arch_id, shape_name, fn,
-                        (p_abs, adamw_init(p_abs, opt_cfg), *batch), None, None,
-                        donate_argnums=(0, 1))
+                        (p_abs, adamw_init(p_abs, opt_cfg), *batch),
+                        in_sh if mesh else None, None, donate_argnums=(0, 1))
 
     if spec.kind == "serve":
         b = sp["batch"]
         if is_b4r:
             def fn(params, seq):
-                h = R.bert4rec_forward(params, seq, cfg, device=_dev(params))
-                return _top100(R.bert4rec_score_items(params, h[:, -1], cfg))
+                h = R.bert4rec_forward(params, seq, cfg, mesh=mesh,
+                                       device=dev_of(params))
+                out = _top100(local(h)[:, -1] @ items(params).T)
+                if mesh is None:
+                    return out
+                sh = R.Shards.of(mesh, n_rows=seq.shape[0])
+                return tuple(_out_rows(x, sh) for x in out)
 
             args = (p_abs, _sd((b, cfg.seq_len), torch.int32))
-            return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
+            in_sh = (_named(mesh, p_specs), _named(mesh, bspec))
+            return CellSpec(arch.arch_id, shape_name, fn, args,
+                            in_sh if mesh else None, None)
 
         args = (p_abs, _sd((b, cfg.n_sparse), torch.int32),
                 _sd((b, max(n_dense, 1)), torch.float32))
-        return CellSpec(arch.arch_id, shape_name, ctr_forward, args, None, None)
+        in_sh = (_named(mesh, p_specs), _named(mesh, bspec), _named(mesh, bspec))
+        return CellSpec(arch.arch_id, shape_name, ctr_forward, args,
+                        in_sh if mesh else None, None)
 
     # retrieval: 1 query vs n_candidates, its top 100
     n_cand = sp["n_candidates"]
     if is_b4r:
         def fn(params, seq):
-            h = R.bert4rec_forward(params, seq, cfg, device=_dev(params))
-            return R.retrieval_topk(h[0, -1], params["item_embed"][: cfg.n_items])
+            h = R.bert4rec_forward(params, seq, cfg, mesh=mesh,
+                                   device=dev_of(params))
+            return R.retrieval_topk(local(h)[0, -1], items(params))
 
         args = (p_abs, _sd((1, cfg.seq_len), torch.int32))
-        return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
+        in_sh = (_named(mesh, p_specs), _named(mesh, P()))
+        return CellSpec(arch.arch_id, shape_name, fn, args,
+                        in_sh if mesh else None, None)
 
     def fn(params, sparse, dense):
         scores = ctr_forward(params, sparse, dense)
+        if mesh is not None:
+            scores = scores.full_tensor()      # the top 100 of every candidate
         return _top100(scores)
 
+    cand_spec = P(dp if dp else None, None)
     args = (p_abs, _sd((n_cand, cfg.n_sparse), torch.int32),
             _sd((n_cand, max(n_dense, 1)), torch.float32))
-    return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
+    in_sh = (_named(mesh, p_specs), _named(mesh, cand_spec),
+             _named(mesh, cand_spec))
+    return CellSpec(arch.arch_id, shape_name, fn, args,
+                    in_sh if mesh else None, None)
+
+
+def _out_rows(x, sh):
+    from repro_torch.distributed.collectives import shard_out
+
+    return shard_out(x, sh.mesh, sh.spec(sh.batch, x.dim()))
 
 
 def _top100(scores: torch.Tensor):
@@ -406,18 +574,32 @@ def _top100(scores: torch.Tensor):
 
 
 # ================================================================= websearch
-def _build_websearch(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
-    """The paper's system on one index shard: ``serve_websearch`` runs
-    the greedy learned policy over a query batch and returns (cand, u,
-    cand_cnt); ``train_websearch`` is one ε-greedy episode (ε 0.1) and
-    its TD update, returning (q_new, metrics).  The train step takes the
-    episode's draws, the (explore, uniform) pair of (t_max, B) tensors
-    (or a ``torch.Generator``), where the reference takes a key."""
+def _build_websearch(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> CellSpec:
+    """The paper's system: ``serve_websearch`` runs the greedy learned
+    policy over a query batch and returns (cand, u, cand_cnt);
+    ``train_websearch`` is one ε-greedy episode (ε 0.1) and its TD update,
+    returning (q_new, metrics).  The train step takes the episode's
+    draws, the (explore, uniform) pair of (t_max, B) tensors (or a
+    ``torch.Generator``), where the reference takes a key.
+
+    On a mesh the index's blocks lie over ``model`` and the queries over
+    the data axes: each rank runs its own sequence of rules over its
+    n_blocks / model blocks (the paper's machines).  Serve gathers the
+    ranks' candidate ids (offset to global ids) over ``model``, merges
+    them by static rank (``merge_shard_candidates``) and sums u and
+    cand_cnt; train averages q_new and the metrics over ``model``, then
+    over the data axes ("the same policy on every machine").  Each rank
+    takes the same draws, (t_max, B / data) (the reference's shards draw
+    from one replicated key at their local batch)."""
     from repro_torch.core.environment import EnvConfig
     from repro_torch.core.match_rules import default_rule_library
     from repro_torch.core.qlearning import QConfig, train_batch
     from repro_torch.core.rollout import unified_rollout
     from repro_torch.core.state_bins import StateBins
+    from repro_torch.core.telescope import merge_shard_candidates
+    from repro_torch.distributed.collectives import (all_gather, axis_index,
+                                                     pmean, psum, shard_in,
+                                                     shard_out)
     from repro_torch.index.builder import MAX_QUERY_TERMS
     from repro_torch.index.corpus import N_FIELDS
     from repro_torch.policies import TabularQPolicy
@@ -426,8 +608,12 @@ def _build_websearch(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
     spec = arch.shape(shape_name)
     sp = dict(REDUCED_SHAPES[spec.kind]) if reduced else dict(spec.params)
     q_batch = sp["query_batch"]
+    dp = _dp(mesh)
+    msize = mesh_shape(mesh)["model"] if mesh else 1
+    nb_local = wcfg.n_blocks // msize
+    n_pad_local = nb_local * wcfg.block_docs
     w = wcfg.block_docs // 32
-    env_cfg = EnvConfig(n_blocks=wcfg.n_blocks, block_docs=wcfg.block_docs,
+    env_cfg = EnvConfig(n_blocks=nb_local, block_docs=wcfg.block_docs,
                         k_rules=wcfg.k_rules, max_candidates=wcfg.max_candidates,
                         n_top=wcfg.n_top, u_budget=wcfg.u_budget)
     qcfg = QConfig(p=wcfg.p_bins, n_actions=env_cfg.n_actions, t_max=wcfg.t_max)
@@ -448,42 +634,91 @@ def _build_websearch(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
     tp_abs = _sd((q_batch, MAX_QUERY_TERMS), torch.bool)
     q_abs = _sd((wcfg.p_bins, env_cfg.n_actions), torch.float32)
 
+    dpn = dp if dp else None
+    occ_spec = P(dpn, "model" if mesh else None, None, None, None)
+    scores_spec = P(dpn, "model" if mesh else None)
+    tp_spec = P(dpn, None)
+
+    def local_inputs(qt, bins, occ, scores, tp):
+        """This rank's blocks (``shard_map``'s in_specs)."""
+        if mesh is None:
+            return qt, bins, occ, scores, tp
+        rep = P()
+        return (shard_in(qt, mesh, rep),
+                StateBins(*(shard_in(e, mesh, rep)
+                            for e in (bins.u_edges, bins.v_edges))),
+                shard_in(occ, mesh, occ_spec), shard_in(scores, mesh, scores_spec),
+                shard_in(tp, mesh, tp_spec))
+
+    in_specs = (P(), P(), occ_spec, scores_spec, tp_spec)
+
     if spec.kind == "serve_websearch":
         def fn(qt, bins, occ, scores, tp):
+            qt, bins, occ, scores, tp = local_inputs(qt, bins, occ, scores, tp)
             final = unified_rollout(env_cfg, ruleset(occ.device), bins,
                                     TabularQPolicy(qt), qcfg.t_max, occ,
                                     scores, tp, backend=wcfg.backend).final_state
-            return final.cand, final.u, final.cand_cnt
+            if mesh is None:
+                return final.cand, final.u, final.cand_cnt
+            shard = axis_index(mesh, "model")
+            cand = torch.where(final.cand >= 0,
+                               final.cand + shard * n_pad_local, -1)
+            gathered = all_gather(cand[None], mesh, "model", 0)  # (S, Qloc, K)
+            merged = merge_shard_candidates(gathered, keep=wcfg.max_candidates)
+            return (shard_out(merged, mesh, P(dpn, None)),
+                    shard_out(psum(final.u, mesh, "model"), mesh, P(dpn)),
+                    shard_out(psum(final.cand_cnt, mesh, "model"), mesh, P(dpn)))
 
         args = (q_abs, bins_abs, occ_abs, scores_abs, tp_abs)
-        return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
+        out_sh = (P(dpn, None), P(dpn), P(dpn))
+        return CellSpec(arch.arch_id, shape_name, fn, args,
+                        _named(mesh, in_specs), _named(mesh, out_sh))
 
     if spec.kind != "train_websearch":
         raise ValueError(spec.kind)
 
     def fn(qt, bins, occ, scores, tp, prod_r, draws):
-        return train_batch(env_cfg, qcfg, ruleset(occ.device), bins, qt, occ,
-                           scores, tp, prod_r, 0.1, draws,
-                           backend=wcfg.backend)
+        qt, bins, occ, scores, tp = local_inputs(qt, bins, occ, scores, tp)
+        if mesh is not None:
+            prod_r = shard_in(prod_r, mesh, P(dpn, None))
+            if not isinstance(draws, torch.Generator):
+                draws = tuple(shard_in(x, mesh, P()) for x in draws)
+        q_new, metrics = train_batch(env_cfg, qcfg, ruleset(occ.device), bins,
+                                     qt, occ, scores, tp, prod_r, 0.1, draws,
+                                     backend=wcfg.backend)
+        if mesh is None:
+            return q_new, metrics
+        rep = P()
+        q_new = shard_out(pmean(pmean(q_new, mesh, "model"), mesh, dp), mesh, rep)
+        metrics = {k: shard_out(pmean(pmean(m, mesh, "model"), mesh, dp), mesh, rep)
+                   for k, m in metrics.items()}
+        return q_new, metrics
 
-    draws_abs = (_sd((wcfg.t_max, q_batch), torch.int32),
-                 _sd((wcfg.t_max, q_batch), torch.float32))
+    b_draws = q_batch // _dp_size(mesh)
+    draws_abs = (_sd((wcfg.t_max, b_draws), torch.int32),
+                 _sd((wcfg.t_max, b_draws), torch.float32))
     args = (q_abs, bins_abs, occ_abs, scores_abs, tp_abs,
             _sd((q_batch, wcfg.t_max), torch.float32), draws_abs)
-    return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
+    in_sh = in_specs + (P(dpn, None), (P(), P()))
+    out_sh = (P(), {k: P() for k in ("mean_u", "mean_v", "mean_cand",
+                                     "mean_reward", "q_abs_mean")})
+    return CellSpec(arch.arch_id, shape_name, fn, args, _named(mesh, in_sh),
+                    _named(mesh, out_sh))
 
 
 # =================================================================== dispatch
 def build_cell(arch_id: str, shape_name: str, mesh=None, reduced: bool = False,
                cfg_override=None) -> CellSpec:
-    """The (arch, shape) cell on one device, for every family of the
-    reference (lm, gnn, recsys, websearch).  Raises for a ``mesh``: the
-    sharded cells wait for the mesh port."""
-    if mesh is not None:
-        raise NotImplementedError("a sharded cell waits for the mesh port")
+    """The (arch, shape) cell, for every family of the reference (lm,
+    gnn, recsys, websearch), on one device or, for the recsys and
+    websearch families, on a ``mesh``; the LM and GNN cells raise for a
+    mesh (their sharding waits for the next slice)."""
     arch = get_arch(arch_id)
     if cfg_override is not None:
         arch = dataclasses.replace(arch, model_cfg=lambda reduced_: cfg_override)
-    builder = {"lm": _build_lm, "gnn": _build_gnn, "recsys": _build_recsys,
-               "websearch": _build_websearch}[arch.family]
-    return builder(arch, shape_name, reduced)
+    if arch.family in ("lm", "gnn"):
+        refuse_mesh(mesh, f"the {arch.family.upper()} cell")
+        builder = {"lm": _build_lm, "gnn": _build_gnn}[arch.family]
+        return builder(arch, shape_name, reduced)
+    builder = {"recsys": _build_recsys, "websearch": _build_websearch}[arch.family]
+    return builder(arch, shape_name, mesh, reduced)

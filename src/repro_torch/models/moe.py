@@ -17,8 +17,11 @@ rows are read back through ``take_rows``, whose gradient sums the rows
 that several assignments read (a dropped assignment reads its expert's
 last row) in a fixed order.
 
-The reference's ``moe_ffn_sharded`` (expert and tensor parallelism over
-a mesh) is not ported: the model entry points raise for a ``mesh``.
+``moe_ffn_sharded`` is the reference's FFN over a mesh, expert or
+tensor parallel over ``model`` with explicit ``torch.distributed``
+collectives (``distributed/collectives.py``).  The transformer's own
+mesh path (its ``_apply_moe_ffn(mesh=...)``) waits for the next slice:
+the LM entry points raise for a ``mesh``.
 """
 from __future__ import annotations
 
@@ -29,11 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.embedding_bag import take_rows
+from repro_torch.train.tree import tree_map
 
 from .layers import dense_init, mlp_apply, mlp_init
 
-__all__ = ["MoEConfig", "moe_init", "moe_ffn", "moe_ffn_dense", "router_topk",
-           "build_dispatch", "moe_capacity", "no_drop"]
+__all__ = ["MoEConfig", "moe_init", "moe_ffn", "moe_ffn_sharded",
+           "moe_ffn_dense", "router_topk", "build_dispatch", "moe_capacity",
+           "no_drop"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,33 +127,114 @@ def build_dispatch(idx: torch.Tensor, n_experts: int, capacity: int):
 def moe_ffn(params: Dict, x: torch.Tensor, cfg: MoEConfig,
             capacity: Optional[int] = None):
     """x: (T, d) -> (out (T, d) in x's dtype, aux loss () f32)."""
-    t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    cap = capacity or moe_capacity(cfg, t)
+    cap = capacity or moe_capacity(cfg, x.shape[0])
 
     w, idx, aux = router_topk(params["router"], x, k)
     pos, keep, _ = build_dispatch(idx, e, cap)
-
-    # Kept rows go to row e * cap + pos of a flat buffer; dropped ones to
-    # its spare last row, which is never read.  No host sync.
-    flat_e, flat_pos, flat_keep = idx.reshape(-1), pos.reshape(-1), keep.reshape(-1)
-    rows = torch.where(flat_keep, flat_e * cap + flat_pos, e * cap)
-    buf = x.new_zeros((e * cap + 1, d))
-    buf[rows] = x[:, None].expand(t, k, d).reshape(t * k, d)    # x[tok]
-    buf = buf[:e * cap].view(e, cap, d)
-
-    ex = params["experts"]
-    h = F.silu(torch.bmm(buf, ex["w_gate"])) * torch.bmm(buf, ex["w_up"])
-    y = torch.bmm(h, ex["w_down"]).view(e * cap, d)
-
-    # A dropped assignment reads its expert's last row, weighted by 0.
-    out_rows = take_rows(y, flat_e * cap + flat_pos.clamp(max=cap - 1))
-    wflat = (w.reshape(-1) * flat_keep).to(x.dtype)
-    out = (out_rows * wflat[:, None]).view(t, k, d).sum(1)
-
+    out = _experts_combine(params["experts"], x, w, idx, pos, keep, e, cap)
     if cfg.n_shared:
         out = out + mlp_apply(params["shared"], x, cfg.mlp_kind)
     return out, aux
+
+
+def _experts_combine(ex: Dict, x: torch.Tensor, w, idx, pos, keep, n_e: int,
+                     cap: int) -> torch.Tensor:
+    """The routed FFN of (T, d) tokens over ``n_e`` stacked experts: each
+    kept (token, slot) assignment's row into an (n_e, cap, d) buffer, the
+    SwiGLU as batched matmuls, and each token's k weighted outputs summed
+    in slot order.  An assignment routed to ``n_e`` (the sharded FFN's
+    drop bucket) is never kept."""
+    t, d = x.shape
+    k = idx.shape[1]
+    # Kept rows go to row e * cap + pos of a flat buffer; dropped ones to
+    # its spare last row, which is never read.  No host sync.
+    flat_e, flat_pos, flat_keep = idx.reshape(-1), pos.reshape(-1), keep.reshape(-1)
+    rows = torch.where(flat_keep, flat_e * cap + flat_pos, n_e * cap)
+    buf = x.new_zeros((n_e * cap + 1, d))
+    buf[rows] = x[:, None].expand(t, k, d).reshape(t * k, d)    # x[tok]
+    buf = buf[:n_e * cap].view(n_e, cap, d)
+
+    h = F.silu(torch.bmm(buf, ex["w_gate"])) * torch.bmm(buf, ex["w_up"])
+    y = torch.bmm(h, ex["w_down"]).view(n_e * cap, d)
+
+    # A dropped assignment reads its expert's (or the last expert's) last
+    # row, weighted by 0.
+    out_rows = take_rows(y, flat_e.clamp(max=n_e - 1) * cap
+                         + flat_pos.clamp(max=cap - 1))
+    wflat = (w.reshape(-1) * flat_keep).to(x.dtype)
+    return (out_rows * wflat[:, None]).view(t, k, d).sum(1)
+
+
+def moe_ffn_sharded(params: Dict, x, cfg: MoEConfig, mesh,
+                    model_axis: str = "model", data_axes=("data",),
+                    fsdp: bool = False):
+    """The MoE FFN over a mesh: tokens sharded over the data axes and
+    replicated along ``model`` (they are, between Megatron blocks); one
+    ``psum`` over ``model`` combines the expert outputs, no all-to-all.
+    ``params`` and ``x`` are DTensors or global tensors; returns (out, a
+    DTensor sharded like x; aux, this data shard's mean over ``model``,
+    as a replicated DTensor: the reference's out spec ``P()``).
+
+    Two regimes on the ``model`` axis:
+      EP (E % M == 0): each rank owns E/M whole experts; routing is
+          global (the router replicated), and the assignments to other
+          ranks' experts go to a drop bucket;
+      TP (otherwise, d_ff % M == 0; grok-1's 8 experts on a 16-way
+          axis): every rank holds a 1/M slice of every expert's d_ff and
+          dispatches alike; the psum also joins the ff partial sums.
+    With ``fsdp`` (and a ``data`` axis) the expert bulk is also sharded
+    over ``data`` on d_model and all-gathered inside (ZeRO-3)."""
+    from repro_torch.distributed.collectives import (all_gather, axis_index,
+                                                     pmean, psum, shard_in,
+                                                     shard_out)
+    from repro_torch.distributed.sharding_rules import P, mesh_shape
+
+    n_shards = mesh_shape(mesh)[model_axis]
+    fsdp = fsdp and "data" in mesh_shape(mesh)
+    ep = cfg.n_experts % n_shards == 0
+    if not ep and cfg.d_ff % n_shards:
+        raise ValueError("need E % M == 0 or d_ff % M == 0")
+    d_ax = "data" if fsdp else None
+    if ep:
+        ex_specs = {"w_gate": P(model_axis, d_ax, None),
+                    "w_up": P(model_axis, d_ax, None),
+                    "w_down": P(model_axis, None, d_ax)}
+    else:
+        ex_specs = {"w_gate": P(None, d_ax, model_axis),
+                    "w_up": P(None, d_ax, model_axis),
+                    "w_down": P(None, model_axis, d_ax)}
+    p = {name: (tree_map(lambda a, s: shard_in(a, mesh, s), sub, ex_specs)
+                if name == "experts"
+                else tree_map(lambda a: shard_in(a, mesh, P()), sub))
+         for name, sub in params.items()}
+    xspec = P(data_axes) if data_axes else P()
+    x_l = shard_in(x, mesh, xspec)
+    ex = p["experts"]
+    if fsdp:
+        # ZeRO-3 for the expert bulk: gather the `data`-sharded slice
+        # here; its gradient reduce-scatters back
+        ex = {"w_gate": all_gather(ex["w_gate"], mesh, "data", 1),
+              "w_up": all_gather(ex["w_up"], mesh, "data", 1),
+              "w_down": all_gather(ex["w_down"], mesh, "data", 2)}
+    t = x_l.shape[0]
+    cap = moe_capacity(cfg, t)
+    w, idx, aux = router_topk(p["router"], x_l, cfg.top_k)
+    if ep:
+        e_local = cfg.n_experts // n_shards
+        lo = axis_index(mesh, model_axis) * e_local
+        local = (idx >= lo) & (idx < lo + e_local)
+        idx = torch.where(local, idx - lo, e_local)   # e_local = drop bucket
+        pos, keep, _ = build_dispatch(idx, e_local + 1, cap)
+        out = _experts_combine(ex, x_l, w, idx, pos, keep & local, e_local, cap)
+    else:
+        pos, keep, _ = build_dispatch(idx, cfg.n_experts, cap)
+        out = _experts_combine(ex, x_l, w, idx, pos, keep, cfg.n_experts, cap)
+    out = psum(out, mesh, model_axis)
+    if cfg.n_shared:
+        out = out + mlp_apply(p["shared"], x_l, cfg.mlp_kind)
+    return (shard_out(out, mesh, xspec),
+            shard_out(pmean(aux, mesh, model_axis), mesh, P()))
 
 
 def moe_ffn_dense(params: Dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

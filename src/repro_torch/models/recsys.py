@@ -1,5 +1,5 @@
 """RecSys ranking models: Wide&Deep, DeepFM, DCN-v2, BERT4Rec (the
-reference's ``models/recsys.py`` without the mesh paths).
+reference's ``models/recsys.py``, its mesh paths included).
 
 Sparse features use one table of (n_fields · vocab_per_field, dim) rows
 indexed with per-field offsets, as in the reference.  The wide and
@@ -14,8 +14,18 @@ bits twice.
 Parameters are nested dicts of tensors with the reference's tree.  Entry
 points (the ``*_init`` functions and the forwards) run on ``cuda``
 unless given ``device="cpu"``, and raise without CUDA (the inits also
-take ``device="meta"``, shapes only); ``mesh`` must be None (one
-device).
+take ``device="meta"``, shapes only).
+
+With a ``mesh`` (a ``DeviceMesh`` with ``data`` and ``model`` axes) the
+forwards run the reference's sharded path, rank by rank: the batch's
+rows over the data axes, the tables' rows over ``model``
+(``distributed/embedding_ops.py``: a masked local gather or bag and a
+``psum``; under ``batch_over_model`` a reduce-scatter, after which the
+tower runs on this rank's B/(data·model) rows), the dense towers
+replicated.  Parameters and inputs are DTensors (placed by
+``recsys_param_specs``) or global tensors; the outputs are DTensors
+sharded over the batch's axes.  BERT4Rec at B = 1 (retrieval) keeps its
+rows replicated and the table sharded.
 """
 from __future__ import annotations
 
@@ -33,14 +43,13 @@ from .layers import dense_init, layer_norm
 __all__ = ["RecsysConfig", "B4RConfig", "wide_deep_init", "wide_deep_forward",
            "deepfm_init", "deepfm_forward", "dcn_init", "dcn_forward",
            "bert4rec_init", "bert4rec_forward", "bert4rec_score_items",
-           "bce_loss", "retrieval_topk"]
+           "bce_loss", "retrieval_topk", "Shards", "TABLES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RecsysConfig:
-    """The reference's config.  ``batch_over_model`` is a sharding knob,
-    kept so that a config carries the reference's values; the
-    single-device forwards here ignore it."""
+    """The reference's config.  ``batch_over_model``: on a mesh, the
+    reduce-scatter lookup and a tower sharded over ``model`` too."""
     n_sparse: int                 # number of categorical fields
     vocab_per_field: int
     embed_dim: int
@@ -73,8 +82,109 @@ def _global_ids(sparse_ids, cfg: RecsysConfig, dev) -> torch.Tensor:
     return ids + offsets * cfg.vocab_per_field
 
 
-def _bag_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return embedding_bag(table, idx, mode="sum")
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """A forward's place on a mesh: the batch's rows lie over ``batch``
+    (the data axes, or none), the tower's over ``tower`` (also ``model``
+    under ``batch_over_model``).  ``Shards.of`` is None without a mesh."""
+    mesh: Any
+    batch: Tuple[str, ...]
+    tower: Tuple[str, ...]
+
+    @staticmethod
+    def of(mesh, cfg=None, n_rows=None):
+        if mesh is None:
+            return None
+        from repro_torch.distributed.sharding_rules import data_axes, mesh_shape
+
+        batch = data_axes(mesh)
+        shape = mesh_shape(mesh)
+        size = 1
+        for a in batch:
+            size *= shape[a]
+        if n_rows is not None and (n_rows % size or n_rows < size):
+            batch = ()       # B=1 retrieval: rows replicate, the table stays sharded
+        tower = batch + ("model",) if getattr(cfg, "batch_over_model", False) \
+            else batch
+        return Shards(mesh, batch, tower)
+
+    def spec(self, axes, ndim: int):
+        from repro_torch.distributed.sharding_rules import P
+
+        return P(axes if axes else None, *([None] * (ndim - 1)))
+
+
+# The row-sharded tables (``recsys_param_specs``), read through the
+# sharded lookup and bag; every other leaf is a dense, replicated one.
+TABLES = ("embed", "item_embed", "wide", "first_order")
+
+
+def _local_params(params: Dict, sh: Optional[Shards]) -> Dict:
+    """This rank's blocks: the tables' rows over ``model``, the rest
+    whole (``shard_map``'s in_specs)."""
+    if sh is None:
+        return params
+    from repro_torch.distributed.collectives import shard_in
+    from repro_torch.distributed.sharding_rules import P
+    from repro_torch.train.tree import tree_map
+
+    return {k: (shard_in(v, sh.mesh, P("model", None)) if k in TABLES
+                else tree_map(lambda t: shard_in(t, sh.mesh, P()), v))
+            for k, v in params.items()}
+
+
+def _rows(x, sh: Optional[Shards], dev, tower: bool = False) -> torch.Tensor:
+    """An input's rows on this rank: the batch's (or the tower's)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        x = torch.as_tensor(x, device=dev)
+    if sh is None:
+        return x
+    from repro_torch.distributed.collectives import shard_in
+
+    return shard_in(x, sh.mesh, sh.spec(sh.tower if tower else sh.batch, x.dim()))
+
+
+def _to_tower(x: torch.Tensor, sh: Optional[Shards]) -> torch.Tensor:
+    """The batch's rows, replicated over ``model``, cut to the tower's."""
+    if sh is None or sh.tower == sh.batch:
+        return x
+    from repro_torch.distributed.collectives import scatter_replicated
+
+    return scatter_replicated(x, sh.mesh, "model", 0)
+
+
+def _out(x: torch.Tensor, sh: Optional[Shards]):
+    """The tower's rows as the DTensor over its axes."""
+    if sh is None:
+        return x
+    from repro_torch.distributed.collectives import shard_out
+
+    return shard_out(x, sh.mesh, sh.spec(sh.tower, x.dim()))
+
+
+def _lookup(table: torch.Tensor, idx: torch.Tensor,
+            sh: Optional[Shards]) -> torch.Tensor:
+    """(B, F) global row ids → (B, F, E); on a mesh, the row-sharded
+    lookup (reduce-scattered under ``batch_over_model``)."""
+    if sh is None:
+        return take_rows(table, idx)
+    from repro_torch.distributed.embedding_ops import (lookup_local,
+                                                       lookup_rs_local)
+
+    if sh.tower != sh.batch:
+        return lookup_rs_local(table, idx, sh.mesh)
+    return lookup_local(table, idx, sh.mesh)
+
+
+def _bag_sum(table: torch.Tensor, idx: torch.Tensor,
+             sh: Optional[Shards]) -> torch.Tensor:
+    if sh is None:
+        return embedding_bag(table, idx, mode="sum")
+    from repro_torch.distributed.embedding_ops import bag_sum_local
+
+    return _to_tower(bag_sum_local(table, idx, sh.mesh), sh)
 
 
 def _zeros(shape, dtype, gen) -> torch.Tensor:
@@ -126,15 +236,18 @@ def wide_deep_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
                       device=None) -> torch.Tensor:
     """sparse_ids (B, n_sparse) per-field ids → logits (B,)."""
     dev = entry_device(params["embed"], mesh, device)
-    idx = _global_ids(sparse_ids, cfg, dev)
-    wide = _bag_sum(params["wide"], idx)[:, 0]                          # (B,)
-    emb = take_rows(params["embed"], idx)                                 # (B, F, E)
+    sh = Shards.of(mesh, cfg)
+    p = _local_params(params, sh)
+    idx = _global_ids(_rows(sparse_ids, sh, dev), cfg, dev)
+    wide = _bag_sum(p["wide"], idx, sh)[:, 0]                           # (B,)
+    emb = _lookup(p["embed"], idx, sh)                             # (B, F, E)
     deep_in = emb.reshape(emb.shape[0], -1)
     if cfg.n_dense:
+        dense = _rows(dense, sh, dev, tower=True)
         deep_in = torch.cat([dense, deep_in], dim=1)
-        wide = wide + (dense @ params["wide_dense"])[:, 0]
-    deep = _mlp_apply(params["mlp"], deep_in, len(cfg.mlp_dims) + 1)[:, 0]
-    return wide + deep + params["bias"]
+        wide = wide + (dense @ p["wide_dense"])[:, 0]
+    deep = _mlp_apply(p["mlp"], deep_in, len(cfg.mlp_dims) + 1)[:, 0]
+    return _out(wide + deep + p["bias"], sh)
 
 
 # ------------------------------------------------------------------ DeepFM
@@ -156,15 +269,17 @@ def deepfm_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
                    dense: Optional[torch.Tensor] = None, mesh=None,
                    device=None) -> torch.Tensor:
     dev = entry_device(params["embed"], mesh, device)
-    idx = _global_ids(sparse_ids, cfg, dev)
-    first = _bag_sum(params["first_order"], idx)[:, 0]
-    emb = take_rows(params["embed"], idx)                                 # (B, F, E)
+    sh = Shards.of(mesh, cfg)
+    p = _local_params(params, sh)
+    idx = _global_ids(_rows(sparse_ids, sh, dev), cfg, dev)
+    first = _bag_sum(p["first_order"], idx, sh)[:, 0]
+    emb = _lookup(p["embed"], idx, sh)                             # (B, F, E)
     # FM second order: ½((Σv)² − Σv²) summed over dims
     s = emb.sum(1)
     fm = 0.5 * (s * s - (emb * emb).sum(1)).sum(-1)
-    deep = _mlp_apply(params["mlp"], emb.reshape(emb.shape[0], -1),
+    deep = _mlp_apply(p["mlp"], emb.reshape(emb.shape[0], -1),
                       len(cfg.mlp_dims) + 1)[:, 0]
-    return first + fm + deep + params["bias"]
+    return _out(first + fm + deep + p["bias"], sh)
 
 
 # ------------------------------------------------------------------ DCN-v2
@@ -188,14 +303,17 @@ def dcn_init(cfg: RecsysConfig, seed: int = 0, device=None) -> Dict:
 def dcn_forward(params: Dict, sparse_ids, cfg: RecsysConfig,
                 dense: torch.Tensor, mesh=None, device=None) -> torch.Tensor:
     dev = entry_device(params["embed"], mesh, device)
-    idx = _global_ids(sparse_ids, cfg, dev)
-    emb = take_rows(params["embed"], idx).reshape(idx.shape[0], -1)
-    x0 = torch.cat([dense, emb], dim=1)                                 # (B, d0)
+    sh = Shards.of(mesh, cfg)
+    p = _local_params(params, sh)
+    idx = _global_ids(_rows(sparse_ids, sh, dev), cfg, dev)
+    emb = _lookup(p["embed"], idx, sh)
+    emb = emb.reshape(emb.shape[0], -1)
+    x0 = torch.cat([_rows(dense, sh, dev, tower=True), emb], dim=1)     # (B, d0)
     x = x0
     for i in range(cfg.n_cross_layers):
-        x = x0 * (x @ params["cross"][f"w{i}"] + params["cross"][f"b{i}"]) + x
-    deep = _mlp_apply(params["mlp"], x0, len(cfg.mlp_dims), final_relu=True)
-    return (torch.cat([x, deep], dim=1) @ params["head"])[:, 0]
+        x = x0 * (x @ p["cross"][f"w{i}"] + p["cross"][f"b{i}"]) + x
+    deep = _mlp_apply(p["mlp"], x0, len(cfg.mlp_dims), final_relu=True)
+    return _out((torch.cat([x, deep], dim=1) @ p["head"])[:, 0], sh)
 
 
 # ---------------------------------------------------------------- BERT4Rec
@@ -231,13 +349,17 @@ def bert4rec_init(cfg: B4RConfig, seed: int = 0, device=None) -> Dict:
 
 def bert4rec_forward(params: Dict, item_seq, cfg: B4RConfig, mesh=None,
                      device=None) -> torch.Tensor:
-    """Bidirectional encoder.  item_seq (B, S) int → hidden (B, S, E)."""
+    """Bidirectional encoder.  item_seq (B, S) int → hidden (B, S, E).
+    On a mesh the rows lie over the data axes, or, where B does not
+    divide over them (B = 1 retrieval), on every rank."""
     dev = entry_device(params["item_embed"], mesh, device)
-    item_seq = torch.as_tensor(item_seq, device=dev)
+    sh = Shards.of(mesh, n_rows=item_seq.shape[0])
+    params = _local_params(params, sh)
+    item_seq = _rows(item_seq, sh, dev)
     b, s = item_seq.shape
     e, h = cfg.embed_dim, cfg.n_heads
     dh = e // h
-    x = (take_rows(params["item_embed"], item_seq.long())
+    x = (_lookup(params["item_embed"], item_seq.long(), sh)
          + params["pos_embed"][None, :s])
     pad_mask = item_seq != cfg.n_items                                  # PAD id
 
@@ -254,7 +376,7 @@ def bert4rec_forward(params: Dict, item_seq, cfg: B4RConfig, mesh=None,
         x = x + o.reshape(b, s, e) @ bp["wo"]
         hx = layer_norm(x, bp["ln2_w"], bp["ln2_b"])
         x = x + _mlp_apply(bp["mlp"], hx, 2)
-    return layer_norm(x, params["ln_f_w"], params["ln_f_b"])
+    return _out(layer_norm(x, params["ln_f_w"], params["ln_f_b"]), sh)
 
 
 def bert4rec_score_items(params: Dict, hidden_at_mask: torch.Tensor,

@@ -1,5 +1,7 @@
 """Decoder-only transformer LM family, dense GQA / MoE / MLA (the
-reference's ``models/transformer.py`` without the mesh paths).
+reference's ``models/transformer.py`` without the mesh paths: its
+tensor, FSDP/ZeRO-3 and sequence sharding wait for the next slice of
+the port, and every entry point raises for a ``mesh``).
 
 Parameters are a nested dict whose layer leaves are stacked over layers,
 ``(n_layers, ...)``, as the reference's ``init_params`` builds them; the
@@ -31,7 +33,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import entry_device, resolve_device, seeded_generator
+from repro_torch.device import (entry_device, refuse_mesh, resolve_device,
+                                seeded_generator)
 from repro_torch.kernels.embedding_bag import take_rows
 
 from .attention import (AttnConfig, MLAConfig, gqa_decode, gqa_forward,
@@ -197,7 +200,8 @@ def forward(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
     the MoE layers' load-balance losses, 0 for a dense model).  With
     ``cfg.remat`` under grad mode, each layer is recomputed in the
     backward instead of keeping its activations."""
-    dev = entry_device(params["embed"], mesh, device)
+    refuse_mesh(mesh, "the LM")
+    dev = entry_device(params["embed"], None, device)
     x = take_rows(params["embed"], torch.as_tensor(tokens, device=dev).long())
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -261,7 +265,8 @@ def prefill(params: Dict, tokens, cfg: TransformerConfig, mesh=None,
     """Run the prompt, returning last-position logits (B, vocab) float32
     and the KV cache (layout of ``init_kv_cache``; the prompt occupies
     positions [0, S))."""
-    dev = entry_device(params["embed"], mesh, device)
+    refuse_mesh(mesh, "the LM")
+    dev = entry_device(params["embed"], None, device)
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape
     x = params["embed"][tokens]
@@ -297,7 +302,8 @@ def decode_step(params: Dict, token, cache: Dict[str, torch.Tensor], pos,
     """One decode step.  token (B,) int; pos (B,) current lengths.
     Returns (logits (B, vocab) float32, cache).  The cache is updated IN
     PLACE and returned (the reference returns a new one)."""
-    dev = entry_device(params["embed"], mesh, device)
+    refuse_mesh(mesh, "the LM")
+    dev = entry_device(params["embed"], None, device)
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev)
     x = params["embed"][token]                                   # (B, d)

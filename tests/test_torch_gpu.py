@@ -1572,3 +1572,112 @@ def test_cuda_websearch_serve_cell_matches_cpu(cuda):
     assert BLOCK_SCAN_KERNEL.launches > before
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+
+
+# ------------------------------------------------------------- the mesh
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL world (a ``FileStore`` rendezvous) and its 1 x 1
+    ``make_local_mesh`` on the card; at world size 1 every collective is
+    an identity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield make_local_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["serve_queries", "rl_rollout"])
+def test_cuda_mesh_websearch_equals_unsharded(nccl_mesh, shape):
+    """The sharded websearch cells on a one-rank NCCL mesh give the
+    unsharded cells' outputs bit for bit, through the chunk kernel."""
+    from repro_torch.core.state_bins import StateBins
+    from repro_torch.distributed import place_tree
+    from repro_torch.launch.steps import build_cell
+
+    wcfg = get_arch("websearch-rl").model_cfg(True)
+    rng = np.random.default_rng(7)
+    b, w = 8, wcfg.block_docs // 32
+    occ = (rng.integers(0, 2**32, (b, wcfg.n_blocks, T, F, w), dtype=np.uint32)
+           & rng.integers(0, 2**32, (b, wcfg.n_blocks, T, F, w), dtype=np.uint32))
+    tp = np.arange(T)[None] < rng.integers(2, 5, b)[:, None]
+    scores = rng.normal(size=(b, wcfg.n_blocks * wcfg.block_docs)).astype(np.float32)
+    q = rng.normal(scale=0.05, size=(wcfg.p_bins, wcfg.k_rules + 2)).astype(np.float32)
+    q[:, wcfg.k_rules:] -= 0.1
+    pu = int(np.sqrt(wcfg.p_bins))
+    ue = np.geomspace(2, wcfg.u_budget, pu - 1).astype(np.float32)
+    ve = np.tile(np.geomspace(1, 4096, wcfg.p_bins // pu - 1), (pu, 1)).astype(np.float32)
+    prod_r = rng.normal(scale=0.1, size=(b, wcfg.t_max)).astype(np.float32)
+    draws = (rng.integers(0, wcfg.k_rules + 2, (wcfg.t_max, b)).astype(np.int32),
+             rng.random((wcfg.t_max, b)).astype(np.float32))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    args = [t(q), StateBins(t(ue), t(ve)), t(occ.view(np.int32)), t(scores), t(tp)]
+    if shape == "rl_rollout":
+        args += [t(prod_r), tuple(t(d) for d in draws)]
+    want = build_cell("websearch-rl", shape, reduced=True).fn(*args)
+    cell = build_cell("websearch-rl", shape, mesh=nccl_mesh, reduced=True)
+    placed = args[:2] + [place_tree(a, s) for a, s in
+                         zip(args[2:5], cell.in_shardings[2:5])] + args[5:]
+    before = BLOCK_SCAN_KERNEL.launches
+    got = cell.fn(*placed)
+    assert BLOCK_SCAN_KERNEL.launches > before
+    if shape == "rl_rollout":
+        got = [got[0]] + [got[1][k] for k in sorted(got[1])]
+        want = [want[0]] + [want[1][k] for k in sorted(want[1])]
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.full_tensor(), w_)
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_bag_launches_the_kernel(nccl_mesh):
+    """The sharded bag sum and the sharded Wide&Deep forward on a
+    one-rank NCCL mesh launch the bag kernel (no plain gather-sum) and
+    equal the unsharded ones."""
+    from repro_torch.distributed import place_tree, sharded_bag_sum
+    from repro_torch.launch.steps import build_cell
+
+    rng = np.random.default_rng(8)
+    table = torch.from_numpy(rng.normal(size=(4096, 1)).astype(np.float32)).cuda()
+    idx = torch.from_numpy(rng.integers(-1, 4096, (64, 40)).astype(np.int32)).cuda()
+    kernels = (EMBEDDING_BAG_KERNEL, EMBEDDING_BAG_LANES_KERNEL)
+    before = sum(k.launches for k in kernels)
+    got = sharded_bag_sum(table, idx, nccl_mesh).full_tensor()
+    assert sum(k.launches for k in kernels) == before + 1
+    assert torch.equal(got, embedding_bag(table, idx, mode="sum"))
+
+    cfg = get_arch("wide-deep").model_cfg(True)
+    params = recsys.wide_deep_init(cfg, seed=2)
+    sparse = torch.from_numpy(rng.integers(0, cfg.vocab_per_field, (32, cfg.n_sparse))
+                              .astype(np.int32)).cuda()
+    dense = torch.from_numpy(rng.normal(size=(32, 1)).astype(np.float32)).cuda()
+    want = build_cell("wide-deep", "serve_p99", reduced=True).fn(params, sparse, dense)
+    cell = build_cell("wide-deep", "serve_p99", mesh=nccl_mesh, reduced=True)
+    before = sum(k.launches for k in kernels)
+    got = cell.fn(place_tree(params, cell.in_shardings[0]), sparse, dense)
+    assert sum(k.launches for k in kernels) == before + 1
+    torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_moe_ffn_sharded_equals_moe_ffn(nccl_mesh):
+    from repro_torch.models.moe import MoEConfig, moe_ffn, moe_ffn_sharded
+
+    cfg = MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=128, n_shared=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    params = moe_init(gen, cfg)
+    x = torch.randn((64, 64), generator=gen, device="cuda")
+    want, _ = moe_ffn(params, x, cfg)
+    got, _ = moe_ffn_sharded(params, x, cfg, nccl_mesh)
+    torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5, atol=1e-5)

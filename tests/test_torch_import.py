@@ -220,3 +220,36 @@ def test_train_modules_import_and_lm_cli_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         train_main(["lm", "--steps", "2", "--ckpt-dir", "unused"])
+
+
+_MESH_PROBE = """
+import importlib, sys
+import torch.distributed as dist
+for name in ("repro_torch.distributed", "repro_torch.distributed.sharding_rules",
+             "repro_torch.distributed.collectives", "repro_torch.distributed.elastic",
+             "repro_torch.distributed.embedding_ops", "repro_torch.launch.mesh",
+             "repro_torch.launch.steps", "repro_torch.models.moe",
+             "repro_torch.models.recsys"):
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+print(dist.is_initialized(), bad)
+"""
+
+
+def test_mesh_modules_are_walked_and_touch_no_process_group():
+    """The mesh slice's modules are walked by the probe above, import no
+    JAX and no reference module, and importing them initialises no
+    process group (a mesh is built by a call, as the reference's)."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {f"repro_torch.distributed.{m}" for m in (
+        "collectives", "elastic", "embedding_ops", "sharding_rules")} <= names
+    assert "repro_torch.launch.mesh" in names
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _MESH_PROBE], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "False []"

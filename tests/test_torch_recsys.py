@@ -200,8 +200,11 @@ def test_configs_equal_reference(arch_id, reduced):
 
 
 def test_mesh_is_refused():
+    """A ``mesh`` that is not a ``DeviceMesh`` is refused with a clear
+    error (the sharded forwards, on a real mesh, are held against the
+    reference's in ``tests/test_torch_mesh.py``)."""
     jcfg, tcfg = _cfgs("deepfm")
     params = recsys.deepfm_init(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         recsys.deepfm_forward(params, np.zeros((2, 6), np.int32), tcfg,
                               mesh=object(), device="cpu")

@@ -221,8 +221,11 @@ def test_lm_cells_are_abstract_and_mesh_raises():
     assert cell.args[0]["layers"]["ffn"]["router"].dtype == torch.float32
     dec = build_cell("mistral-nemo-12b", "decode_32k")
     assert dec.donate_argnums == (2,) and dec.args[2]["k"].shape[:3] == (40, 128, 32768)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the LM and GNN cells' sharding waits for the next slice of the port
+    with pytest.raises(NotImplementedError, match="mesh waits for the next slice"):
         build_cell("mistral-nemo-12b", "train_4k", mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh waits for the next slice"):
+        build_cell("graphsage-reddit", "ogb_products", mesh=object())
     # the GNN and websearch cells build too, their args meta at the
     # published shapes (tests/test_torch_cells.py holds every cell)
     ws = build_cell("websearch-rl", "rl_rollout")
