@@ -354,6 +354,26 @@ Phases (any failure raises and the script exits non-zero):
    DeepSeek-V2-Lite's FFN widths (64 experts, top-6, d 2048, ff 1408, 2
    shared) on 4,096 float32 tokens against ``moe_ffn``: within 1e-5.
    Each call's ms printed beside the unsharded one's.
+8b. In the same one-rank world, the LM's and the GNN's mesh paths, each
+   unsharded call first (uncounted), then the sharded one between a
+   reset and a read of the counts: mistral-nemo-12b at full width, 4 of
+   40 layers, bf16, ``use_flash``: the sharded ``prefill_32k`` cell at
+   2 x 8192 against ``prefill`` (layer-0 attention through the
+   tensor-parallel path and the caches within 2e-2 + 2e-2|x|, the
+   logits' argmax equal), 8 greedy steps of the sharded ``decode_32k``
+   cell through the sequence-sharded cache against ``decode_step``
+   (each step's logits within the same, argmax equal), one tensor-core
+   flash launch a layer and one tensor-core decode launch a layer a
+   step; DeepSeek-V2-Lite at full width, 4 of 27 layers: one sharded
+   ``train_4k`` step (phase 4c's 8 x 4096, 4 microbatches, remat,
+   ``sp_carry``) against the unsharded step from one state: the loss
+   and the grad norm within 1e-4, every parameter and moment leaf within
+   2e-2 relative L2 (bf16 roundings in another order, see
+   MESH_BF16_STEP_TOL), and a float32 copy at 2 layers: the loss and
+   every gradient leaf within 1e-4; graphsage-reddit ``ogb_products`` on phase 7's batch and
+   state: the edge-sharded aggregate within 1e-5 of its sum of |x|, one
+   sharded step against the unsharded one (loss and every leaf within
+   1e-4 relative L2), 3 segment-gather launches a step.
 9. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
@@ -362,8 +382,10 @@ Phases (any failure raises and the script exits non-zero):
    ``websearch_launches``, and phase 8's, ``mesh_launches``; the
    tensor-core flash and decode rows also Grok-1's,
    ``moe_lm_launches``; the column bag row 5b's, ``train_launches``;
-   both bag rows phase 8's, ``mesh_launches``; the segment gather row,
-   which replaces no TPU kernel, phase 7's), the card line, and last
+   both bag rows phase 8's, ``mesh_launches``; the tensor-core flash and
+   decode rows and the segment gather row phase 8b's, ``mesh_launches``;
+   the segment gather row, which replaces no TPU kernel, phase 7's), the
+   card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it fails before printing a result.
@@ -5351,6 +5373,18 @@ def gnn_phase(dev, reduced=False):
 # ------------------------------------------------------------ phase 8
 MESH_LOGIT_TOL = 1e-5          # sharded vs unsharded logits: atol + rtol
 MESH_LEAF_TOL = 1e-4           # each leaf after one step, relative L2
+# Phase 8b's bf16 DeepSeek-V2-Lite step, each parameter and moment leaf
+# against the unsharded step: relative L2.  Both paths are deterministic
+# and agree to 1.6e-6 in float32 (the fp32 check beside it), but the
+# sharded graph has more nodes (the collectives, the masked lookup, the
+# vocab-parallel logsumexp), so autograd adds a bf16 tensor's three or
+# more gradient contributions in another order; each such sum rounds to
+# bf16 (2^-9 relative) and the roundings compound down the layers: 0.37%
+# of relative L2 at one layer, 0.86% (moments 1.15%) at four (H100
+# probes, with and without sp_carry alike).  2e-2 is 1.7x the
+# largest seen; the loss and the norm stay at MESH_LEAF_TOL.
+MESH_BF16_STEP_TOL = 2e-2
+MESH_FP32_LAYERS = 2           # the fp32 gradient check: layers, 1 x 4096
 MESH_MOE_TOKENS = 4096         # tokens through DeepSeek-V2-Lite's FFN
 MESH_MOE_TOL = 1e-5            # float32 experts, atol
 
@@ -5521,15 +5555,18 @@ def mesh_moe(dev, mesh, reduced, tokens=MESH_MOE_TOKENS):
     return launches
 
 
-def mesh_phase(dev, reduced=False, batch_cap=None, moe_tokens=MESH_MOE_TOKENS):
+def mesh_phase(dev, reduced=False, batch_cap=None, moe_tokens=MESH_MOE_TOKENS,
+               **lm_gnn):
     """Phase 8: the mesh on one card.  A one-rank world (NCCL on the card,
     gloo for a CPU rehearsal; a ``FileStore`` rendezvous in a temporary
     directory) and a 1 x 1 ``make_local_mesh``; then the sharded
     websearch-rl cells at full width, Wide&Deep's sharded serve_bulk and
     one sharded train_batch step, and ``moe_ffn_sharded`` at
-    DeepSeek-V2-Lite's widths, each against its unsharded counterpart.
-    At world size 1 every collective is an identity.  Returns the summed
-    launch counts of the sharded paths."""
+    DeepSeek-V2-Lite's widths, each against its unsharded counterpart;
+    then phase 8b in the same world (``mesh_lm_gnn_phase``, which takes
+    ``lm_gnn``'s sizes).  At world size 1 every collective is an
+    identity.  Returns the summed launch counts of phase 8's sharded
+    paths and of phase 8b's."""
     import os
     import shutil
     import tempfile
@@ -5567,11 +5604,339 @@ def mesh_phase(dev, reduced=False, batch_cap=None, moe_tokens=MESH_MOE_TOKENS):
         if on_card:
             torch.cuda.empty_cache()
         parts.append(mesh_moe(dev, mesh, reduced, moe_tokens))
+        launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+        print(f"[mesh] sharded paths' launches: {launches}; phase 8 in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        if on_card:
+            torch.cuda.empty_cache()
+        lm_launches = mesh_lm_gnn_phase(dev, mesh, reduced, **lm_gnn)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+    return launches, lm_launches
+
+
+# ----------------------------------------------------------- phase 8b
+MESH_LM_LAYERS = 4             # of mistral-nemo-12b's 40, DeepSeek-V2-Lite's 27
+MESH_LM_STEPS = 8              # decode steps through the sequence-sharded cache
+GNN_MESH_SHAPE = "ogb_products"
+GNN_MESH_SEED = SEED + 63 + GNN_SHAPES.index(GNN_MESH_SHAPE)   # phase 7's batch
+
+
+def attention_layer0_mesh(s_params, tokens, cfg, mesh):
+    """Layer 0's attention output on the prompt through the mesh path:
+    the vocab-parallel lookup, ln1, ``MeshLM.enter``, the rank's heads
+    (``gqa_forward_tp``, through the flash kernel with ``use_flash``) and
+    the sum over ``model``.  This rank's rows."""
+    from repro_torch.distributed.embedding_ops import lookup_local
+    from repro_torch.models.attention import gqa_forward_tp
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import MeshLM, local_params
+
+    lp = local_params(s_params, cfg, mesh)
+    ml = MeshLM.of(cfg, mesh, tokens.shape[0])          # prefill: no sp carry
+    x = lookup_local(lp["embed"], ml.rows_block(tokens.long()), mesh)
+    h = ml.enter(rms_norm(x, lp["layers"]["ln1"][0]))
+    out = gqa_forward_tp({k: w[0] for k, w in lp["layers"]["attn"].items()}, h,
+                         cfg.attn_cfg(), ml.split)
+    return ml.leave(out)
+
+
+def mesh_mistral(dev, mesh, reduced, batch=LM_BATCH, prompt=LM_PROMPT,
+                 steps=MESH_LM_STEPS):
+    """mistral-nemo-12b at full width, MESH_LM_LAYERS layers, bf16,
+    ``use_flash``: the sharded ``prefill_32k`` cell at batch x prompt and
+    ``steps`` greedy steps of the sharded ``decode_32k`` cell through its
+    sequence-sharded cache, against ``prefill`` and ``decode_step`` from
+    one state and one token sequence (run first, uncounted).  Layer-0
+    attention within BF16_TOL + BF16_TOL|x|, the caches and every step's
+    logits within the same, the argmax equal; flash launches one a layer,
+    decode launches one a layer a step."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import NamedSharding, kv_cache_specs, place_tree
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import decode_step, init_params, prefill
+    from repro_torch.train.tree import tree_map
+
+    base = get_arch(LM_ARCH).model_cfg(reduced)
+    cfg = dataclasses.replace(base, use_flash=True,
+                              n_layers=min(MESH_LM_LAYERS, base.n_layers))
+    on_card = dev.type == "cuda"
+    params = init_params(cfg, seed=SEED + 84, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 84)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           device=dev)
+    pre = build_cell(LM_ARCH, "prefill_32k", mesh=mesh, reduced=reduced,
+                     cfg_override=cfg)
+    dec = build_cell(LM_ARCH, "decode_32k", mesh=mesh, reduced=reduced,
+                     cfg_override=cfg)
+    s_params = place_tree(params, pre.in_shardings[0])
+    pos0 = torch.full((batch,), prompt, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        prefill(params, tokens, cfg, device=dev)        # warm, untimed
+        (want_logits, cache), ms = mesh_timed(
+            dev, lambda: prefill(params, tokens, cfg, device=dev))
+        want_att = attention_layer0(params, tokens, cfg).float()
+        want_cache = {f: c.clone() for f, c in cache.items()}
+        cache = {f: F.pad(c, (0, 0, 0, 0, 0, steps)) for f, c in cache.items()}
+        token, pos, want, ms_dec = want_logits.argmax(-1), pos0, [], []
+        for _ in range(steps):
+            (logits, cache), t = mesh_timed(dev, lambda: decode_step(
+                params, token, cache, pos, cfg, device=dev))
+            want.append(logits)
+            ms_dec.append(t)
+            token, pos = logits.argmax(-1), pos + 1
+        del cache
+        got_att = attention_layer0_mesh(s_params, tokens, cfg, mesh).float()
+        sync(dev)
+        reset_counts()
+        (got_logits, s_cache), sms = mesh_timed(dev, lambda: pre.fn(s_params,
+                                                                    tokens))
+        prefill_launches = read_counts()
+        got_logits = got_logits.full_tensor()
+        got_cache = {f: c.full_tensor() for f, c in s_cache.items()}
+        padded = {f: F.pad(c, (0, 0, 0, 0, 0, steps)) for f, c in got_cache.items()}
+        s_cache = place_tree(padded, tree_map(lambda s: NamedSharding(mesh, s),
+                                              kv_cache_specs(padded, mesh)))
+        del padded
+        token, pos, got, sms_dec = want_logits.argmax(-1), pos0, [], []
+        for i in range(steps):
+            (logits, s_cache), t = mesh_timed(dev, lambda: dec.fn(
+                s_params, token, s_cache, pos))
+            got.append(logits.full_tensor())
+            sms_dec.append(t)
+            token, pos = want[i].argmax(-1), pos + 1
+        launches = read_counts()
+        del s_cache
+
+    def check(name, a, b):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        if not bool((diff <= BF16_TOL + BF16_TOL * b.abs()).all()):
+            raise AssertionError(f"mesh {LM_ARCH} {name}: past {BF16_TOL} + "
+                                 f"{BF16_TOL}|x| (max |d| {float(diff.max()):g})")
+        return float(diff.max())
+
+    errs = {"layer-0 attention": check("layer-0 attention", got_att, want_att),
+            "prefill logits": check("prefill logits", got_logits, want_logits)}
+    for f in want_cache:
+        errs[f"cache {f}"] = check(f"cache {f}", got_cache[f], want_cache[f])
+    if not torch.equal(got_logits.argmax(-1), want_logits.argmax(-1)):
+        raise AssertionError(f"mesh {LM_ARCH} prefill: logits' argmax differs")
+    for i, (g, w) in enumerate(zip(got, want)):
+        errs[f"decode step {i}"] = check(f"decode step {i}", g, w)
+        if not torch.equal(g.argmax(-1), w.argmax(-1)):
+            raise AssertionError(f"mesh {LM_ARCH} decode step {i}: argmax "
+                                 f"differs")
+    n = cfg.n_layers if on_card else 0
+    want_counts = {"flash_attention_tc": n, "decode_attention_tc": n * steps}
+    for name, k in want_counts.items():
+        if launches[name] != k:
+            raise AssertionError(f"mesh {LM_ARCH}: {launches[name]} {name} "
+                                 f"launches, want {k}")
+    if launches["decode_attention"] or launches["flash_attention"]:
+        raise AssertionError(f"mesh {LM_ARCH}: a CUDA-core attention launch on "
+                             f"the bf16 D 128 path")
+    print(f"[mesh-lm] {LM_ARCH} at full width, {cfg.n_layers} of 40 layers "
+          f"(depth cut: phase 8b's time), {cfg.param_dtype}, use_flash, random "
+          f"weights: "
+          f"sharded prefill_32k at {batch} x {prompt} {sms:.1f} ms (unsharded "
+          f"prefill {ms:.1f} ms; prefill launches {prefill_launches}); "
+          f"{steps} sharded decode_32k steps through the sequence-sharded "
+          f"cache, ms {[round(t, 2) for t in sms_dec]} (unsharded "
+          f"{[round(t, 2) for t in ms_dec]}); max |d| "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())} "
+          f"(tol {BF16_TOL} + {BF16_TOL}|x|), argmax equal at every step; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def mesh_deepseek_train(dev, mesh, reduced, batch=LM_TRAIN_BATCH,
+                        seq=LM_TRAIN_SEQ):
+    """DeepSeek-V2-Lite at full width: one sharded ``train_4k`` step at
+    MOE_TRAIN_LAYERS layers, bf16 (phase 4c's batch, its 4 microbatches
+    and remat; ``sp_carry`` on) against the unsharded step from copies
+    of one state: the loss and the grad norm within MESH_LEAF_TOL, every
+    parameter and moment leaf within MESH_BF16_STEP_TOL relative L2.
+    Then a float32 copy at MESH_FP32_LAYERS layers, one sequence of
+    ``seq``, one microbatch: the sharded loss and every gradient leaf
+    within MESH_LEAF_TOL of the unsharded ones."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import place_tree
+    from repro_torch.launch.steps import (_lm_opt_cfg, build_cell,
+                                          lm_loss_and_grads, make_lm_train_step)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.tree import leaf_paths, tree_leaves
+
+    def rel(a, b):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp_min(1e-30))
+
+    base = get_arch(MLA_ARCH).model_cfg(reduced)
+    cfg = dataclasses.replace(base, n_layers=min(MOE_TRAIN_LAYERS, base.n_layers))
+    opt_cfg = _lm_opt_cfg(reduced)
+    params = init_params(cfg, seed=SEED + 85, device=dev)
+    opt = adamw_init(params, opt_cfg)
+    cell = build_cell(MLA_ARCH, "train_4k", mesh=mesh, reduced=reduced,
+                      cfg_override=cfg)
+    s_params = place_tree(params, cell.in_shardings[0])
+    s_opt = place_tree(opt, cell.in_shardings[1])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 85)
+    batch0 = lm_tokens(gen, cfg.vocab, batch, seq, dev)
+    (_, _, m), ms = mesh_timed(dev, lambda: make_lm_train_step(cfg, opt_cfg)(
+        params, opt, *batch0))
+    reset_counts()
+    (_, _, sm), sms = mesh_timed(dev, lambda: cell.fn(s_params, s_opt, *batch0))
+    launches = read_counts()
+    head = {name: abs(float(sm[name].to_local()) - float(m[name])) / abs(float(m[name]))
+            for name in ("loss", "grad_norm")}
+    leaves = {p: rel(a, b) for p, a, b in zip(
+        leaf_paths((s_params, s_opt)), tree_leaves((s_params, s_opt)),
+        tree_leaves((params, opt)))}
+    bad = {k: v for k, v in head.items() if v > MESH_LEAF_TOL}
+    bad.update({k: v for k, v in leaves.items() if v > MESH_BF16_STEP_TOL})
+    if bad:
+        raise AssertionError(f"mesh {MLA_ARCH} train step: past tolerance: {bad}")
+    top = max(leaves, key=leaves.get)
+    del params, opt, s_params, s_opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    f32 = dataclasses.replace(cfg, n_layers=min(MESH_FP32_LAYERS, cfg.n_layers),
+                              param_dtype=torch.float32, microbatch=1, remat=False)
+    params = init_params(f32, seed=SEED + 86, device=dev)
+    cell = build_cell(MLA_ARCH, "train_4k", mesh=mesh, reduced=reduced,
+                      cfg_override=f32)
+    s_params = place_tree(params, cell.in_shardings[0])
+    tok, tgt = (t[:1] for t in batch0)
+    loss, grads = lm_loss_and_grads(params, tok, tgt, f32)
+    s_loss, s_grads = lm_loss_and_grads(s_params, tok, tgt, f32, mesh)
+    f32_errs = {p: rel(a, b) for p, a, b in zip(
+        leaf_paths(grads), tree_leaves(s_grads), tree_leaves(grads))}
+    f32_errs["loss"] = abs(float(s_loss) - float(loss)) / abs(float(loss))
+    bad = {k: v for k, v in f32_errs.items() if v > MESH_LEAF_TOL}
+    if bad:
+        raise AssertionError(f"mesh {MLA_ARCH} fp32 gradients: past "
+                             f"{MESH_LEAF_TOL}: {bad}")
+    f32_top = max(f32_errs, key=f32_errs.get)
+    print(f"[mesh-lm] {MLA_ARCH} at full width, {cfg.n_layers} of 27 layers, "
+          f"{cfg.param_dtype}, moments {opt_cfg.state_dtype}, {batch} x {seq} "
+          f"in {cfg.microbatch} microbatches, remat {cfg.remat}, sp_carry "
+          f"{cfg.sp_carry}: sharded train_4k step {sms:.1f} ms (unsharded "
+          f"{ms:.1f} ms); loss {float(sm['loss'].to_local()):.6f} vs "
+          f"{float(m['loss']):.6f} (relative {head['loss']:.3g}), grad norm "
+          f"relative {head['grad_norm']:.3g} (tol {MESH_LEAF_TOL}); worst leaf "
+          f"{top} {leaves[top]:.3g} relative L2 (bf16 tol {MESH_BF16_STEP_TOL}); "
+          f"float32 at {f32.n_layers} layers, 1 x {seq}: worst gradient "
+          f"{f32_top} {f32_errs[f32_top]:.3g} (tol {MESH_LEAF_TOL}); launches "
+          f"{launches} (no kernel on this path: the train step runs the plain "
+          f"attention, as the reference)", flush=True)
+    del params, s_params, grads, s_grads
+    return launches
+
+
+def mesh_gnn(dev, mesh, reduced):
+    """graphsage-reddit ogb_products at its published shape on phase 7's
+    batch and state: the edge-sharded mean aggregate of the features
+    against the unsharded one, each element within GNN_TOL of its sum of
+    |x| (phase 7's bound), then one sharded step against the unsharded
+    step from one state: the loss and every leaf within MESH_LEAF_TOL
+    relative L2; segment_gather launches a step as phase 7's."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import place_tree
+    from repro_torch.kernels.segment_gather import (SegmentCSR,
+                                                    segment_gather_sum_ref,
+                                                    segment_mean)
+    from repro_torch.launch.steps import REDUCED_SHAPES, build_cell
+    from repro_torch.models.gnn import _aggregate
+    from repro_torch.train.tree import leaf_paths, tree_leaves, tree_map
+
+    arch = get_arch("graphsage-reddit")
+    kind = arch.shape(GNN_MESH_SHAPE).kind
+    sp = dict(REDUCED_SHAPES[kind]) if reduced else dict(
+        arch.shape(GNN_MESH_SHAPE).params)
+    batch, n_edges, _ = gnn_batch(dev, GNN_MESH_SHAPE, sp, GNN_MESH_SEED)
+    feats, edges = batch[:2]
+    n = feats.shape[0]
+    with torch.no_grad():
+        csr = SegmentCSR(edges[0], edges[1], n, n)
+        want = segment_mean(feats, csr)
+        size = segment_gather_sum_ref(feats.abs(), csr.idx, csr.ptr, csr.scale)
+        del csr
+        got = _aggregate(feats, edges[0], edges[1], n, "mean", mesh=mesh)
+        agg_err = float((got - want).abs().max())
+        if not bool(((got - want).abs() <= GNN_TOL * size).all()):
+            raise AssertionError(f"mesh graphsage {GNN_MESH_SHAPE}: the sharded "
+                                 f"aggregate past {GNN_TOL} of the sum of |x|")
+        del got, want, size
+    cell = build_cell("graphsage-reddit", GNN_MESH_SHAPE, reduced=reduced)
+    s_cell = build_cell("graphsage-reddit", GNN_MESH_SHAPE, mesh=mesh,
+                        reduced=reduced)
+    state = gnn_state(dev, arch, sp, reduced, False)
+    s_state = [place_tree(t, s) for t, s in zip(state, s_cell.in_shardings)]
+    out, ms = mesh_timed(dev, lambda: cell.fn(*state, *batch))
+    reset_counts()
+    s_out, sms = mesh_timed(dev, lambda: s_cell.fn(*s_state, *batch))
+    launches = read_counts()
+    worst = {"loss": abs(float(s_out[-1]) - float(out[-1])) / abs(float(out[-1]))}
+    for path, a, b in zip(leaf_paths(s_out[:-1]), tree_leaves(s_out[:-1]),
+                          tree_leaves(out[:-1])):
+        a = a.full_tensor().double()
+        worst[path] = float((a - b.double()).norm()
+                            / b.double().norm().clamp_min(1e-30))
+    bad = {k: v for k, v in worst.items() if v > MESH_LEAF_TOL}
+    if bad:
+        raise AssertionError(f"mesh graphsage {GNN_MESH_SHAPE} step: past "
+                             f"{MESH_LEAF_TOL} relative: {bad}")
+    per_step = launches["segment_gather"]
+    want_n = GNN_LAUNCHES_PER_STEP[kind] if dev.type == "cuda" else 0
+    if per_step != want_n:
+        raise AssertionError(f"mesh graphsage {GNN_MESH_SHAPE}: {per_step} "
+                             f"segment_gather launches a step, want {want_n}")
+    top = max(worst, key=worst.get)
+    print(f"[mesh-gnn] graphsage {GNN_MESH_SHAPE} {sp} (phase 7's batch, seed "
+          f"{GNN_MESH_SEED}, {n_edges:,} edges over the 1-rank mesh): sharded "
+          f"aggregate max |d| {agg_err:.3g} (within {GNN_TOL} of the sum of "
+          f"|x|); sharded step {sms:.1f} ms (unsharded {ms:.1f} ms), loss "
+          f"{float(s_out[-1]):.6f} vs {float(out[-1]):.6f}, worst {top} "
+          f"{worst[top]:.3g} relative L2 (tol {MESH_LEAF_TOL}); segment_gather "
+          f"{per_step} launches a step; launches {launches}", flush=True)
+    del state, s_state, out, s_out, batch
+    return launches
+
+
+def mesh_lm_gnn_phase(dev, mesh, reduced, lm_batch=LM_BATCH,
+                      lm_prompt=LM_PROMPT, train_batch=LM_TRAIN_BATCH,
+                      train_seq=LM_TRAIN_SEQ):
+    """Phase 8b, in phase 8's world: the LM's tensor/sequence-parallel
+    prefill and sequence-sharded decode (mistral-nemo-12b), its sharded
+    train step (DeepSeek-V2-Lite) and the GNN's edge-sharded step
+    (ogb_products), each against its unsharded counterpart from one
+    state.  Returns the summed launch counts of the sharded calls."""
+    import torch
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    parts = [mesh_mistral(dev, mesh, reduced, lm_batch, lm_prompt)]
+    if on_card:
+        torch.cuda.empty_cache()
+    parts.append(mesh_deepseek_train(dev, mesh, reduced, train_batch, train_seq))
+    if on_card:
+        torch.cuda.empty_cache()
+    parts.append(mesh_gnn(dev, mesh, reduced))
     launches = {k: sum(p[k] for p in parts) for k in parts[0]}
-    print(f"[mesh] sharded paths' launches: {launches}; phase 8 in "
+    print(f"[mesh-lm] phase 8b launches: {launches}; phase 8b in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
@@ -5734,7 +6099,10 @@ def main() -> int:
     if gnn_launches["segment_gather"] <= 0:
         raise AssertionError("the GNN cells launched no segment_gather kernel")
     torch.cuda.empty_cache()
-    mesh_launches = mesh_phase(dev)
+    mesh_launches, mesh_lm_launches = mesh_phase(dev)
+    for name in ("flash_attention_tc", "decode_attention_tc", "segment_gather"):
+        if mesh_lm_launches[name] <= 0:
+            raise AssertionError(f"phase 8b's sharded paths launched no {name}")
     if mesh_launches["block_scan_pruned_chunk"] <= 0:
         raise AssertionError("the sharded websearch cells launched no chunk kernel")
     if mesh_launches["embedding_bag"] + mesh_launches["embedding_bag_lanes"] <= 0:
@@ -5816,6 +6184,8 @@ def main() -> int:
         recsys_train_launches["embedding_bag"])
     for name in ("embedding_bag", "embedding_bag_lanes"):
         by_name[name]["mesh_launches"] = mesh_launches[name]
+    for name in ("flash_attention_tc", "decode_attention_tc", "segment_gather"):
+        by_name[name]["mesh_launches"] = mesh_lm_launches[name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -12,7 +12,8 @@
 // h / (Hq / Hkv).  Keys at or past a row's kv_len (one per sequence, or
 // one for all) are masked here, so nothing is padded.  Returns out
 // (B, Hq, D) in q's type (normalised, or the unnormalised accumulator
-// with return_partial), m and l (B, Hq) in fp32; a row with no valid key
+// with return_partial 1; return_partial 2 writes that accumulator to an
+// fp32 out), m and l (B, Hq) in fp32; a row with no valid key
 // gives 0, -inf, 0.  Scores, softmax and accumulators are fp32.
 //
 // What bounds it on an H100: bytes.  Each key and value is read once for
@@ -106,6 +107,18 @@ __device__ __forceinline__ void da_ld4(const __nv_bfloat16* p,
 __device__ __forceinline__ void da_store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void da_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// Element i of out: the normalised output (return_partial 0) or the
+// accumulator (1) in T; with return_partial 2 the accumulator to an fp32
+// out whatever T is, for a merge across ranks.
+template <typename T>
+__device__ __forceinline__ void da_store_out(T* out, int64_t i, float a,
+                                             float l, int return_partial) {
+  if (return_partial == 2)
+    reinterpret_cast<float*>(out)[i] = a;
+  else
+    da_store(out + i, return_partial ? a : fa_finalize(a, l));
 }
 
 // The team's reduce-scatter of a chunk's N partial dot products
@@ -341,8 +354,7 @@ __global__ void __launch_bounds__(DA_THREADS, DA_CTAS_PER_SM)
     if (n_split == 1) {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        da_store(out + (bh0 + h) * D + d + c,
-                 return_partial ? a[c] : fa_finalize(a[c], ls));
+        da_store_out(out, (bh0 + h) * D + d + c, a[c], ls, return_partial);
       if (d == 0) {
         m_out[bh0 + h] = mx;
         l_out[bh0 + h] = ls;
@@ -398,8 +410,7 @@ __global__ void __launch_bounds__(DA_THREADS, DA_CTAS_PER_SM)
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      da_store(out + (bh0 + h) * D + d + c,
-               return_partial ? a[c] : fa_finalize(a[c], ls));
+      da_store_out(out, (bh0 + h) * D + d + c, a[c], ls, return_partial);
     if (d == 0) {
       m_out[bh0 + h] = m_all;
       l_out[bh0 + h] = ls;

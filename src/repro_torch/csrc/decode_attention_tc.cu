@@ -10,7 +10,8 @@
 // path passes a transposed view of its (B, S, Hkv, D) cache with no copy;
 // query head h reads KV head h / (Hq / Hkv); keys at or past a row's
 // kv_len are masked; out (B, Hq, D) bf16 (normalised, or the
-// unnormalised accumulator with return_partial), m and l (B, Hq) fp32; a
+// unnormalised accumulator with return_partial 1; with return_partial 2
+// that accumulator in fp32), m and l (B, Hq) fp32; a
 // row with no valid key gives 0, -inf, 0.  Scores, softmax and
 // accumulators are fp32.
 //
@@ -389,7 +390,10 @@ __global__ void __launch_bounds__(DATC_THREADS, DATC_CTAS_PER_SM)
       a += wt * __ldcg(acc_part + (part0 + p) * D + d);
     }
     const int64_t bh = (int64_t)b * Hq + (int64_t)kvh * group + h;
-    out[bh * D + d] = __float2bfloat16(return_partial ? a : fa_finalize(a, l));
+    if (return_partial == 2)   // the fp32 accumulator, for a merge across ranks
+      reinterpret_cast<float*>(out)[bh * D + d] = a;
+    else
+      out[bh * D + d] = __float2bfloat16(return_partial ? a : fa_finalize(a, l));
     if (d == 0) {
       m_out[bh] = m_all;
       l_out[bh] = l;

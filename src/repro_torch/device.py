@@ -3,8 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "entry_device", "seeded_generator", "mesh_device",
-           "refuse_mesh"]
+__all__ = ["resolve_device", "entry_device", "seeded_generator", "mesh_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,13 +75,3 @@ def entry_device(param: torch.Tensor, mesh=None, device=None) -> torch.device:
     if param.device.type != dev.type:
         raise ValueError(f"parameters lie on {param.device}, not on {dev}")
     return dev
-
-
-def refuse_mesh(mesh, what: str) -> None:
-    """Raises for a ``mesh``: ``what``'s sharded path waits for the next
-    slice of the port (tensor, sequence and edge sharding)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh waits for the next slice of the port (the "
-            f"LM's tensor/FSDP/sequence sharding and the GNN's edge "
-            f"sharding); the recsys and websearch cells run on one")

@@ -3,7 +3,8 @@ the partition-spec rules per family, the collectives and gradient
 compression, the sharded embedding ops, elastic re-meshing, and
 checkpoints that restore onto a mesh.  The LM's tensor, FSDP and
 sequence sharding and the GNN's edge sharding, which the reference
-leaves to its partitioner, wait for the next slice of the port."""
+leaves to its partitioner, are written out over these collectives in
+``models/transformer.py`` and ``models/gnn.py``."""
 from .sharding_rules import (
     P, NamedSharding, PartitionSpec, data_axes, gnn_param_specs,
     kv_cache_specs, lm_param_specs, recsys_param_specs, spec_tree,

@@ -26,7 +26,28 @@ Megatron):
   all-gather;
 - ``scatter_replicated``: this rank's block of a replicated tensor,
   backward an all-gather (Megatron's "scatter to the model-parallel
-  region").
+  region");
+- ``copy_to``: the identity, whose backward is a sum over the axes
+  (Megatron's "copy to the model-parallel region"): it marks where a
+  tensor replicated over the axes enters work split over them, so that
+  the ranks' partial cotangents are added up there;
+- ``pmax``: an all-reduce MAX, whose backward sends the cotangent to the
+  ranks that hold the maximum, split evenly over them (the tie rule of
+  ``jax.ops.segment_max`` and of ``torch.amax``);
+- ``psum_ordered``: the sum over the ranks in rank order (an all-gather,
+  then a left fold over the ranks), the same bits on every run; its
+  backward passes the cotangent through, as ``psum``'s.
+
+Which sum is which.  NCCL's and gloo's all-reduce fix no order of the
+additions, so a float sum that must come out the same on every run goes
+through ``psum_ordered`` (or ``copy_to(ordered=True)``): the GNN's
+edge-partial aggregates and their backward, and the squared norms of
+``train/optimizer.py``'s sharded ``global_norm``.  The LM's tensor and
+sequence parallel collectives (the row-parallel sums, the reduce-
+scatters, the vocab-parallel cross-entropy's sums) and the gradient
+sums over the batch's axes are ``psum`` / ``psum_scatter``: they move
+whole activations, and a gather of every rank's copy would cost the
+axis size in memory.  Integer sums (counts) are exact in any order.
 """
 from __future__ import annotations
 
@@ -40,7 +61,7 @@ from repro_torch.train.tree import tree_map
 from .sharding_rules import PartitionSpec, mesh_shape, to_placements
 
 __all__ = ["shard_in", "shard_out", "axis_index", "psum", "pmean",
-           "all_gather", "psum_scatter",
+           "all_gather", "psum_scatter", "psum_ordered", "pmax", "copy_to",
            "scatter_replicated", "compress_with_feedback",
            "decompress_accumulate", "compressed_psum_grads",
            "zeros_like_residual"]
@@ -99,11 +120,14 @@ def shard_out(local: torch.Tensor, mesh, spec: PartitionSpec):
 
 
 def _all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' blocks joined along ``dim``, contiguous: a strided view
+    would send the next GEMM down another cuBLAS path than the unsharded
+    layout's (float32 results 4e-6 apart on the H100 at world size 1)."""
     n = dist.get_world_size(group)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
     dist.all_gather_into_tensor(out, xt, group=group)
-    return out.movedim(0, dim)
+    return out.movedim(0, dim).contiguous()
 
 
 def _reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -113,7 +137,7 @@ def _reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide by {n}")
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
     dist.reduce_scatter_tensor(out, xt, group=group)
-    return out.movedim(0, dim)
+    return out.movedim(0, dim).contiguous()
 
 
 def _own_block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -167,6 +191,60 @@ class _Scatter(torch.autograd.Function):
         return _all_gather_dim(grad, ctx.group, ctx.dim), None, None
 
 
+def _sum_in_rank_order(x: torch.Tensor, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.clone()
+    parts = _all_gather_dim(x.contiguous()[None], group, 0)
+    out = parts[0].clone()
+    for i in range(1, n):
+        out += parts[i]
+    return out
+
+
+class _PSumOrdered(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_in_rank_order(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, ordered):
+        ctx.group, ctx.ordered = group, ordered
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.ordered:
+            return _sum_in_rank_order(grad, ctx.group), None, None
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None, None
+
+
+class _PMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        ctx.group = group
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        hit = (x == out).to(grad.dtype)
+        ties = hit.clone()
+        dist.all_reduce(ties, group=ctx.group)     # small integers: exact
+        return grad * hit / ties.clamp_min(1), None
+
+
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum over ``axes``; the backward passes the cotangent through."""
     for a in _axes(axes):
@@ -191,6 +269,33 @@ def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """Sum over ``axis``, this rank keeping its block of ``dim`` (tiled);
     backward: an all-gather."""
     return _ReduceScatter.apply(x, mesh.get_group(axis), dim)
+
+
+def psum_ordered(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``psum`` with a fixed order: over each axis in turn, the ranks'
+    tensors gathered and added in rank order, so that every rank gets
+    the same bits on every run.  It gathers the axis size times ``x``'s
+    memory.  Backward: the cotangent passes through."""
+    for a in _axes(axes):
+        x = _PSumOrdered.apply(x, mesh.get_group(a))
+    return x
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise maximum over ``axes``; backward: the cotangent to
+    the ranks whose element is the maximum, split evenly over them."""
+    for a in _axes(axes):
+        x = _PMax.apply(x, mesh.get_group(a))
+    return x
+
+
+def copy_to(x: torch.Tensor, mesh, axes, ordered: bool = False) -> torch.Tensor:
+    """The identity; backward: the cotangent summed over ``axes`` (in
+    rank order with ``ordered``).  Put it where a tensor replicated over
+    ``axes`` feeds work split over them."""
+    for a in _axes(axes):
+        x = _CopyTo.apply(x, mesh.get_group(a), ordered)
+    return x
 
 
 def scatter_replicated(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:

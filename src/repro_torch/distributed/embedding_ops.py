@@ -45,11 +45,13 @@ def lookup_local(tbl, ids, mesh, model_axis: str = "model") -> torch.Tensor:
     return psum(_masked_rows(tbl, ids, mesh, model_axis), mesh, model_axis)
 
 
-def lookup_rs_local(tbl, ids, mesh, model_axis: str = "model") -> torch.Tensor:
-    """As ``lookup_local``, reduce-scattered over ``model``: this rank
-    keeps its (B_loc/M, F, E) rows."""
+def lookup_rs_local(tbl, ids, mesh, model_axis: str = "model",
+                    dim: int = 0) -> torch.Tensor:
+    """As ``lookup_local``, reduce-scattered over ``model`` along the
+    ids' dim ``dim``: this rank keeps its (B_loc/M, F, E) rows (the LM's
+    sequence-parallel embedding keeps its S/M positions, ``dim=1``)."""
     return psum_scatter(_masked_rows(tbl, ids, mesh, model_axis), mesh,
-                        model_axis, 0)
+                        model_axis, dim)
 
 
 def bag_sum_local(tbl, ids, mesh, model_axis: str = "model") -> torch.Tensor:

@@ -170,7 +170,7 @@ def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float | None = None, kv_len=None,
-                     return_partial: bool = False):
+                     return_partial: bool = False, partial_f32: bool = False):
     """q (B, Hq, D), k and v (B, Hkv, S, D), fp32 or bf16 → (out (B, Hq,
     D) in q's dtype, m (B, Hq, 1) f32, l (B, Hq, 1) f32).
 
@@ -178,7 +178,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's device (one length per sequence; read on the device, no host
     sync).  Lengths are clamped to [0, S]; a row with no valid key gives
     out 0, m = -inf, l = 0.  With ``return_partial``, ``out`` is the
-    unnormalised accumulator for an LSE merge (``merge_partials``).
+    unnormalised accumulator for an LSE merge (``merge_partials``);
+    with ``partial_f32`` too, that accumulator is float32 whatever q's
+    dtype (the kernel writes its fp32 sums unrounded), so that a merge
+    across ranks adds no rounding to it.
 
     On CUDA the kernel is chosen by contract (``tensor_core_route``):
     bf16 at D 64 or 128 with a group of at most 16 launches
@@ -190,6 +193,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     other.  On CUDA it raises under grad mode when an input requires
     grad (``refuse_grad``): the kernels have no backward."""
     _check(q, k, v)
+    if partial_f32 and not return_partial:
+        raise ValueError("partial_f32 needs return_partial")
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     scale = (d ** -0.5) if scale is None else scale
@@ -199,7 +204,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         elif kv_len is not None:
             kv_len = min(max(int(kv_len), 0), s)
         return decode_attention_ref(q, k, v, scale=scale, kv_len=kv_len,
-                                    return_partial=return_partial)
+                                    return_partial=return_partial,
+                                    partial_f32=partial_f32)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     refuse_grad("decode_attention", q, k, v)
@@ -220,7 +226,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m_part = torch.empty((b * hkv * n_split * group,), dtype=torch.float32,
                          device=dev)
     l_part = torch.empty_like(m_part)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if partial_f32 else q.dtype)
     m = torch.empty((b, hq, 1), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     with torch.cuda.device(dev):
@@ -230,8 +236,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               acc_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr())
         outs = (_counters(dev, stream, b * hkv).data_ptr(), out.data_ptr(),
                 m.data_ptr(), l.data_ptr())
+        # return_partial: 0 normalised, 1 the accumulator in q's dtype,
+        # 2 the accumulator in fp32
+        mode = 2 if partial_f32 else int(return_partial)
         shape = (b, hq, hkv, s, d, *k.stride()[:3], *v.stride()[:3], n_split,
-                 split_keys, int(return_partial), scale, stream)
+                 split_keys, mode, scale, stream)
         if tc:
             DECODE_ATTENTION_TC_KERNEL.launch(*kv, *outs, *shape)
         else:

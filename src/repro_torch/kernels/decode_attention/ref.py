@@ -20,12 +20,13 @@ def _finite_or_zero(m: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention_ref(q, k, v, *, scale=None, kv_len=None,
-                         return_partial: bool = False):
+                         return_partial: bool = False,
+                         partial_f32: bool = False):
     """q: (B, Hq, D); k, v: (B, Hkv, S, D) → (out (B, Hq, D) in q's
     dtype, m (B, Hq, 1) f32, l (B, Hq, 1) f32).  Keys at or past
     ``kv_len`` are masked; a row with no valid key gives out 0,
     m = -inf, l = 0.  With ``return_partial`` ``out`` is the
-    unnormalised accumulator."""
+    unnormalised accumulator, float32 with ``partial_f32``."""
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
     group = hq // hkv
@@ -48,7 +49,7 @@ def decode_attention_ref(q, k, v, *, scale=None, kv_len=None,
     l = p.sum(-1, keepdim=True)
     acc = torch.einsum("bhk,bhkd->bhd", p, vx)
     if return_partial:
-        return acc.to(q.dtype), m, l
+        return (acc if partial_f32 else acc.to(q.dtype)), m, l
     return (acc / l.clamp_min(1e-30)).to(q.dtype), m, l
 
 

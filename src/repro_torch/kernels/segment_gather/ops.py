@@ -21,7 +21,7 @@ from repro_torch.kernels.native import NativeKernel
 from .ref import segment_gather_sum_ref
 
 __all__ = ["SEGMENT_GATHER_KERNEL", "SegmentCSR", "segment_gather_sum",
-           "segment_mean"]
+           "segment_mean", "segment_sum"]
 
 _P, _L = ctypes.c_void_p, ctypes.c_int64
 SEGMENT_GATHER_KERNEL = NativeKernel(
@@ -125,24 +125,33 @@ class SegmentCSR:
         return self._transposed
 
 
-class _SegmentMean(torch.autograd.Function):
+class _SegmentGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, csr):
-        ctx.csr = csr
-        return segment_gather_sum(x.contiguous(), csr.idx, csr.ptr, csr.scale)
+    def forward(ctx, x, csr, mean):
+        ctx.csr, ctx.mean = csr, mean
+        return segment_gather_sum(x.contiguous(), csr.idx, csr.ptr,
+                                  csr.scale if mean else None)
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         csr = ctx.csr
         idx, ptr = csr.transposed()
-        g = (grad * csr.scale[:, None]).contiguous()
-        return segment_gather_sum(g, idx, ptr), None
+        g = (grad * csr.scale[:, None]) if ctx.mean else grad
+        return segment_gather_sum(g.contiguous(), idx, ptr), None, None
 
 
 def segment_mean(x: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
     """The mean over each dst segment of x's src rows (n_dst, d): one
     gather-sum launch on CUDA; its gradient is one launch over the
     transposed CSR, on grad * scale."""
-    return _SegmentMean.apply(x, csr)
+    return _SegmentGather.apply(x, csr, True)
+
+
+def segment_sum(x: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
+    """The sum over each dst segment of x's src rows (n_dst, d), with
+    the gradient of ``segment_mean``'s form (one launch each way): the
+    partial that an edge-sharded mean adds up over the ranks before it
+    divides by the degrees."""
+    return _SegmentGather.apply(x, csr, False)

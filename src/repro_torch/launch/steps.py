@@ -10,13 +10,14 @@ reference step takes a ``jax.random`` key (the websearch train step),
 the port's takes the draws that key would give (``core/qlearning.py``'s
 ``Draws``).
 
-With a ``mesh`` (a ``DeviceMesh``: ``launch/mesh.py``) the websearch and
-recsys cells run sharded, rank by rank, and ``in_shardings`` /
-``out_shardings`` are trees of ``NamedSharding``s (spec and mesh; their
-``placements`` are the DTensor ones): the arguments are DTensors placed
-by them (``distributed/elastic.py``'s ``reshard_tree``) or global
-tensors, and the outputs DTensors.  The LM and GNN cells raise for a
-mesh: their tensor, sequence and edge sharding wait for the next slice.
+With a ``mesh`` (a ``DeviceMesh``: ``launch/mesh.py``) every cell runs
+sharded, rank by rank, and ``in_shardings`` / ``out_shardings`` are
+trees of ``NamedSharding``s with the reference's specs (spec and mesh;
+their ``placements`` are the DTensor ones): the arguments are DTensors
+placed by them (``distributed/elastic.py``'s ``reshard_tree``) or global
+tensors, and the outputs DTensors.  The LM cells run the Megatron
+tensor, sequence and FSDP/ZeRO layouts of ``models/transformer.py``,
+the GNN cells shard their edges over every axis (``models/gnn.py``).
 
 A train step takes its parameters and optimizer state as the
 reference's donated arguments (``donate_argnums=(0, 1)``): it
@@ -32,10 +33,12 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch.configs.base import ArchDef, get_arch
-from repro_torch.device import refuse_mesh
 from repro_torch.distributed.sharding_rules import (P, NamedSharding,
-                                                    data_axes, mesh_shape,
-                                                    recsys_param_specs)
+                                                    data_axes, gnn_param_specs,
+                                                    kv_cache_specs,
+                                                    lm_param_specs, mesh_shape,
+                                                    recsys_param_specs,
+                                                    zero1_state_specs)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update_, clip_by_global_norm_)
 from repro_torch.train.tree import (leaf_paths, tree_leaves, tree_map,
@@ -123,14 +126,23 @@ def _lm_opt_cfg(reduced: bool) -> AdamWConfig:
                        state_dtype=torch.float32 if reduced else torch.bfloat16)
 
 
-def lm_loss_and_grads(params, tokens, targets, cfg):
+def lm_loss_and_grads(params, tokens, targets, cfg, mesh=None):
     """(loss, grads: a tree like ``params``) of the reference's train
     step before its clip.  With mb = ``cfg.microbatch`` > 1 the batch is
     cut into mb consecutive microbatches; each one's gradients are added
     to an accumulator in ``cfg.grad_accum_dtype`` (a float32 add, one
-    cast), which is divided by mb at the end, as is the summed loss."""
+    cast), which is divided by mb at the end, as is the summed loss.
+
+    On a ``mesh``: ``params`` are DTensors laid out by ``lm_param_specs``
+    and tokens/targets global (or DTensors); each microbatch's rows lie
+    over the data axes as the reference shards them.  Returns (this
+    rank's loss value; grads, this rank's blocks of the global gradient:
+    each leaf's local gradient summed over ``lm_grad_axes`` per
+    microbatch, then accumulated)."""
     from repro_torch.models.transformer import lm_loss
 
+    if mesh is not None:
+        return _lm_loss_and_grads_mesh(params, tokens, targets, cfg, mesh)
     dev = _dev(params)
     tokens = torch.as_tensor(tokens, device=dev)
     targets = torch.as_tensor(targets, device=dev)
@@ -156,23 +168,85 @@ def lm_loss_and_grads(params, tokens, targets, cfg):
     return loss / mb, grads
 
 
-def make_lm_train_step(cfg, opt_cfg: AdamWConfig):
+def _lm_loss_and_grads_mesh(params, tokens, targets, cfg, mesh):
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import (MeshLM, _global, lm_grad_axes,
+                                                lm_loss_local, local_params)
+
+    if not all(_is_dtensor(p) for p in tree_leaves(params)):
+        raise TypeError("a sharded step takes DTensor parameters "
+                        "(distributed.reshard_tree)")
+    lp = local_params(params, cfg, mesh)
+    specs = tree_leaves(lm_param_specs(params, mesh_shape(mesh)["model"],
+                                       cfg.fsdp, cfg.zero3))
+    paths, leaves = leaf_paths(params), tree_leaves(lp)
+    dev = leaves[0].device
+    tokens, targets = _global(tokens, dev).long(), _global(targets, dev).long()
+    mb = max(1, cfg.microbatch)
+    b, s = tokens.shape[0] // mb, tokens.shape[1]
+    ml = MeshLM.of(cfg, mesh, b, s)
+    axes = lm_grad_axes(cfg, ml)
+    acc, loss = None, torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(mb):
+        rows = slice(i * b, (i + 1) * b)
+        req = [t.detach().requires_grad_() for t in leaves]
+        lg, value = lm_loss_local(cfg, tree_unflatten(lp, req),
+                                  ml.rows_block(tokens[rows]),
+                                  ml.rows_block(targets[rows]), ml, b * s)
+        grads = torch.autograd.grad(lg, req, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g.contiguous()
+                 for t, g in zip(req, grads)]
+        for g, path, spec in zip(grads, paths, specs):
+            for a in axes(path, spec):
+                dist.all_reduce(g, group=mesh.get_group(a))
+        loss = loss + value
+        if mb == 1:
+            acc = grads
+        elif acc is None:
+            acc = [g.to(cfg.grad_accum_dtype) for g in grads]
+        else:
+            for a, g in zip(acc, grads):
+                a.add_(g)                              # float32 add, one cast
+        del grads
+    if mb > 1:
+        for a in acc:
+            a.div_(mb)
+    return loss / mb, tree_unflatten(params, acc)
+
+
+def make_lm_train_step(cfg, opt_cfg: AdamWConfig, mesh=None, param_specs=None):
     """Loss + grads (``lm_loss_and_grads``, with its microbatches) + clip
-    at global norm 1 + AdamW, as the reference's single-device step.
+    at global norm 1 + AdamW, as the reference's step.
     ``train_step(params, opt_state, tokens, targets)`` overwrites params
     and opt_state in place and returns (params, opt_state, {"loss",
-    "grad_norm"})."""
+    "grad_norm"}).  On a ``mesh`` the state is DTensors laid out by
+    ``param_specs`` (``lm_param_specs``) and its ZeRO-1 moments
+    (``zero1_state_specs``): the norm is summed over each leaf's own
+    axes, each rank updates its blocks, and loss and norm come back as
+    replicated DTensors (the loss this rank's value)."""
 
     def train_step(params, opt_state, tokens, targets):
-        loss, grads = lm_loss_and_grads(params, tokens, targets, cfg)
-        norm = clip_by_global_norm_(grads, 1.0)
-        adamw_update_(params, grads, opt_state, opt_cfg)
-        return params, opt_state, {"loss": loss, "grad_norm": norm}
+        loss, grads = lm_loss_and_grads(params, tokens, targets, cfg, mesh)
+        if mesh is None:
+            norm = clip_by_global_norm_(grads, 1.0)
+            adamw_update_(params, grads, opt_state, opt_cfg)
+            return params, opt_state, {"loss": loss, "grad_norm": norm}
+        from repro_torch.distributed.collectives import shard_out
+
+        specs = param_specs or lm_param_specs(
+            params, mesh_shape(mesh)["model"], cfg.fsdp, cfg.zero3)
+        norm = clip_by_global_norm_(grads, 1.0, mesh=mesh, specs=specs)
+        adamw_update_(_local_tree(params), grads, _local_tree(opt_state), opt_cfg,
+                      mesh=mesh, param_specs=specs,
+                      state_specs=zero1_state_specs(params, specs, mesh))
+        return params, opt_state, {"loss": shard_out(loss, mesh, P()),
+                                   "grad_norm": shard_out(norm, mesh, P())}
 
     return train_step
 
 
-def _build_lm(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
+def _build_lm(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> CellSpec:
     from repro_torch.models.transformer import (decode_step, init_kv_cache,
                                                 init_params, prefill)
 
@@ -180,31 +254,60 @@ def _build_lm(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
     spec = arch.shape(shape_name)
     sp = dict(REDUCED_SHAPES[spec.kind]) if reduced else dict(spec.params)
     b, s = sp["global_batch"], sp["seq_len"]
+    dp = _dp(mesh)
+    dpn = dp if dp else None
     params_abs = init_params(cfg, device="meta")
+    p_specs = lm_param_specs(params_abs, mesh_shape(mesh)["model"] if mesh else None,
+                             cfg.fsdp, cfg.zero3)
+
+    def dev_of(params):
+        return None if mesh is not None else _dev(params)
 
     if spec.kind == "train":
         opt_cfg = _lm_opt_cfg(reduced)
-        fn = make_lm_train_step(cfg, opt_cfg)
+        fn = make_lm_train_step(cfg, opt_cfg, mesh=mesh, param_specs=p_specs)
         args = (params_abs, adamw_init(params_abs, opt_cfg),
                 _sd((b, s), torch.int32), _sd((b, s), torch.int32))
-        return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+        if mesh is None:
+            return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+                            donate_argnums=(0, 1))
+        mom_specs = zero1_state_specs(params_abs, p_specs, mesh)
+        o_specs = {"mu": mom_specs, "nu": mom_specs, "count": P()}
+        tok_axes = dp + ("model",) if cfg.zero3 and dp else dp
+        tok_spec = P(tok_axes if tok_axes else None, None)
+        in_sh = (_named(mesh, p_specs), _named(mesh, o_specs),
+                 _named(mesh, tok_spec), _named(mesh, tok_spec))
+        out_sh = (_named(mesh, p_specs), _named(mesh, o_specs),
+                  _named(mesh, {"loss": P(), "grad_norm": P()}))
+        return CellSpec(arch.arch_id, shape_name, fn, args, in_sh, out_sh,
                         donate_argnums=(0, 1))
 
+    cache_abs = init_kv_cache(cfg, b, s, device="meta")
+    c_specs = kv_cache_specs(cache_abs, mesh) if mesh is not None else None
     if spec.kind == "prefill":
         def fn(params, tokens):
-            return prefill(params, tokens, cfg, device=_dev(params))
+            return prefill(params, tokens, cfg, mesh=mesh, device=dev_of(params))
 
         args = (params_abs, _sd((b, s), torch.int32))
-        return CellSpec(arch.arch_id, shape_name, fn, args, None, None)
+        in_sh = (_named(mesh, p_specs), _named(mesh, P(dpn, None)))
+        out_sh = ((_named(mesh, P(dpn, "model")), _named(mesh, c_specs))
+                  if mesh is not None else None)
+        return CellSpec(arch.arch_id, shape_name, fn, args, in_sh, out_sh)
 
     # decode (decode_32k / long_500k): one new token against an S-token
     # cache, which decode_step updates in place (donated)
     def fn(params, token, cache, pos):
-        return decode_step(params, token, cache, pos, cfg, device=_dev(params))
+        return decode_step(params, token, cache, pos, cfg, mesh=mesh,
+                           device=dev_of(params))
 
-    args = (params_abs, _sd((b,), torch.int32),
-            init_kv_cache(cfg, b, s, device="meta"), _sd((b,), torch.int32))
-    return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+    n = _dp_size(mesh)
+    bspec = P(dp) if (mesh is not None and b % n == 0 and b >= n) else P()
+    args = (params_abs, _sd((b,), torch.int32), cache_abs, _sd((b,), torch.int32))
+    in_sh = (_named(mesh, p_specs), _named(mesh, bspec), _named(mesh, c_specs),
+             _named(mesh, bspec))
+    out_sh = ((_named(mesh, P(bspec[0] if len(bspec) else None, "model")),
+               _named(mesh, c_specs)) if mesh is not None else None)
+    return CellSpec(arch.arch_id, shape_name, fn, args, in_sh, out_sh,
                     donate_argnums=(2,))
 
 
@@ -228,7 +331,15 @@ def minibatch_budgets(batch_nodes: int, fanout) -> Tuple[int, int, int, int]:
     return e1, fr1, e0, fr1 + e0
 
 
-def _build_gnn(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
+def _build_gnn(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> CellSpec:
+    """The GraphSAGE cells.  On a ``mesh`` the edges (padded to a multiple
+    of the rank count, as the reference's ``pad_e``) lie over every axis,
+    ``P(None, all axes)`` (the minibatch's edge vectors ``P(all axes)``),
+    and the rest is replicated, the weights laid out by
+    ``gnn_param_specs``.  A step gathers the weights' blocks, runs the
+    forward and backward on whole parameters over this rank's edges
+    (``models/gnn.py``), updates the whole parameters and the replicated
+    moments (the same bits on every rank) and keeps its blocks."""
     from repro_torch.models.gnn import (SAGEConfig, sage_block_forward,
                                         sage_full_forward, sage_graph_forward,
                                         sage_init)
@@ -241,29 +352,63 @@ def _build_gnn(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
                      aggregator=base.aggregator)
     opt_cfg = AdamWConfig(lr=1e-3)
     p_abs = sage_init(cfg, device="meta")
+    shape = mesh_shape(mesh) if mesh is not None else {}
+    all_axes = _dp(mesh) + ("model",) if mesh is not None else ()
+    n_dev = math.prod(shape.values()) if shape else 1
+    p_specs = gnn_param_specs(p_abs, shape.get("model"))
+    edge_spec = P(None, all_axes if all_axes else None)
+    evec = P(all_axes if all_axes else None)
 
-    def step(params, opt_state, loss_fn):
-        loss, grads = value_and_grad(loss_fn, params)
-        adamw_update_(params, grads, opt_state, opt_cfg)
+    def pad_e(e: int) -> int:
+        return ((e + n_dev - 1) // n_dev) * n_dev
+
+    def replicated(tree):
+        return tree_map(lambda _: P(), tree)
+
+    def step(params, opt_state, loss_fn, specs):
+        if mesh is None:
+            loss, grads = value_and_grad(loss_fn, params)
+            adamw_update_(params, grads, opt_state, opt_cfg)
+            return loss
+        local = _local_tree(params)
+        whole = tree_map(lambda t, sp_: _gather_block(t, mesh, sp_), local, specs)
+        loss, grads = value_and_grad(loss_fn, whole)
+        adamw_update_(whole, grads, _local_tree(opt_state), opt_cfg)
+        with torch.no_grad():
+            tree_map(lambda t, w, sp_: t.copy_(shard_in_(w, sp_)), local, whole,
+                     specs)
         return loss
 
-    def on(dev, *xs):
-        return [torch.as_tensor(x, device=dev) for x in xs]
+    def shard_in_(x, spec_):
+        from repro_torch.distributed.collectives import shard_in
+        return shard_in(x, mesh, spec_)
+
+    def on(params, pairs):
+        dev = _dev(params)
+        if mesh is None:
+            return [torch.as_tensor(x, device=dev) for x, _ in pairs]
+        return [shard_in_(x if _is_dtensor(x) else torch.as_tensor(x, device=dev),
+                          spec_) for x, spec_ in pairs]
 
     if spec.kind == "train_graph":
-        n, e = sp["n_nodes"], sp["n_edges"]
+        n, e = sp["n_nodes"], pad_e(sp["n_edges"])
 
         def fn(params, opt_state, feats, edges, labels, mask):
-            feats, edges, labels, mask = on(_dev(params), feats, edges,
-                                            labels, mask)
+            feats, edges, labels, mask = on(params, [
+                (feats, P()), (edges, edge_spec), (labels, P()), (mask, P())])
             loss = step(params, opt_state, lambda p: ce_loss(
-                sage_full_forward(p, cfg, feats, edges), labels, mask))
+                sage_full_forward(p, cfg, feats, edges, mesh=mesh), labels, mask),
+                p_specs)
             return params, opt_state, loss
 
-        args = (p_abs, adamw_init(p_abs, opt_cfg),
-                _sd((n, sp["d_feat"]), torch.float32), _sd((2, e), torch.int32),
-                _sd((n,), torch.int32), _sd((n,), torch.float32))
-        return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+        opt = adamw_init(p_abs, opt_cfg)
+        args = (p_abs, opt, _sd((n, sp["d_feat"]), torch.float32),
+                _sd((2, e), torch.int32), _sd((n,), torch.int32),
+                _sd((n,), torch.float32))
+        in_sh = (_named(mesh, p_specs), _named(mesh, replicated(opt)),
+                 _named(mesh, P()), _named(mesh, edge_spec), _named(mesh, P()),
+                 _named(mesh, P()))
+        return CellSpec(arch.arch_id, shape_name, fn, args, in_sh, None,
                         donate_argnums=(0, 1))
 
     if spec.kind == "train_minibatch":
@@ -271,45 +416,68 @@ def _build_gnn(arch: ArchDef, shape_name: str, reduced: bool) -> CellSpec:
         e1, fr1, e0, fr0 = minibatch_budgets(bn, sp["fanout"])
 
         def fn(params, opt_state, feats, src0, dst0, src1, dst1, labels):
-            dev = _dev(params)
-            feats, src0, dst0, src1, dst1, labels = on(
-                dev, feats, src0, dst0, src1, dst1, labels)
+            feats, src0, dst0, src1, dst1, labels = on(params, [
+                (feats, P()), (src0, evec), (dst0, evec), (src1, evec),
+                (dst1, evec), (labels, P())])
             blocks = [(src0, dst0, fr1), (src1, dst1, bn)]
-            ones = torch.ones((bn,), dtype=torch.float32, device=dev)
+            ones = torch.ones((bn,), dtype=torch.float32, device=feats.device)
             loss = step(params, opt_state, lambda p: ce_loss(
-                sage_block_forward(p, cfg, feats, blocks), labels, ones))
+                sage_block_forward(p, cfg, feats, blocks, mesh=mesh), labels, ones),
+                p_specs)
             return params, opt_state, loss
 
-        args = (p_abs, adamw_init(p_abs, opt_cfg),
-                _sd((fr0, sp["d_feat"]), torch.float32),
-                _sd((e0,), torch.int32), _sd((e0,), torch.int32),
-                _sd((e1,), torch.int32), _sd((e1,), torch.int32),
+        opt = adamw_init(p_abs, opt_cfg)
+        e0p, e1p = pad_e(e0), pad_e(e1)
+        args = (p_abs, opt, _sd((fr0, sp["d_feat"]), torch.float32),
+                _sd((e0p,), torch.int32), _sd((e0p,), torch.int32),
+                _sd((e1p,), torch.int32), _sd((e1p,), torch.int32),
                 _sd((bn,), torch.int32))
-        return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+        in_sh = (_named(mesh, p_specs), _named(mesh, replicated(opt)),
+                 _named(mesh, P()), _named(mesh, evec), _named(mesh, evec),
+                 _named(mesh, evec), _named(mesh, evec), _named(mesh, P()))
+        return CellSpec(arch.arch_id, shape_name, fn, args, in_sh, None,
                         donate_argnums=(0, 1))
 
     if spec.kind != "train_batched_graphs":
         raise ValueError(spec.kind)
     # molecule: block-diagonal batches of small graphs, a readout per graph
     bsz, npg, epg = sp["batch"], sp["n_nodes"], sp["n_edges"]
-    n, e = bsz * npg, bsz * epg
+    n, e = bsz * npg, pad_e(bsz * epg)
     readout_abs = {"w": _sd((cfg.n_classes, sp["n_classes"]), torch.float32),
                    "b": _sd((sp["n_classes"],), torch.float32)}
 
     def fn(params, readout, opt_state, feats, edges, graph_id, labels):
-        dev = _dev(params)
-        feats, edges, graph_id, labels = on(dev, feats, edges, graph_id, labels)
-        ones = torch.ones((bsz,), dtype=torch.float32, device=dev)
+        feats, edges, graph_id, labels = on(params, [
+            (feats, P()), (edges, edge_spec), (graph_id, P()), (labels, P())])
+        ones = torch.ones((bsz,), dtype=torch.float32, device=feats.device)
         loss = step((params, readout), opt_state, lambda pr: ce_loss(
-            sage_graph_forward(pr[0], cfg, feats, edges, graph_id, bsz, pr[1]),
-            labels, ones))
+            sage_graph_forward(pr[0], cfg, feats, edges, graph_id, bsz, pr[1],
+                               mesh=mesh), labels, ones),
+            (p_specs, replicated(readout_abs)))
         return params, readout, opt_state, loss
 
-    args = (p_abs, readout_abs, adamw_init((p_abs, readout_abs), opt_cfg),
+    opt = adamw_init((p_abs, readout_abs), opt_cfg)
+    args = (p_abs, readout_abs, opt,
             _sd((n, sp["d_feat"]), torch.float32), _sd((2, e), torch.int32),
             _sd((n,), torch.int32), _sd((bsz,), torch.int32))
-    return CellSpec(arch.arch_id, shape_name, fn, args, None, None,
+    in_sh = (_named(mesh, p_specs), _named(mesh, replicated(readout_abs)),
+             _named(mesh, replicated(opt)), _named(mesh, P()),
+             _named(mesh, edge_spec), _named(mesh, P()), _named(mesh, P()))
+    return CellSpec(arch.arch_id, shape_name, fn, args, in_sh, None,
                     donate_argnums=(0, 1, 2))
+
+
+def _gather_block(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The whole tensor of this rank's block ``t`` under ``spec``: an
+    all-gather over each axis that splits a dim (no gradient)."""
+    from repro_torch.distributed.collectives import all_gather
+
+    with torch.no_grad():
+        for d, e in reversed(list(enumerate(spec))):
+            for a in reversed(e if isinstance(e, tuple) else
+                              (() if e is None else (e,))):
+                t = all_gather(t, mesh, a, d)
+    return t.contiguous()
 
 
 # ==================================================================== recsys
@@ -710,15 +878,17 @@ def _build_websearch(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> Cel
 def build_cell(arch_id: str, shape_name: str, mesh=None, reduced: bool = False,
                cfg_override=None) -> CellSpec:
     """The (arch, shape) cell, for every family of the reference (lm,
-    gnn, recsys, websearch), on one device or, for the recsys and
-    websearch families, on a ``mesh``; the LM and GNN cells raise for a
-    mesh (their sharding waits for the next slice)."""
+    gnn, recsys, websearch), on one device or on a ``mesh`` (a
+    ``DeviceMesh``; anything else raises)."""
     arch = get_arch(arch_id)
     if cfg_override is not None:
         arch = dataclasses.replace(arch, model_cfg=lambda reduced_: cfg_override)
-    if arch.family in ("lm", "gnn"):
-        refuse_mesh(mesh, f"the {arch.family.upper()} cell")
-        builder = {"lm": _build_lm, "gnn": _build_gnn}[arch.family]
-        return builder(arch, shape_name, reduced)
-    builder = {"recsys": _build_recsys, "websearch": _build_websearch}[arch.family]
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
+                            f"not {type(mesh).__name__}")
+    builder = {"lm": _build_lm, "gnn": _build_gnn, "recsys": _build_recsys,
+               "websearch": _build_websearch}[arch.family]
     return builder(arch, shape_name, mesh, reduced)

@@ -25,7 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.common import NEG_INF
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  merge_partials)
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .layers import apply_rope, dense_init, rope_angles
@@ -33,7 +34,9 @@ from .layers import apply_rope, dense_init, rope_angles
 __all__ = ["AttnConfig", "gqa_init", "gqa_forward", "gqa_decode", "MLAConfig",
            "mla_init", "mla_forward", "mla_decode", "mla_absorbed_attention",
            "mla_materialised_attention",
-           "chunked_causal_attention"]
+           "chunked_causal_attention", "HeadSplit", "gqa_forward_tp",
+           "gqa_decode_tp", "mla_forward_tp", "mla_decode_tp",
+           "partial_attention"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,18 +106,21 @@ def gqa_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if cfg.use_flash:
-        o = flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True,
-        ).transpose(1, 2)
-    else:
-        o = chunked_causal_attention(q, k, v, cfg.q_chunk)
-
-    out = o.to(x.dtype).reshape(b, s, h * dh) @ params["wo"]
+    out = _attend(q, k, v, cfg).to(x.dtype).reshape(b, s, h * dh) @ params["wo"]
     if return_cache:
         return out, {"k": k, "v": v}
     return out
+
+
+def _attend(q, k, v, cfg: AttnConfig) -> torch.Tensor:
+    """Causal attention of q (B, S, H, D) over k, v (B, S, Hkv, D): the
+    flash kernel with ``use_flash``, else the chunked plain path."""
+    if cfg.use_flash:
+        return flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=True,
+        ).transpose(1, 2)
+    return chunked_causal_attention(q, k, v, cfg.q_chunk)
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
@@ -305,3 +311,209 @@ def mla_decode(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
                                   cache["k_rope"], pos, cfg)
     out = o.to(x_tok.dtype) @ params["wo"]
     return out, {"c": cache["c"], "k_rope": cache["k_rope"]}
+
+
+# --------------------------------------------------- tensor parallel (mesh)
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """The heads of this rank (``rank`` of ``size`` along the mesh axis
+    ``axis``) under the Megatron split of ``_lm_rule``: Q heads
+    [rank * Hq / size, (rank + 1) * Hq / size), whose columns of wq (and
+    of MLA's w_uk/w_uv) it holds, as its rows of wo.  The KV heads it
+    reads are those its Q heads map to (group Hq / Hkv)."""
+    mesh: object
+    axis: str
+    size: int
+    rank: int
+
+    def q_heads(self, n_heads: int) -> int:
+        if n_heads % self.size:
+            raise ValueError(f"{n_heads} query heads do not split over the "
+                             f"{self.size}-way {self.axis!r} axis")
+        return n_heads // self.size
+
+    def kv_range(self, n_heads: int, n_kv: int) -> Tuple[int, int]:
+        """[lo, hi): the KV heads this rank's Q heads read.  Raises
+        unless they read whole groups or lie within one."""
+        hq, group = self.q_heads(n_heads), n_heads // n_kv
+        if hq % group and group % hq:
+            raise ValueError(
+                f"{hq} query heads a rank ({n_heads} over {self.size}) cut "
+                f"the GQA groups of {group} ({n_heads} / {n_kv} KV heads)")
+        lo = self.rank * hq // group
+        return lo, lo + max(hq // group, 1)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of ``x`` joined along ``dim`` in rank order
+        (backward: a reduce-scatter)."""
+        from repro_torch.distributed.collectives import all_gather
+
+        return all_gather(x, self.mesh, self.axis, dim)
+
+    def own(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``x`` along ``dim``."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
+
+def gqa_forward_tp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                   cfg: AttnConfig, split: HeadSplit,
+                   return_cache: bool = False):
+    """``gqa_forward`` on one rank: ``params`` its column blocks of
+    wq/wk/wv and row block of wo, x (B, S, d_model) whole.  Returns its
+    partial output (B, S, d_model), which a sum over ``split.axis``
+    completes; with ``return_cache`` also every KV head {"k", "v"}:
+    (B, S, Hkv, D) after RoPE."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    hq = split.q_heads(h)
+    lo, hi = split.kv_range(h, kv)
+    q = (x @ params["wq"]).reshape(b, s, hq, dh)
+    if kv % split.size == 0:
+        k = (x @ params["wk"]).reshape(b, s, kv // split.size, dh)
+        v = (x @ params["wv"]).reshape(b, s, kv // split.size, dh)
+        sel = slice(None)
+    else:   # a column block may hold part of a head: gather them all
+        k = split.gather(x @ params["wk"], 2).reshape(b, s, kv, dh)
+        v = split.gather(x @ params["wv"], 2).reshape(b, s, kv, dh)
+        sel = slice(lo, hi)
+    cos, sin = rope_angles(torch.arange(s, device=x.device)[None], dh,
+                           cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = _attend(q, k[:, :, sel], v[:, :, sel], cfg)
+    out = o.to(x.dtype).reshape(b, s, hq * dh) @ params["wo"]
+    if not return_cache:
+        return out
+    if sel == slice(None) and split.size > 1:
+        k, v = split.gather(k, 2), split.gather(v, 2)
+    return out, {"k": k, "v": v}
+
+
+def mla_forward_tp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                   cfg: MLAConfig, split: HeadSplit, return_cache: bool = False):
+    """``mla_forward`` on one rank: its heads' columns of wq, w_uk and
+    w_uv and rows of wo, the whole (replicated) w_dkv.  Returns the
+    partial output; the cache {"c", "k_rope"} is whole on every rank."""
+    return mla_forward(params, x,
+                       dataclasses.replace(cfg, n_heads=split.q_heads(cfg.n_heads)),
+                       return_cache=return_cache)
+
+
+def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      n_valid: torch.Tensor):
+    """One query a row against the first ``n_valid[b]`` keys of a cache
+    slice, unnormalised, in float32: q (B, H, D), k and v (B, S, Hkv, D)
+    → (acc (B, H, D), m (B, H, 1), l (B, H, 1)); a row with no valid key
+    gives acc 0, m = -inf, l = 0 (``merge_partials`` weights it 0)."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    q4 = q.reshape(b, kv, h // kv, d).float()
+    sc = torch.einsum("bkgd,bskd->bkgs", q4, k.float()) * (d ** -0.5)
+    valid = torch.arange(s, device=q.device)[None] < n_valid[:, None]
+    acc, m, l = _partial_softmax(sc.reshape(b, h, s), valid[:, None])
+    o = torch.einsum("bkgs,bskd->bkgd", acc.reshape(b, kv, h // kv, s),
+                     v.float())
+    return o.reshape(b, h, d), m, l
+
+
+def _partial_softmax(sc: torch.Tensor, valid: torch.Tensor):
+    """(p, m, l) of scores (B, H, S) masked by ``valid``: p = exp(sc - m)
+    on the valid keys, 0 elsewhere; m = -inf and l = 0 on a row with
+    none."""
+    sc = sc.masked_fill(~valid, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(valid, torch.exp(sc - m_safe), torch.zeros_like(sc))
+    return p, m, p.sum(-1, keepdim=True)
+
+
+def _merge_tp(split: HeadSplit, acc, m, l) -> torch.Tensor:
+    """The ranks' partials over their key slices, gathered and merged in
+    rank order: (B, H, D) float32."""
+    accs, ms, ls = (split.gather(t[None], 0) for t in (acc, m, l))
+    return merge_partials(list(accs), list(ms), list(ls))
+
+
+def _local_rows(split: HeadSplit, pos: torch.Tensor, s_loc: int):
+    """(row of this rank's slice to write, or s_loc where another rank
+    owns pos; valid keys of the slice, clamp(pos + 1 - off, 0, s_loc))."""
+    local = pos - split.rank * s_loc
+    row = torch.where((local >= 0) & (local < s_loc), local, s_loc)
+    return row, (local + 1).clamp(0, s_loc)
+
+
+def gqa_decode_tp(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                  cfg: AttnConfig, split: HeadSplit) -> torch.Tensor:
+    """``gqa_decode`` on one rank of a sequence-sharded cache: ``cache``
+    k/v (B, S / size, Hkv, D) is this rank's slice of every KV head.
+    The new key and value (gathered to every head) are written only by
+    the rank that owns ``pos``; q is gathered to every head; the rank
+    attends over its slice (the decode kernel with ``use_flash``, its
+    partial float32, else ``partial_attention``), the partials are
+    merged, and the rank's own heads go through its rows of wo.  Returns
+    the partial output (B, d_model)."""
+    b = x_tok.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    hq = split.q_heads(h)
+    k_cache, v_cache = cache["k"], cache["v"]
+    s_loc = k_cache.shape[1]
+    q = (x_tok @ params["wq"]).reshape(b, 1, hq, dh)
+    k_new = split.gather(x_tok @ params["wk"], 1).reshape(b, 1, kv, dh)
+    v_new = split.gather(x_tok @ params["wv"], 1).reshape(b, 1, kv, dh)
+    cos, sin = rope_angles(pos[:, None], dh, cfg.rope_theta)
+    q = split.gather(apply_rope(q, cos, sin)[:, 0], 1)          # (B, H, D)
+    k_new = apply_rope(k_new, cos, sin)
+    row, n_valid = _local_rows(split, pos, s_loc)
+    _write_rows(k_cache, k_new[:, 0], row)
+    _write_rows(v_cache, v_new[:, 0], row)
+    if cfg.use_flash:
+        acc, m, l = decode_attention(
+            q.to(k_cache.dtype).contiguous(), k_cache.transpose(1, 2),
+            v_cache.transpose(1, 2), kv_len=n_valid, return_partial=True,
+            partial_f32=True)
+    else:
+        acc, m, l = partial_attention(q, k_cache, v_cache, n_valid)
+    o = split.own(_merge_tp(split, acc, m, l), 1).reshape(b, hq * dh)
+    return o.to(x_tok.dtype) @ params["wo"]
+
+
+def mla_decode_tp(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                  cfg: MLAConfig, split: HeadSplit) -> torch.Tensor:
+    """``mla_decode`` on one rank of a sequence-sharded cache (c
+    (B, S / size, r), k_rope (B, S / size, d_rope)): the rank maps its
+    heads' q_nope into c-space through its columns of w_uk, gathers
+    those and the q_rope to every head, scores them against its slice
+    (float32, as ``mla_absorbed_attention``), merges the ranks' partials
+    in c-space and takes its own heads through w_uv and wo.  Returns the
+    partial output (B, d_model)."""
+    b = x_tok.shape[0]
+    hq = split.q_heads(cfg.n_heads)
+    dn, dr, dv, r = cfg.d_nope, cfg.d_rope, cfg.d_v, cfg.kv_lora_rank
+    q = (x_tok @ params["wq"]).reshape(b, hq, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    cos, sin = rope_angles(pos[:, None], dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope[:, None], cos, sin)[:, 0]
+    ckv = x_tok @ params["w_dkv"]
+    c_new, k_rope_new = ckv[..., :r], ckv[..., r:]
+    k_rope_new = apply_rope(k_rope_new[:, None, None, :], cos, sin)[:, 0, 0]
+    c_cache, kr_cache = cache["c"], cache["k_rope"]
+    row, n_valid = _local_rows(split, pos, c_cache.shape[1])
+    _write_rows(c_cache, c_new, row)
+    _write_rows(kr_cache, k_rope_new, row)
+
+    w_uk = params["w_uk"].reshape(r, hq, dn).float()
+    q_c = split.gather(torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk), 1)
+    q_rope = split.gather(q_rope, 1)
+    cf = c_cache.float()
+    sc = torch.einsum("bhr,bsr->bhs", q_c, cf)
+    sc = sc + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
+    sc = sc * ((dn + dr) ** -0.5)
+    valid = torch.arange(cf.shape[1], device=cf.device)[None] < n_valid[:, None]
+    p, m, l = _partial_softmax(sc, valid[:, None])
+    ctx = split.own(_merge_tp(split, torch.einsum("bhs,bsr->bhr", p, cf), m, l), 1)
+    w_uv = params["w_uv"].reshape(r, hq, dv).float()
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv).reshape(b, hq * dv)
+    return o.to(x_tok.dtype) @ params["wo"]

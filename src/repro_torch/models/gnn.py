@@ -13,8 +13,20 @@ is the same kernel over the edges grouped by src.  On the CPU the kernel
 is its plain version.  The max aggregator, which no config uses, is
 plain torch on both devices.
 
-The reference shards edges over devices and psums the partial
-aggregates; the port runs on one device.
+On a ``mesh`` (``mesh=`` of the forwards) the edges passed are this
+rank's share (the reference's ``P(None, all axes)``) and the node states
+are whole on every rank.  The mean's partial sums (``segment_sum``,
+the kernel) and degrees over the rank's edges are added over every
+axis, the sums in rank order (``collectives.psum_ordered``), and the
+sum is scaled once by 1 / degree: a mean of sums, never a mean of
+means.  The
+backward is the kernel over the rank's edges grouped by src, its
+partials added in rank order where the states enter the aggregation
+(``copy_to(ordered=True)``).  The max takes the all-reduce MAX of the
+ranks' segment maxima, its gradient split evenly over the tied
+messages of every rank, as ``jax.ops.segment_max`` splits it.  The
+forwards take whole parameters: a train step on a mesh gathers the
+column blocks of ``gnn_param_specs`` first (``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -25,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import seeded_generator
-from repro_torch.kernels.segment_gather import SegmentCSR, segment_mean
+from repro_torch.kernels.segment_gather import (SegmentCSR, segment_mean,
+                                                segment_sum)
 
 from .layers import dense_init
 
@@ -61,13 +74,16 @@ def sage_init(cfg: SAGEConfig, seed: int = 0, device=None,
 
 
 def _aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-               n_dst: int, aggregator: str, csr: SegmentCSR | None = None
-               ) -> torch.Tensor:
+               n_dst: int, aggregator: str, csr: SegmentCSR | None = None,
+               mesh=None) -> torch.Tensor:
     """Padding convention: src == h.shape[0] is a zero dummy row; dst ==
     n_dst is a dummy segment — both let edge arrays pad to fixed lengths
     without distorting the mean.  ``csr``: the edges already grouped
     (``SegmentCSR(src, dst, h.shape[0], n_dst)``), shared by layers over
-    the same edges."""
+    the same edges.  On a ``mesh``: this rank's edges of a sharded
+    aggregation (the module's note)."""
+    if mesh is not None:
+        return _aggregate_sharded(h, src, dst, n_dst, aggregator, csr, mesh)
     if aggregator == "mean":
         if csr is None:
             csr = SegmentCSR(src, dst, h.shape[0], n_dst)
@@ -84,6 +100,66 @@ def _aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     raise ValueError(aggregator)
 
 
+def _aggregate_sharded(h, src, dst, n_dst: int, aggregator: str,
+                       csr: SegmentCSR | None, mesh) -> torch.Tensor:
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import copy_to, psum_ordered
+
+    axes = tuple(mesh.mesh_dim_names)
+    h_in = copy_to(h, mesh, axes, ordered=True)
+    if aggregator == "max":
+        return _SegmentMaxSharded.apply(h_in, src, dst, n_dst, mesh)
+    if aggregator != "mean":
+        raise ValueError(aggregator)
+    if csr is None:
+        csr = SegmentCSR(src, dst, h.shape[0], n_dst)
+    total = psum_ordered(segment_sum(h_in, csr), mesh, axes)
+    deg = csr.ptr.diff()
+    for a in axes:                             # integers: exact in any order
+        dist.all_reduce(deg, group=mesh.get_group(a))
+    # SegmentCSR's scale, 1 / max(deg, 1), as the unsharded kernel applies
+    # it: one rank gives segment_mean's bits
+    return total * (1.0 / deg.clamp_min(1).to(torch.float32))[:, None]
+
+
+class _SegmentMaxSharded(torch.autograd.Function):
+    """The segment max over every rank's edges: this rank's maxima of its
+    messages (-inf where it has none), the all-reduce MAX over the mesh;
+    the gradient of a segment's maximum split evenly over the messages
+    equal to it, on every rank (their count summed over the mesh)."""
+
+    @staticmethod
+    def forward(ctx, h, src, dst, n_dst, mesh):
+        import torch.distributed as dist
+
+        hd = torch.cat([h, h.new_zeros((1, h.shape[1]))], dim=0)
+        msgs = hd[src.long()]
+        seg = dst.long().clamp(0, n_dst)[:, None].expand_as(msgs)
+        out = torch.full((n_dst + 1, h.shape[1]), float("-inf"), dtype=h.dtype,
+                         device=h.device)
+        out = out.scatter_reduce(0, seg, msgs, "amax", include_self=True)
+        groups = [mesh.get_group(a) for a in mesh.mesh_dim_names]
+        for g in groups:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
+        hit = (msgs == out.gather(0, seg)) & (seg < n_dst)
+        count = torch.zeros_like(out).scatter_add_(0, seg, hit.to(out.dtype))
+        for g in groups:                       # small integers: exact
+            dist.all_reduce(count, group=g)
+        ctx.save_for_backward(src, seg, hit, count)
+        ctx.n_src = h.shape[0]
+        return out[:n_dst]
+
+    @staticmethod
+    def backward(ctx, grad):
+        src, seg, hit, count = ctx.saved_tensors
+        g = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))], dim=0)
+        share = (g / count.clamp_min(1)).gather(0, seg) * hit
+        out = grad.new_zeros((ctx.n_src + 1, grad.shape[1]))
+        out.index_add_(0, src.long(), share)
+        return out[:ctx.n_src], None, None, None, None
+
+
 def _layer(lp: Dict, h_self: torch.Tensor, agg: torch.Tensor, last: bool,
            normalize: bool) -> torch.Tensor:
     out = h_self @ lp["w_self"] + agg @ lp["w_neigh"] + lp["b"]
@@ -96,15 +172,17 @@ def _layer(lp: Dict, h_self: torch.Tensor, agg: torch.Tensor, last: bool,
 
 
 def sage_full_forward(params: Dict, cfg: SAGEConfig, feats: torch.Tensor,
-                      edges: torch.Tensor) -> torch.Tensor:
-    """Full-batch: feats (N, d_in), edges (2, E) src→dst. Returns logits
-    (N, C).  The edges are grouped once for every layer."""
+                      edges: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Full-batch: feats (N, d_in), edges (2, E) src→dst (on a ``mesh``,
+    this rank's share). Returns logits (N, C).  The edges are grouped
+    once for every layer."""
     h = feats
     n = feats.shape[0]
     csr = (SegmentCSR(edges[0], edges[1], n, n)
            if cfg.aggregator == "mean" else None)
     for l in range(cfg.n_layers):
-        agg = _aggregate(h, edges[0], edges[1], n, cfg.aggregator, csr=csr)
+        agg = _aggregate(h, edges[0], edges[1], n, cfg.aggregator, csr=csr,
+                         mesh=mesh)
         h = _layer(params[f"layer_{l}"], h, agg, last=(l == cfg.n_layers - 1),
                    normalize=cfg.normalize)
     return h
@@ -157,14 +235,16 @@ def sample_blocks(indptr: np.ndarray, nbrs: np.ndarray, seeds: np.ndarray,
 
 
 def sage_block_forward(params: Dict, cfg: SAGEConfig,
-                       feats_frontier: torch.Tensor, blocks_arrays) -> torch.Tensor:
+                       feats_frontier: torch.Tensor, blocks_arrays,
+                       mesh=None) -> torch.Tensor:
     """Minibatch forward. feats_frontier: features of the full sampled
     frontier (layer-0 input); blocks_arrays: (src, dst, n_dst) triples,
-    innermost first."""
+    innermost first (on a ``mesh``, this rank's share of each block's
+    edges)."""
     h = feats_frontier
     for l in range(cfg.n_layers):
         src, dst, n_dst = blocks_arrays[l]
-        agg = _aggregate(h, src, dst, n_dst, cfg.aggregator)
+        agg = _aggregate(h, src, dst, n_dst, cfg.aggregator, mesh=mesh)
         h_self = h[:n_dst]
         h = _layer(params[f"layer_{l}"], h_self, agg, last=(l == cfg.n_layers - 1),
                    normalize=cfg.normalize)
@@ -174,11 +254,12 @@ def sage_block_forward(params: Dict, cfg: SAGEConfig,
 # ------------------------------------------------------ batched small graphs
 def sage_graph_forward(params: Dict, cfg: SAGEConfig, feats: torch.Tensor,
                        edges: torch.Tensor, graph_id: torch.Tensor,
-                       n_graphs: int, readout: Dict) -> torch.Tensor:
+                       n_graphs: int, readout: Dict, mesh=None) -> torch.Tensor:
     """Molecule-style: many small graphs block-diagonally batched.  Node
     logits → mean per graph (the gather-sum over the nodes grouped by
-    graph_id) → linear readout."""
-    h = sage_full_forward(params, cfg, feats, edges)
+    graph_id) → linear readout.  On a ``mesh`` the edges are this rank's
+    share; the nodes, and so the readout, are whole."""
+    h = sage_full_forward(params, cfg, feats, edges, mesh=mesh)
     nodes = torch.arange(h.shape[0], dtype=torch.int32, device=h.device)
     pooled = segment_mean(h, SegmentCSR(nodes, graph_id, h.shape[0], n_graphs))
     return pooled @ readout["w"] + readout["b"]

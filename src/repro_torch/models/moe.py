@@ -19,9 +19,9 @@ last row) in a fixed order.
 
 ``moe_ffn_sharded`` is the reference's FFN over a mesh, expert or
 tensor parallel over ``model`` with explicit ``torch.distributed``
-collectives (``distributed/collectives.py``).  The transformer's own
-mesh path (its ``_apply_moe_ffn(mesh=...)``) waits for the next slice:
-the LM entry points raise for a ``mesh``.
+collectives (``distributed/collectives.py``); ``moe_ffn_local`` is its
+body on one rank's blocks, which the transformer's mesh path calls
+inside its Megatron blocks (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ from repro_torch.train.tree import tree_map
 from .layers import dense_init, mlp_apply, mlp_init
 
 __all__ = ["MoEConfig", "moe_init", "moe_ffn", "moe_ffn_sharded",
+           "moe_ffn_local", "expert_specs",
            "moe_ffn_dense", "router_topk", "build_dispatch", "moe_capacity",
            "no_drop"]
 
@@ -185,40 +186,67 @@ def moe_ffn_sharded(params: Dict, x, cfg: MoEConfig, mesh,
           dispatches alike; the psum also joins the ff partial sums.
     With ``fsdp`` (and a ``data`` axis) the expert bulk is also sharded
     over ``data`` on d_model and all-gathered inside (ZeRO-3)."""
-    from repro_torch.distributed.collectives import (all_gather, axis_index,
-                                                     pmean, psum, shard_in,
+    from repro_torch.distributed.collectives import (pmean, psum, shard_in,
                                                      shard_out)
-    from repro_torch.distributed.sharding_rules import P, mesh_shape
+    from repro_torch.distributed.sharding_rules import P
 
-    n_shards = mesh_shape(mesh)[model_axis]
-    fsdp = fsdp and "data" in mesh_shape(mesh)
-    ep = cfg.n_experts % n_shards == 0
-    if not ep and cfg.d_ff % n_shards:
-        raise ValueError("need E % M == 0 or d_ff % M == 0")
-    d_ax = "data" if fsdp else None
-    if ep:
-        ex_specs = {"w_gate": P(model_axis, d_ax, None),
-                    "w_up": P(model_axis, d_ax, None),
-                    "w_down": P(model_axis, None, d_ax)}
-    else:
-        ex_specs = {"w_gate": P(None, d_ax, model_axis),
-                    "w_up": P(None, d_ax, model_axis),
-                    "w_down": P(None, model_axis, d_ax)}
+    ex_specs = expert_specs(cfg, mesh, model_axis, fsdp)
     p = {name: (tree_map(lambda a, s: shard_in(a, mesh, s), sub, ex_specs)
                 if name == "experts"
                 else tree_map(lambda a: shard_in(a, mesh, P()), sub))
          for name, sub in params.items()}
     xspec = P(data_axes) if data_axes else P()
     x_l = shard_in(x, mesh, xspec)
+    out, aux = moe_ffn_local(p, x_l, cfg, mesh, model_axis, fsdp)
+    out = psum(out, mesh, model_axis)
+    if cfg.n_shared:
+        out = out + mlp_apply(p["shared"], x_l, cfg.mlp_kind)
+    return (shard_out(out, mesh, xspec),
+            shard_out(pmean(aux, mesh, model_axis), mesh, P()))
+
+
+def expert_specs(cfg: MoEConfig, mesh, model_axis: str = "model",
+                 fsdp: bool = False) -> Dict:
+    """The per-layer specs of the stacked experts on ``mesh``: EP where E
+    divides the ``model`` axis, else TP over d_ff (which must divide);
+    with ``fsdp`` (and a ``data`` axis) d_model also over ``data``."""
+    from repro_torch.distributed.sharding_rules import P, mesh_shape
+
+    shape = mesh_shape(mesh)
+    n_shards = shape[model_axis]
+    d_ax = "data" if fsdp and "data" in shape else None
+    if cfg.n_experts % n_shards == 0:
+        return {"w_gate": P(model_axis, d_ax, None),
+                "w_up": P(model_axis, d_ax, None),
+                "w_down": P(model_axis, None, d_ax)}
+    if cfg.d_ff % n_shards:
+        raise ValueError(f"need E % M == 0 or d_ff % M == 0; E = "
+                         f"{cfg.n_experts}, d_ff = {cfg.d_ff}, M = {n_shards}")
+    return {"w_gate": P(None, d_ax, model_axis),
+            "w_up": P(None, d_ax, model_axis),
+            "w_down": P(None, model_axis, d_ax)}
+
+
+def moe_ffn_local(p: Dict, x_l: torch.Tensor, cfg: MoEConfig, mesh,
+                  model_axis: str = "model", fsdp: bool = False):
+    """One rank's routed FFN on its (T, d) tokens, the body of
+    ``moe_ffn_sharded``: ``p`` holds this rank's expert blocks (laid
+    out by ``expert_specs``) and the whole router.  Returns (this rank's
+    partial output, which a sum over ``model`` completes; the aux loss
+    of these tokens).  The capacity is that of the T tokens here."""
+    from repro_torch.distributed.collectives import all_gather, axis_index
+    from repro_torch.distributed.sharding_rules import mesh_shape
+
+    n_shards = mesh_shape(mesh)[model_axis]
+    ep = cfg.n_experts % n_shards == 0
     ex = p["experts"]
-    if fsdp:
+    if fsdp and "data" in mesh_shape(mesh):
         # ZeRO-3 for the expert bulk: gather the `data`-sharded slice
         # here; its gradient reduce-scatters back
         ex = {"w_gate": all_gather(ex["w_gate"], mesh, "data", 1),
               "w_up": all_gather(ex["w_up"], mesh, "data", 1),
               "w_down": all_gather(ex["w_down"], mesh, "data", 2)}
-    t = x_l.shape[0]
-    cap = moe_capacity(cfg, t)
+    cap = moe_capacity(cfg, x_l.shape[0])
     w, idx, aux = router_topk(p["router"], x_l, cfg.top_k)
     if ep:
         e_local = cfg.n_experts // n_shards
@@ -230,11 +258,7 @@ def moe_ffn_sharded(params: Dict, x, cfg: MoEConfig, mesh,
     else:
         pos, keep, _ = build_dispatch(idx, cfg.n_experts, cap)
         out = _experts_combine(ex, x_l, w, idx, pos, keep, cfg.n_experts, cap)
-    out = psum(out, mesh, model_axis)
-    if cfg.n_shared:
-        out = out + mlp_apply(p["shared"], x_l, cfg.mlp_kind)
-    return (shard_out(out, mesh, xspec),
-            shard_out(pmean(aux, mesh, model_axis), mesh, P()))
+    return out, aux
 
 
 def moe_ffn_dense(params: Dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

@@ -19,6 +19,15 @@ instead (the train steps' form, standing for the reference's
 ``SLICE_ELEMS`` elements, so that no float32 temporary exceeds
 ``SLICE_ELEMS * 4`` bytes (a stacked (30, 3072, 12288) MLP leaf would
 make 4.5 GB ones).  Elementwise, so both forms give the same bits.
+
+On a mesh (``mesh`` and the leaves' ``PartitionSpec``s) the leaves are
+this rank's blocks.  ``global_norm`` sums each leaf's squared norm over
+the axes its spec splits it over, and only those (a replicated block
+counts once), in rank order (``collectives.psum_ordered``).
+``adamw_update_`` updates each rank's blocks; where a moment's spec adds
+``data`` to its parameter's (ZeRO-1, ``zero1_state_specs``), the rank
+updates its ``data`` slice of the parameter block with its moments and
+all-gathers the block over ``data``.
 """
 from __future__ import annotations
 
@@ -106,10 +115,14 @@ def _slices(*tensors):
 
 @torch.no_grad()
 def adamw_update_(params: Tree, grads: Tree, state: dict,
-                  cfg: AdamWConfig = AdamWConfig(), lr_scale=1.0) -> None:
+                  cfg: AdamWConfig = AdamWConfig(), lr_scale=1.0, mesh=None,
+                  param_specs: Tree = None, state_specs: Tree = None) -> None:
     """``adamw_update`` in place: overwrites every parameter, both
     moments and the count, and may clobber nothing else.  The leaves
-    must be contiguous; the same bits as ``adamw_update``."""
+    must be contiguous; the same bits as ``adamw_update``.  On a
+    ``mesh``: every leaf is this rank's block, laid out by
+    ``param_specs`` (parameters and gradients) and ``state_specs`` (the
+    moments; ZeRO-1 where they add ``data``)."""
     state["count"] += 1
     bc1, bc2 = _bias_corrections(state["count"], cfg)
 
@@ -121,7 +134,37 @@ def adamw_update_(params: Tree, grads: Tree, state: dict,
             ms.copy_(mu32)
             ns.copy_(nu32)
 
-    tree_map(upd, params, grads, state["mu"], state["nu"])
+    if mesh is None:
+        tree_map(upd, params, grads, state["mu"], state["nu"])
+        return
+    from repro_torch.distributed.collectives import all_gather, axis_index
+
+    for p, g, mu, nu, psp, ssp in zip(
+            *(tree_leaves(t) for t in (params, grads, state["mu"], state["nu"],
+                                       param_specs, state_specs))):
+        d = _zero1_dim(psp, ssp)
+        if d is None:
+            upd(p, g, mu, nu)
+            continue
+        n = mu.shape[d]
+        lo = axis_index(mesh, "data") * n
+        part = p.narrow(d, lo, n).contiguous()
+        upd(part, g.narrow(d, lo, n).contiguous(), mu, nu)
+        p.copy_(all_gather(part, mesh, "data", d))
+
+
+def _zero1_dim(param_spec, state_spec, axis: str = "data"):
+    """The dim where ``state_spec`` adds ``axis`` to ``param_spec`` (a
+    ZeRO-1 moment), or None."""
+    for d, e in enumerate(state_spec):
+        pe = param_spec[d] if d < len(param_spec) else None
+        if axis in _entry_axes(e) and axis not in _entry_axes(pe):
+            return d
+    return None
+
+
+def _entry_axes(e):
+    return e if isinstance(e, tuple) else (() if e is None else (e,))
 
 
 # ------------------------------------------------------------------ SGDM
@@ -181,16 +224,35 @@ def adafactor_update(params, grads, state, lr: float = 1e-2,
 
 
 # ----------------------------------------------------------------- utils
-def global_norm(grads: Tree) -> torch.Tensor:
+def global_norm(grads: Tree, mesh=None, specs: Tree = None) -> torch.Tensor:
     """sqrt of the sum over leaves (flatten order) of each leaf's sum of
-    float32 squares (a large leaf summed slice by slice), float32."""
-    total = 0
+    float32 squares (a large leaf summed slice by slice), float32.  On a
+    ``mesh`` each leaf is this rank's block under its spec in ``specs``:
+    its squared norm is summed in rank order over the spec's axes alone
+    (the leaves that share axes in one gather)."""
+    sqs = []
     for g in tree_leaves(grads):
-        sq = 0
+        sq = torch.zeros((), dtype=torch.float32, device=g.device)
         for (s,) in _slices(g.contiguous()):
             sq = sq + torch.sum(torch.square(s.float()))
+        sqs.append(sq)
+    if mesh is not None:
+        from repro_torch.distributed.collectives import psum_ordered
+
+        groups = {}
+        for i, sp in enumerate(tree_leaves(specs)):
+            groups.setdefault(tuple(sp.axes()), []).append(i)
+        for axes, idx in groups.items():
+            if axes:
+                summed = psum_ordered(torch.stack([sqs[i] for i in idx]), mesh,
+                                      axes)
+                for j, i in enumerate(idx):
+                    sqs[i] = summed[j]
+    total = torch.zeros((), dtype=torch.float32,
+                        device=sqs[0].device if sqs else None)
+    for sq in sqs:
         total = total + sq
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -205,10 +267,11 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tenso
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Tree, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Tree, max_norm: float, mesh=None,
+                         specs: Tree = None) -> torch.Tensor:
     """``clip_by_global_norm`` in place (contiguous leaves, in slices);
-    returns the norm."""
-    norm = global_norm(grads)
+    returns the norm.  On a ``mesh``, of the blocks (``global_norm``)."""
+    norm = global_norm(grads, mesh, specs)
     scale = _clip_scale(norm, max_norm)
     for g in tree_leaves(grads):
         for (s,) in _slices(g):

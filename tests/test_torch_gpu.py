@@ -1681,3 +1681,165 @@ def test_cuda_mesh_moe_ffn_sharded_equals_moe_ffn(nccl_mesh):
     want, _ = moe_ffn(params, x, cfg)
     got, _ = moe_ffn_sharded(params, x, cfg, nccl_mesh)
     torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- the sequence-sharded decode
+DECODE_ROUTES = {       # name -> (dtype, head dim, the kernel its route takes)
+    "bf16_d128": (torch.bfloat16, 128, "tc"),
+    "fp32_d128": (torch.float32, 128, "core"),
+}
+
+
+def _decode_qkv(seed, dtype, d, b=4, hq=16, hkv=4, s=512):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(DECODE_ROUTES))
+def test_cuda_decode_float32_partial(cuda, route):
+    """``partial_f32``: the kernel's unnormalised accumulator in float32,
+    unrounded: rounded to q's dtype it is the ``return_partial``
+    accumulator bit for bit, m and l are the same, and it matches the
+    plain version's float32 accumulator."""
+    dtype, d, which = DECODE_ROUTES[route]
+    q, k, v = _decode_qkv(11, dtype, d)
+    lens = torch.tensor([512, 300, 1, 0], dtype=torch.int32, device="cuda")
+    kernel = DECODE_ATTENTION_TC_KERNEL if which == "tc" else DECODE_ATTENTION_KERNEL
+    before = kernel.launches
+    acc32, m32, l32 = decode_attention(q, k, v, kv_len=lens, return_partial=True,
+                                       partial_f32=True)
+    acc, m, l = decode_attention(q, k, v, kv_len=lens, return_partial=True)
+    assert kernel.launches == before + 2
+    assert acc32.dtype == torch.float32 and acc.dtype == dtype
+    assert torch.equal(acc32.to(dtype), acc)
+    assert torch.equal(m32, m) and torch.equal(l32, l)
+    want, wm, wl = decode_attention_ref(q.cpu(), k.cpu(), v.cpu(), kv_len=lens.cpu(),
+                                        return_partial=True, partial_f32=True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(acc32.cpu(), want, rtol=tol, atol=tol * float(
+        wl.max()))
+    assert bool(torch.isneginf(m32[3]).all()) and bool((l32[3] == 0).all())
+    assert bool((acc32[3] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(DECODE_ROUTES))
+def test_cuda_sequence_sharded_decode_merge(cuda, route):
+    """A cache cut into 4 key slices, as ``kv_cache_specs`` lays it over a
+    4-way ``model`` axis: each slice's float32 partial from the kernel,
+    with per-row lengths clamp(len - offset, 0, S/4), merged in slice
+    order by ``merge_partials``, equals the kernel over the whole cache.
+    Rows of length 5 and 0 leave slices with no valid key: those give
+    m = -inf and l = 0, and the merge weights them 0."""
+    dtype, d, which = DECODE_ROUTES[route]
+    q, k, v = _decode_qkv(12, dtype, d)
+    s, n = k.shape[2], 4
+    s_loc = s // n
+    lens = torch.tensor([512, 300, 5, 0], dtype=torch.int64, device="cuda")
+    want, _, _ = decode_attention(q, k, v, kv_len=lens)
+    parts = []
+    for r in range(n):
+        kv_len = (lens - r * s_loc).clamp(0, s_loc)
+        parts.append(decode_attention(
+            q, k[:, :, r * s_loc:(r + 1) * s_loc], v[:, :, r * s_loc:(r + 1) * s_loc],
+            kv_len=kv_len, return_partial=True, partial_f32=True))
+        empty = kv_len == 0
+        assert bool(torch.isneginf(parts[-1][1][empty]).all())
+        assert bool((parts[-1][2][empty] == 0).all())
+    assert any(bool((lens - r * s_loc <= 0).any()) for r in range(n))
+    got = merge_partials(*(list(x) for x in zip(*parts)))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.to(dtype).float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert bool((got[3] == 0).all())          # no key anywhere: 0, not NaN
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(DECODE_ROUTES))
+def test_cuda_mesh_sequence_sharded_decode(nccl_mesh, route):
+    """The sequence-sharded decode on a one-rank NCCL mesh
+    (``gqa_decode_tp`` through the decode kernel, its float32 partial
+    merged) against ``gqa_decode`` with the kernel on the same cache:
+    within the route's tolerance, one decode launch each; the rows
+    written alike."""
+    from repro_torch.models.attention import (AttnConfig, HeadSplit, gqa_decode,
+                                              gqa_decode_tp, gqa_init)
+
+    dtype, d, which = DECODE_ROUTES[route]
+    cfg = AttnConfig(d_model=256, n_heads=8, n_kv=2, d_head=d, use_flash=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    params = gqa_init(gen, cfg, dtype=dtype)
+    x = torch.randn((3, 256), generator=gen, device="cuda").to(dtype)
+    cache = {f: torch.randn((3, 256, 2, d), generator=gen, device="cuda").to(dtype)
+             for f in ("k", "v")}
+    pos = torch.tensor([0, 100, 255], device="cuda")
+    mine = {f: c.clone() for f, c in cache.items()}
+    want, _ = gqa_decode(params, x, cache, pos, cfg)
+    kernel = DECODE_ATTENTION_TC_KERNEL if which == "tc" else DECODE_ATTENTION_KERNEL
+    before = kernel.launches
+    split = HeadSplit(nccl_mesh, "model", 1, 0)
+    got = gqa_decode_tp(params, x, mine, pos, cfg, split)
+    assert kernel.launches == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for f in cache:
+        assert torch.equal(mine[f], cache[f])
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_lm_and_gnn_cells_launch_their_kernels(nccl_mesh):
+    """The sharded LM prefill and decode cells (reduced mistral-nemo-12b,
+    float32 at D 32 with ``use_flash``: the CUDA-core routes) and the
+    edge-sharded GNN step on a one-rank NCCL mesh launch the flash,
+    decode and segment-gather kernels and equal the unsharded cells."""
+    from repro_torch.distributed import place_tree
+    from repro_torch.kernels.segment_gather import SEGMENT_GATHER_KERNEL
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.gnn import sage_init
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch("mistral-nemo-12b").model_cfg(True),
+                              use_flash=True)
+    params = init_params(cfg, seed=4, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device="cuda")
+    want, _ = prefill(params, tokens, cfg)
+    cell = build_cell("mistral-nemo-12b", "prefill_32k", mesh=nccl_mesh,
+                      reduced=True, cfg_override=cfg)
+    s_params = place_tree(params, cell.in_shardings[0])
+    before = FLASH_ATTENTION_KERNEL.launches
+    logits, cache = cell.fn(s_params, tokens)
+    assert FLASH_ATTENTION_KERNEL.launches == before + cfg.n_layers
+    torch.testing.assert_close(logits.full_tensor(), want, rtol=2e-5, atol=2e-5)
+    dec = build_cell("mistral-nemo-12b", "decode_32k", mesh=nccl_mesh,
+                     reduced=True, cfg_override=cfg)
+    before = DECODE_ATTENTION_KERNEL.launches
+    pos = torch.full((2,), 63, device="cuda")
+    out, _ = dec.fn(s_params, tokens[:, -1], cache, pos)
+    assert DECODE_ATTENTION_KERNEL.launches == before + cfg.n_layers
+    assert out.full_tensor().shape == (2, cfg.vocab)
+
+    gcfg = get_arch("graphsage-reddit").model_cfg(True)
+    cell = build_cell("graphsage-reddit", "full_graph_sm", reduced=True)
+    s_cell = build_cell("graphsage-reddit", "full_graph_sm", mesh=nccl_mesh,
+                        reduced=True)
+    rng = np.random.default_rng(9)
+    batch = [torch.from_numpy(a).cuda() for a in (
+        rng.normal(size=(128, 16)).astype(np.float32),
+        rng.integers(0, 128, (2, 512)).astype(np.int32),
+        rng.integers(0, 7, 128).astype(np.int32), np.ones(128, np.float32))]
+    p = sage_init(dataclasses.replace(gcfg, d_in=16), seed=1, device="cuda")
+    opt = adamw_init(p, AdamWConfig(lr=1e-3))
+    s_p, s_o = (place_tree(t, s) for t, s in zip((p, opt), s_cell.in_shardings))
+    want = cell.fn(p, opt, *batch)
+    before = SEGMENT_GATHER_KERNEL.launches
+    got = s_cell.fn(s_p, s_o, *batch)
+    assert SEGMENT_GATHER_KERNEL.launches == before + 3
+    for a, b in zip(tree_leaves(got[:2]), tree_leaves(want[:2])):
+        torch.testing.assert_close(a.full_tensor(), b, rtol=1e-4, atol=1e-5)

@@ -58,6 +58,16 @@ def test_probe_walks_the_serving_and_obs_modules():
             "repro_torch.launch.live_index"} <= names
     assert {f"repro_torch.cluster.proc.{m}" for m in (
         "follower", "messages", "replica", "ring", "worker")} <= names
+    # the mesh paths: the LM's tensor, sequence and FSDP/ZeRO sharding and
+    # sequence-sharded decode, the GNN's edge sharding, ZeRO-1 AdamW
+    assert {"repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.models.moe", "repro_torch.models.gnn",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.embedding_ops",
+            "repro_torch.kernels.segment_gather.ops",
+            "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.train.optimizer", "repro_torch.launch.steps",
+            "repro_torch.launch.mesh"} <= names
     assert "repro_torch.cluster.proc" in names
     assert {"repro_torch.models.gnn", "repro_torch.configs.graphsage_reddit",
             "repro_torch.kernels.segment_gather",

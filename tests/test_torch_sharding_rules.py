@@ -3,7 +3,9 @@ reference's, leaf by leaf, with no world: the rules are pure functions
 of shapes (``jax.eval_shape`` trees on one side, ``device="meta"``
 trees on the other) and take the mesh's ``{axis: size}``.  Plus the
 production meshes, built under a 256- and a 512-rank fake process group
-in a subprocess."""
+in a subprocess, and every LM and GNN cell built on them: its in and
+out specs against the reference's ``build_cell`` on an ``AbstractMesh``
+of the same shape, its args meta tensors of the reference's shapes."""
 import os
 import subprocess
 import sys
@@ -215,3 +217,86 @@ def test_make_production_mesh_under_a_fake_process_group():
     assert out.stdout.splitlines()[-2:] == [
         "(16, 16) ('data', 'model') cpu",
         "(2, 16, 16) ('pod', 'data', 'model') cpu"]
+
+
+_FAKE_CELLS = """
+import json
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import list_archs
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import build_cell
+from repro_torch.train.tree import leaf_paths, tree_leaves
+
+def specs(tree):
+    if tree is None:
+        return None
+    return [[p, repr(tuple(s.spec))] for p, s in zip(leaf_paths(tree),
+                                                     tree_leaves(tree))]
+
+for world, multi in ((256, False), (512, True)):
+    dist.init_process_group("fake", store=FakeStore(), rank=5, world_size=world)
+    mesh = make_production_mesh(multi_pod=multi, device="cpu")
+    out = {}
+    for arch_id, arch in sorted(list_archs().items()):
+        if arch.family not in ("lm", "gnn"):
+            continue
+        for shape in arch.shapes:
+            cell = build_cell(arch_id, shape, mesh=mesh)
+            out[f"{arch_id}/{shape}"] = {
+                "in": specs(cell.in_shardings), "out": specs(cell.out_shardings),
+                "args": [[p, list(t.shape), str(t.dtype).split(".")[-1],
+                          t.device.type]
+                         for p, t in zip(leaf_paths(cell.args),
+                                         tree_leaves(cell.args))]}
+    print(json.dumps({"mesh": list(mesh.shape), "cells": out}))
+    dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def production_cells():
+    """{mesh name: {arch/shape: the port's specs and args}}, built under
+    the fake process groups."""
+    import json
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _FAKE_CELLS], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    runs = [json.loads(line) for line in out.stdout.splitlines()[-2:]]
+    assert [r["mesh"] for r in runs] == [[16, 16], [2, 16, 16]]
+    return dict(zip(PRODUCTION, (r["cells"] for r in runs)))
+
+
+def _jax_cell_specs(tree):
+    from jax.sharding import NamedSharding as JNS
+
+    if tree is None:
+        return None
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, JNS))
+    return [["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp),
+             repr(tuple(s.spec))] for kp, s in flat]
+
+
+@pytest.mark.parametrize("mesh_name", list(PRODUCTION))
+@pytest.mark.parametrize("arch_id", sorted(a for a, arch in jax_list_archs().items()
+                                           if arch.family in ("lm", "gnn")))
+def test_cells_on_production_meshes_match_reference(production_cells, arch_id,
+                                                    mesh_name):
+    from jax.sharding import AbstractMesh
+
+    from repro.launch.steps import build_cell as jax_build_cell
+
+    shape = PRODUCTION[mesh_name]
+    jmesh = AbstractMesh(tuple(shape.values()), tuple(shape))
+    for name in jax_get_arch(arch_id).shapes:
+        got = production_cells[mesh_name][f"{arch_id}/{name}"]
+        cell = jax_build_cell(arch_id, name, mesh=jmesh)
+        assert got["in"] == _jax_cell_specs(cell.in_shardings), name
+        assert got["out"] == _jax_cell_specs(cell.out_shardings), name
+        flat, _ = jax.tree_util.tree_flatten_with_path(cell.args)
+        want = [["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp),
+                 list(a.shape), np.dtype(a.dtype).name, "meta"] for kp, a in flat]
+        assert got["args"] == want, name

@@ -221,10 +221,11 @@ def test_lm_cells_are_abstract_and_mesh_raises():
     assert cell.args[0]["layers"]["ffn"]["router"].dtype == torch.float32
     dec = build_cell("mistral-nemo-12b", "decode_32k")
     assert dec.donate_argnums == (2,) and dec.args[2]["k"].shape[:3] == (40, 128, 32768)
-    # the LM and GNN cells' sharding waits for the next slice of the port
-    with pytest.raises(NotImplementedError, match="mesh waits for the next slice"):
+    # every family builds on a mesh (tests/test_torch_mesh_lm.py); a mesh
+    # that is not a DeviceMesh raises, naming what it wants
+    with pytest.raises(TypeError, match="must be a torch.distributed DeviceMesh"):
         build_cell("mistral-nemo-12b", "train_4k", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh waits for the next slice"):
+    with pytest.raises(TypeError, match="must be a torch.distributed DeviceMesh"):
         build_cell("graphsage-reddit", "ogb_products", mesh=object())
     # the GNN and websearch cells build too, their args meta at the
     # published shapes (tests/test_torch_cells.py holds every cell)
