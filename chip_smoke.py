@@ -374,7 +374,25 @@ Phases (any failure raises and the script exits non-zero):
    state: the edge-sharded aggregate within 1e-5 of its sum of |x|, one
    sharded step against the unsharded one (loss and every leaf within
    1e-4 relative L2), 3 segment-gather launches a step.
-9. Print the kernels' JSON line (the chunk kernel's row also carries
+9. The dry run's counts against the card (``launch/dryrun.py``'s
+   counters, ``launch/roofline.py``'s terms): (a) one bf16 8192^3
+   ``torch.matmul`` counts 2 x 8192^3 FLOPs and 3 x 8192^2 x 2 bytes on
+   meta and on the card alike, and its time (CUDA events, 10 reps, L2
+   flushed) stands beside ``roofline_terms``' compute term; (b)
+   mistral-nemo-12b's sharded ``prefill_32k`` at phase 8b's cut (full
+   width, 4 layers, 2 x 8192, bf16, ``use_flash``) on a one-rank NCCL
+   mesh: the dry run of the same call (``python -m
+   repro_torch.launch.dryrun ... --mesh 1x1`` in a subprocess under a
+   fake group, since NCCL takes no meta tensor and a process has one
+   default group) and the same counters around the card's call give
+   equal FLOPs, bytes, transcendentals and collective counts, and the
+   flash kernel's 4 launches the same cost; (c) one ``ogb_products``
+   step (phase 7's batch and state) held the same way, its 3
+   segment-gather launches included.  Each measured time against
+   ``analyze_cell``'s terms of the meta record (bound, ``roofline_frac``,
+   measured / largest term); none may lie below its largest term less
+   5%: no card beats its own roofline, so the count would be wrong.
+10. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
    ``cluster_launches``, the live fleet's, ``live_launches``, the
@@ -574,25 +592,20 @@ def block_scan_case(dev, b, nb, tf_planes, w, chunk, seed):
     return occ_t, meta, n_active, bp, t
 
 
-def block_scan_bound_ms(n_active, bp, nb, chunk, w, meta_cols):
-    """Least time for one launch: bytes it must move (the active planes'
-    words of each lane's DISTINCT blocks read once -- chunk positions
-    clamped to block nb-1 reread that block --, the meta read once, the
-    outputs written once) over the memory rate, against its 32-bit
-    operations over the op rate.  Returns (ms, what bounds it, bytes)."""
-    import numpy as np
+def block_scan_bound_ms(n_active, bp, nb, chunk, w, meta_cols, n_terms):
+    """Least time for one launch: the bytes of its cost (the wrapper's
+    ``chunk_cost``: the active planes' words of each lane's DISTINCT
+    blocks read once -- chunk positions clamped to block nb-1 reread
+    that block --, the meta read once, the outputs written once) over
+    the memory rate, against its 32-bit operations over the op rate.
+    Returns (ms, what bounds it, bytes)."""
+    from repro_torch.kernels.block_scan.block_scan_pruned import chunk_cost
 
-    b = len(bp)
-    blocks = np.minimum(chunk, nb - bp.astype(np.int64))
-    words_read = int((n_active * blocks).sum()) * w
-    bytes_moved = 4 * (words_read + b * 4 * meta_cols + b * chunk * w
-                       + 2 * b * chunk)
-    # per word: one OR per active plane; per term: popc, AND, add
-    ops = words_read + b * chunk * w * 4 * 3
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    c = chunk_cost(n_active, bp, nb, chunk, w, meta_cols, n_terms)
+    t_bytes = c.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = c.flops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", bytes_moved)
+            "bytes" if t_bytes >= t_ops else "operations", c.bytes)
 
 
 def launch_floor_ms(dev, flush) -> float:
@@ -653,7 +666,7 @@ def kernel_phase(dev, flush, floor):
         plain_ms = time_cuda(lambda: block_scan_pruned_chunk_ref(
             occ, meta, chunk=chunk, n_terms=t), 10, flush)
         bound, bound_by, moved = block_scan_bound_ms(n_active, bp, nb, chunk,
-                                                     w, meta.shape[2])
+                                                     w, meta.shape[2], t)
         distinct = int(np.minimum(chunk, nb - bp.astype(np.int64)).sum())
         rows[chunk] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound, bound_by=bound_by)
@@ -896,23 +909,20 @@ FLASH_CASES = [
 
 
 def flash_bound_ms(b, hq, hkv, sq, skv, d, causal, dtype):
-    """Least time for one launch: its FLOPs (QK^T and PV over the
-    (query, key) pairs the mask leaves visible, 2 per multiply-add) over
-    the rate for its type (bf16 tensor cores; fp32 outside them, as
-    TF32 would not keep fp32's precision), against q, k, v read once and
-    o written once over the memory rate."""
-    import numpy as np
+    """Least time for one launch: the FLOPs of its cost (the wrapper's
+    ``cost``: QK^T and PV over the (query, key) pairs the mask leaves
+    visible, 2 per multiply-add) over the rate for its type (bf16
+    tensor cores; fp32 outside them, as TF32 would not keep fp32's
+    precision), against q, k, v read once and o written once over the
+    memory rate."""
+    import torch
 
-    if causal:
-        pairs = int(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())
-    else:
-        pairs = sq * skv
-    flops = 4 * d * pairs * b * hq
-    elt, rate = ((2, BF16_FLOPS_PER_S) if dtype == "bfloat16"
-                 else (4, FP32_FLOPS_PER_S))
-    bytes_moved = elt * d * (2 * b * hq * sq + 2 * b * hkv * skv)
-    t_ops = flops / rate * 1e3
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    from repro_torch.kernels.flash_attention.ops import cost
+
+    c = cost(b, hq, hkv, sq, skv, d, causal, getattr(torch, dtype))
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else FP32_FLOPS_PER_S
+    t_ops = c.flops / rate * 1e3
+    t_bytes = c.bytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1064,17 +1074,19 @@ DECODE_FP32_PLAN_ROWS = ("path_fp32", "path_fp32_8k")
 
 
 def decode_bound_ms(b, hq, hkv, d, lens, dtype):
-    """Least time for one launch: q read, the K and V rows below each
-    sequence's kv_len read once, out, m and l written once, over the
-    memory rate, against QK^T and PV over those keys (2 FLOPs per
-    multiply-add) over the rate for the type."""
-    elt, rate = ((2, BF16_FLOPS_PER_S) if dtype == "bfloat16"
-                 else (4, FP32_FLOPS_PER_S))
-    keys = sum(lens)
-    bytes_moved = elt * (2 * b * hq * d + 2 * hkv * keys * d) + 8 * b * hq
-    flops = 4 * d * hq * keys
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
+    """Least time for one launch: the bytes of its cost (the wrapper's
+    ``cost``: q read, the K and V rows below each sequence's kv_len read
+    once, out, m and l written once) over the memory rate, against QK^T
+    and PV over those keys (2 FLOPs per multiply-add) over the rate for
+    the type."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import cost
+
+    c = cost(b, hq, hkv, d, sum(lens), getattr(torch, dtype))
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else FP32_FLOPS_PER_S
+    t_bytes = c.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = c.flops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1328,29 +1340,20 @@ BAG_CASES = [
 
 
 def bag_bound_ms(table, idx, weighted):
-    """Least time for one launch: every 32-byte sector of the table that
-    an index inside the table touches, read once (a random row read moves at least
-    one sector; rows that share a sector share its read), the indices
-    and weights read once and the output written once, over the memory
+    """Least time for one launch: the bytes of its cost (the wrapper's
+    ``cost``: every 32-byte sector of the table that an index inside the
+    table touches, read once -- a random row read moves at least one
+    sector; rows that share a sector share its read --, the indices and
+    weights read once and the output written once) over the memory
     rate; against one multiply-add per (index, column) over the fp32
     rate."""
-    import torch
+    from repro_torch.kernels.embedding_bag.ops import cost, table_sectors
 
-    v, e = table.shape
-    row_bytes = e * table.element_size()
-    rows = torch.unique(idx[(idx >= 0) & (idx < v)].long())
-    first = rows * row_bytes // 32
-    last = ((rows + 1) * row_bytes - 1) // 32
-    span = int((last - first).max()) + 1 if rows.numel() else 0
-    sectors = (first[:, None] + torch.arange(span, device=idx.device)[None])
-    sectors = torch.unique(sectors[sectors <= last[:, None]])
-    b, l = idx.shape
-    bytes_moved = (32 * sectors.numel() + 4 * b * l * (2 if weighted else 1)
-                   + b * row_bytes)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * b * l * e / FP32_FLOPS_PER_S * 1e3
+    c = cost(table, idx, weighted)
+    t_bytes = c.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = c.flops / FP32_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
-            sectors.numel())
+            table_sectors(table, idx)[0])
 
 
 def bag_route_forced(route):
@@ -5200,15 +5203,17 @@ def gnn_kernel_times(feats, edges, flush):
     from repro_torch.kernels.segment_gather import (SegmentCSR,
                                                     segment_gather_sum,
                                                     segment_gather_sum_ref)
+    from repro_torch.kernels.segment_gather.ops import cost as gather_cost
 
     n, d = feats.shape
     csr = SegmentCSR(edges[0], edges[1], n, n)
-    e, r = int(csr.ptr[-1]), n
+    e = int(csr.ptr[-1])
     ms = time_cuda(lambda: segment_gather_sum(feats, csr.idx, csr.ptr,
                                               csr.scale), 5, flush)
-    bytes_moved = 4 * n * d + 4 * e + 8 * (r + 1) + 4 * r + 4 * r * d
+    c = gather_cost(feats, csr.idx, csr.ptr, csr.scale)
+    bytes_moved = c.bytes
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = e * d / FP32_FLOPS_PER_S * 1e3
+    t_ops = c.flops / FP32_FLOPS_PER_S * 1e3
     bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                       "operations")
     offsets = csr.ptr[:-1].to(torch.int32)
@@ -5941,6 +5946,226 @@ def mesh_lm_gnn_phase(dev, mesh, reduced, lm_batch=LM_BATCH,
     return launches
 
 
+# ------------------------------------------------------------ phase 9
+CALIB_N = 8192                 # the calibration matmul's M = N = K
+ROOF_SLACK = 0.95              # a time may lie 5% below its largest term
+
+
+def dryrun_subprocess(out_dir, arch, shape, reduced, sets=(), shape_params=()):
+    """``python -m repro_torch.launch.dryrun`` for one cell on a 1 x 1
+    mesh under a fake process group, started (not waited for)."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", "1x1", "--out", str(out_dir)]
+    cmd += ["--reduced"] if reduced else []
+    for kv in sets:
+        cmd += ["--set", kv]
+    for kv in shape_params:
+        cmd += ["--shape-param", kv]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_record(proc, out_dir, arch, shape):
+    """The record of a ``dryrun_subprocess`` once it ends; raises if the
+    command or the cell failed."""
+    log, _ = proc.communicate(timeout=600)
+    path = Path(out_dir) / "local1x1" / f"{arch}__{shape}.json"
+    if proc.returncode != 0 or not path.exists():
+        raise AssertionError(f"dry run of {arch}/{shape} exited "
+                             f"{proc.returncode}:\n{log[-3000:]}")
+    rec = json.loads(path.read_text())
+    if not rec.get("ok"):
+        raise AssertionError(f"dry run of {arch}/{shape}: {rec.get('error')}\n"
+                             f"{rec.get('traceback', '')[-2000:]}")
+    return rec
+
+
+def counts_of(c):
+    """A ``counting`` block's totals, in a dry-run record's terms."""
+    from repro_torch.launch.dryrun import collective_bytes
+
+    kern = {n: (k["launches"], k["flops"], k["bytes"]) for n, k in c.kernels.items()}
+    return {"flops": c.flops,
+            "bytes": float(c.bytes + sum(k["bytes"] for k in c.kernels.values())),
+            "transcendentals": float(c.transcendentals),
+            "collectives": collective_bytes(c.collectives)["counts"],
+            "kernels": kern}
+
+
+def record_counts(rec):
+    return {"flops": rec["cost"]["flops_per_device"],
+            "bytes": rec["cost"]["bytes_accessed_per_device"],
+            "transcendentals": rec["cost"]["transcendentals"],
+            "collectives": rec["collectives"]["counts"],
+            "kernels": {n: (k["launches"], k["flops"], k["bytes"])
+                        for n, k in rec["kernels"].items()}}
+
+
+def roof_check(name, ms, terms, card):
+    """Print a measured time against its terms; raise if it lies below
+    the largest term less 5%."""
+    top = max(terms["compute_s"], terms["memory_s"], terms["collective_s"]) * 1e3
+    print(f"[roofline] {name}: measured {ms:.3f} ms; terms compute "
+          f"{terms['compute_s'] * 1e3:.3f} ms, memory {terms['memory_s'] * 1e3:.3f} "
+          f"ms, collective {terms['collective_s'] * 1e3:.6f} ms; bound "
+          f"{terms['bound']} {top:.3f} ms, roofline_frac "
+          f"{terms['roofline_frac']:.3f}, measured / largest term "
+          f"{ms / top:.3f} ({card})", flush=True)
+    if ms < ROOF_SLACK * top:
+        raise AssertionError(f"{name}: {ms:.3f} ms lies below its largest "
+                             f"roofline term {top:.3f} ms less 5%: the count "
+                             f"is wrong")
+
+
+def calibration(dev, flush, card):
+    """(a): one bf16 CALIB_N^3 matmul counted on meta and on the card,
+    and timed against its compute term."""
+    import torch
+
+    from repro_torch.launch.dryrun import counting
+    from repro_torch.launch.roofline import roofline_terms
+
+    n = CALIB_N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 91)
+    a = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    want = (2.0 * n ** 3, 3.0 * n * n * 2)
+    for x, y in ((a.to("meta"), b.to("meta")), (a, b)):
+        with counting((x, y)) as c:
+            torch.matmul(x, y)
+        got = (c.flops, float(c.bytes))
+        if got != want:
+            raise AssertionError(f"calibration on {x.device.type}: counted "
+                                 f"{got}, want {want}")
+    if dev.type != "cuda":
+        print(f"[roofline] calibration counts {want} on meta and {dev.type}; "
+              f"its time needs the card", flush=True)
+        return
+    ms = time_cuda(lambda: torch.matmul(a, b), 10, flush)
+    terms = roofline_terms(*want, 0.0)
+    print(f"[roofline] calibration: bf16 {n}^3 matmul counts {want[0]:.6g} "
+          f"FLOPs and {want[1]:.6g} bytes on meta and on the card; "
+          f"{ms:.6f} ms ({want[0] / ms / 1e9:.1f} TFLOP/s) against the "
+          f"compute term {terms['compute_s'] * 1e3:.6f} ms (989 TFLOP/s)",
+          flush=True)
+    roof_check("calibration matmul", ms, terms, card)
+
+
+def counted_against_meta(dev, name, rec, fn, args, card):
+    """Run ``fn(*args)`` once warm, once under the dry run's counters and
+    three times timed; the counts must equal the meta record's.  Returns
+    the mean of the timed calls' ms."""
+    from repro_torch.launch.dryrun import counting
+    from repro_torch.launch.roofline import analyze_cell
+
+    fn(*args)
+    sync(dev)
+    with counting(args) as c:
+        fn(*args)
+    got, want = counts_of(c), record_counts(rec)
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{name}: the card counts {got}, the dry run "
+                             f"{want}")
+    print(f"[roofline] {name}: {'equal' if got == want else 'CPU'} counts on "
+          f"{dev.type} and meta: {got['flops']:.6g} FLOPs, {got['bytes']:.6g} "
+          f"bytes, {got['transcendentals']:.6g} transcendentals, collectives "
+          f"{got['collectives']}, kernels {got['kernels']}; dry run {want}",
+          flush=True)
+    times = [mesh_timed(dev, lambda: fn(*args))[1] for _ in range(3)]
+    ms = sum(times) / len(times)
+    if dev.type == "cuda":
+        roof_check(name, ms, analyze_cell(rec), card)
+    return ms
+
+
+def roofline_phase(dev, reduced=False, lm_batch=LM_BATCH, lm_prompt=LM_PROMPT):
+    """Phase 9 (after 8b): the dry run's counts against the card, in a
+    one-rank world of its own (NCCL on the card, gloo for a CPU
+    rehearsal, where the kernels' plain versions run and the LM goes
+    without ``use_flash``: the counts are printed, not held)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import place_args
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import REDUCED_SHAPES, build_cell
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    card = card_line() if on_card else "CPU"
+    tmp = tempfile.mkdtemp(prefix="roofline_")
+    base = get_arch(LM_ARCH).model_cfg(reduced)
+    cfg = dataclasses.replace(base, use_flash=on_card,
+                              n_layers=min(MESH_LM_LAYERS, base.n_layers))
+    lm_shape = {} if reduced else {"global_batch": lm_batch, "seq_len": lm_prompt}
+    procs = [dryrun_subprocess(
+        tmp, LM_ARCH, "prefill_32k", reduced,
+        (f"use_flash={str(cfg.use_flash).lower()}", f"n_layers={cfg.n_layers}"),
+        [f"{k}={v}" for k, v in lm_shape.items()]),
+        dryrun_subprocess(tmp, "graphsage-reddit", GNN_MESH_SHAPE, reduced)]
+    flush = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+             if on_card else None)
+    calibration(dev, flush, card)
+    del flush
+    dist.init_process_group("nccl" if on_card else "gloo", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+    try:
+        mesh = make_local_mesh(1, 1, device=dev.type)
+        lm_rec = dryrun_record(procs[0], tmp, LM_ARCH, "prefill_32k")
+        cell = build_cell(LM_ARCH, "prefill_32k", mesh=mesh, reduced=reduced,
+                          cfg_override=cfg, shape_params=lm_shape or None)
+        b, s = cell.args[1].shape
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 84)
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                               dtype=torch.int32)
+        args = place_args((init_params(cfg, seed=SEED + 84, device=dev), tokens),
+                          cell.in_shardings)
+        lm_ms = counted_against_meta(
+            dev, f"{LM_ARCH} prefill {b} x {s}, {cfg.n_layers} layers",
+            lm_rec, cell.fn, args, card)
+        flash = lm_rec["kernels"].get("flash_attention_tc", {}).get("launches", 0)
+        if on_card and flash != cfg.n_layers:
+            raise AssertionError(f"the prefill's dry run counts "
+                                 f"{lm_rec['kernels']} flash launches")
+        del args, cell
+        if on_card:
+            torch.cuda.empty_cache()
+
+        gnn_rec = dryrun_record(procs[1], tmp, "graphsage-reddit", GNN_MESH_SHAPE)
+        arch = get_arch("graphsage-reddit")
+        kind = arch.shape(GNN_MESH_SHAPE).kind
+        sp = dict(REDUCED_SHAPES[kind]) if reduced else dict(
+            arch.shape(GNN_MESH_SHAPE).params)
+        batch = gnn_batch(dev, GNN_MESH_SHAPE, sp, GNN_MESH_SEED)[0]
+        cell = build_cell("graphsage-reddit", GNN_MESH_SHAPE, mesh=mesh,
+                          reduced=reduced)
+        args = place_args((*gnn_state(dev, arch, sp, reduced, False), *batch),
+                          cell.in_shardings)
+        gnn_ms = counted_against_meta(dev, f"graphsage {GNN_MESH_SHAPE} step",
+                                      gnn_rec, cell.fn, args, card)
+        want = GNN_LAUNCHES_PER_STEP[kind]
+        if gnn_rec["kernels"]["segment_gather"]["launches"] != want:
+            raise AssertionError(f"the GNN step's dry run counts "
+                                 f"{gnn_rec['kernels']}, want {want} launches")
+        del args, cell, batch
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[roofline] phase 9: prefill {lm_ms:.1f} ms, GNN step {gnn_ms:.1f} "
+          f"ms; in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def profile_batch(exe, name, policy, inp):
     """One served batch under torch.profiler."""
     profile_device(name, lambda: exe.execute(policy, *inp),
@@ -6107,6 +6332,8 @@ def main() -> int:
         raise AssertionError("the sharded websearch cells launched no chunk kernel")
     if mesh_launches["embedding_bag"] + mesh_launches["embedding_bag_lanes"] <= 0:
         raise AssertionError("the sharded wide-deep cells launched no bag kernel")
+    torch.cuda.empty_cache()
+    roofline_phase(dev)
 
     def row(name, source, replaces, n, r, err):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",

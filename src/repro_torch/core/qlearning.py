@@ -28,6 +28,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.cost import note
 
 from .rollout import unified_rollout
 
@@ -96,13 +97,18 @@ def _cell_sums(flat: torch.Tensor, td: torch.Tensor, n_cells: int):
         return sums
     by_value = torch.argsort(td, stable=True)
     order = by_value[torch.argsort(flat[by_value], stable=True)]
-    cells, counts = torch.unique_consecutive(flat[order], return_counts=True)
+    if dev.type == "meta":
+        # the cells depend on the data: a dry run takes each transition
+        # as a cell of its own
+        cells, counts, width = flat[order], torch.ones_like(flat), 1
+    else:
+        cells, counts = torch.unique_consecutive(flat[order], return_counts=True)
+        width = int(counts.max())
     starts = torch.cumsum(counts, 0) - counts
     seg = torch.repeat_interleave(
         torch.arange(cells.shape[0], device=dev), counts, output_size=n)
     pos = torch.arange(n, device=dev) - starts[seg]
-    rows = torch.zeros((cells.shape[0], int(counts.max())),
-                       dtype=torch.float64, device=dev)
+    rows = torch.zeros((cells.shape[0], width), dtype=torch.float64, device=dev)
     rows[seg, pos] = td[order].to(torch.float64)
     sums[cells] = rows.sum(dim=1).to(torch.float32)
     return sums
@@ -122,7 +128,12 @@ def td_update(qcfg: QConfig, q: torch.Tensor, transitions: dict) -> torch.Tensor
 
     flat = s * qcfg.n_actions + a
     n_cells = qcfg.p * qcfg.n_actions
-    sums = _cell_sums(flat[valid], td[valid], n_cells)
+    if flat.device.type == "meta":
+        note("td_update: data-dependent valid transitions and cells; every "
+             "transition counted valid and a cell of its own")
+        sums = _cell_sums(flat, td, n_cells)
+    else:
+        sums = _cell_sums(flat[valid], td[valid], n_cells)
     # Counts of 0/1 terms are exact in float32 in any order.
     counts = torch.zeros(n_cells, dtype=torch.float32, device=q.device)
     counts.index_add_(0, flat, valid.to(torch.float32))

@@ -37,6 +37,7 @@ import torch
 from repro_torch.index.blocks import unpack_words
 from repro_torch.kernels.block_scan import (block_scan_pruned_chunk,
                                             build_rule_meta)
+from repro_torch.kernels.cost import note
 
 from .environment import EnvConfig, EnvState
 from .match_rules import block_cost, scan_block
@@ -170,6 +171,18 @@ def _lane_cond(cfg: EnvConfig, n_blocks: int, s: EnvState, u0, v0,
             & (s.block_ptr < n_blocks) & (s.u < cfg.u_budget) & ~s.done)
 
 
+def _again(cond: torch.Tensor, rounds: int, loop: str) -> bool:
+    """Whether a rule loop runs its body once more: while any lane's
+    condition holds.  On ``meta`` (a dry run, where no value can be
+    read) exactly once, as XLA's cost analysis counts a while body once;
+    the dry run's record names the loop (``kernels/cost.py`` ``note``)."""
+    if cond.device.type == "meta":
+        if rounds == 0:
+            note(f"{loop}: data-dependent loop, body counted once")
+        return rounds == 0
+    return bool(cond.any())
+
+
 # ------------------------------------------------------------ "reference"
 class ReferenceScanBackend(ScanBackend):
     """Block-at-a-time scanning on the full (T·F, W) tile: the semantics
@@ -183,10 +196,12 @@ class ReferenceScanBackend(ScanBackend):
         lanes = torch.arange(b, device=occ.device)
         u_inc = block_cost(allowed, term_present)
         u0, v0 = state.u, state.v
+        rounds = 0
         while True:
             cond = _lane_cond(cfg, nb, state, u0, v0, du_quota, dv_quota)
-            if not bool(cond.any()):
+            if not _again(cond, rounds, "ReferenceScanBackend.run_rule"):
                 return state
+            rounds += 1
             bp = torch.clamp(state.block_ptr, max=nb - 1).long()
             match, v_inc = scan_block(occ[lanes, bp], allowed, required,
                                       term_present)
@@ -229,7 +244,13 @@ class BlockScanBackend(ScanBackend):
         b, nb, t, f, w = occ.shape
         dev = occ.device
         u_inc = block_cost(allowed, term_present)                  # (B,)
-        if self.chunk is None:
+        if self.chunk is None and dev.type == "meta":
+            # the adaptive depth reads the quotas; a dry run takes the
+            # default depth
+            note("BlockScanBackend.run_rule: adaptive chunk read no quota, "
+                 f"took DEFAULT_CHUNK_BLOCKS = {DEFAULT_CHUNK_BLOCKS}")
+            chunk = DEFAULT_CHUNK_BLOCKS
+        elif self.chunk is None:
             chunk = adaptive_chunk_blocks(nb, du_quota, u_inc, cfg.u_budget)
         else:
             chunk = self.chunk
@@ -242,11 +263,13 @@ class BlockScanBackend(ScanBackend):
         meta = build_rule_meta(allowed, required, term_present,
                                torch.zeros(b, dtype=torch.int32, device=dev))
         j = torch.arange(chunk, dtype=torch.int32, device=dev)[None, :]
+        rounds = 0
         while True:
             s = state
-            if not bool(_lane_cond(cfg, nb, s, u0, v0, du_quota,
-                                   dv_quota).any()):
+            if not _again(_lane_cond(cfg, nb, s, u0, v0, du_quota, dv_quota),
+                          rounds, "BlockScanBackend.run_rule"):
                 return s
+            rounds += 1
             meta[:, 0, -1] = s.block_ptr
             match, v_inc, _ = block_scan_pruned_chunk(
                 occ2, meta, chunk=chunk, n_terms=t)

@@ -60,15 +60,21 @@ def entry_device(param: torch.Tensor, mesh=None, device=None) -> torch.device:
     (a tensor or a DTensor's local block): raises if they differ.  With
     no ``mesh``, ``resolve_device(device)``; with a ``DeviceMesh``, the
     mesh's device type on this rank's card (``device``, if given, must
-    name the same type).  Anything else as ``mesh`` raises."""
-    if mesh is None:
-        dev = resolve_device(device)
-    else:
+    name the same type).  Anything else as ``mesh`` raises.  Parameters
+    on ``meta`` (a dry run: shapes only) give ``meta`` with or without a
+    mesh, whatever device the mesh names."""
+    if mesh is not None:
         from torch.distributed.device_mesh import DeviceMesh
 
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
                             f"not {type(mesh).__name__}")
+    if param.device.type == "meta" and (
+            device is None or torch.device(device).type == "meta"):
+        return torch.device("meta")
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
         dev = mesh_device(mesh)
         if device is not None and resolve_device(device).type != dev.type:
             raise ValueError(f"device {device} is not the mesh's {dev.type}")

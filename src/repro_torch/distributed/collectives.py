@@ -27,6 +27,9 @@ Megatron):
 - ``scatter_replicated``: this rank's block of a replicated tensor,
   backward an all-gather (Megatron's "scatter to the model-parallel
   region");
+- ``gather_replicated``: the ranks' blocks joined into a tensor that is
+  replicated from there on, backward this rank's own block (Megatron's
+  "gather from the model-parallel region");
 - ``copy_to``: the identity, whose backward is a sum over the axes
   (Megatron's "copy to the model-parallel region"): it marks where a
   tensor replicated over the axes enters work split over them, so that
@@ -62,7 +65,7 @@ from .sharding_rules import PartitionSpec, mesh_shape, to_placements
 
 __all__ = ["shard_in", "shard_out", "axis_index", "psum", "pmean",
            "all_gather", "psum_scatter", "psum_ordered", "pmax", "copy_to",
-           "scatter_replicated", "compress_with_feedback",
+           "scatter_replicated", "gather_replicated", "compress_with_feedback",
            "decompress_accumulate", "compressed_psum_grads",
            "zeros_like_residual"]
 
@@ -191,6 +194,17 @@ class _Scatter(torch.autograd.Function):
         return _all_gather_dim(grad, ctx.group, ctx.dim), None, None
 
 
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_block(grad, ctx.group, ctx.dim), None, None
+
+
 def _sum_in_rank_order(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
@@ -302,6 +316,14 @@ def scatter_replicated(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tens
     """This rank's block along ``dim`` of a tensor replicated over
     ``axis``; backward: an all-gather."""
     return _Scatter.apply(x, mesh.get_group(axis), dim)
+
+
+def gather_replicated(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The blocks of ``axis``'s ranks joined along ``dim``, for work that
+    every rank then does whole (the inverse of ``scatter_replicated``);
+    backward: this rank's own block of the cotangent, which every rank
+    holds whole."""
+    return _Gather.apply(x, mesh.get_group(axis), dim)
 
 
 # ------------------------------------------------ gradient compression

@@ -70,10 +70,12 @@ def reshard_tree(tree: Any, specs: Any, mesh) -> Any:
     without a second full-size buffer); a leaf whose spec is not a
     ``PartitionSpec`` is copied whole.  The result shares no memory with
     ``tree`` (a train step updates its arguments in place), as
-    ``jax.device_put`` makes new buffers."""
-    dev = mesh_device(mesh)
+    ``jax.device_put`` makes new buffers.  A ``meta`` leaf (a dry run)
+    stays on meta: its block is a meta tensor of the block's shape."""
+    mesh_dev = mesh_device(mesh)
 
     def place(leaf, spec):
+        dev = leaf.device if leaf.device.type == "meta" else mesh_dev
         if not isinstance(spec, PartitionSpec):
             return leaf.to(dev, copy=True)
         block = shard_in(leaf, mesh, spec).to(dev, copy=True).contiguous()

@@ -27,6 +27,7 @@ from repro_torch.train.tree import leaf_paths, tree_leaves, tree_map, tree_unfla
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "mesh_shape", "to_placements",
            "data_axes", "lm_param_specs", "zero1_state_specs", "kv_cache_specs",
+           "kv_cache_spec",
            "gnn_param_specs", "recsys_param_specs", "spec_tree"]
 
 
@@ -213,19 +214,21 @@ def zero1_state_specs(params, param_specs, mesh, axis: str = "data") -> Any:
 def kv_cache_specs(cache, mesh) -> Any:
     """Decode KV cache: batch over data axes when divisible, sequence over
     ``model`` (layouts (L, B, S, kv, dh) or (L, B, S, r))."""
-    shape = mesh_shape(mesh)
+    return tree_map(lambda leaf: kv_cache_spec(leaf.shape, mesh), cache)
+
+
+def kv_cache_spec(shape, mesh) -> P:
+    """``kv_cache_specs``' spec of one field of ``shape`` (L, B, S, ...),
+    from the shape alone."""
+    sizes = mesh_shape(mesh)
     dp = data_axes(mesh)
     dp_size = 1
     for a in dp:
-        dp_size *= shape[a]
-
-    def rule(leaf):
-        b = leaf.shape[1]
-        batch_axes = dp if b % dp_size == 0 and b >= dp_size else ()
-        rest = [None] * (leaf.dim() - 3)
-        return P(None, batch_axes if batch_axes else None, "model", *rest)
-
-    return tree_map(rule, cache)
+        dp_size *= sizes[a]
+    b = shape[1]
+    batch_axes = dp if b % dp_size == 0 and b >= dp_size else ()
+    rest = [None] * (len(shape) - 3)
+    return P(None, batch_axes if batch_axes else None, "model", *rest)
 
 
 def gnn_param_specs(params, model_size: int | None = None) -> Any:

@@ -7,7 +7,10 @@ the hand-written kernel ``csrc/block_scan.cu`` (a warp per lane-block,
 two dependent round trips: meta, then occupancy; it reads only the
 rule's active planes, n_active * W * 4 bytes per lane-block), on its
 16-byte or scalar path as its launch entry chooses (``bs_vector_path``);
-on CPU tensors it runs the plain version ``ref.py``.
+on CPU tensors it runs the plain version ``ref.py``; on ``meta`` tensors
+it returns the outputs' shapes and computes nothing, and every meta or
+CUDA call reports ``chunk_cost`` to an active dry-run counter
+(``kernels/cost.py``).
 
 ``block_scan_pruned`` replaces ``block_scan_pruned_pallas``: one query,
 every block, a static rule given on the host.  The host turns the rule
@@ -28,12 +31,13 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.kernels.cost import KernelCost, run
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .block_scan import MAX_PLANES, MAX_TERMS, MAX_WORDS, tile_blocks
 from .ref import block_scan_pruned_chunk_ref, block_scan_pruned_ref
 
-__all__ = ["block_scan_pruned_chunk", "build_rule_meta", "META_ROWS",
+__all__ = ["block_scan_pruned_chunk", "chunk_cost", "build_rule_meta", "META_ROWS",
            "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS",
            "block_scan_pruned", "static_plane_list", "static_tile",
            "BLOCK_SCAN_STATIC_KERNEL"]
@@ -135,14 +139,31 @@ def block_scan_pruned_chunk(occ: torch.Tensor, meta: torch.Tensor, *,
     if occ.device.type == "cpu":
         return block_scan_pruned_chunk_ref(occ, meta, chunk=chunk,
                                            n_terms=n_terms)
-    if occ.device.type != "cuda":
+    if occ.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {occ.device}")
     if not (occ.is_contiguous() and meta.is_contiguous()):
         raise ValueError("occ and meta must be contiguous")
     b, nb, tf_planes, w = occ.shape
+
+    def call_cost():
+        if occ.device.type == "meta":
+            return chunk_cost(np.full(b, tf_planes), np.zeros(b), nb, chunk, w,
+                              meta.shape[2], n_terms, worst_case=True)
+        n_active = meta[:, 2, :tf_planes].sum(1).cpu().numpy()
+        return chunk_cost(n_active, meta[:, 0, -1].cpu().numpy(), nb, chunk, w,
+                          meta.shape[2], n_terms)
+
+    return run(BLOCK_SCAN_KERNEL.name, call_cost, _launch_chunk, occ, meta,
+               chunk, n_terms)
+
+
+def _launch_chunk(occ, meta, chunk, n_terms):
+    b, nb, tf_planes, w = occ.shape
     match = torch.empty((b, chunk, w), dtype=torch.int32, device=occ.device)
     v_inc = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
     n_match = torch.empty((b, chunk), dtype=torch.int32, device=occ.device)
+    if occ.device.type == "meta":
+        return match, v_inc, n_match
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream().cuda_stream
         BLOCK_SCAN_KERNEL.launch(
@@ -150,6 +171,27 @@ def block_scan_pruned_chunk(occ: torch.Tensor, meta: torch.Tensor, *,
             v_inc.data_ptr(), n_match.data_ptr(), b, nb, tf_planes, w,
             meta.shape[2], n_terms, chunk, stream)
     return match, v_inc, n_match
+
+
+def chunk_cost(n_active, block_start, nb: int, chunk: int, w: int,
+               meta_cols: int, n_terms: int, worst_case: bool = False
+               ) -> KernelCost:
+    """One chunk launch's cost, from each lane's active planes and block
+    start: the active planes' words of the lane's DISTINCT blocks read
+    once (chunk positions clamped to block nb - 1 reread that block),
+    the meta read once, match, v_inc and n_match written once; one OR
+    per word read, and per output word and term a popcount, an AND and
+    an add.  The dry run on meta takes every lane at all T·F planes and
+    a whole chunk of blocks (``worst_case``)."""
+    n_active = np.asarray(n_active, dtype=np.int64)
+    bp = np.asarray(block_start, dtype=np.int64)
+    b = len(bp)
+    blocks = np.clip(nb - bp, 1, chunk)
+    words_read = int((n_active * blocks).sum()) * w
+    bytes_moved = 4 * (words_read + b * 4 * meta_cols + b * chunk * w
+                       + 2 * b * chunk)
+    ops = words_read + b * chunk * w * n_terms * 3
+    return KernelCost(flops=ops, bytes=bytes_moved, worst_case=worst_case)
 
 
 # ------------------------------------------------- static whole-index scan

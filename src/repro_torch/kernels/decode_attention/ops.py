@@ -10,8 +10,10 @@ notes there) and both are one launch a call: the key axis is cut into
 slices (``split_plan_tc``, ``split_plan``), one CTA a slice of one
 (sequence, KV head), and the last CTA of each pair to finish merges the
 slices, counted on zeroed counters the wrapper keeps per device and
-stream.  On CPU tensors it runs the plain version ``ref.py``.  There is
-no fallback from one to another.
+stream.  On CPU tensors it runs the plain version ``ref.py``; on
+``meta`` tensors it returns the outputs' shapes and computes nothing.
+There is no fallback from one to another.  Every meta or CUDA call
+reports ``cost`` to an active dry-run counter (``kernels/cost.py``).
 
 The reference pads S up to its KV block and masks the padded keys by
 ``kv_len``; the kernel masks keys at or past ``kv_len`` itself, so
@@ -27,11 +29,12 @@ import functools
 import torch
 
 from repro_torch.kernels.common import cdiv, refuse_grad
+from repro_torch.kernels.cost import KernelCost, run
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import decode_attention_ref, merge_partials_ref
 
-__all__ = ["decode_attention", "merge_partials", "split_plan",
+__all__ = ["decode_attention", "cost", "merge_partials", "split_plan",
            "split_plan_tc", "tensor_core_route", "DECODE_ATTENTION_KERNEL",
            "DECODE_ATTENTION_TC_KERNEL", "MAX_HEAD_DIM", "MAX_GROUP",
            "BLOCK_K", "TC_BLOCK_K", "TC_HEAD_DIMS"]
@@ -206,10 +209,37 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return decode_attention_ref(q, k, v, scale=scale, kv_len=kv_len,
                                     return_partial=return_partial,
                                     partial_f32=partial_f32)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     refuse_grad("decode_attention", q, k, v)
     _check_cuda(q, k, v, kv_len)
+    group = hq // hkv
+    tc = tensor_core_route(q.dtype, d, group)
+    kernel = DECODE_ATTENTION_TC_KERNEL if tc else DECODE_ATTENTION_KERNEL
+
+    def call_cost():
+        if isinstance(kv_len, torch.Tensor):
+            if q.device.type == "meta":
+                return cost(b, hq, hkv, d, b * s, q.dtype, worst_case=True)
+            keys = int(kv_len.clamp(0, s).sum())
+        else:
+            keys = b * (s if kv_len is None else min(max(int(kv_len), 0), s))
+        return cost(b, hq, hkv, d, keys, q.dtype)
+
+    return run(kernel.name, call_cost, _launch, kernel, q, k, v, kv_len,
+               return_partial, partial_f32, scale)
+
+
+def _launch(kernel, q, k, v, kv_len, return_partial, partial_f32, scale):
+    """(out, m, l): on meta their shapes alone, on CUDA one launch."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    dev = q.device
+    out = torch.empty_like(q, dtype=torch.float32 if partial_f32 else q.dtype)
+    m = torch.empty((b, hq, 1), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    if dev.type == "meta":
+        return out, m, l
     lens, kv_all = None, s
     if isinstance(kv_len, torch.Tensor):
         lens = kv_len.to(torch.int32).contiguous()
@@ -217,18 +247,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_all = min(max(int(kv_len), 0), s)
 
     group = hq // hkv
-    dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tc = tensor_core_route(q.dtype, d, group)
+    tc = kernel is DECODE_ATTENTION_TC_KERNEL
     n_split, split_keys = (split_plan_tc if tc else split_plan)(b, hkv, s, sms)
     acc_part = torch.empty((b * hkv * n_split * group * d,), dtype=torch.float32,
                            device=dev)
     m_part = torch.empty((b * hkv * n_split * group,), dtype=torch.float32,
                          device=dev)
     l_part = torch.empty_like(m_part)
-    out = torch.empty_like(q, dtype=torch.float32 if partial_f32 else q.dtype)
-    m = torch.empty((b, hq, 1), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         kv = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -242,7 +268,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         shape = (b, hq, hkv, s, d, *k.stride()[:3], *v.stride()[:3], n_split,
                  split_keys, mode, scale, stream)
         if tc:
-            DECODE_ATTENTION_TC_KERNEL.launch(*kv, *outs, *shape)
+            kernel.launch(*kv, *outs, *shape)
         else:
-            DECODE_ATTENTION_KERNEL.launch(*kv, *outs, _DTYPES[q.dtype], *shape)
+            kernel.launch(*kv, *outs, _DTYPES[q.dtype], *shape)
     return out, m, l
+
+
+def cost(b: int, hq: int, hkv: int, d: int, keys: int, dtype,
+         worst_case: bool = False) -> KernelCost:
+    """One call's cost over ``keys`` valid keys summed over the B
+    sequences: q read, those K and V rows read once, out, m and l
+    written once; QK^T and PV over them (2 FLOPs a multiply-add)."""
+    elt = dtype.itemsize
+    return KernelCost(flops=4 * d * hq * keys,
+                      bytes=elt * (2 * b * hq * d + 2 * hkv * keys * d)
+                      + 8 * b * hq, worst_case=worst_case)

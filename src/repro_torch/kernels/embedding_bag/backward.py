@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.cost import note
+
 __all__ = ["scatter_rows", "take_rows", "embedding_bag_backward"]
 
 
@@ -31,7 +33,14 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, n_rows: int,
         ids = ids.long()
         ids = torch.where((ids >= 0) & (ids < n_rows), ids, n_rows)
         order = torch.sort(ids, stable=True).indices
-        uniq, counts = torch.unique_consecutive(ids[order], return_counts=True)
+        if ids.device.type == "meta":
+            # the runs depend on the ids: a dry run takes each id as a
+            # run of its own, the most rows the sum can write
+            note("scatter_rows: data-dependent runs of one id, each id "
+                 "counted as its own run (the worst case)")
+            uniq, counts = ids[order], torch.ones_like(ids)
+        else:
+            uniq, counts = torch.unique_consecutive(ids[order], return_counts=True)
         out[uniq] = torch.segment_reduce(rows.float()[order], "sum",
                                          lengths=counts, axis=0, unsafe=True)
     return out[:n_rows].to(dtype)

@@ -7,8 +7,10 @@ jnp ``embedding_bag``, which the recsys models call, and
 name.  On CUDA tensors it launches one of the routes of
 ``csrc/embedding_bag.cu``, chosen by ``bag_route`` (bound by the bytes of
 the random row reads, or at few bags by their latency: see the note
-there); on CPU tensors it runs the plain version ``ref.py``.  There is no
-fallback from one to another.
+there); on CPU tensors it runs the plain version ``ref.py``; on ``meta``
+tensors it returns the output's shape and computes nothing.  There is no
+fallback from one to another.  Every meta or CUDA call reports ``cost``
+to an active dry-run counter (``kernels/cost.py``).
 """
 from __future__ import annotations
 
@@ -17,12 +19,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.cost import H100_SMS, KernelCost, run
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .backward import embedding_bag_backward
 from .ref import embedding_bag_ref
 
-__all__ = ["embedding_bag", "embedding_bag_kernel", "bag_route",
+__all__ = ["embedding_bag", "embedding_bag_kernel", "bag_route", "cost",
+           "table_sectors",
            "EMBEDDING_BAG_KERNEL", "EMBEDDING_BAG_LANES_KERNEL"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -124,10 +128,11 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
 
 
 def _bag_forward(table, indices, weights, mode):
-    """The plain version on the CPU, one kernel route on CUDA."""
+    """The plain version on the CPU, one kernel route on CUDA, the
+    output's shape alone on meta."""
     if table.device.type == "cpu":
         return embedding_bag_ref(table, indices, weights, mode=mode)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {table.device}")
     if indices.dtype != torch.int32:
         raise ValueError("indices must be int32 on CUDA")
@@ -137,28 +142,70 @@ def _bag_forward(table, indices, weights, mode):
             and (weights is None or weights.is_contiguous())):
         raise ValueError("table, indices and weights must be contiguous")
     (v, e), (b, l) = table.shape, indices.shape
+    sms = (H100_SMS if table.device.type == "meta" else
+           torch.cuda.get_device_properties(table.device).multi_processor_count)
+    route = bag_route(b, e, sms)
+    kernel = EMBEDDING_BAG_LANES_KERNEL if route == "lanes" else EMBEDDING_BAG_KERNEL
+    return run(kernel.name, lambda: cost(table, indices, weights is not None),
+               _launch, kernel, table, indices, weights, mode)
+
+
+def _launch(kernel, table, indices, weights, mode):
+    (v, e), (b, l) = table.shape, indices.shape
     out = torch.empty((b, e), dtype=table.dtype, device=table.device)
-    if b == 0 or e == 0:
+    if b == 0 or e == 0 or table.device.type == "meta":
         return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        sms = torch.cuda.get_device_properties(table.device).multi_processor_count
-        if bag_route(b, e, sms) == "lanes":
-            EMBEDDING_BAG_LANES_KERNEL.launch(
+        if kernel is EMBEDDING_BAG_LANES_KERNEL:
+            kernel.launch(
                 table.data_ptr(), indices.data_ptr(),
                 None if weights is None else weights.data_ptr(),
                 out.data_ptr(), _DTYPES[table.dtype], v, b, l, _MODES[mode],
                 stream)
             return out
         # the column route's running sums, counts and ids past the table
-        run = (torch.empty(3 * b, dtype=torch.int32, device=table.device)
-               if e == 1 and cdiv(l, PASS_IDS) > 1 else None)
-        EMBEDDING_BAG_KERNEL.launch(
+        run_sums = (torch.empty(3 * b, dtype=torch.int32, device=table.device)
+                    if e == 1 and cdiv(l, PASS_IDS) > 1 else None)
+        kernel.launch(
             table.data_ptr(), indices.data_ptr(),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
             _DTYPES[table.dtype], v, b, l, e, _MODES[mode],
-            None if run is None else run.data_ptr(), stream)
+            None if run_sums is None else run_sums.data_ptr(), stream)
     return out
+
+
+def table_sectors(table: torch.Tensor, indices: torch.Tensor) -> tuple[int, bool]:
+    """(the 32-byte sectors of the table that the indices inside it touch,
+    each once: rows that share a sector share its read; whether that is
+    the worst case).  From the ids on a real device; on meta, where they
+    cannot be read, every id a row of its own that touches as many
+    sectors as a row can, at most the whole table."""
+    v, e = table.shape
+    row_bytes = e * table.element_size()
+    if indices.device.type == "meta":
+        span = cdiv(row_bytes, 32)
+        if row_bytes and 32 % row_bytes and row_bytes % 32:
+            span += 1                      # a row can straddle a boundary
+        return min(indices.numel() * span, cdiv(v * row_bytes, 32)), True
+    rows = torch.unique(indices[(indices >= 0) & (indices < v)].long())
+    first = rows * row_bytes // 32
+    last = ((rows + 1) * row_bytes - 1) // 32
+    span = int((last - first).max()) + 1 if rows.numel() else 0
+    sectors = (first[:, None] + torch.arange(span, device=indices.device)[None])
+    return int(torch.unique(sectors[sectors <= last[:, None]]).numel()), False
+
+
+def cost(table: torch.Tensor, indices: torch.Tensor, weighted: bool) -> KernelCost:
+    """One call's cost: every sector of ``table_sectors`` read once, the
+    indices (and weights) read once, the output written once; one
+    multiply-add per (index, column)."""
+    v, e = table.shape
+    b, l = indices.shape
+    sectors, worst = table_sectors(table, indices)
+    return KernelCost(flops=2 * b * l * e,
+                      bytes=32 * sectors + 4 * b * l * (2 if weighted else 1)
+                      + b * e * table.element_size(), worst_case=worst)
 
 
 embedding_bag_kernel = embedding_bag

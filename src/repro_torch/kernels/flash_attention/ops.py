@@ -4,8 +4,10 @@
 and its Pallas TPU kernel ``flash_attention_pallas``.  On CUDA tensors
 it launches one of two kernels, chosen by dtype and head dim alone (see
 ``tensor_core_route``; both are bound by operations, see the notes in
-their sources); on CPU tensors it runs the plain version ``ref.py``.
-There is no fallback from one to another.
+their sources); on CPU tensors it runs the plain version ``ref.py``; on
+``meta`` tensors it returns the output's shape and computes nothing.
+There is no fallback from one to another.  Every meta or CUDA call
+reports ``cost`` to an active dry-run counter (``kernels/cost.py``).
 
 The reference pads Sq and Skv up to its blocks and masks the padded
 keys by ``kv_len``; the kernel masks the ragged edge itself, so nothing
@@ -16,14 +18,16 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.common import cdiv, refuse_grad
+from repro_torch.kernels.cost import KernelCost, run
 from repro_torch.kernels.native import NativeKernel, csrc_define
 
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "FLASH_ATTENTION_KERNEL",
+__all__ = ["flash_attention", "cost", "FLASH_ATTENTION_KERNEL",
            "FLASH_ATTENTION_TC_KERNEL", "MAX_BLOCK", "MAX_HEAD_DIM",
            "TC_HEAD_DIMS", "tensor_core_route"]
 
@@ -113,29 +117,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_BLOCK} each)")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    out = torch.empty_like(q)
-    if tensor_core_route(q.dtype, d):
+    tc = tensor_core_route(q.dtype, d)
+    if tc:
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("the tensor maps need 16-byte aligned q, k, v")
         if cdiv(sq, TC_BLOCK) > 65535:
             raise ValueError(f"Sq={sq} needs more than 65535 query tiles")
-        with torch.cuda.device(q.device):
-            FLASH_ATTENTION_TC_KERNEL.launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                hq, hkv, sq, skv, d, int(causal), d ** -0.5,
-                torch.cuda.current_stream().cuda_stream)
-        return out
-    if cdiv(sq, CC_BLOCK) > 65535:
+    elif cdiv(sq, CC_BLOCK) > 65535:
         raise ValueError(f"Sq={sq} needs more than 65535 query tiles")
+    kernel = FLASH_ATTENTION_TC_KERNEL if tc else FLASH_ATTENTION_KERNEL
+    return run(kernel.name,
+               lambda: cost(b, hq, hkv, sq, skv, d, causal, q.dtype),
+               _launch, kernel, q, k, v, causal)
+
+
+def _launch(kernel, q, k, v, causal):
+    """The output: on meta its shape alone, on CUDA one launch."""
+    out = torch.empty_like(q)
+    if q.device.type == "meta":
+        return out
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        FLASH_ATTENTION_KERNEL.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, skv, d, int(causal),
-            d ** -0.5, stream)
+        if kernel is FLASH_ATTENTION_TC_KERNEL:
+            kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b, hq, hkv, sq, skv, d, int(causal),
+                          d ** -0.5, stream)
+        else:
+            kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, sq,
+                          skv, d, int(causal), d ** -0.5, stream)
     return out
+
+
+def cost(b: int, hq: int, hkv: int, sq: int, skv: int, d: int, causal: bool,
+         dtype) -> KernelCost:
+    """One call's cost: QK^T and PV over the (query, key) pairs the mask
+    leaves visible (2 FLOPs a multiply-add), and q, k, v read once and o
+    written once.  Shapes only."""
+    if causal:
+        pairs = int(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())
+    else:
+        pairs = sq * skv
+    elt = dtype.itemsize
+    return KernelCost(flops=4 * d * pairs * b * hq,
+                      bytes=elt * d * (2 * b * hq * sq + 2 * b * hkv * skv))

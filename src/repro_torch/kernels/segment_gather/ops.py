@@ -8,7 +8,10 @@ The kernel replaces no TPU kernel: the reference's aggregation is
 the (E, d) messages, in a fixed order (see the source's note), and its
 backward is the same kernel over the transposed CSR.  On CUDA tensors
 ``segment_gather_sum`` launches the kernel; on CPU tensors it runs the
-plain version ``ref.py``.  There is no fallback from one to the other.
+plain version ``ref.py``; on ``meta`` tensors it returns the output's
+shape and computes nothing.  There is no fallback from one to the
+other.  Every meta or CUDA call reports ``cost`` to an active dry-run
+counter (``kernels/cost.py``).
 """
 from __future__ import annotations
 
@@ -16,11 +19,12 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.cost import KernelCost, run
 from repro_torch.kernels.native import NativeKernel
 
 from .ref import segment_gather_sum_ref
 
-__all__ = ["SEGMENT_GATHER_KERNEL", "SegmentCSR", "segment_gather_sum",
+__all__ = ["SEGMENT_GATHER_KERNEL", "SegmentCSR", "cost", "segment_gather_sum",
            "segment_mean", "segment_sum"]
 
 _P, _L = ctypes.c_void_p, ctypes.c_int64
@@ -66,13 +70,18 @@ def segment_gather_sum(x: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
     _check(x, idx, ptr, scale)
     if x.device.type == "cpu":
         return segment_gather_sum_ref(x, idx, ptr, scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     if not all(t is None or t.is_contiguous() for t in (x, idx, ptr, scale)):
         raise ValueError("x, idx, ptr and scale must be contiguous")
+    return run(SEGMENT_GATHER_KERNEL.name, lambda: cost(x, idx, ptr, scale),
+               _launch, x, idx, ptr, scale)
+
+
+def _launch(x, idx, ptr, scale):
     (n, d), r = x.shape, ptr.numel() - 1
     out = torch.empty((r, d), dtype=torch.float32, device=x.device)
-    if r == 0 or d == 0:
+    if r == 0 or d == 0 or x.device.type == "meta":
         return out
     with torch.cuda.device(x.device):
         SEGMENT_GATHER_KERNEL.launch(
@@ -80,6 +89,21 @@ def segment_gather_sum(x: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
             None if scale is None else scale.data_ptr(), out.data_ptr(),
             n, d, r, torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def cost(x: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
+         scale: torch.Tensor | None) -> KernelCost:
+    """One call's cost over the E = ptr[R] edges in a segment: x read
+    once, their ids, ptr and scale read once, the (R, d) output written
+    once; one add per (edge, column).  On meta, where ptr cannot be
+    read, E is every id of ``idx`` (the worst case)."""
+    (n, d), r = x.shape, ptr.numel() - 1
+    worst = ptr.device.type == "meta"
+    e = idx.numel() if worst else int(ptr[-1])
+    return KernelCost(flops=e * d,
+                      bytes=4 * n * d + 4 * e + 8 * (r + 1)
+                      + (0 if scale is None else 4 * r) + 4 * r * d,
+                      worst_case=worst)
 
 
 def _group(keys: torch.Tensor, vals: torch.Tensor, n_seg: int):

@@ -876,13 +876,22 @@ def _build_websearch(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> Cel
 
 # =================================================================== dispatch
 def build_cell(arch_id: str, shape_name: str, mesh=None, reduced: bool = False,
-               cfg_override=None) -> CellSpec:
+               cfg_override=None, shape_params=None) -> CellSpec:
     """The (arch, shape) cell, for every family of the reference (lm,
     gnn, recsys, websearch), on one device or on a ``mesh`` (a
-    ``DeviceMesh``; anything else raises)."""
+    ``DeviceMesh``; anything else raises).  ``shape_params`` updates the
+    shape's published parameters (a cut call at full width; not with
+    ``reduced``)."""
     arch = get_arch(arch_id)
     if cfg_override is not None:
         arch = dataclasses.replace(arch, model_cfg=lambda reduced_: cfg_override)
+    if shape_params:
+        if reduced:
+            raise ValueError("shape_params update the published shapes, not "
+                             "the reduced ones")
+        spec = arch.shape(shape_name)
+        spec = dataclasses.replace(spec, params={**spec.params, **shape_params})
+        arch = dataclasses.replace(arch, shapes={**arch.shapes, shape_name: spec})
     if mesh is not None:
         from torch.distributed.device_mesh import DeviceMesh
 

@@ -74,11 +74,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import entry_device, resolve_device, seeded_generator
 from repro_torch.distributed.collectives import (all_gather, axis_index,
-                                                 copy_to, pmax, psum,
-                                                 psum_scatter, shard_in,
+                                                 copy_to, gather_replicated,
+                                                 pmax, psum, psum_scatter,
+                                                 scatter_replicated, shard_in,
                                                  shard_out)
 from repro_torch.distributed.embedding_ops import lookup_local, lookup_rs_local
 from repro_torch.distributed.sharding_rules import (P, data_axes,
+                                                    kv_cache_spec,
                                                     kv_cache_specs,
                                                     lm_param_specs, mesh_shape)
 from repro_torch.kernels.embedding_bag import take_rows
@@ -233,7 +235,10 @@ def _unbind_layers(layers: Dict, n: int):
     """The stacked layer leaves as n per-layer dicts of views, through
     one ``unbind`` a leaf: its backward stacks the n layer gradients
     into one tensor, where n ``select``s would each add a zero-filled
-    copy of the whole stacked leaf."""
+    copy of the whole stacked leaf.  A model of no layers (the roofline
+    probe's m(0)) has none."""
+    if n == 0:
+        return []
     out = [{} for _ in range(n)]
     for k, v in layers.items():
         parts = (_unbind_layers(v, n) if isinstance(v, dict)
@@ -404,13 +409,19 @@ class MeshLM:
     ``model``; ``rows``, the axes the batch's rows lie over (the data
     axes when the batch divides them, else none; with ``zero3``, data x
     model when the batch divides that); ``sp``, the residual's S over
-    ``model`` between blocks (``sp_carry``, when S divides it)."""
+    ``model`` between blocks (``sp_carry``, when S divides it);
+    ``tokens``, the axes an MoE FFN's flat B·S tokens lie over: ``rows``,
+    or, where the rows are replicated, the data axes when B·S divides
+    them (the reference's ``_apply_moe_ffn``: each data shard routes its
+    block with its own capacity), else none (the B = 1 decode)."""
     mesh: Any
     split: HeadSplit
     rows: Tuple[str, ...]
     sp: bool
     zero3: bool
     n_row_ranks: int
+    tokens: Tuple[str, ...]
+    n_token_ranks: int
 
     @staticmethod
     def of(cfg: "TransformerConfig", mesh, batch: int,
@@ -431,8 +442,12 @@ class MeshLM:
         if cfg.zero3 and batch % size(dp + ("model",)) == 0 and batch >= size(dp) * m:
             rows = dp + ("model",)
         sp = (not cfg.zero3 and cfg.sp_carry and seq is not None and seq % m == 0)
+        n_tok = batch * (seq or 1)
+        tokens = rows
+        if not rows and n_tok % size(dp) == 0 and n_tok >= size(dp):
+            tokens = dp
         return MeshLM(mesh, HeadSplit(mesh, "model", m, axis_index(mesh, "model")),
-                      rows, sp, cfg.zero3, size(rows))
+                      rows, sp, cfg.zero3, size(rows), tokens, size(tokens))
 
     def rows_block(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global (B, ...) tensor."""
@@ -525,15 +540,24 @@ def _ffn_mesh(cfg: TransformerConfig, ffn: Dict, h: torch.Tensor, ml: MeshLM):
     """The FFN of a block on a rank, h whole for it: (the output, its
     partials summed over ``model`` and b_down added; the aux loss of the
     rank's tokens, or None when dense).  An MoE's shared experts are
-    tensor parallel, their partial added before the sum."""
+    tensor parallel, their partial added before the sum.  Where the rows
+    are replicated and the flat tokens split over ``ml.tokens``, the MoE
+    runs on this rank's block of them and its output is gathered back
+    (backward: the own block; ``lm_grad_axes`` sums the FFN's leaves
+    over those axes)."""
     aux = None
     if cfg.moe is None:
         y = _mlp_partial(ffn, h, cfg.mlp_kind)
     else:
         flat = h.reshape(-1, h.shape[-1])
+        split = ml.tokens if not ml.rows else ()
+        for a in split:
+            flat = scatter_replicated(flat, ml.mesh, a, 0)
         y, aux = moe_ffn_local(ffn, flat, cfg.moe, ml.mesh, fsdp=cfg.fsdp)
         if cfg.moe.n_shared:
             y = y + mlp_apply(ffn["shared"], flat, cfg.moe.mlp_kind)
+        for a in reversed(split):
+            y = gather_replicated(y, ml.mesh, a, 0)
         y = y.view(h.shape)
     y = ml.leave(y)
     return (y + ffn["b_down"] if "b_down" in ffn else y), aux
@@ -617,7 +641,7 @@ def lm_loss_local(cfg: TransformerConfig, lp: Dict, tok: torch.Tensor,
     m_size = ml.split.size
     # zero3 with the rows replicated over model: each rank holds 1/M
     grad_ce = ce / m_size if ml.zero3 and "model" not in ml.rows else ce
-    loss = grad_ce + 0.01 * aux / (ml.n_row_ranks * m_size)
+    loss = grad_ce + 0.01 * aux / (ml.n_token_ranks * m_size)
     value = ce.detach().clone()
     for a in ml.rows:
         value = psum(value, ml.mesh, a)
@@ -632,13 +656,18 @@ def lm_grad_axes(cfg: TransformerConfig, ml: MeshLM):
     loss); plus ``model`` for a replicated leaf whose use each rank sees
     part of: the router and MLA's w_dkv (their cotangents are the rank's
     experts' or heads' share) and, under ``sp``, the norms and b_down
-    (the rank's S slice)."""
-    batch = ml.rows + (("model",) if ml.zero3 and "model" not in ml.rows else ())
+    (the rank's S slice).  An MoE FFN's leaves take ``ml.tokens`` for
+    the rows' axes: with the rows replicated, each rank routes only its
+    block of the flat tokens."""
+    extra = ("model",) if ml.zero3 and "model" not in ml.rows else ()
+    batch = ml.rows + extra
+    moe_batch = ml.tokens + extra
     seq_leaves = ("ln1", "ln2", "ln_f", "b_down") if ml.sp else ()
 
     def axes(path: str, spec) -> Tuple[str, ...]:
         own = spec.axes()
-        out = tuple(a for a in batch if a not in own)
+        moe_leaf = cfg.moe is not None and "/ffn/" in f"/{path}"
+        out = tuple(a for a in (moe_batch if moe_leaf else batch) if a not in own)
         if (not ml.zero3 and "model" not in own
                 and path.endswith(("router", "w_dkv") + seq_leaves)):
             out = out + ("model",)
@@ -670,8 +699,10 @@ def _prefill_mesh(params, tokens, cfg: TransformerConfig, mesh):
             cache[f][i] = split.own(c, 1)
     h_last = rms_norm(x[:, -1], lp["ln_f"])
     logits = (h_last @ lp["lm_head"]).float()
-    specs = kv_cache_specs(
-        init_kv_cache(cfg, b * ml.n_row_ranks, s, device="meta"), mesh)
+    # from the shapes alone: a meta cache here would be an allocation of
+    # the global cache in a dry run's count
+    specs = {f: kv_cache_spec(shape, mesh)
+             for f, shape in cache_shapes(cfg, b * ml.n_row_ranks, s).items()}
     return (shard_out(logits, mesh, P(ml.rows or None, "model")),
             {f: shard_out(c, mesh, specs[f]) for f, c in cache.items()})
 

@@ -153,8 +153,14 @@ def test_wrapper_rejects_unsupported_inputs():
         segment_gather_sum(x, idx, ptr, torch.ones(3))
     with pytest.raises(ValueError, match="want x"):
         segment_gather_sum(x[0], idx, ptr)
-    with pytest.raises(ValueError, match="unsupported device"):
-        segment_gather_sum(x.to("meta"), idx.to("meta"), ptr.to("meta"))
+    # meta is a dry run's device: the output's shape, no launch
+    from repro_torch.kernels.segment_gather import SEGMENT_GATHER_KERNEL
+
+    before = SEGMENT_GATHER_KERNEL.launches
+    out = segment_gather_sum(x.to("meta"), idx.to("meta"), ptr.to("meta"))
+    assert out.device.type == "meta" and out.shape == (1, 3)
+    assert out.dtype == torch.float32
+    assert SEGMENT_GATHER_KERNEL.launches == before
 
 
 _HARNESS = r"""

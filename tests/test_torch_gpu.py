@@ -1843,3 +1843,46 @@ def test_cuda_mesh_lm_and_gnn_cells_launch_their_kernels(nccl_mesh):
     assert SEGMENT_GATHER_KERNEL.launches == before + 3
     for a, b in zip(tree_leaves(got[:2]), tree_leaves(want[:2])):
         torch.testing.assert_close(a.full_tensor(), b, rtol=1e-4, atol=1e-5)
+
+
+# --------------------------------------------- the dry run's costs
+from test_torch_dryrun import count_call, native_kernel, wrapper_cases  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(wrapper_cases()))
+def test_cuda_wrapper_cost_equals_meta_cost(cuda, case):
+    """One launch of each kernel route on the card, under the dry run's
+    counters: the cost it reports equals the one the same call reports
+    on meta (shapes chosen so that a data-dependent cost meets its worst
+    case), its launch count rises by one (on meta it does not move), and
+    the outputs have the meta call's shapes and dtypes."""
+    name, make = wrapper_cases()[case]
+    kernel = native_kernel(name)
+    before = kernel.launches
+    meta_out, meta_k = count_call(make("meta"))
+    assert kernel.launches == before
+    out, got = count_call(make(cuda))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert [(t.shape, t.dtype) for t in out] == [(t.shape, t.dtype)
+                                                 for t in meta_out]
+    assert list(got) == [name] and got[name]["launches"] == 1
+    assert (got[name]["flops"], got[name]["bytes"]) == (
+        meta_k[name]["flops"], meta_k[name]["bytes"])
+    assert not got[name]["worst_case"]
+
+
+@pytest.mark.gpu
+def test_cuda_calibration_matmul_counts(cuda):
+    """A bf16 8192^3 matmul counts 2 x 8192^3 FLOPs and 3 x 8192^2 x 2
+    bytes on the card and on meta alike."""
+    from repro_torch.launch.dryrun import counting
+
+    n = 8192
+    a = torch.randn((n, n), device=cuda, dtype=torch.bfloat16)
+    b = torch.randn((n, n), device=cuda, dtype=torch.bfloat16)
+    for x, y in ((a, b), (a.to("meta"), b.to("meta"))):
+        with counting((x, y)) as c:
+            torch.matmul(x, y)
+        assert (c.flops, c.bytes) == (2 * n ** 3, 3 * n * n * 2), x.device

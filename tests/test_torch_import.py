@@ -263,3 +263,32 @@ def test_mesh_modules_are_walked_and_touch_no_process_group():
     out = subprocess.run([sys.executable, "-c", _MESH_PROBE], env=env,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "False []"
+
+
+_DRYRUN_PROBE = """
+import importlib, sys
+import torch.distributed as dist
+for name in ("repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+             "repro_torch.kernels.cost"):
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+print(dist.is_initialized(), bad)
+"""
+
+
+def test_dryrun_modules_are_walked_and_import_no_jax():
+    """The dry run, the roofline and the kernels' cost channel are walked
+    by the probe above, import no JAX and no reference module, and start
+    no process group on import (``main`` starts its fake one)."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.kernels.cost"} <= names
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_PROBE], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "False []"

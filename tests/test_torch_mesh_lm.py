@@ -23,7 +23,10 @@ sequence split into four slices of 16: rows whose slice on a rank holds
 no valid key); the ``cfg_override`` cases: a dense step with ``zero3``
 (B = 4 does not divide data x model, so the rows lie over data and are
 replicated over model), deepseek's step with ``remat`` and 2
-microbatches, grok's decode at B = 1 (batch replicated, tokens
+microbatches, deepseek's step with 4 microbatches (one row each, which
+does not divide the 2 data ranks: the rows are replicated, and the MoE
+routes each data rank's half of the 64 flat tokens with its own
+capacity, as the reference's ``_apply_moe_ffn`` splits them), grok's decode at B = 1 (batch replicated, tokens
 replicated into the MoE); all four graphsage-reddit cells (edges over
 all 8 ranks) and full_graph_sm with the max aggregator (a ring in the
 edges, so that no segment is empty: an empty one is -inf in both).
@@ -63,6 +66,7 @@ LM_ARCHS = ("mistral-nemo-12b", "deepseek-v2-lite-16b", "grok-1-314b")
 TRAIN_CASES = {a: (a, {}) for a in LM_ARCHS}
 TRAIN_CASES["zero3"] = ("mistral-nemo-12b", {"zero3": True})
 TRAIN_CASES["remat_mb2"] = ("deepseek-v2-lite-16b", {"remat": True, "microbatch": 2})
+TRAIN_CASES["mb4"] = ("deepseek-v2-lite-16b", {"microbatch": 4})
 DECODE_CASES = {a: (a, 4) for a in LM_ARCHS}      # case -> (arch, batch)
 DECODE_CASES["b1"] = ("grok-1-314b", 1)
 GNN_CASES = {s: (s, "mean") for s in ("full_graph_sm", "minibatch_lg",

@@ -288,3 +288,45 @@ def test_registry_contents_and_errors():
     with pytest.raises(ValueError, match="no name"):
         register_scan_backend(ScanBackend())
     assert get_scan_backend("block_scan").chunk == DEFAULT_CHUNK_BLOCKS
+
+
+# ------------------------------------------------------- the meta path
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_tabular_rollout_meta_path_then_cpu_parity(cfgs, inputs, backend):
+    """The same greedy rollout on meta tensors (a dry run: each rule
+    loop's body once, the chunk at its configured depth) gives every
+    output's shape and dtype, names the loop it counted once, and
+    computes nothing; the CPU rollout after it is still the reference's
+    bit for bit (the meta branches leave no state behind)."""
+    from repro_torch.launch.dryrun import counting
+
+    cfg, jcfg = cfgs
+    (jo, js_, jt), (po, ps_, pt) = _rollout_inputs(inputs)
+    u_pts, v_pts = np.linspace(0, 200, 64), np.linspace(0, 4000, 64)
+    jbins, bins = jfit_bins(u_pts, v_pts, p=16), fit_bins(u_pts, v_pts, p=16,
+                                                          device="cpu")
+    q = np.random.default_rng(11).normal(
+        size=(jbins.p, jcfg.n_actions)).astype(np.float32)
+    meta = torch.device("meta")
+    meta_bins = type(bins)(bins.u_edges.to(meta), bins.v_edges.to(meta))
+    with counting() as c:
+        mr = unified_rollout(cfg, default_rule_library(2, 8, device=meta),
+                             meta_bins, TabularQPolicy(torch.from_numpy(q).to(meta)),
+                             6, po.to(meta), ps_.to(meta), pt.to(meta),
+                             backend=backend)
+    loop = {"reference": "ReferenceScanBackend", "block_scan": "BlockScanBackend"}
+    assert c.notes == [f"{loop[backend]}.run_rule: data-dependent loop, body "
+                       f"counted once"]
+    assert (c.kernels.get("block_scan_pruned_chunk", {}).get("launches", 0) > 0) \
+        == (backend == "block_scan")
+    pr = unified_rollout(cfg, default_rule_library(2, 8, device=CPU), bins,
+                         TabularQPolicy(torch.from_numpy(q)), 6, po, ps_, pt,
+                         backend=backend)
+    for f in FIELDS:
+        got, want = getattr(mr.final_state, f), getattr(pr.final_state, f)
+        assert got.device == meta and got.shape == want.shape, f
+        assert got.dtype == want.dtype, f
+    jr = junified_rollout(jcfg, jrules(du_scale=2, dv_scale=8), jbins,
+                          JTabularQPolicy(jnp.asarray(q)), 6, jo, js_, jt,
+                          backend="xla")
+    _assert_rollouts_equal(pr, jr)

@@ -324,6 +324,33 @@ def test_td_update_matches_reference(gamma, seed):
     assert torch.equal(again, got)
 
 
+def test_td_update_meta_path_then_reference_parity():
+    """td_update on meta tensors (a dry run: every transition valid and
+    a cell of its own) gives the table's shape and dtype and says so;
+    the CPU update after it is still within the reference's tolerance
+    and bit-equal to one made without a meta call before it."""
+    from repro_torch.launch.dryrun import counting
+
+    p, n_actions = 12, 8
+    tr = _random_transitions(0, p=p, n_actions=n_actions)
+    q = np.random.default_rng(9).normal(scale=0.1, size=(p, n_actions)).astype(
+        np.float32)
+    qcfg = QConfig(p=p, n_actions=n_actions, gamma=0.98)
+    before = td_update(qcfg, torch.from_numpy(q), _t_tree(tr))
+    with counting() as c:
+        got = td_update(qcfg, torch.from_numpy(q).to("meta"),
+                        {k: v.to("meta") for k, v in _t_tree(tr).items()})
+    assert got.device.type == "meta" and got.shape == (p, n_actions)
+    assert got.dtype == torch.float32
+    assert c.notes and c.notes[0].startswith("td_update: data-dependent")
+    after = td_update(qcfg, torch.from_numpy(q), _t_tree(tr))
+    assert torch.equal(after, before)
+    want = np.asarray(jtd_update(JQConfig(p=p, n_actions=n_actions, gamma=0.98),
+                                 jnp.asarray(q),
+                                 {k: jnp.asarray(v) for k, v in tr.items()}))
+    np.testing.assert_allclose(after.numpy(), want, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("case", ["toward_target", "mean_not_race",
                                   "ignores_invalid"])
 def test_td_update_reference_cases(case):
