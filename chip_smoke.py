@@ -5134,13 +5134,15 @@ def gnn_layer_graphs(shape, cfg, batch, dev):
 
 
 def gather_check(name, x, src, dst, n_dst):
-    """The kernel against its plain version on the same tensors, forward
-    (with scale) and backward (the transposed CSR, through
-    ``segment_mean``'s gradient against autograd of the plain gather and
-    index_add_): each element within GNN_TOL of its sum of absolute
-    values, empty segments exactly 0, and a planted x0.9 on the largest
-    segment rejected; the rows' relative L2 error is printed.  Returns
-    the largest |kernel - plain|."""
+    """The kernel against its plain version, forward (with scale) and
+    backward (the transposed CSR): bit-equal to the plain version on the
+    CPU, which adds in the kernel's order (each segment's edge order),
+    both ways; and on the card against the plain version there (its
+    index_add_ adds through atomics) and, for the backward, autograd of
+    the plain gather and index_add_: each element within GNN_TOL of its
+    sum of absolute values, empty segments exactly 0, and a planted x0.9
+    on the largest segment rejected; the rows' relative L2 error is
+    printed.  Returns the largest |kernel - plain on the card|."""
     import torch
 
     from repro_torch.kernels.segment_gather import (SegmentCSR,
@@ -5169,6 +5171,15 @@ def gather_check(name, x, src, dst, n_dst):
     g = torch.randn(want.shape, generator=gen, device=x.device)
     xk = x.detach().clone().requires_grad_()
     (gk,) = torch.autograd.grad(segment_mean(xk, csr), xk, g)
+    idx_t, ptr_t = csr.transposed()
+    cpu = [t.cpu() for t in (x, csr.idx, csr.ptr, csr.scale, idx_t, ptr_t,
+                             g * csr.scale[:, None])]
+    if not (torch.equal(got.cpu(), segment_gather_sum_ref(*cpu[:4]))
+            and torch.equal(gk.cpu(), segment_gather_sum_ref(cpu[6], *cpu[4:6]))):
+        raise AssertionError(f"segment_gather {name}: the kernel's forward or "
+                             f"backward differs from the plain version's bits "
+                             f"on the CPU (the same order of adds)")
+    del cpu
     xp = x.detach().clone().requires_grad_()
     keep = (dst.long() >= 0) & (dst.long() < n_dst) & (src.long() < x.shape[0])
     msgs = xp[src.long()[keep]]
@@ -5184,35 +5195,78 @@ def gather_check(name, x, src, dst, n_dst):
     e_valid = int(csr.ptr[-1])
     mx = float((got - want).abs().max()) if got.numel() else 0.0
     print(f"[gnn] check {name}: x {tuple(x.shape)}, {e_valid:,} edges into "
-          f"{n_dst:,} segments; kernel vs plain within {GNN_TOL} of the sum "
+          f"{n_dst:,} segments; kernel bit-equal to the plain version on the "
+          f"CPU both ways; kernel vs plain within {GNN_TOL} of the sum "
           f"of |x|, row rel err {err:.3g}, max |d| {mx:.3g}, empty segments "
           f"exactly 0, x0.9 planted on one segment rejected; gradient within "
           f"{GNN_TOL} of the sum of |g|, row rel err {gerr:.3g}", flush=True)
     return mx
 
 
+def gather_bounds(x, idx, ptr, scale):
+    """(compulsory ms, gathered-row ms) of one gather-sum call, over the
+    memory rate.  Compulsory: its ``cost`` (x, idx, ptr and scale read
+    once, out and the ticket written once).  Gathered rows: every valid
+    edge's row read, less the share the card's L2 can serve when sources
+    are uniform (L2 / |x|), in place of x's one read, and the rest of the
+    compulsory bytes."""
+    import torch
+
+    from repro_torch.kernels.segment_gather.ops import cost as gather_cost
+
+    n, d = x.shape
+    c = gather_cost(x, idx, ptr, scale)
+    e = int(ptr[-1])
+    ids = idx[:e]
+    e_valid = int(((ids >= 0) & (ids < n)).sum())
+    x_bytes = 4 * n * d
+    l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+    rows = max(x_bytes, 4 * e_valid * d * (1 - min(1.0, l2 / x_bytes)))
+    return (c.bytes / HBM_BYTES_PER_S * 1e3,
+            (c.bytes - x_bytes + rows) / HBM_BYTES_PER_S * 1e3)
+
+
+def degree_profile(ptr):
+    """Text: a CSR's largest segment (edges, over the mean) and the share
+    of the edges that its top 1% of segments hold."""
+    import torch
+
+    deg = ptr.diff().double()
+    top = torch.topk(deg, max(1, deg.numel() // 100)).values
+    return (f"largest {int(deg.max()):,} edges ({float(deg.max() / deg.mean()):.1f}x "
+            f"the mean {float(deg.mean()):.2f}), top 1% of segments "
+            f"{100 * float(top.sum() / deg.sum()):.2f}% of the edges")
+
+
 def gnn_kernel_times(feats, edges, flush):
     """The kernel's row: ogb_products' layer-0 aggregate timed cold
     (after a 1 GiB read) beside its bound (x, idx, ptr and scale read
     once, out written once, over the memory rate; E d fp32 adds over the
-    fp32 rate), the plain version and ``F.embedding_bag`` (sum, unscaled;
-    the port never calls it); the layer-1 width too."""
+    fp32 rate) and its gathered-row bound (``gather_bounds``), the plain
+    version and ``F.embedding_bag`` (sum, unscaled; the port never calls
+    it); the layer-1 width (d 128) forward and its backward over the
+    transposed CSR too, each with both bounds; the CSRs' degree profiles
+    and the kernel's CTAs a multiprocessor."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.segment_gather import (SegmentCSR,
+    from repro_torch.kernels.segment_gather import (SEGMENT_GATHER_KERNEL,
+                                                    SegmentCSR,
                                                     segment_gather_sum,
                                                     segment_gather_sum_ref)
     from repro_torch.kernels.segment_gather.ops import cost as gather_cost
 
     n, d = feats.shape
     csr = SegmentCSR(edges[0], edges[1], n, n)
+    idx_t, ptr_t = csr.transposed()
     e = int(csr.ptr[-1])
     ms = time_cuda(lambda: segment_gather_sum(feats, csr.idx, csr.ptr,
                                               csr.scale), 5, flush)
     c = gather_cost(feats, csr.idx, csr.ptr, csr.scale)
     bytes_moved = c.bytes
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_bytes, gathered = gather_bounds(feats, csr.idx, csr.ptr, csr.scale)
     t_ops = c.flops / FP32_FLOPS_PER_S * 1e3
     bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                       "operations")
@@ -5224,15 +5278,32 @@ def gnn_kernel_times(feats, edges, flush):
     h = torch.randn((n, 128), device=feats.device)
     ms_128 = time_cuda(lambda: segment_gather_sum(h, csr.idx, csr.ptr,
                                                   csr.scale), 5, flush)
+    b_128, g_128 = gather_bounds(h, csr.idx, csr.ptr, csr.scale)
+    ms_bwd = time_cuda(lambda: segment_gather_sum(h, idx_t, ptr_t), 5, flush)
+    b_bwd, g_bwd = gather_bounds(h, idx_t, ptr_t, None)
+    lib = ctypes.CDLL(str(SEGMENT_GATHER_KERNEL._lib_path()))
+    ctas = ctypes.c_int(0)
+    lib.segment_gather_blocks_per_sm(1, ctypes.byref(ctas))
+    print(f"[kernel] segment_gather CSR by dst: {degree_profile(csr.ptr)}; "
+          f"by src (the backward's): {degree_profile(ptr_t)}; "
+          f"{ctas.value} CTAs of 256 threads a multiprocessor on the 16-byte "
+          f"path", flush=True)
     print(f"[kernel] segment_gather ogb_products layer 0 (N {n:,}, d {d}, "
           f"E {e:,}): {ms:.6f} ms cold, bound {bound:.6f} ms ({by}: "
           f"{bytes_moved / 1e9:.3f} GB compulsory; the gathered rows E d 4 = "
-          f"{4 * e * d / 1e9:.2f} GB), {bytes_moved / ms / 1e6:.1f} GB/s "
+          f"{4 * e * d / 1e9:.2f} GB), gathered-row bound {gathered:.6f} ms "
+          f"({ms / gathered:.3f}x), {bytes_moved / ms / 1e6:.1f} GB/s "
           f"compulsory, {4 * e * d / ms / 1e6:.1f} GB/s gathered; plain "
           f"{plain_ms:.3f} ms; F.embedding_bag (sum, unscaled) {lib_ms:.6f} "
-          f"ms; at d 128 (layer 1) {ms_128:.6f} ms", flush=True)
+          f"ms; at d 128 (layer 1) {ms_128:.6f} ms (bound {b_128:.6f}, "
+          f"gathered-row bound {g_128:.6f}, {ms_128 / g_128:.3f}x); its "
+          f"backward over the transposed CSR at d 128 {ms_bwd:.6f} ms (bound "
+          f"{b_bwd:.6f}, gathered-row bound {g_bwd:.6f}, {ms_bwd / g_bwd:.3f}x)",
+          flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms, ms_d128=ms_128)
+                library_ms=lib_ms, gathered_bound_ms=gathered, ms_d128=ms_128,
+                gathered_bound_ms_d128=g_128, ms_bwd_d128=ms_bwd,
+                gathered_bound_ms_bwd_d128=g_bwd, ctas_per_sm=ctas.value)
 
 
 def gnn_card_vs_cpu(dev, shape="full_graph_sm"):
@@ -6413,6 +6484,10 @@ def main() -> int:
         by_name[name]["mesh_launches"] = mesh_launches[name]
     for name in ("flash_attention_tc", "decode_attention_tc", "segment_gather"):
         by_name[name]["mesh_launches"] = mesh_lm_launches[name]
+    by_name["segment_gather"].update(
+        {k: gnn_row[k] for k in ("gathered_bound_ms", "ms_d128",
+                                 "gathered_bound_ms_d128", "ms_bwd_d128",
+                                 "gathered_bound_ms_bwd_d128")})
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -33,7 +33,7 @@ SEGMENT_GATHER_KERNEL = NativeKernel(
     source="segment_gather.cu",
     headers=("segment_gather.cuh",),
     symbol="segment_gather_launch",
-    argtypes=[_P, _P, _P, _P, _P, _L, _L, _L, _P],
+    argtypes=[_P, _P, _P, _P, _P, _L, _L, _L, _P, _P],
 )
 
 
@@ -83,11 +83,13 @@ def _launch(x, idx, ptr, scale):
     out = torch.empty((r, d), dtype=torch.float32, device=x.device)
     if r == 0 or d == 0 or x.device.type == "meta":
         return out
+    # the kernel's work ticket, zeroed by the launch on the stream
+    ticket = torch.empty(1, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         SEGMENT_GATHER_KERNEL.launch(
             x.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(),
-            n, d, r, torch.cuda.current_stream().cuda_stream)
+            n, d, r, ticket.data_ptr(), torch.cuda.current_stream().cuda_stream)
     return out
 
 
@@ -95,14 +97,15 @@ def cost(x: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
          scale: torch.Tensor | None) -> KernelCost:
     """One call's cost over the E = ptr[R] edges in a segment: x read
     once, their ids, ptr and scale read once, the (R, d) output written
-    once; one add per (edge, column).  On meta, where ptr cannot be
-    read, E is every id of ``idx`` (the worst case)."""
+    once, the 4-byte work ticket written once; one add per (edge,
+    column).  On meta, where ptr cannot be read, E is every id of
+    ``idx`` (the worst case)."""
     (n, d), r = x.shape, ptr.numel() - 1
     worst = ptr.device.type == "meta"
     e = idx.numel() if worst else int(ptr[-1])
     return KernelCost(flops=e * d,
                       bytes=4 * n * d + 4 * e + 8 * (r + 1)
-                      + (0 if scale is None else 4 * r) + 4 * r * d,
+                      + (0 if scale is None else 4 * r) + 4 * r * d + 4,
                       worst_case=worst)
 
 

@@ -316,15 +316,36 @@ def mla_decode(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
 # --------------------------------------------------- tensor parallel (mesh)
 @dataclasses.dataclass(frozen=True)
 class HeadSplit:
-    """The heads of this rank (``rank`` of ``size`` along the mesh axis
-    ``axis``) under the Megatron split of ``_lm_rule``: Q heads
-    [rank * Hq / size, (rank + 1) * Hq / size), whose columns of wq (and
-    of MLA's w_uk/w_uv) it holds, as its rows of wo.  The KV heads it
-    reads are those its Q heads map to (group Hq / Hkv)."""
+    """This rank's share (``rank`` of ``size`` along the mesh axis
+    ``axis``) of the Megatron split of ``_lm_rule``, which shards the
+    columns of wq/wk/wv (and MLA's w_uk/w_uv) and the rows of wo over the
+    axis: the column block [rank * H * dh / size, (rank + 1) * H * dh /
+    size).  Where ``size`` divides the heads that block is whole heads,
+    [rank * Hq / size, (rank + 1) * Hq / size) (the head view:
+    ``q_heads``, ``kv_range``; its KV heads are those its Q heads map to,
+    group Hq / Hkv); else a block may cut a head (24 heads on 16 ranks:
+    1.5 a rank), and the attention gathers every head
+    (``whole_heads`` is False)."""
     mesh: object
     axis: str
     size: int
     rank: int
+
+    def whole_heads(self, n_heads: int, n_kv: int, d_head: int) -> bool:
+        """Whether the head view holds: ``size`` divides the query heads
+        and a rank's heads read whole KV groups or lie within one.  Else
+        the caller gathers every head.  Raises where wq's or wk's columns
+        do not split evenly, where the reference cannot place the weight
+        either."""
+        for name, heads in (("wq", n_heads), ("wk", n_kv)):
+            if heads * d_head % self.size:
+                raise ValueError(f"{heads * d_head} columns of {name} ({heads} "
+                                 f"heads of {d_head}) do not split over the "
+                                 f"{self.size}-way {self.axis!r} axis")
+        if n_heads % self.size:
+            return False
+        hq, group = n_heads // self.size, n_heads // n_kv
+        return hq % group == 0 or group % hq == 0
 
     def q_heads(self, n_heads: int) -> int:
         if n_heads % self.size:
@@ -363,12 +384,19 @@ def gqa_forward_tp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     wq/wk/wv and row block of wo, x (B, S, d_model) whole.  Returns its
     partial output (B, S, d_model), which a sum over ``split.axis``
     completes; with ``return_cache`` also every KV head {"k", "v"}:
-    (B, S, Hkv, D) after RoPE."""
+    (B, S, Hkv, D) after RoPE.  Where ``split.size`` does not divide the
+    query heads, q is gathered to every head like k and v (backward: a
+    reduce-scatter), every rank attends over all H heads, and its column
+    block of the (B, S, H * D) output goes through its rows of wo."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    hq = split.q_heads(h)
-    lo, hi = split.kv_range(h, kv)
-    q = (x @ params["wq"]).reshape(b, s, hq, dh)
+    whole = split.whole_heads(h, kv, dh)
+    if whole:
+        q = (x @ params["wq"]).reshape(b, s, split.q_heads(h), dh)
+        lo, hi = split.kv_range(h, kv)
+    else:
+        q = split.gather(x @ params["wq"], 2).reshape(b, s, h, dh)
+        lo, hi = 0, kv
     if kv % split.size == 0:
         k = (x @ params["wk"]).reshape(b, s, kv // split.size, dh)
         v = (x @ params["wv"]).reshape(b, s, kv // split.size, dh)
@@ -382,7 +410,8 @@ def gqa_forward_tp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = _attend(q, k[:, :, sel], v[:, :, sel], cfg)
-    out = o.to(x.dtype).reshape(b, s, hq * dh) @ params["wo"]
+    o = o.to(x.dtype).reshape(b, s, q.shape[2] * dh)
+    out = (o if whole else split.own(o, 2)) @ params["wo"]
     if not return_cache:
         return out
     if sel == slice(None) and split.size > 1:
@@ -452,18 +481,23 @@ def gqa_decode_tp(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
     the rank that owns ``pos``; q is gathered to every head; the rank
     attends over its slice (the decode kernel with ``use_flash``, its
     partial float32, else ``partial_attention``), the partials are
-    merged, and the rank's own heads go through its rows of wo.  Returns
-    the partial output (B, d_model)."""
+    merged, and the rank's column block of the merged (B, H * D) output
+    (its own heads, where ``split.size`` divides them) goes through its
+    rows of wo.  Returns the partial output (B, d_model)."""
     b = x_tok.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    hq = split.q_heads(h)
+    whole = split.whole_heads(h, kv, dh)
     k_cache, v_cache = cache["k"], cache["v"]
     s_loc = k_cache.shape[1]
-    q = (x_tok @ params["wq"]).reshape(b, 1, hq, dh)
     k_new = split.gather(x_tok @ params["wk"], 1).reshape(b, 1, kv, dh)
     v_new = split.gather(x_tok @ params["wv"], 1).reshape(b, 1, kv, dh)
     cos, sin = rope_angles(pos[:, None], dh, cfg.rope_theta)
-    q = split.gather(apply_rope(q, cos, sin)[:, 0], 1)          # (B, H, D)
+    if whole:
+        q = (x_tok @ params["wq"]).reshape(b, 1, split.q_heads(h), dh)
+        q = split.gather(apply_rope(q, cos, sin)[:, 0], 1)      # (B, H, D)
+    else:                               # a column block may cut a head
+        q = split.gather(x_tok @ params["wq"], 1).reshape(b, 1, h, dh)
+        q = apply_rope(q, cos, sin)[:, 0]
     k_new = apply_rope(k_new, cos, sin)
     row, n_valid = _local_rows(split, pos, s_loc)
     _write_rows(k_cache, k_new[:, 0], row)
@@ -475,7 +509,7 @@ def gqa_decode_tp(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
             partial_f32=True)
     else:
         acc, m, l = partial_attention(q, k_cache, v_cache, n_valid)
-    o = split.own(_merge_tp(split, acc, m, l), 1).reshape(b, hq * dh)
+    o = split.own(_merge_tp(split, acc, m, l).reshape(b, h * dh), 1)
     return o.to(x_tok.dtype) @ params["wo"]
 
 

@@ -29,7 +29,9 @@ What must hold, and why:
   donated arguments in their placed layout (output = the donated
   blocks + the 4-byte loss, all of them aliased);
 - the LM cells launch no kernel: the meta count equals the same
-  counters around a real CPU call of the same cell (prefill and decode:
+  counters around a real CPU call of the same cell, also (port side
+  only) for starcoder2-3b with 6 query heads, which do not divide the
+  4-way model axis, on its three shapes (``HEADS6``) (prefill and decode:
   FLOPs, bytes and transcendentals; the train step: FLOPs and
   transcendentals, its bytes apart because the embedding gradient's
   ``scatter_rows`` counts each id as a run of its own on meta, where on
@@ -70,6 +72,10 @@ CELLS = [("starcoder2-3b", "train_4k"), ("starcoder2-3b", "prefill_32k"),
 FAMILY = {"starcoder2-3b": "lm", "deepseek-v2-lite-16b": "lm",
           "graphsage-reddit": "gnn", "wide-deep": "recsys",
           "websearch-rl": "websearch"}
+# port-only LM cells: 6 query heads of 32 on the 4-way model axis, 48
+# columns of wq a rank (1.5 heads), as starcoder2-3b's 24 on 16 ranks
+HEADS6 = [("starcoder2-3b", s, {"n_heads": 6})
+          for s in ("train_4k", "prefill_32k", "decode_32k")]
 LM_LAYERS = 2                           # the reduced LMs' depth
 XLA_TUPLE_ENTRY = 8                     # bytes an output in XLA's tuple table
 
@@ -166,9 +172,11 @@ def _real_args(cell, arch, seed):
 def _port(out: Path):
     sys.path.insert(0, str(ROOT / "src"))
     import contextlib
+    import dataclasses
 
     import torch
 
+    from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import (counting, fake_world, place_args,
                                            run_cell)
     from repro_torch.launch.mesh import make_local_mesh
@@ -178,6 +186,19 @@ def _port(out: Path):
     res = {}
     with fake_world(WORLD, 0):
         mesh = make_local_mesh(DATA, MODEL, device="cpu")
+        for arch, shape, changes in HEADS6:
+            cfg = dataclasses.replace(get_arch(arch).model_cfg(True), **changes)
+            rec = run_cell(arch, shape, mesh, "local2x4", reduced=True,
+                           cfg_override=cfg)
+            cell = build_cell(arch, shape, mesh=mesh, reduced=True,
+                              cfg_override=cfg)
+            args = place_args(_real_args(cell, arch, 7), cell.in_shardings)
+            with counting(args) as c:
+                cell.fn(*args)
+            rec["cpu"] = {"flops": c.flops, "bytes": c.bytes,
+                          "transcendentals": c.transcendentals,
+                          "kernels": c.kernels}
+            res[f"{arch}/{shape}/h6"] = rec
         for arch, shape in CELLS:
             seen, spies = _kernel_spies()
             with contextlib.ExitStack() as stack:
@@ -270,14 +291,16 @@ def test_memory_matches_reference(records, key):
     assert p["alias_bytes"] == r["alias_bytes"]
 
 
-@pytest.mark.parametrize("key", [k for k in IDS if FAMILY[k.split("/")[0]] == "lm"])
+@pytest.mark.parametrize("key", [k for k in IDS if FAMILY[k.split("/")[0]] == "lm"]
+                         + [f"{a}/{s}/h6" for a, s, _ in HEADS6])
 def test_lm_meta_count_equals_cpu_count(records, key):
     rec = records[1][key]
+    assert rec["ok"], rec.get("traceback")
     cpu, cost = rec["cpu"], rec["cost"]
     assert rec["kernels"] == {} and cpu["kernels"] == {}
     assert cost["flops_per_device"] == cpu["flops"] > 0
     assert cost["transcendentals"] == cpu["transcendentals"] > 0
-    if key.endswith("train_4k"):
+    if "/train_4k" in key:
         assert any("scatter_rows" in n for n in rec["notes"])
     else:
         assert cost["bytes_accessed_per_device"] == cpu["bytes"]

@@ -29,7 +29,7 @@ from repro.launch.steps import build_cell as jax_build_cell
 from repro.models import gnn as jgnn
 from repro.models.layers import dense_init as jax_dense_init
 from repro_torch.configs import get_arch
-from repro_torch.kernels.native import CSRC_DIR
+from repro_torch.kernels.native import CSRC_DIR, csrc_define
 from repro_torch.kernels.segment_gather import (SegmentCSR, segment_gather_sum,
                                                 segment_gather_sum_ref,
                                                 segment_mean)
@@ -173,80 +173,148 @@ static void sg_host_read(const float* p) {
 }
 #define SG_HOST_READ(p) sg_host_read(p)
 #include "segment_gather.cuh"
-// Host replay of the CUDA kernel: every segment's warp, every lane,
-// through the kernel's own per-lane code, on the path the launch takes
-// (vec: the 16-byte path).  counts: {x values read, of them outside}.
+// Host replay of the CUDA kernel: the tickets in the given order (on the
+// card, the order the warps take them), every lane of each ticket's
+// warp, through the kernel's own per-lane code, on the path the launch
+// takes (vec: the 16-byte path).  counts: {x values read, of them
+// outside}.
 extern "C" void sg_host(const float* x, const int* idx, const long* ptr,
                         const float* scale, float* out, long n, long d,
-                        long r_count, int vec, long* counts) {
+                        long r_count, int vec, const long* order,
+                        long* counts) {
   g_x = x, g_n = n * d, g_reads = g_outside = 0;
-  for (long r = 0; r < r_count; ++r) {
-    const float s = scale ? scale[r] : 1.0f;
+  for (long i = 0; i < sg_tickets(r_count); ++i) {
     for (int lane = 0; lane < SG_WARP; ++lane) {
       if (vec)
-        sg_segment_lane<4>(x, idx, n, d, ptr[r], ptr[r + 1], s, out + r * d, lane);
+        sg_ticket_lane<4>(x, idx, ptr, scale, out, n, d, r_count, order[i], lane);
       else
-        sg_segment_lane<1>(x, idx, n, d, ptr[r], ptr[r + 1], s, out + r * d, lane);
+        sg_ticket_lane<1>(x, idx, ptr, scale, out, n, d, r_count, order[i], lane);
     }
   }
   counts[0] = g_reads, counts[1] = g_outside;
 }
+extern "C" long sg_host_tickets(long r_count) { return sg_tickets(r_count); }
+extern "C" int sg_host_depth() { return SG_DEPTH; }
 extern "C" int sg_host_vector_path(long d, unsigned long x, unsigned long out) {
   return sg_vector_path(d, x, out);
 }
 """
+DEPTH = csrc_define("segment_gather.cuh", "SG_DEPTH")      # rows in flight
+GROUP = csrc_define("segment_gather.cuh", "SG_GROUP")      # segments a group
+HEAVY = csrc_define("segment_gather.cuh", "SG_HEAVY")      # past it: first
+
+
+def _build_harness(gxx, where, depth):
+    (where / "harness.cpp").write_text(_HARNESS)
+    lib = where / f"libsg_host_{depth}.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-w",
+                    f"-DSG_DEPTH={depth}", "-I", str(CSRC_DIR), "-o", str(lib),
+                    str(where / "harness.cpp")], check=True)
+    out = ctypes.CDLL(str(lib))
+    P, L = ctypes.c_void_p, ctypes.c_long
+    out.sg_host.argtypes = [P, P, P, P, P, L, L, L, ctypes.c_int, P, P]
+    out.sg_host.restype = None
+    out.sg_host_tickets.argtypes = [L]
+    out.sg_host_tickets.restype = L
+    out.sg_host_vector_path.argtypes = [L, ctypes.c_ulong, ctypes.c_ulong]
+    return out
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def host_libs(tmp_path_factory):
+    """{rows in flight: the harness built at that depth}: the kernel's
+    own SG_DEPTH and two others."""
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ is not on PATH: the per-segment core is not checked")
+        pytest.skip("g++ is not on PATH: the per-lane core is not checked")
     d = tmp_path_factory.mktemp("sg_host")
-    (d / "harness.cpp").write_text(_HARNESS)
-    lib = d / "libsg_host.so"
-    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-w",
-                    "-I", str(CSRC_DIR), "-o", str(lib), str(d / "harness.cpp")],
-                   check=True)
-    out = ctypes.CDLL(str(lib))
-    P, L = ctypes.c_void_p, ctypes.c_long
-    out.sg_host.argtypes = [P, P, P, P, P, L, L, L, ctypes.c_int, P]
-    out.sg_host.restype = None
-    out.sg_host_vector_path.argtypes = [L, ctypes.c_ulong, ctypes.c_ulong]
-    return out
+    return {k: _build_harness(gxx, d, k) for k in sorted({DEPTH, 4, 16})}
+
+
+def _replay_case(seed, u):
+    """A first group of segments of 0, 1, U - 1, U, U + 1, 31-33, 70 and
+    15,000 edges, SG_HEAVY and one more (the first heavy one), short
+    ones, and a heavy one last; a second group that starts with two heavy
+    ones; more short ones, a group of empty ones and a last group cut
+    short; the dummy row (N) and -1 among the ids, in the heaviest
+    segment too."""
+    rng = np.random.default_rng(seed)
+    first = [0, 1, u - 1, u, u + 1, 31, 32, 33, 70, 0, 5, 64, 15_000, HEAVY,
+             HEAVY + 1]
+    lengths = np.concatenate([
+        first, rng.integers(0, 12, GROUP - len(first) - 1), [2 * HEAVY],
+        [HEAVY + 7, 3 * HEAVY], rng.integers(0, 12, 40),
+        np.zeros(GROUP + 3, np.int64), rng.integers(0, 3, 10)]).astype(np.int64)
+    ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    n = 50
+    idx = rng.integers(0, n, ptr[-1]).astype(np.int32)
+    idx[3] = idx[ptr[12] + 7] = n                 # the dummy row
+    idx[40] = idx[ptr[12] + 9000] = -1
+    return n, lengths, ptr, idx
+
+
+def _replay(lib, x, idx, ptr, scale, vec, order):
+    n, d = x.shape
+    r = len(ptr) - 1
+    out = np.full((r, d), np.nan, np.float32)
+    counts = np.zeros(2, np.int64)
+    order = np.ascontiguousarray(order, np.int64)
+    lib.sg_host(x.ctypes.data, idx.ctypes.data, ptr.ctypes.data,
+                None if scale is None else scale.ctypes.data, out.ctypes.data,
+                n, d, r, int(vec), order.ctypes.data, counts.ctypes.data)
+    return out, counts
 
 
 @pytest.mark.parametrize("d,vec", [(128, True), (100, True), (16, True),
                                    (1433, False), (602, False), (7, False),
                                    (128, False)])
 @pytest.mark.parametrize("scaled", [False, True])
-def test_host_core_matches_plain(host_lib, d, vec, scaled):
-    """Every lane of every segment's warp, replayed by g++ through
-    ``sg_segment_lane``, bit-equal to the plain version, on segments
-    longer than a round of 32 ids, empty ones, dummy ids (N and -1) and
-    the GNN's widths on both load paths; every x value read lies in x
-    and is the row of a valid id (E_valid × d reads)."""
-    rng = np.random.default_rng(d + 7 * scaled)
-    n, r = 50, 9
-    lengths = np.array([0, 1, 31, 32, 33, 70, 0, 5, 64])
-    ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
-    idx = rng.integers(0, n, ptr[-1]).astype(np.int32)
-    idx[3] = n                                    # the dummy row
-    idx[40] = -1
+def test_host_core_matches_plain(host_libs, d, vec, scaled):
+    """Every lane of every ticket's warp, replayed by g++ through
+    ``sg_ticket_lane`` at the kernel's depth, the tickets in order and
+    shuffled, bit-equal to the plain version, on segments of 0, 1, U - 1,
+    U, U + 1 and 15,000 edges, heavy ones (past SG_HEAVY) at a group's
+    first and last place, more than one round of 32 ids, a group of
+    empty segments and a last group cut short, dummy ids (N and -1) and
+    the GNN's widths on both load paths; every x value read lies in x and
+    is the row of a valid id, each read once (E_valid × d reads: a heavy
+    segment is summed once, not again in its group's light runs)."""
+    lib = host_libs[DEPTH]
+    n, lengths, ptr, idx = _replay_case(d + 7 * scaled, DEPTH)
+    rng = np.random.default_rng(d)
     x = rng.normal(size=(n, d)).astype(np.float32)
     scale = (1.0 / np.maximum(lengths, 1)).astype(np.float32) if scaled else None
     want = segment_gather_sum_ref(_t(x), _t(idx), _t(ptr),
-                                  None if scale is None else _t(scale))
-    out = np.full((r, d), np.nan, np.float32)
-    counts = np.zeros(2, np.int64)
-    host_lib.sg_host(x.ctypes.data, idx.ctypes.data, ptr.ctypes.data,
-                     None if scale is None else scale.ctypes.data,
-                     out.ctypes.data, n, d, r, int(vec), counts.ctypes.data)
-    np.testing.assert_array_equal(out, want.numpy())
-    assert counts[1] == 0
-    assert counts[0] == int(((idx >= 0) & (idx < n)).sum()) * d
-    assert host_lib.sg_host_vector_path(d, 4096, 8192) == (d % 4 == 0)
-    assert not host_lib.sg_host_vector_path(128, 4100, 8192)
+                                  None if scale is None else _t(scale)).numpy()
+    tickets = lib.sg_host_tickets(len(lengths))
+    assert tickets == 2 * -(-len(lengths) // GROUP) >= 8
+    assert (lengths[:GROUP] > HEAVY).sum() == 3 and lengths[GROUP] > HEAVY
+    for order in (np.arange(tickets), rng.permutation(tickets)):
+        out, counts = _replay(lib, x, idx, ptr, scale, vec, order)
+        np.testing.assert_array_equal(out, want)
+        assert counts[1] == 0
+        assert counts[0] == int(((idx >= 0) & (idx < n)).sum()) * d
+    assert lib.sg_host_vector_path(d, 4096, 8192) == (d % 4 == 0)
+    assert not lib.sg_host_vector_path(128, 4100, 8192)
+
+
+@pytest.mark.parametrize("d,vec", [(100, True), (7, False)])
+def test_host_core_same_bits_at_any_depth(host_libs, d, vec):
+    """The rows in flight change when the adds wait, not their order:
+    the harness built at 4, the kernel's and 16 rows a lane gives the
+    plain version's bits, the tickets taken last to first (the light
+    runs before the heavy segments)."""
+    rng = np.random.default_rng(11)
+    want = None
+    for depth, lib in host_libs.items():
+        n, lengths, ptr, idx = _replay_case(5, depth)
+        x = rng.normal(size=(n, d)).astype(np.float32) if want is None else x
+        scale = (1.0 / np.maximum(lengths, 1)).astype(np.float32)
+        want = segment_gather_sum_ref(_t(x), _t(idx), _t(ptr), _t(scale)).numpy()
+        order = np.arange(lib.sg_host_tickets(len(lengths)))[::-1]
+        out, _ = _replay(lib, x, idx, ptr, scale, vec, order)
+        np.testing.assert_array_equal(out, want, err_msg=f"depth {depth}")
+    assert len(host_libs) == 3
 
 
 # ------------------------------------------------------------- forwards

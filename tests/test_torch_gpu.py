@@ -1435,6 +1435,41 @@ def test_cuda_segment_gather_equals_plain_bit_for_bit(cuda, d, offset, scaled):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [100, 128, 7])
+def test_cuda_segment_gather_skewed_degrees_bit_for_bit(cuda, d):
+    """Lognormal(0, 1.5) in-degrees over 40,000 segments, one of them
+    15,000 edges and a quarter of them empty, every id in a segment: the
+    kernel gives the plain version's bits (on the CPU, in edge order)
+    whichever warp takes the heavy segment's group, two launches give the
+    same bits, and the cost it reports on the card equals the one the
+    same call reports on meta."""
+    from repro_torch.kernels.segment_gather import (SEGMENT_GATHER_KERNEL,
+                                                    segment_gather_sum,
+                                                    segment_gather_sum_ref)
+
+    rng = np.random.default_rng(d)
+    r, n = 40_000, 20_000
+    lengths = np.floor(rng.lognormal(0.0, 1.5, r)).astype(np.int64)
+    lengths[rng.random(r) < 0.25] = 0
+    lengths[r // 3] = 15_000
+    x, idx, ptr, scale = _segments(d, n, d, lengths)
+    assert int(ptr[-1]) == idx.numel() and (lengths == 0).sum() > r // 5
+    want = segment_gather_sum_ref(x, idx, ptr, scale)
+    args = tuple(t.to(cuda) for t in (x, idx, ptr, scale))
+    before = SEGMENT_GATHER_KERNEL.launches
+    (got,), card = count_call(lambda: segment_gather_sum(*args))
+    again = segment_gather_sum(*args)
+    torch.cuda.synchronize()
+    assert SEGMENT_GATHER_KERNEL.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+    _, meta = count_call(lambda: segment_gather_sum(
+        *(t.to("meta") for t in (x, idx, ptr, scale))))
+    k = "segment_gather"
+    assert (card[k]["flops"], card[k]["bytes"]) == (meta[k]["flops"], meta[k]["bytes"])
+
+
+@pytest.mark.gpu
 def test_cuda_segment_mean_gradient_equals_cpu(cuda):
     """``segment_mean``'s forward and backward on the card (one launch
     each) give the CPU's bits."""

@@ -20,7 +20,13 @@ MoE with EP and a shared expert) and grok-1-314b (GQA, MoE with TP over
 d_ff), one ``train_4k`` step (``sp_carry``: S = 64 lies over model),
 ``prefill_32k`` and ``decode_32k`` (positions 5, 17, 40, 63 on a
 sequence split into four slices of 16: rows whose slice on a rank holds
-no valid key); the ``cfg_override`` cases: a dense step with ``zero3``
+no valid key); starcoder2-3b with 6 query heads (``h6``, d_head 32,
+2 KV heads) on ``train_4k``, ``prefill_32k`` and ``decode_32k``: 192
+columns of wq, 48 a rank on the 4-way model axis, 1.5 heads, as its 24
+heads are 1.5 a rank on the production meshes' 16-way axis (before the
+port gathered the heads where the axis cuts one, each of the three
+raised ``HeadSplit.q_heads``' "6 query heads do not split over the
+4-way 'model' axis"); the ``cfg_override`` cases: a dense step with ``zero3``
 (B = 4 does not divide data x model, so the rows lie over data and are
 replicated over model), deepseek's step with ``remat`` and 2
 microbatches, deepseek's step with 4 microbatches (one row each, which
@@ -62,12 +68,16 @@ WORLD, DATA, MODEL = 8, 2, 4
 SEED = 0
 TIMEOUT_S = 600
 LM_ARCHS = ("mistral-nemo-12b", "deepseek-v2-lite-16b", "grok-1-314b")
-# case -> (arch, config changes)
-TRAIN_CASES = {a: (a, {}) for a in LM_ARCHS}
+# model -> (arch, config changes): each arch's reduced config, and h6,
+# whose query heads do not divide the model axis (its own parameters)
+LM_MODELS = {a: (a, {}) for a in LM_ARCHS}
+LM_MODELS["h6"] = ("starcoder2-3b", {"n_heads": 6})
+# case -> (model, config changes)
+TRAIN_CASES = {a: (a, {}) for a in LM_MODELS}
 TRAIN_CASES["zero3"] = ("mistral-nemo-12b", {"zero3": True})
 TRAIN_CASES["remat_mb2"] = ("deepseek-v2-lite-16b", {"remat": True, "microbatch": 2})
 TRAIN_CASES["mb4"] = ("deepseek-v2-lite-16b", {"microbatch": 4})
-DECODE_CASES = {a: (a, 4) for a in LM_ARCHS}      # case -> (arch, batch)
+DECODE_CASES = {a: (a, 4) for a in LM_MODELS}     # case -> (model, batch)
 DECODE_CASES["b1"] = ("grok-1-314b", 1)
 GNN_CASES = {s: (s, "mean") for s in ("full_graph_sm", "minibatch_lg",
                                       "ogb_products", "molecule")}
@@ -101,11 +111,21 @@ def _unflat(npz, prefix):
     return tree
 
 
-def _lm_shapes(arch):
+def _model_cfg(get_arch, model, changes=None):
+    """(arch, the model's reduced config with ``changes``), through the
+    given package's ``get_arch``."""
+    import dataclasses
+
+    arch, own = LM_MODELS[model]
+    cfg = get_arch(arch).model_cfg(True)
+    return arch, dataclasses.replace(cfg, **own, **(changes or {}))
+
+
+def _lm_shapes(model):
     """(the cache's fields and their trailing dims, the reduced config)."""
     from repro_torch.configs import get_arch
 
-    cfg = get_arch(arch).model_cfg(True)
+    _, cfg = _model_cfg(get_arch, model)
     if cfg.attn_kind == "mla":
         return {"c": (cfg.mla.kv_lora_rank,), "k_rope": (cfg.mla.d_rope,)}, cfg
     return {"k": (cfg.n_kv, cfg.d_head), "v": (cfg.n_kv, cfg.d_head)}, cfg
@@ -125,8 +145,10 @@ def _inputs():
         inp[f"{arch}/tokens"], inp[f"{arch}/targets"] = tok[:, :-1], tok[:, 1:]
         inp[f"{arch}/prompt"] = rng.integers(
             0, cfg.vocab, (pf["global_batch"], pf["seq_len"])).astype(np.int32)
-    for case, (arch, b) in DECODE_CASES.items():
-        fields, cfg = _lm_shapes(arch)
+    for case, (model, b) in DECODE_CASES.items():
+        if model not in LM_ARCHS:
+            continue                        # drawn below, from their own seed
+        fields, cfg = _lm_shapes(model)
         s = dc["seq_len"]
         inp[f"dec/{case}/token"] = rng.integers(0, cfg.vocab, (b,)).astype(np.int32)
         inp[f"dec/{case}/pos"] = np.array([5, 17, 40, 63][:b] if b > 1 else [21],
@@ -167,6 +189,24 @@ def _inputs():
     inp["gnn/readout"] = {
         "w": (0.3 * rng.normal(size=(mo["n_classes"],) * 2)).astype(np.float32),
         "b": np.zeros(mo["n_classes"], np.float32)}
+    # the models past the archs, from a seed of their own, so that the
+    # inputs above stay as they were
+    rng = np.random.default_rng(SEED + 1)
+    for model in LM_MODELS:
+        if model in LM_ARCHS:
+            continue
+        fields, cfg = _lm_shapes(model)
+        b, s = tr["global_batch"], tr["seq_len"]
+        tok = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+        inp[f"{model}/tokens"], inp[f"{model}/targets"] = tok[:, :-1], tok[:, 1:]
+        inp[f"{model}/prompt"] = rng.integers(
+            0, cfg.vocab, (pf["global_batch"], pf["seq_len"])).astype(np.int32)
+        b, s = DECODE_CASES[model][1], dc["seq_len"]
+        inp[f"dec/{model}/token"] = rng.integers(0, cfg.vocab, (b,)).astype(np.int32)
+        inp[f"dec/{model}/pos"] = np.array([5, 17, 40, 63][:b], np.int32)
+        for f, tail in fields.items():
+            inp[f"dec/{model}/cache/{f}"] = (0.5 * rng.normal(
+                size=(cfg.n_layers, b, s) + tail)).astype(np.float32)
     return inp
 
 
@@ -194,10 +234,10 @@ def _oracle(out: Path):
                 ("data", "model"))
     inp = _inputs()
     res, params = {}, {}
-    for i, arch in enumerate(LM_ARCHS):
-        cfg = jax_get_arch(arch).model_cfg(True)
+    for i, model in enumerate(LM_MODELS):
+        _, cfg = _model_cfg(jax_get_arch, model)
         _flat(jax.tree_util.tree_map(np.asarray, jtf.init_params(
-            jax.random.key(10 + i), cfg)), f"p/{arch}", params)
+            jax.random.key(10 + i), cfg)), f"p/{model}", params)
     gcfg = jax_get_arch("graphsage-reddit").model_cfg(True)
     for shape in ("full_graph_sm", "minibatch_lg", "molecule"):
         d_in = 16
@@ -218,34 +258,37 @@ def _oracle(out: Path):
         return jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), abs_tree)
 
     with mesh:
-        for case, (arch, changes) in TRAIN_CASES.items():
-            cfg = dataclasses.replace(jax_get_arch(arch).model_cfg(True), **changes)
+        for case, (model, changes) in TRAIN_CASES.items():
+            arch, cfg = _model_cfg(jax_get_arch, model, changes)
             cell = jax_build_cell(arch, "train_4k", mesh=mesh, reduced=True,
                                   cfg_override=cfg)
-            p = jax.tree_util.tree_map(jnp.asarray, _unflat(npz, f"p/{arch}"))
+            p = jax.tree_util.tree_map(jnp.asarray, _unflat(npz, f"p/{model}"))
             in_sh = cell.in_shardings[:2] + (None, None)   # zero3: B < data x model
             new_p, new_o, met = jax.jit(cell.fn, in_shardings=in_sh)(
-                p, zeros(cell.args[1]), jnp.asarray(inp[f"{arch}/tokens"]),
-                jnp.asarray(inp[f"{arch}/targets"]))
+                p, zeros(cell.args[1]), jnp.asarray(inp[f"{model}/tokens"]),
+                jnp.asarray(inp[f"{model}/targets"]))
             res[f"train/{case}/loss"] = met["loss"]
             res[f"train/{case}/grad_norm"] = met["grad_norm"]
             _flat(new_p, f"train/{case}/new", res)
             _flat({"mu": new_o["mu"], "nu": new_o["nu"]}, f"train/{case}/opt", res)
-        for arch in LM_ARCHS:
-            p = jax.tree_util.tree_map(jnp.asarray, _unflat(npz, f"p/{arch}"))
-            cell = jax_build_cell(arch, "prefill_32k", mesh=mesh, reduced=True)
+        for model in LM_MODELS:
+            arch, cfg = _model_cfg(jax_get_arch, model)
+            p = jax.tree_util.tree_map(jnp.asarray, _unflat(npz, f"p/{model}"))
+            cell = jax_build_cell(arch, "prefill_32k", mesh=mesh, reduced=True,
+                                  cfg_override=cfg)
             logits, cache = jax.jit(cell.fn, in_shardings=cell.in_shardings)(
-                p, jnp.asarray(inp[f"{arch}/prompt"]))
-            res[f"prefill/{arch}/logits"] = logits
-            _flat(cache, f"prefill/{arch}/cache", res)
-        for case, (arch, b) in DECODE_CASES.items():
-            cfg = jax_get_arch(arch).model_cfg(True)
-            p = jax.tree_util.tree_map(jnp.asarray, _unflat(npz, f"p/{arch}"))
+                p, jnp.asarray(inp[f"{model}/prompt"]))
+            res[f"prefill/{model}/logits"] = logits
+            _flat(cache, f"prefill/{model}/cache", res)
+        for case, (model, b) in DECODE_CASES.items():
+            arch, cfg = _model_cfg(jax_get_arch, model)
+            p = jax.tree_util.tree_map(jnp.asarray, _unflat(npz, f"p/{model}"))
             cache = {f: jnp.asarray(v) for f, v in
                      _unflat(_NpzView(inp), f"dec/{case}/cache").items()}
             c_sh = named(kv_cache_specs(cache, mesh))
             fn = lambda p, t, c, pos, cfg=cfg: jtf.decode_step(p, t, c, pos, cfg, mesh)
-            cell = jax_build_cell(arch, "decode_32k", mesh=mesh, reduced=True)
+            cell = jax_build_cell(arch, "decode_32k", mesh=mesh, reduced=True,
+                                  cfg_override=cfg)
             logits, new = jax.jit(fn, in_shardings=(cell.in_shardings[0], None, c_sh,
                                                     None))(
                 p, jnp.asarray(inp[f"dec/{case}/token"]), cache,
@@ -340,15 +383,15 @@ def _port_checks(out: Path):
         return x.detach().numpy()
 
     def train(case, prefix):
-        arch, changes = TRAIN_CASES[case]
-        cfg = dataclasses.replace(get_arch(arch).model_cfg(True), **changes)
-        host = lm_params_from_reference(_unflat(npz, f"p/{arch}"), cfg, "cpu")
+        model, changes = TRAIN_CASES[case]
+        arch, cfg = _model_cfg(get_arch, model, changes)
+        host = lm_params_from_reference(_unflat(npz, f"p/{model}"), cfg, "cpu")
         cell = build_cell(arch, "train_4k", mesh=mesh, reduced=True,
                           cfg_override=cfg)
         params = place_tree(host, cell.in_shardings[0])
         opt = place_tree(adamw_init(host, _lm_opt_cfg(True)), cell.in_shardings[1])
-        new_p, new_o, met = cell.fn(params, opt, t(inp[f"{arch}/tokens"]),
-                                    t(inp[f"{arch}/targets"]))
+        new_p, new_o, met = cell.fn(params, opt, t(inp[f"{model}/tokens"]),
+                                    t(inp[f"{model}/targets"]))
         assert new_p is params and new_o is opt
         res[f"{prefix}/loss"] = met["loss"].to_local().numpy()
         res[f"{prefix}/grad_norm"] = met["grad_norm"].to_local().numpy()
@@ -369,18 +412,20 @@ def _port_checks(out: Path):
         train(MUTANT, "mutant")
 
     with torch.no_grad():
-        for arch in LM_ARCHS:
-            cfg = get_arch(arch).model_cfg(True)
-            host = lm_params_from_reference(_unflat(npz, f"p/{arch}"), cfg, "cpu")
-            cell = build_cell(arch, "prefill_32k", mesh=mesh, reduced=True)
+        for model in LM_MODELS:
+            arch, cfg = _model_cfg(get_arch, model)
+            host = lm_params_from_reference(_unflat(npz, f"p/{model}"), cfg, "cpu")
+            cell = build_cell(arch, "prefill_32k", mesh=mesh, reduced=True,
+                              cfg_override=cfg)
             params = place_tree(host, cell.in_shardings[0])
-            logits, cache = cell.fn(params, t(inp[f"{arch}/prompt"]))
-            res[f"prefill/{arch}/logits"] = full(logits)
-            _flat(tree_map(full, cache), f"prefill/{arch}/cache", res)
-        for case, (arch, b) in DECODE_CASES.items():
-            cfg = get_arch(arch).model_cfg(True)
-            host = lm_params_from_reference(_unflat(npz, f"p/{arch}"), cfg, "cpu")
-            cell = build_cell(arch, "decode_32k", mesh=mesh, reduced=True)
+            logits, cache = cell.fn(params, t(inp[f"{model}/prompt"]))
+            res[f"prefill/{model}/logits"] = full(logits)
+            _flat(tree_map(full, cache), f"prefill/{model}/cache", res)
+        for case, (model, b) in DECODE_CASES.items():
+            arch, cfg = _model_cfg(get_arch, model)
+            host = lm_params_from_reference(_unflat(npz, f"p/{model}"), cfg, "cpu")
+            cell = build_cell(arch, "decode_32k", mesh=mesh, reduced=True,
+                              cfg_override=cfg)
             params = place_tree(host, cell.in_shardings[0])
             from repro_torch.distributed import NamedSharding, kv_cache_specs
 
@@ -490,11 +535,11 @@ def test_dropped_model_sum_fails_the_check(lm_mesh_results):
     assert max(e for k, e in errs.items() if k.endswith("ln1")) > TRAIN_TOL
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_lm_prefill_sequence_sharded_cache(lm_mesh_results, arch):
+@pytest.mark.parametrize("model", list(LM_MODELS))
+def test_lm_prefill_sequence_sharded_cache(lm_mesh_results, model):
     ref, port = lm_mesh_results
-    keys = sorted(k for k in ref.files if k.startswith(f"prefill/{arch}/"))
-    assert keys == sorted(k for k in port.files if k.startswith(f"prefill/{arch}/"))
+    keys = sorted(k for k in ref.files if k.startswith(f"prefill/{model}/"))
+    assert keys == sorted(k for k in port.files if k.startswith(f"prefill/{model}/"))
     for k in keys:
         np.testing.assert_allclose(port[k], ref[k], rtol=INFER_TOL, atol=INFER_TOL,
                                    err_msg=k)
@@ -517,6 +562,28 @@ def test_lm_decode_sequence_sharded(lm_mesh_results, case):
             want = np.zeros_like(moved)
             want[:, np.arange(len(pos)), pos] = True
             np.testing.assert_array_equal(moved, want, err_msg=k)
+
+
+def test_head_split_whole_heads_or_columns():
+    """The head view where the axis divides the query heads and a rank's
+    heads read whole KV groups (or lie within one); the gathered heads
+    where it does not (24 on 16, 6 on 4, a rank cutting a group); a
+    raise only where wq's or wk's columns do not split, naming both
+    numbers."""
+    from repro_torch.models.attention import HeadSplit
+
+    def split(size):
+        return HeadSplit(None, "model", size, 0)
+
+    assert split(16).whole_heads(32, 8, 128) and split(4).whole_heads(4, 2, 32)
+    assert split(16).whole_heads(16, 1, 128)              # within one group
+    assert not split(16).whole_heads(24, 2, 128)          # 1.5 heads a rank
+    assert not split(4).whole_heads(6, 2, 32)
+    assert not split(2).whole_heads(12, 3, 32)            # 6 heads cut groups of 4
+    with pytest.raises(ValueError, match="6 columns of wq .* 4-way 'model'"):
+        split(4).whole_heads(6, 1, 1)
+    with pytest.raises(ValueError, match="2 columns of wk .* 4-way 'model'"):
+        split(4).whole_heads(4, 1, 2)
 
 
 @pytest.mark.parametrize("case", list(GNN_CASES))
