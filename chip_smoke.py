@@ -392,12 +392,25 @@ Phases (any failure raises and the script exits non-zero):
    ``analyze_cell``'s terms of the meta record (bound, ``roofline_frac``,
    measured / largest term); none may lie below its largest term less
    5%: no card beats its own roofline, so the count would be wrong.
-10. Print the kernels' JSON line (the chunk kernel's row also carries
+10. The examples, ``examples/*_torch.py``, at the reference examples'
+   sizes, seeds and iteration counts: quickstart, train_policy,
+   serve_retrieval and online_learning each through its ``main`` in
+   this process on the card, between a reset and a read of the counts
+   (each must launch the chunk kernel; each asserts its own checks,
+   online_learning its three properties); each prints its JSON numbers
+   (mean u, candidates, NCG; Δu %, ΔNCG %; versions, recalls), its wall
+   seconds and its chunk launches.  Then ``python
+   examples/quickstart_torch.py`` and ``python
+   examples/train_lm_torch.py`` (the starcoder2-3b reduced LM, 60 steps
+   with an injected failure) as a user runs them, from the repo root:
+   each must end rc 0.
+11. Print the kernels' JSON line (the chunk kernel's row also carries
    the training path's launches, ``train_launches``, the engine
    stream's, ``engine_launches``, the cluster stream's,
    ``cluster_launches``, the live fleet's, ``live_launches``, the
    process cell's workers', ``proc_launches``, phase 6's,
-   ``websearch_launches``, and phase 8's, ``mesh_launches``; the
+   ``websearch_launches``, phase 8's, ``mesh_launches``, and phase
+   10's, ``examples_launches``, summed over the four examples; the
    tensor-core flash and decode rows also Grok-1's,
    ``moe_lm_launches``; the column bag row 5b's, ``train_launches``;
    both bag rows phase 8's, ``mesh_launches``; the tensor-core flash and
@@ -6237,6 +6250,68 @@ def roofline_phase(dev, reduced=False, lm_batch=LM_BATCH, lm_prompt=LM_PROMPT):
           f"ms; in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 10
+EXAMPLES = ("quickstart", "train_policy", "serve_retrieval", "online_learning")
+EXAMPLE_SCRIPTS = ("quickstart", "train_lm")       # also run as a user runs them
+EXAMPLE_TIMEOUT_S = 300
+
+
+def load_example(name):
+    """``examples/<name>_torch.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev):
+    """Phase 10: the port's examples at the reference's sizes.  Each of
+    ``EXAMPLES`` runs its ``main`` in this process on ``dev`` between a
+    reset and a read of the launch counts (each must launch the chunk
+    kernel; the examples assert their own checks); then each of
+    ``EXAMPLE_SCRIPTS`` as ``python examples/<name>_torch.py`` from the
+    repo root, which must end rc 0.  Returns the chunk kernel's launches
+    per example."""
+    import os
+
+    launches = {}
+    for name in EXAMPLES:
+        ex = load_example(name)
+        print(f"[examples] {name}: main(['--device', {dev.type!r}])", flush=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = ex.main(["--device", dev.type])
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches[name] = read_counts()["block_scan_pruned_chunk"]
+        out = {k: v for k, v in out.items() if k != "summary"}
+        print(f"[examples] {name} {json.dumps(out)} wall {secs:.1f} s, "
+              f"block_scan_pruned_chunk launches {launches[name]}", flush=True)
+        if dev.type == "cuda" and launches[name] <= 0:
+            raise AssertionError(f"examples/{name}_torch.py launched no "
+                                 "block_scan kernel")
+    env = dict(os.environ, PYTHONPATH="src")
+    for name in EXAMPLE_SCRIPTS:
+        cmd = [sys.executable, f"examples/{name}_torch.py"]
+        if dev.type != "cuda":
+            cmd += ["--device", dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=EXAMPLE_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines()[-3:]:
+            print(f"[examples] {name} (script): {line}", flush=True)
+        print(f"[examples] python examples/{name}_torch.py: rc "
+              f"{proc.returncode}, wall {secs:.1f} s", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"examples/{name}_torch.py exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    return launches
+
+
 def profile_batch(exe, name, policy, inp):
     """One served batch under torch.profiler."""
     profile_device(name, lambda: exe.execute(policy, *inp),
@@ -6405,6 +6480,11 @@ def main() -> int:
         raise AssertionError("the sharded wide-deep cells launched no bag kernel")
     torch.cuda.empty_cache()
     roofline_phase(dev)
+    torch.cuda.empty_cache()
+    t_examples = time.perf_counter()
+    examples_launches = examples_phase(dev)
+    print(f"[examples] phase 10 in {time.perf_counter() - t_examples:.1f} s",
+          flush=True)
 
     def row(name, source, replaces, n, r, err):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -6424,7 +6504,8 @@ def main() -> int:
             launches["block_scan_pruned_chunk"],
             rows[4], worst(rows)),      # C=4: the serve path's chunk
         # (its "train_launches", "engine_launches", "cluster_launches",
-        # "live_launches" and "proc_launches" keys are added below)
+        # "live_launches", "proc_launches", "websearch_launches",
+        # "mesh_launches" and "examples_launches" keys are added below)
         row("block_scan_tile", "block_scan_tile.cu",
             "src/repro/kernels/block_scan/block_scan.py:65",
             whole_launches["block_scan_tile"], whole_rows[("batched", "deep")],
@@ -6475,6 +6556,7 @@ def main() -> int:
     kernels[0]["proc_launches"] = proc_launches
     kernels[0]["websearch_launches"] = ws_launches["block_scan_pruned_chunk"]
     kernels[0]["mesh_launches"] = mesh_launches["block_scan_pruned_chunk"]
+    kernels[0]["examples_launches"] = sum(examples_launches.values())
     by_name = {r["name"]: r for r in kernels}
     for name in ("flash_attention_tc", "decode_attention_tc"):
         by_name[name]["moe_lm_launches"] = moe_launches[name]

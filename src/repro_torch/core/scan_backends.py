@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.index.blocks import unpack_words
-from repro_torch.kernels.block_scan import (block_scan_pruned_chunk,
+from repro_torch.kernels.block_scan import (META_BP_COL,
+                                            block_scan_pruned_chunk,
                                             build_rule_meta)
 from repro_torch.kernels.cost import note
 
@@ -270,7 +271,7 @@ class BlockScanBackend(ScanBackend):
                           rounds, "BlockScanBackend.run_rule"):
                 return s
             rounds += 1
-            meta[:, 0, -1] = s.block_ptr
+            meta[:, 0, META_BP_COL] = s.block_ptr
             match, v_inc, _ = block_scan_pruned_chunk(
                 occ2, meta, chunk=chunk, n_terms=t)
             # Block j is scanned iff the §3 condition holds at the state

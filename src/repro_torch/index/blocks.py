@@ -25,7 +25,7 @@ WORD_BITS = 32
 
 __all__ = [
     "WORD_BITS", "pack_bits", "unpack_bits", "words_per_block",
-    "popcount", "unpack_words", "words_to_tensor",
+    "popcount", "unpack_words", "words_to_tensor", "doc_bit",
 ]
 
 
@@ -77,3 +77,11 @@ def unpack_words(words: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
     bits = (words.unsqueeze(-1) >> shifts) & 1
     return bits.reshape(*words.shape[:-1], -1).to(torch.bool)
+
+
+def doc_bit(words: torch.Tensor, doc_in_block) -> torch.Tensor:
+    """The bit of a document offset inside a block of words: ``words``
+    (..., W) int32, ``doc_in_block`` a scalar or a vector of offsets;
+    int32 0 or 1, of shape (...,) or (..., n)."""
+    d = torch.as_tensor(doc_in_block, device=words.device).long()
+    return (words[..., d // WORD_BITS] >> (d % WORD_BITS).to(words.dtype)) & 1

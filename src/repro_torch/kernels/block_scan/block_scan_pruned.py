@@ -38,11 +38,13 @@ from .block_scan import MAX_PLANES, MAX_TERMS, MAX_WORDS, tile_blocks
 from .ref import block_scan_pruned_chunk_ref, block_scan_pruned_ref
 
 __all__ = ["block_scan_pruned_chunk", "chunk_cost", "build_rule_meta", "META_ROWS",
+           "META_BP_COL",
            "BLOCK_SCAN_KERNEL", "MAX_TERMS", "MAX_WORDS",
            "block_scan_pruned", "static_plane_list", "static_tile",
            "BLOCK_SCAN_STATIC_KERNEL"]
 
 META_ROWS = 4          # plane id / term id / step valid / required per term
+META_BP_COL = -1       # meta[:, 0, -1] holds the lane's block start
 # The static kernel's tile (block_scan_static.cu on the warp core
 # block_scan_warp.cuh), for tile_blocks: one round of a warp's BS_SLOTS
 # plane rows per warp (BS_SLOTS / slot width blocks at W <= 128), halved
@@ -150,8 +152,8 @@ def block_scan_pruned_chunk(occ: torch.Tensor, meta: torch.Tensor, *,
             return chunk_cost(np.full(b, tf_planes), np.zeros(b), nb, chunk, w,
                               meta.shape[2], n_terms, worst_case=True)
         n_active = meta[:, 2, :tf_planes].sum(1).cpu().numpy()
-        return chunk_cost(n_active, meta[:, 0, -1].cpu().numpy(), nb, chunk, w,
-                          meta.shape[2], n_terms)
+        return chunk_cost(n_active, meta[:, 0, META_BP_COL].cpu().numpy(), nb,
+                          chunk, w, meta.shape[2], n_terms)
 
     return run(BLOCK_SCAN_KERNEL.name, call_cost, _launch_chunk, occ, meta,
                chunk, n_terms)

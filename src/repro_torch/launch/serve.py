@@ -42,7 +42,7 @@ def main(argv=None) -> None:
                     help="logical index shards for scatter-gather serving")
     ap.add_argument("--backend", default="block_scan",
                     help="index-scan backend of every rollout "
-                         "(repro_torch.serving.available_backends)")
+                         "(repro_torch.core.scan_backends.available_backends)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace-event JSON (Perfetto-"

@@ -203,16 +203,24 @@ def mla_init(gen: torch.Generator, cfg: MLAConfig,
     }
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def mla_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                cfg: MLAConfig, return_cache: bool = False):
+                cfg: MLAConfig, return_cache: bool = False,
+                heads=_same, own=_same):
     """Training / prefill with the per-head K/V materialised; with
     ``return_cache`` also {"c": (B, S, r), "k_rope": (B, S, d_rope)}
-    after RoPE."""
+    after RoPE.  ``heads`` takes the (B, S, columns) products of wq,
+    w_uk and w_uv to every head and ``own`` the (B, S, H * d_v) output to
+    the columns that wo's rows meet: both the identity here, the
+    gather and the rank's block in ``mla_forward_tp``."""
     b, s, d = x.shape
     h = cfg.n_heads
     dn, dr, dv, r = cfg.d_nope, cfg.d_rope, cfg.d_v, cfg.kv_lora_rank
 
-    q = (x @ params["wq"]).reshape(b, s, h, dn + dr)
+    q = heads(x @ params["wq"]).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     ckv = x @ params["w_dkv"]                                    # (B, S, r + dr)
     c, k_rope = ckv[..., :r], ckv[..., r:]
@@ -222,13 +230,13 @@ def mla_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)         # (B, S, 1, dr)
 
-    k_nope = (c @ params["w_uk"]).reshape(b, s, h, dn)
-    v = (c @ params["w_uv"]).reshape(b, s, h, dv)
+    k_nope = heads(c @ params["w_uk"]).reshape(b, s, h, dn)
+    v = heads(c @ params["w_uv"]).reshape(b, s, h, dv)
     k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], -1)
     q_full = torch.cat([q_nope, q_rope], -1)
 
     o = chunked_causal_attention(q_full, k_full, v, cfg.q_chunk)
-    out = o.to(x.dtype).reshape(b, s, h * dv) @ params["wo"]
+    out = own(o.to(x.dtype).reshape(b, s, h * dv)) @ params["wo"]
     if return_cache:
         return out, {"c": c, "k_rope": k_rope[:, :, 0, :]}
     return out
@@ -338,14 +346,34 @@ class HeadSplit:
         do not split evenly, where the reference cannot place the weight
         either."""
         for name, heads in (("wq", n_heads), ("wk", n_kv)):
-            if heads * d_head % self.size:
-                raise ValueError(f"{heads * d_head} columns of {name} ({heads} "
-                                 f"heads of {d_head}) do not split over the "
-                                 f"{self.size}-way {self.axis!r} axis")
+            self._columns(name, heads, d_head)
         if n_heads % self.size:
             return False
         hq, group = n_heads // self.size, n_heads // n_kv
         return hq % group == 0 or group % hq == 0
+
+    def mla_whole_heads(self, cfg: MLAConfig) -> bool:
+        """``whole_heads`` for MLA, whose query heads each have their own
+        keys: whether ``size`` divides them.  Raises where the columns
+        of wq, w_uk or w_uv do not split evenly."""
+        h = cfg.n_heads
+        for name, width in (("wq", cfg.d_nope + cfg.d_rope),
+                            ("w_uk", cfg.d_nope), ("w_uv", cfg.d_v)):
+            self._columns(name, h, width)
+        return h % self.size == 0
+
+    def _columns(self, name: str, heads: int, width: int) -> None:
+        if heads * width % self.size:
+            raise ValueError(f"{heads * width} columns of {name} ({heads} "
+                             f"heads of {width}) do not split over the "
+                             f"{self.size}-way {self.axis!r} axis")
+
+    def column_heads(self, n_heads: int, width: int,
+                     device=None) -> torch.Tensor:
+        """The head of each column of this rank's block of an
+        (n_heads * width)-column weight, (n_heads * width / size,)."""
+        n = n_heads * width // self.size
+        return (self.rank * n + torch.arange(n, device=device)) // width
 
     def q_heads(self, n_heads: int) -> int:
         if n_heads % self.size:
@@ -421,12 +449,21 @@ def gqa_forward_tp(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
 def mla_forward_tp(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    cfg: MLAConfig, split: HeadSplit, return_cache: bool = False):
-    """``mla_forward`` on one rank: its heads' columns of wq, w_uk and
-    w_uv and rows of wo, the whole (replicated) w_dkv.  Returns the
-    partial output; the cache {"c", "k_rope"} is whole on every rank."""
-    return mla_forward(params, x,
-                       dataclasses.replace(cfg, n_heads=split.q_heads(cfg.n_heads)),
-                       return_cache=return_cache)
+    """``mla_forward`` on one rank: its column blocks of wq, w_uk and
+    w_uv and row block of wo, the whole (replicated) w_dkv.  Returns the
+    partial output; the cache {"c", "k_rope"} is whole on every rank.
+    Where ``split.size`` divides the query heads the blocks are the
+    rank's heads; else the products of wq, w_uk and w_uv are gathered to
+    every head (backward: a reduce-scatter), every rank attends over all
+    H heads, and its column block of the (B, S, H * d_v) output goes
+    through its rows of wo."""
+    if split.mla_whole_heads(cfg):
+        return mla_forward(params, x,
+                           dataclasses.replace(cfg, n_heads=split.q_heads(cfg.n_heads)),
+                           return_cache=return_cache)
+    return mla_forward(params, x, cfg, return_cache=return_cache,
+                       heads=lambda t: split.gather(t, 2),
+                       own=lambda t: split.own(t, 2))
 
 
 def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -522,11 +559,23 @@ def mla_decode_tp(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
     those and the q_rope to every head, scores them against its slice
     (float32, as ``mla_absorbed_attention``), merges the ranks' partials
     in c-space and takes its own heads through w_uv and wo.  Returns the
-    partial output (B, d_model)."""
+    partial output (B, d_model).
+
+    Where ``split.size`` does not divide the query heads, q is gathered
+    to every head; a rank's columns of w_uk may cut a head, so each
+    rank maps its columns of every head's q_nope into c-space and the
+    ranks' shares are summed in rank order (``psum_ordered``); the
+    merged context of every head goes through the rank's columns of
+    w_uv, each column with its own head, and its rows of wo."""
+    from repro_torch.distributed.collectives import psum_ordered
+
     b = x_tok.shape[0]
-    hq = split.q_heads(cfg.n_heads)
+    h = cfg.n_heads
+    whole = split.mla_whole_heads(cfg)
+    hq = split.q_heads(h) if whole else h
     dn, dr, dv, r = cfg.d_nope, cfg.d_rope, cfg.d_v, cfg.kv_lora_rank
-    q = (x_tok @ params["wq"]).reshape(b, hq, dn + dr)
+    q = x_tok @ params["wq"]
+    q = (q if whole else split.gather(q, 1)).reshape(b, hq, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     cos, sin = rope_angles(pos[:, None], dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope[:, None], cos, sin)[:, 0]
@@ -538,16 +587,27 @@ def mla_decode_tp(params: Dict[str, torch.Tensor], x_tok: torch.Tensor,
     _write_rows(c_cache, c_new, row)
     _write_rows(kr_cache, k_rope_new, row)
 
-    w_uk = params["w_uk"].reshape(r, hq, dn).float()
-    q_c = split.gather(torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk), 1)
-    q_rope = split.gather(q_rope, 1)
+    if whole:
+        w_uk = params["w_uk"].reshape(r, hq, dn).float()
+        q_c = split.gather(torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk), 1)
+        q_rope = split.gather(q_rope, 1)
+    else:
+        heads = split.column_heads(h, dn, x_tok.device)
+        cols = split.own(q_nope.reshape(b, h * dn), 1).float()
+        share = torch.zeros((b, h, r), dtype=torch.float32, device=x_tok.device)
+        share.index_add_(1, heads, cols[:, :, None] * params["w_uk"].float().T)
+        q_c = psum_ordered(share, split.mesh, split.axis)
     cf = c_cache.float()
     sc = torch.einsum("bhr,bsr->bhs", q_c, cf)
     sc = sc + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
     sc = sc * ((dn + dr) ** -0.5)
     valid = torch.arange(cf.shape[1], device=cf.device)[None] < n_valid[:, None]
     p, m, l = _partial_softmax(sc, valid[:, None])
-    ctx = split.own(_merge_tp(split, torch.einsum("bhs,bsr->bhr", p, cf), m, l), 1)
-    w_uv = params["w_uv"].reshape(r, hq, dv).float()
-    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv).reshape(b, hq * dv)
+    ctx = _merge_tp(split, torch.einsum("bhs,bsr->bhr", p, cf), m, l)
+    if whole:
+        w_uv = params["w_uv"].reshape(r, hq, dv).float()
+        o = torch.einsum("bhr,rhd->bhd", split.own(ctx, 1), w_uv).reshape(b, hq * dv)
+    else:
+        heads = split.column_heads(h, dv, x_tok.device)
+        o = torch.einsum("bjr,rj->bj", ctx[:, heads], params["w_uv"].float())
     return o.to(x_tok.dtype) @ params["wo"]

@@ -12,7 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["batched_ncg", "relative_delta", "paired_permutation_pvalue"]
+__all__ = ["ncg_at_k", "batched_ncg", "relative_delta",
+           "paired_permutation_pvalue"]
+
+
+def ncg_at_k(cand: torch.Tensor,          # (K,) int32 doc ids, -1 pad
+             judged_ids: torch.Tensor,    # (J,) int32, -1 pad
+             judged_gains: torch.Tensor,  # (J,)
+             k: int = 100) -> torch.Tensor:
+    """NCG@k of one query, a 0-d float32: a row of :func:`batched_ncg`."""
+    return batched_ncg(cand[None], judged_ids[None], judged_gains[None], k)[0]
 
 
 def batched_ncg(cand: torch.Tensor,          # (B, K) int32, -1 pad

@@ -16,7 +16,10 @@ from repro_torch.serving.engine import (SLAB_ADMISSION_REJECT,
                                         AdmissionError, CacheOnlyMiss,
                                         EngineConfig, ServeEngine,
                                         ServeResponse)
-from repro_torch.serving.executor import ShardedExecutor, available_backends
+from repro_torch.serving.executor import (ROLLOUT_BACKENDS, ShardedExecutor,
+                                          available_backends,
+                                          register_rollout_backend,
+                                          resolve_rollout_backend)
 from repro_torch.serving.levels import EXECUTED_LEVELS, ServiceLevel
 from repro_torch.serving.slab import QueryKeyCache, TicketSlab
 from repro_torch.serving.telemetry import Telemetry
@@ -24,9 +27,10 @@ from repro_torch.serving.telemetry import Telemetry
 __all__ = [
     "AdmissionError", "ArrayResultCache", "BucketConfig", "CacheOnlyMiss",
     "EXECUTED_LEVELS", "EngineConfig", "LRUResultCache", "MicroBatch",
-    "PendingRequest", "QueryKeyCache", "SLAB_ADMISSION_REJECT",
+    "PendingRequest", "QueryKeyCache", "ROLLOUT_BACKENDS", "SLAB_ADMISSION_REJECT",
     "SLAB_CACHED_ONLY_MISS", "SLAB_OK", "ServeEngine", "ServeResponse",
     "ServiceLevel", "ShapeBucketBatcher", "ShardedExecutor", "Telemetry",
     "TicketSlab", "available_backends", "bucket_size_for",
-    "canonical_query_key",
+    "canonical_query_key", "register_rollout_backend",
+    "resolve_rollout_backend",
 ]

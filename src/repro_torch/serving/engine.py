@@ -66,8 +66,9 @@ class EngineConfig:
     keep: int = 100                # L1 prune depth (paper's NCG@100 cut)
     admission_limit: int = 4096    # max queued requests before shedding
     max_completed: int = 65536     # unclaimed-response bound (oldest evicted)
-    # Scan-backend name of the serve step (core/scan_backends.py);
-    # None takes the system's (``SystemConfig.backend``).
+    # Rollout-backend name of the serve step (executor.py's registry or
+    # core/scan_backends.py); None takes the system's
+    # (``SystemConfig.backend``).
     backend: Optional[str] = None
     auto_refresh: bool = True      # pull the head policy snapshot per drain
     cache_impl: str = "array"      # "array" (hot path) | "lru" (dict oracle)

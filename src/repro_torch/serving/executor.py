@@ -29,6 +29,13 @@ once a chunk (the ``cond.any()`` of ``core/scan_backends.py``) inside
 the per-step Python loop of ``core/rollout.py``, so a graph would need
 a fixed chunk count a key.  The entry is where one would sit.
 
+The rollout is a *backend* chosen at construction and kept in the key:
+any name in the core scan-backend registry (``core/scan_backends.py``:
+``"reference"`` or ``"block_scan"``, bit-identical) runs through
+``unified_rollout(..., backend=...)``; serving-only rollout strategies
+can be registered here with ``register_rollout_backend``, and a
+registered name wins over a scan backend of the same name.
+
 Sharding is the logical split of the paper's multi-machine index: the
 block axis is cut into ``n_shards`` equal slices, each running its own
 rollout under the full per-machine u budget, then per-shard candidates
@@ -39,25 +46,69 @@ this equals S separate rollouts.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Set, Tuple
+from functools import partial
+from typing import Callable, Dict, Iterable, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.rollout import unified_rollout
-from repro_torch.core.scan_backends import available_backends, get_scan_backend
+from repro_torch.core.scan_backends import available_backends as scan_backends
+from repro_torch.core.scan_backends import get_scan_backend
 from repro_torch.core.telescope import l1_prune, merge_shard_candidates
 from repro_torch.index.corpus import N_FIELDS
 from repro_torch.obs import NULL_TRACER
 from repro_torch.policies import Policy, structure_key
 
-__all__ = ["ShardedExecutor", "available_backends"]
+__all__ = ["ShardedExecutor", "ROLLOUT_BACKENDS", "available_backends",
+           "register_rollout_backend", "resolve_rollout_backend"]
+
+
+# ------------------------------------------------------------------ backends
+# A rollout backend runs one policy rollout over a batch of lanes:
+#   backend(cfg, ruleset, bins, policy, t_max, occ, scores, tp) -> EnvState
+# (the executor folds its shards into the lanes).  Every core scan
+# backend is a rollout backend through unified_rollout(..., backend=);
+# this registry holds serving-only overrides and extensions.
+ROLLOUT_BACKENDS: Dict[str, Callable] = {}
+
+
+def register_rollout_backend(name: str):
+    """Decorator: register ``fn`` as the rollout backend ``name``."""
+    def deco(fn: Callable) -> Callable:
+        ROLLOUT_BACKENDS[name] = fn
+        return fn
+    return deco
+
+
+def available_backends() -> Tuple[str, ...]:
+    """Serving-selectable rollout backends: the core scan-backend
+    registry and the serving-level registrations, sorted."""
+    return tuple(sorted(set(ROLLOUT_BACKENDS) | set(scan_backends())))
+
+
+def _scan_backend_rollout(scan, cfg, ruleset, bins, policy, t_max, occ,
+                          scores, tp):
+    return unified_rollout(cfg, ruleset, bins, policy, t_max, occ, scores,
+                           tp, backend=scan).final_state
+
+
+def resolve_rollout_backend(name: str) -> Callable:
+    """The rollout function of ``name``: a registered rollout backend,
+    else the scan backend of that name; raises on an unknown name."""
+    if name in ROLLOUT_BACKENDS:
+        return ROLLOUT_BACKENDS[name]
+    if name in scan_backends():
+        return partial(_scan_backend_rollout, get_scan_backend(name))
+    raise ValueError(f"unknown rollout backend {name!r}; available: "
+                     f"{available_backends()}")
 
 
 class ShardedExecutor:
     def __init__(self, system, n_shards: int = 1, keep: int = 100,
                  backend: Optional[str] = None):
-        """``backend`` is a scan-backend name; None takes the system's
+        """``backend`` is a rollout-backend name
+        (:func:`available_backends`); None takes the system's
         (``SystemConfig.backend``).  Runs on the system's device."""
         if system.bins is None:
             raise ValueError("system needs fit_state_bins() before serving")
@@ -68,10 +119,7 @@ class ShardedExecutor:
         self.n_shards = n_shards
         self.keep = keep
         self.backend = system.cfg.backend if backend is None else backend
-        if self.backend not in available_backends():
-            raise ValueError(f"unknown rollout backend {self.backend!r}; "
-                             f"available: {available_backends()}")
-        self._scan = get_scan_backend(self.backend)
+        self._rollout = resolve_rollout_backend(self.backend)
         self.blocks_per_shard = nb // n_shards
         self.docs_per_shard = self.blocks_per_shard * system.env_cfg.block_docs
         self.shard_env_cfg = dataclasses.replace(
@@ -95,9 +143,9 @@ class ShardedExecutor:
         scores_sh = scores.reshape(b, s, ds).transpose(0, 1).reshape(s * b, ds)
         tp_sh = term_present.repeat(s, 1)
 
-        final = unified_rollout(self.shard_env_cfg, sys_.ruleset, sys_.bins,
-                                policy, policy.horizon or sys_.cfg.t_max, occ_sh, scores_sh, tp_sh,
-                                backend=self._scan).final_state
+        final = self._rollout(self.shard_env_cfg, sys_.ruleset, sys_.bins,
+                              policy, policy.horizon or sys_.cfg.t_max,
+                              occ_sh, scores_sh, tp_sh)
 
         cand = final.cand.reshape(s, b, -1)
         shard_base = (torch.arange(s, dtype=torch.int32, device=occ.device)

@@ -4,12 +4,12 @@ A slab carries a batch of arrivals as parallel NumPy arrays instead of
 per-ticket Python objects — the `submit_many` spine (engine, cluster)
 moves these around and only materializes per-request objects where a
 response must exist.  The slab is deliberately *dumb*: it owns no
-behavior beyond construction, so every layer interprets the same four
-columns (qid, category, level, epoch).  The reference's fifth, the
-trace root, has no reader in either package: in one process the
-cluster hands the engine its tickets' spans
-(``ServeEngine.submit_slab(spans=)``), and a process worker gets each
-ticket's root in its request record (``proc.messages``), where its
+behavior beyond construction, so every layer interprets the same five
+columns (qid, category, level, epoch, trace root).  The trace roots are
+carried as the reference carries them, and read nowhere in either
+package: in one process the cluster hands the engine its tickets'
+spans (``ServeEngine.submit_slab(spans=)``), and a process worker gets
+each ticket's root in its request record (``proc.messages``), where its
 spans join the ticket's track by that id.
 
 `QueryKeyCache` memoizes qid → canonical cache key.  The query log is
@@ -37,13 +37,14 @@ class TicketSlab:
     categories: np.ndarray                # (n,) int32
     levels: np.ndarray                    # (n,) int8 ServiceLevel values
     epoch: int = 0                        # index epoch at admission
+    trace_roots: Optional[np.ndarray] = None   # (n,) uint64; None = off
 
     def __len__(self) -> int:
         return int(self.qids.size)
 
     @classmethod
     def build(cls, log, qids, level: int = 0, levels=None,
-              epoch: int = 0) -> "TicketSlab":
+              epoch: int = 0, trace_roots=None) -> "TicketSlab":
         """Gather categories from the query log in one fancy-index."""
         q = np.asarray(qids, np.int64).ravel()
         cats = np.asarray(log.category)[q].astype(np.int32)
@@ -54,7 +55,10 @@ class TicketSlab:
             if lv.size != q.size:
                 raise ValueError(f"levels has {lv.size} entries for "
                                  f"{q.size} qids")
-        return cls(qids=q, categories=cats, levels=lv, epoch=int(epoch))
+        roots = (None if trace_roots is None
+                 else np.asarray(trace_roots, np.uint64).ravel())
+        return cls(qids=q, categories=cats, levels=lv, epoch=int(epoch),
+                   trace_roots=roots)
 
 
 class QueryKeyCache:

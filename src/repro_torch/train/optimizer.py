@@ -44,7 +44,7 @@ __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_update_",
            "clip_by_global_norm", "clip_by_global_norm_", "global_norm",
            "cosine_schedule", "linear_warmup", "SLICE_ELEMS"]
 
-Tree = Any
+PyTree = Any
 SLICE_ELEMS = 1 << 25       # 128 MB of float32 per temporary
 
 
@@ -62,7 +62,7 @@ def _device(tree) -> torch.device:
     return tree_leaves(tree)[0].device
 
 
-def adamw_init(params: Tree, cfg: AdamWConfig = AdamWConfig()) -> dict:
+def adamw_init(params: PyTree, cfg: AdamWConfig = AdamWConfig()) -> dict:
     def zeros(p):
         return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
 
@@ -87,7 +87,7 @@ def _adamw_math(p, g, mu, nu, bc1, bc2, cfg: AdamWConfig, lr_scale):
     return p.float() - cfg.lr * lr_scale * step, mu32, nu32
 
 
-def adamw_update(params: Tree, grads: Tree, state: dict,
+def adamw_update(params: PyTree, grads: PyTree, state: dict,
                  cfg: AdamWConfig = AdamWConfig(), lr_scale=1.0):
     """One AdamW step; returns (new params, new state).  Inputs are not
     modified."""
@@ -114,9 +114,9 @@ def _slices(*tensors):
 
 
 @torch.no_grad()
-def adamw_update_(params: Tree, grads: Tree, state: dict,
+def adamw_update_(params: PyTree, grads: PyTree, state: dict,
                   cfg: AdamWConfig = AdamWConfig(), lr_scale=1.0, mesh=None,
-                  param_specs: Tree = None, state_specs: Tree = None) -> None:
+                  param_specs: PyTree = None, state_specs: PyTree = None) -> None:
     """``adamw_update`` in place: overwrites every parameter, both
     moments and the count, and may clobber nothing else.  The leaves
     must be contiguous; the same bits as ``adamw_update``.  On a
@@ -168,7 +168,7 @@ def _entry_axes(e):
 
 
 # ------------------------------------------------------------------ SGDM
-def sgdm_init(params: Tree) -> dict:
+def sgdm_init(params: PyTree) -> dict:
     return {"mom": tree_map(torch.zeros_like, params)}
 
 
@@ -179,7 +179,7 @@ def sgdm_update(params, grads, state, lr: float = 0.01, beta: float = 0.9):
 
 
 # ------------------------------------------------------------- Adafactor
-def adafactor_init(params: Tree) -> dict:
+def adafactor_init(params: PyTree) -> dict:
     def init(p):
         f32 = dict(dtype=torch.float32, device=p.device)
         if p.dim() >= 2:
@@ -224,7 +224,7 @@ def adafactor_update(params, grads, state, lr: float = 1e-2,
 
 
 # ----------------------------------------------------------------- utils
-def global_norm(grads: Tree, mesh=None, specs: Tree = None) -> torch.Tensor:
+def global_norm(grads: PyTree, mesh=None, specs: PyTree = None) -> torch.Tensor:
     """sqrt of the sum over leaves (flatten order) of each leaf's sum of
     float32 squares (a large leaf summed slice by slice), float32.  On a
     ``mesh`` each leaf is this rank's block under its spec in ``specs``:
@@ -259,7 +259,7 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> Tuple[PyTree, torch.Tensor]:
     """(grads scaled by min(1, max_norm / norm), norm); inputs kept."""
     norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
@@ -267,8 +267,8 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tenso
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Tree, max_norm: float, mesh=None,
-                         specs: Tree = None) -> torch.Tensor:
+def clip_by_global_norm_(grads: PyTree, max_norm: float, mesh=None,
+                         specs: PyTree = None) -> torch.Tensor:
     """``clip_by_global_norm`` in place (contiguous leaves, in slices);
     returns the norm.  On a ``mesh``, of the blocks (``global_norm``)."""
     norm = global_norm(grads, mesh, specs)

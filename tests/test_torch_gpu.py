@@ -262,6 +262,46 @@ def test_cuda_block_scan_backend_matches_reference(cuda, du, dv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("action", range(8))
+def test_cuda_env_step_matches_cpu(cuda, action):
+    """The single-step API on one query: ``env_step`` (rule 1, then the
+    action twice) on CUDA tensors through the chunk kernel equals it on
+    CPU tensors through the kernel's plain version, every field; each
+    rule alone through ``execute_rule`` too."""
+    from repro_torch.core import default_rule_library, env_step, execute_rule
+
+    nb, d = 16, 256
+    cfg = EnvConfig(n_blocks=nb, block_docs=d, k_rules=6, max_candidates=96,
+                    n_top=5, u_budget=4096)
+    rng = np.random.default_rng(11)
+    occ = torch.from_numpy(
+        (rng.integers(0, 2**32, (nb, T, F, d // 32), dtype=np.uint32)
+         & rng.integers(0, 2**32, (nb, T, F, d // 32), dtype=np.uint32))
+        .view(np.int32))
+    scores = torch.from_numpy(rng.normal(size=nb * d).astype(np.float32))
+    tp = torch.tensor([True, True, True, False])
+    out = {}
+    for dev in ("cpu", cuda):
+        rs = default_rule_library(device=dev)
+        args = [x.to(dev) for x in (occ, scores, tp)]
+        before = BLOCK_SCAN_KERNEL.launches
+        s, states = env_reset(cfg, device=dev), []
+        for a in (1, action, action):
+            s = env_step(cfg, rs, *args, s, a)
+            states.append(s)
+        if action < cfg.k_rules:
+            states.append(execute_rule(cfg, *args, env_reset(cfg, device=dev),
+                                       *rs.gather(torch.tensor(action, device=dev))))
+        out[str(dev)] = states
+        if dev == cuda:
+            assert BLOCK_SCAN_KERNEL.launches > before
+    for i, (c, g) in enumerate(zip(out["cpu"], out[str(cuda)])):
+        for f in ("block_ptr", "u", "v", "matched", "cand", "cand_cnt", "topn",
+                  "done"):
+            assert torch.equal(getattr(c, f), getattr(g, f).cpu()), (i, f)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,dtype,bq,bk", [
     (1, 4, 4, 128, 128, 64, True, "float32", 64, 64),      # 1:1
     (2, 8, 2, 256, 256, 64, True, "float32", 64, 64),      # 4:1

@@ -9,27 +9,34 @@ import pytest
 import torch
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = SRC.parent / "examples"
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pathlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+examples = sorted(pathlib.Path(sys.argv[1]).glob("*_torch.py"))
+for path in examples:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
-print(len(names), bad)
+print(len(names), len(examples), bad)
 """
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
     """Nor ``ml_dtypes`` (JAX's bf16 for numpy), which the card's machine
-    lacks: the checkpoints cross bf16 as int16 bits."""
+    lacks: the checkpoints cross bf16 as int16 bits.  The probe also
+    imports the port's five examples, ``examples/*_torch.py``."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
-                         capture_output=True, text=True, check=True)
-    n, bad = out.stdout.split(" ", 1)
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(EXAMPLES)],
+                         env=env, capture_output=True, text=True, check=True)
+    n, n_examples, bad = out.stdout.split(" ", 2)
     assert int(n) >= 20          # every submodule was imported
+    assert int(n_examples) == 5
     assert bad.strip() == "[]"
 
 
@@ -292,3 +299,57 @@ def test_dryrun_modules_are_walked_and_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _DRYRUN_PROBE], env=env,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "False []"
+
+
+# (reference module, names with no counterpart in the port's module, why)
+_NOT_PORTED = {
+    "core/scan_backends.py": {"XlaScanBackend", "PallasBlockScanBackend",
+                              "xla_run_rule"},        # renamed: reference, block_scan
+    "kernels/block_scan/block_scan.py": {"block_scan_pallas"},
+    "kernels/block_scan/block_scan_pruned.py": {"block_scan_pruned_pallas"},
+    "kernels/common.py": {"INTERPRET", "pad_axis_to", "reduce_and", "reduce_or",
+                          "tpu_compiler_params"},      # Pallas helpers
+    "kernels/decode_attention/decode_attention.py": None,   # the Pallas kernels:
+    "kernels/embedding_bag/embedding_bag.py": None,         # csrc/*.cu instead
+    "kernels/flash_attention/flash_attention.py": None,
+    "kernels/decode_attention/ops.py": {"decode_attention_reference"},   # JAX
+    "kernels/flash_attention/ops.py": {"flash_attention_reference"},     # oracles
+    "launch/dryrun.py": {"DTYPE_BYTES"},    # HLO-text sizes; torch has element_size
+    "models/layers.py": {"PyTree"},         # an alias the reference does not use
+}
+
+
+def _public_names(path: Path) -> set:
+    """Top-level ``def``s, ``class``es and assignments, no ``_`` names."""
+    import ast
+
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_reference_module_has_its_public_names_in_the_port():
+    """Each ``src/repro`` module's public names are in its
+    ``src/repro_torch`` counterpart, but the Pallas internals, the JAX
+    oracles and the backends renamed on purpose (``_NOT_PORTED``)."""
+    ref, port = SRC / "repro", SRC / "repro_torch"
+    missing = {}
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        allowed = _NOT_PORTED.get(rel, set())
+        twin = port / rel
+        if allowed is None:
+            assert not twin.exists(), rel
+            continue
+        assert twin.exists(), f"no counterpart of src/repro/{rel}"
+        gap = _public_names(path) - _public_names(twin) - allowed
+        if gap:
+            missing[rel] = sorted(gap)
+        assert allowed <= _public_names(path), rel   # the list stays true
+    assert not missing, missing

@@ -26,7 +26,9 @@ columns of wq, 48 a rank on the 4-way model axis, 1.5 heads, as its 24
 heads are 1.5 a rank on the production meshes' 16-way axis (before the
 port gathered the heads where the axis cuts one, each of the three
 raised ``HeadSplit.q_heads``' "6 query heads do not split over the
-4-way 'model' axis"); the ``cfg_override`` cases: a dense step with ``zero3``
+4-way 'model' axis"); deepseek-v2-lite-16b with 6 MLA heads (``mla6``)
+on the same three cells: 144 columns of wq and 96 of w_uk and w_uv, 1.5
+heads a rank (before the port gathered them, the same raise); the ``cfg_override`` cases: a dense step with ``zero3``
 (B = 4 does not divide data x model, so the rows lie over data and are
 replicated over model), deepseek's step with ``remat`` and 2
 microbatches, deepseek's step with 4 microbatches (one row each, which
@@ -68,10 +70,12 @@ WORLD, DATA, MODEL = 8, 2, 4
 SEED = 0
 TIMEOUT_S = 600
 LM_ARCHS = ("mistral-nemo-12b", "deepseek-v2-lite-16b", "grok-1-314b")
-# model -> (arch, config changes): each arch's reduced config, and h6,
-# whose query heads do not divide the model axis (its own parameters)
+# model -> (arch, config changes): each arch's reduced config, and h6
+# and mla6, whose query heads do not divide the model axis (their own
+# parameters)
 LM_MODELS = {a: (a, {}) for a in LM_ARCHS}
 LM_MODELS["h6"] = ("starcoder2-3b", {"n_heads": 6})
+LM_MODELS["mla6"] = ("deepseek-v2-lite-16b", {"n_heads": 6})
 # case -> (model, config changes)
 TRAIN_CASES = {a: (a, {}) for a in LM_MODELS}
 TRAIN_CASES["zero3"] = ("mistral-nemo-12b", {"zero3": True})
@@ -117,8 +121,12 @@ def _model_cfg(get_arch, model, changes=None):
     import dataclasses
 
     arch, own = LM_MODELS[model]
-    cfg = get_arch(arch).model_cfg(True)
-    return arch, dataclasses.replace(cfg, **own, **(changes or {}))
+    cfg = dataclasses.replace(get_arch(arch).model_cfg(True), **own,
+                              **(changes or {}))
+    if cfg.mla is not None:         # MLA reads the heads of its own config
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, n_heads=cfg.n_heads))
+    return arch, cfg
 
 
 def _lm_shapes(model):
@@ -584,6 +592,31 @@ def test_head_split_whole_heads_or_columns():
         split(4).whole_heads(6, 1, 1)
     with pytest.raises(ValueError, match="2 columns of wk .* 4-way 'model'"):
         split(4).whole_heads(4, 1, 2)
+
+
+def test_head_split_mla_whole_heads_or_columns():
+    """MLA's head view where the axis divides the query heads; the
+    gathered heads where it does not (6 on 4, 24 on 16); a raise only
+    where the columns of wq, w_uk or w_uv do not split.  The column
+    heads of a rank's block cut a head where the block does."""
+    from repro_torch.models.attention import HeadSplit, MLAConfig
+
+    def mla(h, dn=16, dr=8, dv=16):
+        return MLAConfig(d_model=128, n_heads=h, kv_lora_rank=32, d_nope=dn,
+                         d_rope=dr, d_v=dv)
+
+    assert HeadSplit(None, "model", 4, 0).mla_whole_heads(mla(4))
+    assert HeadSplit(None, "model", 16, 0).mla_whole_heads(mla(16, 128, 64, 128))
+    assert not HeadSplit(None, "model", 4, 0).mla_whole_heads(mla(6))
+    assert not HeadSplit(None, "model", 16, 0).mla_whole_heads(mla(24, 128, 64, 128))
+    with pytest.raises(ValueError, match="18 columns of wq .* 4-way 'model'"):
+        HeadSplit(None, "model", 4, 0).mla_whole_heads(mla(6, 1, 2, 4))
+    with pytest.raises(ValueError, match="6 columns of w_uv .* 4-way 'model'"):
+        HeadSplit(None, "model", 4, 0).mla_whole_heads(mla(6, 2, 2, 1))
+    heads = [HeadSplit(None, "model", 4, r).column_heads(6, 16).tolist()
+             for r in range(4)]
+    assert heads[1] == [1] * 8 + [2] * 16 and sum(heads, []) == [
+        h for h in range(6) for _ in range(16)]
 
 
 @pytest.mark.parametrize("case", list(GNN_CASES))

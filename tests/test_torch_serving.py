@@ -323,6 +323,85 @@ def test_executor_prepares_once_per_key(trained):
     assert ServeEngine(sys_, policies).executor.backend == sys_.cfg.backend
 
 
+# ------------------------------------------- the rollout-backend registry
+def _reference_rollout(calls):
+    """A serving-level rollout backend: the ``reference`` scan backend's
+    rollout, counting its calls (lanes per call)."""
+    def rollout(cfg, ruleset, bins, policy, t_max, occ, scores, tp):
+        calls.append(occ.shape[0])
+        return unified_rollout(cfg, ruleset, bins, policy, t_max, occ, scores,
+                               tp, backend="reference").final_state
+    return rollout
+
+
+@pytest.fixture
+def registry():
+    """The registry's entries, restored after the case."""
+    from repro_torch.serving import ROLLOUT_BACKENDS
+
+    saved = dict(ROLLOUT_BACKENDS)
+    yield ROLLOUT_BACKENDS
+    ROLLOUT_BACKENDS.clear()
+    ROLLOUT_BACKENDS.update(saved)
+
+
+def test_rollout_backend_registry_lists_resolves_and_raises(registry):
+    from repro_torch.core.scan_backends import available_backends as scan
+    from repro_torch.serving import (available_backends,
+                                     register_rollout_backend,
+                                     resolve_rollout_backend)
+
+    assert available_backends() == scan() == ("block_scan", "reference")
+    fn = register_rollout_backend("test_rollout")(_reference_rollout([]))
+    assert registry["test_rollout"] is fn
+    assert resolve_rollout_backend("test_rollout") is fn
+    assert available_backends() == ("block_scan", "reference", "test_rollout")
+    assert resolve_rollout_backend("block_scan").args[0].name == "block_scan"
+    with pytest.raises(ValueError, match=r"unknown rollout backend 'nope'; "
+                       r"available: \('block_scan', 'reference', 'test_rollout'\)"):
+        resolve_rollout_backend("nope")
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_registered_rollout_backend_serves_like_reference(trained, registry,
+                                                          n_shards):
+    """An engine on a registered backend serves every response bit-equal
+    to an engine on the ``reference`` scan backend; the backend's name is
+    in the executor's key."""
+    from repro_torch.serving import register_rollout_backend
+
+    sys_, policies = trained
+    calls = []
+    register_rollout_backend("test_rollout")(_reference_rollout(calls))
+    stream = _stream(sys_.log.n_queries)
+    out = {}
+    for backend in ("test_rollout", "reference"):
+        engine = _port_engine(sys_, policies, n_shards, backend)
+        engine.warmup()
+        out[backend] = engine.serve(stream)
+        assert all(k[1] == backend for k in engine.executor._steps)
+    assert calls and all(n % n_shards == 0 for n in calls)
+    for got, want in zip(out["test_rollout"], out["reference"]):
+        assert (got.qid, got.u, got.cand_cnt) == (want.qid, want.u, want.cand_cnt)
+        np.testing.assert_array_equal(got.doc_ids, want.doc_ids)
+        np.testing.assert_array_equal(got.scores, want.scores)
+
+
+def test_registered_rollout_backend_wins_over_scan_backend(trained, registry):
+    from repro_torch.serving import (available_backends,
+                                     register_rollout_backend,
+                                     resolve_rollout_backend)
+
+    sys_, policies = trained
+    calls = []
+    fn = register_rollout_backend("block_scan")(_reference_rollout(calls))
+    assert resolve_rollout_backend("block_scan") is fn
+    assert available_backends() == ("block_scan", "reference")
+    exe = ShardedExecutor(sys_, backend="block_scan")
+    exe.execute(policies[CAT1], *sys_.batch_inputs(np.arange(8)))
+    assert calls == [8, 8]           # the prepared zero batch, then traffic
+
+
 # -------------------------------------------------------------- bucketing
 def test_bucket_size_for():
     cfg = BucketConfig(min_bucket=8, max_bucket=64)
@@ -912,6 +991,21 @@ def test_ticket_slab_build(port_system):
     assert (slab.levels == 1).all() and slab.epoch == 2
     with pytest.raises(ValueError):
         TicketSlab.build(log, [1, 2], levels=[0])      # size mismatch
+
+
+def test_ticket_slab_carries_trace_roots(port_system):
+    """``trace_roots`` as the reference's slab carries them: (n,) uint64,
+    None when tracing is off."""
+    from repro.serving import TicketSlab as JTicketSlab
+
+    log = port_system.log
+    roots = [7, 2 ** 63 + 1, 0]
+    slab = TicketSlab.build(log, [3, 5, 8], epoch=1, trace_roots=roots)
+    want = JTicketSlab.build(log, [3, 5, 8], epoch=1, trace_roots=roots)
+    assert slab.trace_roots.dtype == want.trace_roots.dtype == np.uint64
+    np.testing.assert_array_equal(slab.trace_roots, want.trace_roots)
+    assert TicketSlab.build(log, [3]).trace_roots is None
+    assert TicketSlab(slab.qids, slab.categories, slab.levels).trace_roots is None
 
 
 def test_query_key_cache(port_system):

@@ -265,3 +265,233 @@ def test_evaluate_matches_reference(tiny_system, port_system, cat):
         # float32 sums of at most 100 small integer gains over their ideal
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6,
                                    err_msg=k)
+
+
+# ------------------------------------------- the single-step environment API
+def _assert_state_equal(got, want, msg=""):
+    """Every field of a port state bit-equal to the reference's
+    (``matched`` as the same uint32 bits)."""
+    for f in FIELDS:
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        if w.dtype == np.uint32:
+            g = g.view(np.uint32)
+        np.testing.assert_array_equal(g, w, err_msg=f"{msg}{f}")
+
+
+def _one_query(batch, i=0):
+    """(reference inputs, port inputs) of query i of a batch."""
+    _, occ, scores, tp = batch
+    return ((jnp.asarray(occ[i]), jnp.asarray(scores[i]), jnp.asarray(tp[i])),
+            (_t(occ[i]), _t(scores[i]), _t(tp[i])))
+
+
+@pytest.fixture(scope="module")
+def reference_steps(tiny_system, batches):
+    """Per action a: the reference's states after env_step with actions
+    (1, a, a) from env_reset on one query, and (rules only) after
+    execute_rule of rule a with its own quotas from env_reset."""
+    from repro.core.environment import env_reset as jenv_reset
+    from repro.core.environment import env_step as jenv_step
+    from repro.core.environment import execute_rule as jexecute_rule
+
+    cfg, rs = tiny_system.env_cfg, tiny_system.ruleset
+    inputs, _ = _one_query(batches[CAT1])
+    out = {}
+    for a in range(cfg.n_actions):
+        s, states = jenv_reset(cfg), []
+        for act in (1, a, a):
+            s = jenv_step(cfg, rs, *inputs, s, jnp.int32(act))
+            states.append(s)
+        ran = None
+        if a < cfg.k_rules:
+            ran = jexecute_rule(cfg, *inputs, jenv_reset(cfg), *rs.gather(a))
+        out[a] = states, ran
+    return out
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("action", range(8))
+def test_env_step_and_execute_rule_match_reference(port_system, batches,
+                                                   reference_steps, action,
+                                                   backend):
+    """One query, no batch axis: each of the 6 rules, a_reset and a_stop
+    after rule 1 and once more, bit-equal to the reference's env_step;
+    each rule alone through execute_rule bit-equal too."""
+    from repro_torch.core import env_reset, env_step, execute_rule
+
+    cfg, rs = port_system.env_cfg, port_system.ruleset
+    assert cfg.n_actions == 8
+    _, inputs = _one_query(batches[CAT1])
+    want_states, want_ran = reference_steps[action]
+    s = env_reset(cfg, device="cpu")
+    assert s.u.shape == () and s.matched.shape == (cfg.n_words_total,)
+    for i, (act, want) in enumerate(zip((1, action, action), want_states)):
+        s = env_step(cfg, rs, *inputs, s, act, backend=backend)
+        _assert_state_equal(s, want, f"step {i}: ")
+    if action < cfg.k_rules:
+        allowed, required, du, dv = rs.gather(torch.tensor(action))
+        ran = execute_rule(cfg, *inputs, env_reset(cfg, device="cpu"),
+                           allowed, required, du, dv, backend=backend)
+        _assert_state_equal(ran, want_ran, "execute_rule: ")
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_batched_env_step_matches_reference(tiny_system, port_system, batches,
+                                            backend):
+    """Two steps over a batch, each lane its own seeded action (every
+    action drawn), bit-equal to the reference's jitted vmap."""
+    from repro.core.environment import batched_env_step as jbatched_env_step
+    from repro.core.environment import env_reset as jenv_reset
+    from repro_torch.core import batched_env_step, env_reset
+
+    import jax
+
+    _, occ, scores, tp = batches[CAT1]
+    jcfg, pcfg = tiny_system.env_cfg, port_system.env_cfg
+    acts = np.random.default_rng(3).integers(0, pcfg.n_actions,
+                                             (2, occ.shape[0])).astype(np.int32)
+    assert len(np.unique(acts)) == pcfg.n_actions
+    js = jax.vmap(lambda _: jenv_reset(jcfg))(jnp.arange(occ.shape[0]))
+    ps = env_reset(pcfg, occ.shape[0], "cpu")
+    for i, a in enumerate(acts):
+        js = jbatched_env_step(jcfg, tiny_system.ruleset, jnp.asarray(occ),
+                               jnp.asarray(scores), jnp.asarray(tp), js,
+                               jnp.asarray(a))
+        ps = batched_env_step(pcfg, port_system.ruleset,
+                              *_port_inputs(batches[CAT1]), ps,
+                              torch.from_numpy(a), backend=backend)
+        _assert_state_equal(ps, js, f"step {i}: ")
+
+
+# the properties of tests/test_match_engine.py, on the port's API
+BIG = 10 ** 9
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_env_u_accounting(port_system, batches, backend):
+    """u equals planes-per-block × blocks scanned for a single rule."""
+    from repro_torch.core import block_cost, env_reset, execute_rule
+
+    cfg, rs = port_system.env_cfg, port_system.ruleset
+    occ, scores, tp = _one_query(batches[CAT1])[1]
+    s1 = execute_rule(cfg, occ, scores, tp, env_reset(cfg, device="cpu"),
+                      rs.allowed[0], rs.required[0], BIG, BIG, backend=backend)
+    planes = int(block_cost(rs.allowed[0], tp))
+    assert int(s1.u) == planes * cfg.n_blocks          # scanned the whole index
+    assert int(s1.block_ptr) == cfg.n_blocks
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_env_candidates_unique_sorted(port_system, batches, backend):
+    from repro_torch.core import env_reset, execute_rule
+
+    cfg, rs = port_system.env_cfg, port_system.ruleset
+    occ, scores, tp = _one_query(batches[CAT1])[1]
+    s1 = execute_rule(cfg, occ, scores, tp, env_reset(cfg, device="cpu"),
+                      rs.allowed[0], rs.required[0], BIG, BIG, backend=backend)
+    cand = s1.cand.numpy()
+    got = cand[cand >= 0]
+    assert len(got) > 0 and len(np.unique(got)) == len(got)
+    assert (np.diff(got) > 0).all()                    # scan order = doc id order
+    assert int(s1.cand_cnt) == len(got)
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_env_dedup_across_reset(port_system, batches, backend):
+    """Re-running the same rule after a_reset adds no candidates but
+    costs u (on the batch's first query whose rule 1 finds any)."""
+    from repro_torch.core import env_reset, env_step
+
+    cfg, rs = port_system.env_cfg, port_system.ruleset
+    for i in range(N_BATCH):
+        inputs = _one_query(batches[CAT1], i)[1]
+
+        def step(s, a):
+            return env_step(cfg, rs, *inputs, s, a, backend=backend)
+
+        s1 = step(env_reset(cfg, device="cpu"), 1)
+        if int(s1.cand_cnt) > 0:
+            break
+    s2 = step(s1, cfg.a_reset)
+    assert int(s2.block_ptr) == 0
+    s3 = step(s2, 1)
+    assert int(s3.cand_cnt) == int(s1.cand_cnt) > 0
+    assert int(s3.u) > int(s1.u)
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_env_stop_is_terminal_and_frozen(port_system, batches, backend):
+    from repro_torch.core import env_reset, env_step
+
+    cfg, rs = port_system.env_cfg, port_system.ruleset
+    inputs = _one_query(batches[CAT1])[1]
+
+    def step(s, a):
+        return env_step(cfg, rs, *inputs, s, a, backend=backend)
+
+    s1 = step(env_reset(cfg, device="cpu"), 0)
+    s2 = step(s1, cfg.a_stop)
+    assert bool(s2.done)
+    s3 = step(s2, 0)                                   # further rules are no-ops
+    assert int(s3.u) == int(s2.u) and int(s3.cand_cnt) == int(s2.cand_cnt)
+
+
+def test_env_reset_defaults_to_cuda():
+    from repro_torch.core import env_reset
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the no-fallback path is not reachable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        env_reset(None)
+
+
+# ------------------------------------------------------ ncg_at_k, doc_bit
+def test_ncg_at_k_matches_reference(tiny_system):
+    """One query's NCG against the reference's ``ncg_at_k``, on candidate
+    lists that hold some of its judged docs, none, and all; within 1e-6
+    (float32 sums of at most 100 small integer gains over their ideal)."""
+    from repro.ranking.metrics import ncg_at_k as jncg_at_k
+    from repro_torch.ranking.metrics import batched_ncg, ncg_at_k
+
+    rng = np.random.default_rng(9)
+    log = tiny_system.log
+    n_docs = tiny_system.index.n_docs
+    for q in range(12):
+        jids, gains = log.judged_ids[q], log.judged_gains[q]
+        judged = jids[jids >= 0]
+        for kind in ("some", "none", "all"):
+            pick = {"some": judged[rng.random(len(judged)) < 0.5],
+                    "none": judged[:0], "all": judged}[kind]
+            cand = np.unique(np.concatenate(
+                [pick, rng.integers(0, n_docs, 40)])).astype(np.int32)
+            cand = np.pad(cand, (0, 160 - len(cand)), constant_values=-1)
+            want = float(jncg_at_k(jnp.asarray(cand), jnp.asarray(jids),
+                                   jnp.asarray(gains, jnp.float32)))
+            got = ncg_at_k(torch.from_numpy(cand), torch.from_numpy(jids),
+                           torch.from_numpy(gains))
+            assert got.shape == () and got.dtype == torch.float32
+            assert abs(float(got) - want) <= 1e-6, (q, kind)
+            row = batched_ncg(torch.from_numpy(cand)[None],
+                              torch.from_numpy(jids)[None],
+                              torch.from_numpy(gains)[None])[0]
+            assert float(row) == float(got)
+
+
+def test_doc_bit_matches_reference():
+    """Bit for bit against the reference's ``doc_bit`` on a stack of
+    blocks: scalar offsets at the word edges and a vector of offsets."""
+    from repro.index.blocks import doc_bit as jdoc_bit
+    from repro_torch.index.blocks import doc_bit, words_to_tensor
+
+    bits = np.random.default_rng(22).random((3, 5, 256)) < 0.4
+    words = pack_bits(bits)
+    t = words_to_tensor(words, "cpu")
+    for d in (0, 31, 32, 77, 127, 255):
+        got = doc_bit(t, d)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jdoc_bit(jnp.asarray(words), jnp.int32(d))).astype(np.int32))
+        np.testing.assert_array_equal(got.numpy(), bits[..., d])
+    offs = np.array([3, 64, 200, 255], np.int32)
+    got = doc_bit(t, torch.from_numpy(offs))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jdoc_bit(jnp.asarray(words), jnp.asarray(offs))).astype(np.int32))
