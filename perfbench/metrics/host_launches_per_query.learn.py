@@ -1,0 +1,6 @@
+"""Kernel-launch API calls of the traced slice per query (learn cells)."""
+from perfbench.readers import launches_per_query
+
+
+def read(ctx):
+    return launches_per_query(ctx, "learn")
