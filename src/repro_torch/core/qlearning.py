@@ -19,6 +19,12 @@ the two agree within float32 rounding, not bit for bit.
 
 ``train_batch`` takes a scan ``backend`` (core/scan_backends.py), so
 training episodes run the chunked block-scan kernel, not just serving.
+
+Under an active tracer (``obs.trace.tracing``) a step is a
+``train_batch`` span holding the episode's ``rollout``, the
+``td_update`` (with a ``sync`` span for each of its four device→host
+reads: the two selections of the valid transitions, the cells'
+``unique_consecutive`` and the widest cell) and the ``metrics``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cost import note
+from repro_torch.obs.trace import host_sync, scope
 
 from .rollout import unified_rollout
 
@@ -102,8 +109,11 @@ def _cell_sums(flat: torch.Tensor, td: torch.Tensor, n_cells: int):
         # as a cell of its own
         cells, counts, width = flat[order], torch.ones_like(flat), 1
     else:
-        cells, counts = torch.unique_consecutive(flat[order], return_counts=True)
-        width = int(counts.max())
+        with host_sync("unique_cells"):
+            cells, counts = torch.unique_consecutive(flat[order],
+                                                     return_counts=True)
+        with host_sync("cell_width"):
+            width = int(counts.max())
     starts = torch.cumsum(counts, 0) - counts
     seg = torch.repeat_interleave(
         torch.arange(cells.shape[0], device=dev), counts, output_size=n)
@@ -116,29 +126,34 @@ def _cell_sums(flat: torch.Tensor, td: torch.Tensor, n_cells: int):
 
 def td_update(qcfg: QConfig, q: torch.Tensor, transitions: dict) -> torch.Tensor:
     """Scatter-mean TD(0) over the flattened (state, action) cells."""
-    s = transitions["s"].reshape(-1).long()
-    a = transitions["a"].reshape(-1).long()
-    r = transitions["r"].reshape(-1)
-    s2 = transitions["s2"].reshape(-1).long()
-    done = transitions["done"].reshape(-1)
-    valid = transitions["valid"].reshape(-1)
+    with scope("td_update"):
+        s = transitions["s"].reshape(-1).long()
+        a = transitions["a"].reshape(-1).long()
+        r = transitions["r"].reshape(-1)
+        s2 = transitions["s2"].reshape(-1).long()
+        done = transitions["done"].reshape(-1)
+        valid = transitions["valid"].reshape(-1)
 
-    target = r + qcfg.gamma * torch.where(done, 0.0, q[s2].amax(dim=-1))
-    td = target - q[s, a]
+        target = r + qcfg.gamma * torch.where(done, 0.0, q[s2].amax(dim=-1))
+        td = target - q[s, a]
 
-    flat = s * qcfg.n_actions + a
-    n_cells = qcfg.p * qcfg.n_actions
-    if flat.device.type == "meta":
-        note("td_update: data-dependent valid transitions and cells; every "
-             "transition counted valid and a cell of its own")
-        sums = _cell_sums(flat, td, n_cells)
-    else:
-        sums = _cell_sums(flat[valid], td[valid], n_cells)
-    # Counts of 0/1 terms are exact in float32 in any order.
-    counts = torch.zeros(n_cells, dtype=torch.float32, device=q.device)
-    counts.index_add_(0, flat, valid.to(torch.float32))
-    mean_td = sums / torch.clamp(counts, min=1.0)
-    return q + qcfg.alpha * mean_td.reshape(qcfg.p, qcfg.n_actions)
+        flat = s * qcfg.n_actions + a
+        n_cells = qcfg.p * qcfg.n_actions
+        if flat.device.type == "meta":
+            note("td_update: data-dependent valid transitions and cells; "
+                 "every transition counted valid and a cell of its own")
+            sums = _cell_sums(flat, td, n_cells)
+        else:
+            with host_sync("valid_cells"):
+                flat_valid = flat[valid]
+            with host_sync("valid_td"):
+                td_valid = td[valid]
+            sums = _cell_sums(flat_valid, td_valid, n_cells)
+        # Counts of 0/1 terms are exact in float32 in any order.
+        counts = torch.zeros(n_cells, dtype=torch.float32, device=q.device)
+        counts.index_add_(0, flat, valid.to(torch.float32))
+        mean_td = sums / torch.clamp(counts, min=1.0)
+        return q + qcfg.alpha * mean_td.reshape(qcfg.p, qcfg.n_actions)
 
 
 def train_batch(cfg, qcfg: QConfig, ruleset, bins, q, occ, scores,
@@ -146,17 +161,19 @@ def train_batch(cfg, qcfg: QConfig, ruleset, bins, q, occ, scores,
                 backend="reference"):
     """One ε-greedy episode over the batch and its TD update; returns
     (new q, metrics of 0-dim float32 tensors)."""
-    final_state, transitions = _epsilon_rollout(
-        cfg, qcfg, ruleset, bins, q, occ, scores, term_present, prod_rewards,
-        epsilon, draws, backend)
-    q_new = td_update(qcfg, q, transitions)
-    valid = transitions["valid"]
-    metrics = {
-        "mean_u": final_state.u.to(torch.float32).mean(),
-        "mean_v": final_state.v.to(torch.float32).mean(),
-        "mean_cand": final_state.cand_cnt.to(torch.float32).mean(),
-        "mean_reward": torch.sum(transitions["r"] * valid)
-        / torch.clamp(valid.sum(), min=1),
-        "q_abs_mean": q_new.abs().mean(),
-    }
+    with scope("train_batch", batch=occ.shape[0]):
+        final_state, transitions = _epsilon_rollout(
+            cfg, qcfg, ruleset, bins, q, occ, scores, term_present,
+            prod_rewards, epsilon, draws, backend)
+        q_new = td_update(qcfg, q, transitions)
+        with scope("metrics"):
+            valid = transitions["valid"]
+            metrics = {
+                "mean_u": final_state.u.to(torch.float32).mean(),
+                "mean_v": final_state.v.to(torch.float32).mean(),
+                "mean_cand": final_state.cand_cnt.to(torch.float32).mean(),
+                "mean_reward": torch.sum(transitions["r"] * valid)
+                / torch.clamp(valid.sum(), min=1),
+                "q_abs_mean": q_new.abs().mean(),
+            }
     return q_new, metrics

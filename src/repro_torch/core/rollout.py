@@ -11,6 +11,11 @@ streams the index is a scan backend (``core/scan_backends.py``):
 ``unified_rollout`` returns the transition set ``{s, a, r, s2, done,
 valid}`` and the per-step trajectory ``{u, v, topn_sum, cand_cnt}``,
 each leaf stacked to (t_max, B).
+
+Under an active tracer (``obs.trace.tracing``) a rollout is a
+``rollout`` span holding a ``step`` span per agent step (its ``act``,
+the backend's ``rule`` and the ``reward`` bookkeeping) and the final
+``stack``.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional, Union
 
 import torch
+
+from repro_torch.obs.trace import scope
 
 from .environment import EnvConfig, EnvState, env_reset
 from .match_rules import RuleSet
@@ -104,38 +111,44 @@ def unified_rollout(
     that step (``Lp`` is the plan's length); without ``prod_rewards``,
     against 0, as in the reference."""
     batch, dev = occ.shape[0], occ.device
-    state = env_reset(cfg, batch, dev)
     scan = get_scan_backend(backend) if isinstance(backend, str) else backend
+    with scope("rollout", batch=batch, t_max=t_max, backend=scan.name):
+        state = env_reset(cfg, batch, dev)
 
-    def state_bin(s: EnvState) -> torch.Tensor:
-        if bins is None:
-            return torch.zeros(batch, dtype=torch.int32, device=dev)
-        return bin_index(bins, s.u, s.v)
+        def state_bin(s: EnvState) -> torch.Tensor:
+            if bins is None:
+                return torch.zeros(batch, dtype=torch.int32, device=dev)
+            return bin_index(bins, s.u, s.v)
 
-    trans = {k: [] for k in ("s", "a", "r", "s2", "done", "valid")}
-    traj = {k: [] for k in ("u", "v", "topn_sum", "cand_cnt")}
-    s_bin = state_bin(state)
-    for t in range(t_max):
-        pa = policy.act(s_bin, state, t)
-        new_state = policy_env_step(cfg, ruleset, occ, scores, term_present,
-                                    state, pa, scan)
-        r_prod_t = (0.0 if prod_rewards is None else
-                    prod_rewards[:, min(t, prod_rewards.shape[1] - 1)])
-        r = step_reward(cfg, state, new_state, r_prod_t)
-        s2_bin = state_bin(new_state)
-        for k, val in (("s", s_bin), ("a", pa.action), ("r", r),
-                       ("s2", s2_bin), ("done", new_state.done),
-                       ("valid", ~state.done)):
-            trans[k].append(val)
-        topn = new_state.topn
-        for k, val in (("u", new_state.u), ("v", new_state.v),
-                       ("topn_sum", torch.where(torch.isfinite(topn), topn,
-                                                0.0).sum(dim=-1)),
-                       ("cand_cnt", new_state.cand_cnt)):
-            traj[k].append(val)
-        state, s_bin = new_state, s2_bin
-    return RolloutResult(
-        state,
-        {k: torch.stack(v) for k, v in trans.items()},
-        {k: torch.stack(v) for k, v in traj.items()},
-    )
+        trans = {k: [] for k in ("s", "a", "r", "s2", "done", "valid")}
+        traj = {k: [] for k in ("u", "v", "topn_sum", "cand_cnt")}
+        s_bin = state_bin(state)
+        for t in range(t_max):
+            with scope("step", t=t):
+                with scope("act"):
+                    pa = policy.act(s_bin, state, t)
+                new_state = policy_env_step(cfg, ruleset, occ, scores,
+                                            term_present, state, pa, scan)
+                with scope("reward"):
+                    r_prod_t = (0.0 if prod_rewards is None else prod_rewards[
+                        :, min(t, prod_rewards.shape[1] - 1)])
+                    r = step_reward(cfg, state, new_state, r_prod_t)
+                    s2_bin = state_bin(new_state)
+                    for k, val in (("s", s_bin), ("a", pa.action), ("r", r),
+                                   ("s2", s2_bin), ("done", new_state.done),
+                                   ("valid", ~state.done)):
+                        trans[k].append(val)
+                    topn = new_state.topn
+                    topn_sum = torch.where(torch.isfinite(topn), topn,
+                                           0.0).sum(dim=-1)
+                    for k, val in (("u", new_state.u), ("v", new_state.v),
+                                   ("topn_sum", topn_sum),
+                                   ("cand_cnt", new_state.cand_cnt)):
+                        traj[k].append(val)
+            state, s_bin = new_state, s2_bin
+        with scope("stack"):
+            return RolloutResult(
+                state,
+                {k: torch.stack(v) for k, v in trans.items()},
+                {k: torch.stack(v) for k, v in traj.items()},
+            )

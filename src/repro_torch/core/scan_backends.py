@@ -20,8 +20,13 @@ port            reference               how a rule scans
 locates the quota-crossing block by cumulative sums of the per-block
 (u_inc, v_inc) increments and masks every update past it, so its final
 :class:`EnvState` equals the ``reference`` loop's bit for bit.  Its
-loop over chunks runs on the host: one device-to-host sync per chunk
-to test whether any lane still scans.
+loop over chunks runs on the host: before each chunk, and once more
+after the last, one device-to-host read tests whether any lane still
+scans (``_again``; counted by ``obs.trace.host_sync``).
+
+Under an active tracer (``obs.trace.tracing``) a rule execution is a
+``rule`` span (args ``chunk``, ``rounds``) holding a ``chunk`` span per
+round and a ``sync`` span per read.
 
 A backend's ``run_rule`` is BATCHED: every tensor argument carries a
 leading query-batch axis, and lanes never couple (a lane whose stopping
@@ -39,6 +44,7 @@ from repro_torch.kernels.block_scan import (META_BP_COL,
                                             block_scan_pruned_chunk,
                                             build_rule_meta)
 from repro_torch.kernels.cost import note
+from repro_torch.obs.trace import host_sync, scope
 
 from .environment import EnvConfig, EnvState
 from .match_rules import block_cost, scan_block
@@ -181,7 +187,8 @@ def _again(cond: torch.Tensor, rounds: int, loop: str) -> bool:
         if rounds == 0:
             note(f"{loop}: data-dependent loop, body counted once")
         return rounds == 0
-    return bool(cond.any())
+    with host_sync("cond_any"):
+        return bool(cond.any())
 
 
 # ------------------------------------------------------------ "reference"
@@ -194,20 +201,24 @@ class ReferenceScanBackend(ScanBackend):
     def run_rule(self, cfg, occ, scores, term_present, state,
                  allowed, required, du_quota, dv_quota) -> EnvState:
         b, nb = occ.shape[:2]
-        lanes = torch.arange(b, device=occ.device)
-        u_inc = block_cost(allowed, term_present)
-        u0, v0 = state.u, state.v
-        rounds = 0
-        while True:
-            cond = _lane_cond(cfg, nb, state, u0, v0, du_quota, dv_quota)
-            if not _again(cond, rounds, "ReferenceScanBackend.run_rule"):
-                return state
-            rounds += 1
-            bp = torch.clamp(state.block_ptr, max=nb - 1).long()
-            match, v_inc = scan_block(occ[lanes, bp], allowed, required,
-                                      term_present)
-            state = _apply_chunk(cfg, state, match[:, None], v_inc[:, None],
-                                 cond[:, None], u_inc, scores)
+        with scope("rule") as span:
+            lanes = torch.arange(b, device=occ.device)
+            u_inc = block_cost(allowed, term_present)
+            u0, v0 = state.u, state.v
+            rounds = 0
+            while True:
+                cond = _lane_cond(cfg, nb, state, u0, v0, du_quota, dv_quota)
+                if not _again(cond, rounds, "ReferenceScanBackend.run_rule"):
+                    span.end(chunk=1, rounds=rounds)
+                    return state
+                rounds += 1
+                with scope("chunk"):
+                    bp = torch.clamp(state.block_ptr, max=nb - 1).long()
+                    match, v_inc = scan_block(occ[lanes, bp], allowed,
+                                              required, term_present)
+                    state = _apply_chunk(cfg, state, match[:, None],
+                                         v_inc[:, None], cond[:, None], u_inc,
+                                         scores)
 
 
 # ----------------------------------------------------------- "block_scan"
@@ -219,8 +230,10 @@ def adaptive_chunk_blocks(n_blocks: int, du_quota, u_inc,
     C is sized for the longest-running lane of the batch, clamped to
     [1, min(n_blocks, MAX_ADAPTIVE_CHUNK)].  Zero-plane rules cost
     nothing and sweep to the end."""
-    du = np.asarray(torch.as_tensor(du_quota).cpu(), dtype=np.float64)
-    planes = np.asarray(torch.as_tensor(u_inc).cpu(), dtype=np.float64)
+    with host_sync("chunk_quota"):
+        du = np.asarray(torch.as_tensor(du_quota).cpu(), dtype=np.float64)
+    with host_sync("chunk_planes"):
+        planes = np.asarray(torch.as_tensor(u_inc).cpu(), dtype=np.float64)
     blocks = np.where(planes > 0,
                       np.minimum(du, u_budget) / np.maximum(planes, 1.0),
                       n_blocks)
@@ -242,6 +255,13 @@ class BlockScanBackend(ScanBackend):
 
     def run_rule(self, cfg, occ, scores, term_present, state,
                  allowed, required, du_quota, dv_quota) -> EnvState:
+        with scope("rule") as span:
+            return self._run_rule(span, cfg, occ, scores, term_present,
+                                  state, allowed, required, du_quota,
+                                  dv_quota)
+
+    def _run_rule(self, span, cfg, occ, scores, term_present, state,
+                  allowed, required, du_quota, dv_quota) -> EnvState:
         b, nb, t, f, w = occ.shape
         dev = occ.device
         u_inc = block_cost(allowed, term_present)                  # (B,)
@@ -269,27 +289,30 @@ class BlockScanBackend(ScanBackend):
             s = state
             if not _again(_lane_cond(cfg, nb, s, u0, v0, du_quota, dv_quota),
                           rounds, "BlockScanBackend.run_rule"):
+                span.end(chunk=chunk, rounds=rounds)
                 return s
             rounds += 1
-            meta[:, 0, META_BP_COL] = s.block_ptr
-            match, v_inc, _ = block_scan_pruned_chunk(
-                occ2, meta, chunk=chunk, n_terms=t)
-            # Block j is scanned iff the §3 condition holds at the state
-            # BEFORE block j.  Every term is monotone in j, so the
-            # scanned set is a prefix.
-            u_before = s.u[:, None] + j * u_inc[:, None]
-            v_prefix = torch.cat([
-                torch.zeros((b, 1), dtype=torch.int32, device=dev),
-                torch.cumsum(v_inc[:, :-1], dim=1).to(torch.int32)], dim=1)
-            v_before = s.v[:, None] + v_prefix
-            ok = ((u_before - u0[:, None] < du_quota[:, None])
-                  & (v_before - v0[:, None] < dv_quota[:, None])
-                  & (s.block_ptr[:, None] + j < nb)
-                  & (u_before < cfg.u_budget)
-                  & ~s.done[:, None])
-            scan_mask = torch.cumprod(ok.to(torch.int32), dim=1) > 0
-            state = _apply_chunk(cfg, s, match, v_inc, scan_mask, u_inc,
-                                 scores)
+            with scope("chunk"):
+                meta[:, 0, META_BP_COL] = s.block_ptr
+                match, v_inc, _ = block_scan_pruned_chunk(
+                    occ2, meta, chunk=chunk, n_terms=t)
+                # Block j is scanned iff the §3 condition holds at the
+                # state BEFORE block j.  Every term is monotone in j, so
+                # the scanned set is a prefix.
+                u_before = s.u[:, None] + j * u_inc[:, None]
+                v_prefix = torch.cat([
+                    torch.zeros((b, 1), dtype=torch.int32, device=dev),
+                    torch.cumsum(v_inc[:, :-1], dim=1).to(torch.int32)],
+                    dim=1)
+                v_before = s.v[:, None] + v_prefix
+                ok = ((u_before - u0[:, None] < du_quota[:, None])
+                      & (v_before - v0[:, None] < dv_quota[:, None])
+                      & (s.block_ptr[:, None] + j < nb)
+                      & (u_before < cfg.u_budget)
+                      & ~s.done[:, None])
+                scan_mask = torch.cumprod(ok.to(torch.int32), dim=1) > 0
+                state = _apply_chunk(cfg, s, match, v_inc, scan_mask, u_inc,
+                                     scores)
 
 
 register_scan_backend(ReferenceScanBackend())

@@ -30,8 +30,13 @@ from .trace import (
     Span,
     TraceLog,
     Tracer,
+    active,
     adjust_remote_entries,
     export_chrome_entries,
+    host_sync,
+    host_syncs,
+    scope,
+    tracing,
     write_chrome_entries,
 )
 
@@ -50,11 +55,16 @@ __all__ = [
     "Span",
     "TraceLog",
     "Tracer",
+    "active",
     "adjust_remote_entries",
     "export_chrome_entries",
     "fold_snapshot",
+    "host_sync",
+    "host_syncs",
     "merge_snapshots",
     "metric_key",
+    "scope",
     "statusz",
+    "tracing",
     "write_chrome_entries",
 ]

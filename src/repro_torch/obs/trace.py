@@ -17,7 +17,15 @@ spans, one Perfetto row (*track*) per ticket:
 
 Thread-level work (micro-batches, serve-step preparations) lands on the
 owning thread's track.  Everything shares one clock
-(``time.perf_counter``).
+(``time.perf_counter`` unless the tracer is given another).
+
+Code that takes no tracer argument (the rule loop in ``core/``) traces
+under the *active* tracer: a caller sets one for a block with
+:func:`tracing`, and :func:`scope` opens a span under the innermost
+open one there.  The state is a ``contextvar``, so each thread sees only
+the tracer its own caller set.  :func:`host_sync` marks a blocking
+device→host read: it counts it (:func:`host_syncs`, always on) and,
+under an active tracer, times it as a ``sync`` span.
 
 Multi-process cells merge several logs into one timeline: each worker
 ships entry deltas (:meth:`TraceLog.drain_since`) over its control
@@ -48,6 +56,8 @@ exporting dangling ids.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import itertools
 import json
 import threading
@@ -56,6 +66,7 @@ from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["Span", "TraceLog", "Tracer", "NULL_SPAN", "NULL_TRACER",
+           "active", "tracing", "scope", "host_sync", "host_syncs",
            "adjust_remote_entries", "export_chrome_entries",
            "write_chrome_entries"]
 
@@ -456,3 +467,77 @@ class Tracer:
 
 #: Shared disabled tracer — the default everywhere a tracer is optional.
 NULL_TRACER = Tracer(log=TraceLog(capacity=1), enabled=False)
+
+
+# ------------------------------------------------------ the active tracer
+#: (tracer, innermost open scope) of the running context.
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_active_tracer", default=(NULL_TRACER, None))
+_host_syncs = 0
+_host_syncs_lock = threading.Lock()
+
+
+def active() -> Tracer:
+    """The tracer that a caller set with :func:`tracing` for the running
+    context (thread); :data:`NULL_TRACER` where none did."""
+    return _ACTIVE.get()[0]
+
+
+@contextlib.contextmanager
+def tracing(tracer: Tracer):
+    """Make ``tracer`` the active tracer inside the block; the outermost
+    spans that :func:`scope` opens there are roots on the calling
+    thread's track."""
+    token = _ACTIVE.set((tracer, None))
+    try:
+        yield tracer
+    finally:
+        _ACTIVE.reset(token)
+
+
+class _Scope:
+    """An open span of the active tracer that is the innermost one while
+    its block runs."""
+
+    __slots__ = ("span", "_token")
+
+    def __init__(self, span: Span):
+        self.span = span
+
+    def __enter__(self) -> Span:
+        self._token = _ACTIVE.set((self.span._tracer, self.span))
+        return self.span
+
+    def __exit__(self, exc_type, *exc) -> None:
+        _ACTIVE.reset(self._token)
+        self.span.__exit__(exc_type, *exc)
+
+
+def scope(name: str, **args):
+    """``with scope(name, **args) as span:`` a span of the active tracer,
+    child of the innermost open scope and innermost itself until the
+    block ends; ``span.end(**more)`` inside the block ends it early with
+    more args.  With no tracer active: :data:`NULL_SPAN`, after one
+    check."""
+    tracer, parent = _ACTIVE.get()
+    if not tracer.enabled:
+        return NULL_SPAN
+    return _Scope(tracer.span(name, parent=parent, **args))
+
+
+def host_sync(site: str):
+    """Mark one blocking device→host read at ``site``: ``with
+    host_sync("cond_any"): go = bool(cond.any())``.  Counts it in a
+    plain process-wide count (:func:`host_syncs`) and, under an active
+    tracer, times it as a ``sync`` span.  A read on ``meta`` (a dry run)
+    reads nothing: its site does not come here."""
+    global _host_syncs
+    with _host_syncs_lock:
+        _host_syncs += 1
+    return scope("sync", site=site)
+
+
+def host_syncs() -> int:
+    """The device→host reads marked with :func:`host_sync` in this
+    process so far."""
+    return _host_syncs

@@ -49,8 +49,13 @@ class EpsilonGreedy(Policy):
     uniform: torch.Tensor         # (t_max, B) float32 in [0, 1)
 
     def __post_init__(self):
-        self.epsilon = torch.as_tensor(self.epsilon, dtype=torch.float32,
-                                       device=self.uniform.device)
+        # A number is filled in on the draws' device: a copy of a host
+        # scalar to the card would wait for the stream (a host sync).
+        dev = self.uniform.device
+        self.epsilon = (self.epsilon.to(dev, torch.float32)
+                        if isinstance(self.epsilon, torch.Tensor) else
+                        torch.full((), self.epsilon, dtype=torch.float32,
+                                   device=dev))
 
     @classmethod
     def draw(cls, generator: torch.Generator, t_max: int, batch: int,

@@ -25,9 +25,10 @@ the count is ``len(BucketConfig.buckets()) × n_policy_structures`` per
 level.
 
 No CUDA graph is captured per entry: the rule loop syncs with the host
-once a chunk (the ``cond.any()`` of ``core/scan_backends.py``) inside
-the per-step Python loop of ``core/rollout.py``, so a graph would need
-a fixed chunk count a key.  The entry is where one would sit.
+before each chunk round and once more a rule execution (the
+``cond.any()`` of ``core/scan_backends.py``) inside the per-step Python
+loop of ``core/rollout.py``, so a graph would need a fixed chunk count
+a key.  The entry is where one would sit.
 
 The rollout is a *backend* chosen at construction and kept in the key:
 any name in the core scan-backend registry (``core/scan_backends.py``:
@@ -57,7 +58,7 @@ from repro_torch.core.scan_backends import available_backends as scan_backends
 from repro_torch.core.scan_backends import get_scan_backend
 from repro_torch.core.telescope import l1_prune, merge_shard_candidates
 from repro_torch.index.corpus import N_FIELDS
-from repro_torch.obs import NULL_TRACER
+from repro_torch.obs import NULL_TRACER, tracing
 from repro_torch.policies import Policy, structure_key
 
 __all__ = ["ShardedExecutor", "ROLLOUT_BACKENDS", "available_backends",
@@ -128,7 +129,9 @@ class ShardedExecutor:
         self.compile_count = 0
         self.execute_count = 0
         # Set by the owning engine when tracing is on; each preparation
-        # gets its own span (the cold-start cost of a new key).
+        # gets its own span (the cold-start cost of a new key), and the
+        # rollout runs under it (the rule loop's spans on the calling
+        # thread's track).
         self.tracer = NULL_TRACER
 
     # ----------------------------------------------------------- the step
@@ -143,9 +146,11 @@ class ShardedExecutor:
         scores_sh = scores.reshape(b, s, ds).transpose(0, 1).reshape(s * b, ds)
         tp_sh = term_present.repeat(s, 1)
 
-        final = self._rollout(self.shard_env_cfg, sys_.ruleset, sys_.bins,
-                              policy, policy.horizon or sys_.cfg.t_max,
-                              occ_sh, scores_sh, tp_sh)
+        with tracing(self.tracer):
+            final = self._rollout(self.shard_env_cfg, sys_.ruleset,
+                                  sys_.bins, policy,
+                                  policy.horizon or sys_.cfg.t_max, occ_sh,
+                                  scores_sh, tp_sh)
 
         cand = final.cand.reshape(s, b, -1)
         shard_base = (torch.arange(s, dtype=torch.int32, device=occ.device)

@@ -3,18 +3,26 @@ telemetry: the metrics registry's semantics (merge fold, bucket
 layout), ticket-scoped tracing (span lifecycle, ring eviction and
 re-rooting, Chrome export with matched B/E at equal timestamps) and
 telemetry QPS windowing — the cases of ``tests/test_obs.py`` that need
-no cluster, ported case for case.  JAX-free."""
+no cluster, ported case for case — and the active tracer's spans and
+the host-sync count inside the rule loop and the TD update, on the
+websearch-rl cells at their reduced sizes.  JAX-free."""
+import contextlib
+import dataclasses
 import importlib.util
 import json
+import threading
 from pathlib import Path
 
 import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
+import torch
+
 from repro_torch.obs import (Counter, Gauge, Histogram, MetricsRegistry,
-                             NULL_SPAN, NULL_TRACER, TraceLog, Tracer,
-                             merge_snapshots, metric_key)
+                             NULL_SPAN, NULL_TRACER, TraceLog, Tracer, active,
+                             host_sync, host_syncs, merge_snapshots,
+                             metric_key, scope, tracing)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -382,3 +390,220 @@ def test_export_namespaces_tids_by_pid(tmp_path):
     pnames = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
               if e["ph"] == "M" and e["name"] == "process_name"}
     assert pnames == {1: "unit", 101: "worker proc"}
+
+
+# ------------------------------------- the active tracer in the rule loop
+BACKENDS = ("reference", "block_scan")
+TD_READS = 4            # td_update: two valid selections, unique, widest cell
+
+
+def test_active_tracer_is_per_thread_and_off_by_default():
+    assert active() is NULL_TRACER and scope("x") is NULL_SPAN
+    tracer, seen = Tracer(), {}
+    with tracing(tracer):
+        assert active() is tracer
+        other = threading.Thread(target=lambda: seen.update(t=active()))
+        other.start()
+        other.join()
+        with scope("outer", k=1) as outer:
+            with scope("inner"):
+                pass
+            outer.end(more=2)
+    assert seen["t"] is NULL_TRACER and active() is NULL_TRACER
+    by = {e["name"]: e for e in tracer.log.snapshot()}
+    assert by["inner"]["parent"] == by["outer"]["id"]
+    assert by["outer"]["parent"] is None
+    assert by["outer"]["args"] == {"k": 1, "more": 2}
+
+
+def test_host_sync_counts_always_and_times_only_under_a_tracer():
+    n = host_syncs()
+    with host_sync("a") as span:
+        pass
+    assert host_syncs() == n + 1 and span is NULL_SPAN
+    tracer = Tracer()
+    with tracing(tracer), host_sync("b"):
+        pass
+    assert host_syncs() == n + 2
+    (entry,) = tracer.log.snapshot()
+    assert entry["name"] == "sync" and entry["args"] == {"site": "b"}
+
+
+def test_host_sync_count_loses_no_update_across_threads():
+    """Eight threads, more than the cores, count at once with a short
+    switch interval: the count rises by every call."""
+    import sys
+
+    threads, each = 8, 5000
+    n, interval = host_syncs(), sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def count():
+            for _ in range(each):
+                with host_sync("stress"):
+                    pass
+
+        workers = [threading.Thread(target=count) for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert host_syncs() - n == threads * each
+
+
+def _ws_fns(backend):
+    """The serve and learner cells of websearch-rl at their reduced
+    sizes on ``backend``, and their reduced config."""
+    from repro_torch.configs.websearch_rl import model_cfg
+    from repro_torch.launch.steps import build_cell
+
+    cfg = dataclasses.replace(model_cfg(True), backend=backend)
+    serve, learn = (build_cell("websearch-rl", shape, reduced=True,
+                               cfg_override=cfg).fn
+                    for shape in ("serve_queries", "rl_rollout"))
+    return serve, learn, cfg
+
+
+def _ws_inputs(cfg, seed=0, batch=8):
+    """Seeded inputs of both cells: (q, bins, occ, scores, tp) and the
+    learner's production rewards and ε-greedy draws."""
+    from repro_torch.core.state_bins import StateBins
+    from repro_torch.index.builder import MAX_QUERY_TERMS
+    from repro_torch.index.corpus import N_FIELDS
+
+    g = torch.Generator().manual_seed(seed)
+    w, n_act = cfg.block_docs // 32, cfg.k_rules + 2
+    shape = (batch, cfg.n_blocks, MAX_QUERY_TERMS, N_FIELDS, w)
+    words = [torch.randint(0, 2**31 - 1, shape, generator=g, dtype=torch.int32)
+             for _ in range(3)]
+    occ = words[0] & words[1] & words[2]            # an eighth of the bits
+    scores = torch.rand((batch, cfg.n_blocks * cfg.block_docs), generator=g)
+    terms = torch.randint(2, MAX_QUERY_TERMS + 1, (batch, 1), generator=g)
+    tp = torch.arange(MAX_QUERY_TERMS)[None, :] < terms
+    q = torch.rand((cfg.p_bins, n_act), generator=g)
+    pu = int(cfg.p_bins ** 0.5)
+    bins = StateBins(torch.linspace(1.0, cfg.u_budget, pu - 1),
+                     torch.linspace(1.0, 400.0, pu - 1).repeat(pu, 1))
+    prod = 0.01 * torch.rand((batch, cfg.t_max), generator=g)
+    draws = (torch.randint(0, n_act, (cfg.t_max, batch), generator=g,
+                           dtype=torch.int32),
+             torch.rand((cfg.t_max, batch), generator=g))
+    return (q, bins, occ, scores, tp), prod, draws
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_tracing_changes_no_output(backend):
+    """A serve call's (cand, u, cand_cnt) and a learner step's Q and
+    metrics are bit-equal with tracing off and on."""
+    serve, learn, cfg = _ws_fns(backend)
+    args, prod, draws = _ws_inputs(cfg)
+    plain = serve(*args), learn(*args, prod, draws)
+    with tracing(Tracer()):
+        traced = serve(*args), learn(*args, prod, draws)
+    for got, want in zip(traced[0], plain[0]):
+        assert torch.equal(got, want)
+    assert torch.equal(traced[1][0], plain[1][0])
+    for k, want in plain[1][1].items():
+        assert torch.equal(traced[1][1][k], want), k
+
+
+@pytest.mark.parametrize("traced", (False, True), ids=("off", "on"))
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_host_syncs_of_a_call_are_t_max_plus_its_chunk_rounds(
+        backend, traced, monkeypatch):
+    """Every rule execution reads its condition once more than it runs
+    chunk rounds, an agent step one rule execution: a serve call makes
+    t_max + rounds reads, a learner step TD_READS more."""
+    from repro_torch.core import scan_backends
+
+    rounds, apply_chunk = [0], scan_backends._apply_chunk
+
+    def counted(*args):
+        rounds[0] += 1
+        return apply_chunk(*args)
+
+    monkeypatch.setattr(scan_backends, "_apply_chunk", counted)
+    serve, learn, cfg = _ws_fns(backend)
+    args, prod, draws = _ws_inputs(cfg, seed=1)
+    for fn, extra, reads in ((serve, (), 0), (learn, (prod, draws), TD_READS)):
+        rounds[0], n = 0, host_syncs()
+        with tracing(Tracer()) if traced else contextlib.nullcontext():
+            fn(*args, *extra)
+        assert rounds[0] > 0
+        assert host_syncs() - n == cfg.t_max + rounds[0] + reads
+
+
+def _children(entries, parent, name=None):
+    return [e for e in entries if e["parent"] == parent["id"]
+            and (name is None or e["name"] == name)]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_span_tree_of_a_serve_call(backend):
+    """One rollout of t_max steps, each an act, a rule and a reward; a
+    chunk span a round under its rule, the rounds on the rule's args;
+    a sync span for every counted read, each under a rule."""
+    serve, _, cfg = _ws_fns(backend)
+    args, _, _ = _ws_inputs(cfg, seed=2)
+    tracer, n = Tracer(), host_syncs()
+    with tracing(tracer):
+        serve(*args)
+    n = host_syncs() - n
+    entries = tracer.log.snapshot()
+    by_id = {e["id"]: e for e in entries}
+    (rollout,) = [e for e in entries if e["name"] == "rollout"]
+    assert rollout["parent"] is None
+    assert rollout["args"] == {"batch": 8, "t_max": cfg.t_max,
+                               "backend": backend}
+    steps = _children(entries, rollout, "step")
+    assert [s["args"]["t"] for s in steps] == list(range(cfg.t_max))
+    assert [e["name"] for e in _children(entries, rollout)].count("stack") == 1
+    rules = []
+    for step in steps:
+        kids = sorted(e["name"] for e in _children(entries, step))
+        assert kids == ["act", "reward", "rule"]
+        rules += _children(entries, step, "rule")
+    chunks = [e for e in entries if e["name"] == "chunk"]
+    assert all(by_id[c["parent"]]["name"] == "rule" for c in chunks)
+    assert len(chunks) == sum(r["args"]["rounds"] for r in rules)
+    assert {r["args"]["chunk"] for r in rules} == {
+        1 if backend == "reference" else 4}
+    syncs = [e for e in entries if e["name"] == "sync"]
+    assert len(syncs) == n == cfg.t_max + len(chunks)
+    assert all(by_id[s["parent"]]["name"] == "rule" for s in syncs)
+    assert {s["args"]["site"] for s in syncs} == {"cond_any"}
+    for e in entries:                       # children lie inside parents
+        if e["parent"] is not None:
+            p = by_id[e["parent"]]
+            assert p["t0"] <= e["t0"] <= e["t1"] <= p["t1"]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_span_tree_of_a_learner_step(backend):
+    """A train_batch holding the rollout, the td_update with its four
+    reads and the metrics."""
+    _, learn, cfg = _ws_fns(backend)
+    args, prod, draws = _ws_inputs(cfg, seed=3)
+    tracer = Tracer()
+    with tracing(tracer):
+        learn(*args, prod, draws)
+    entries = tracer.log.snapshot()
+    (step,) = [e for e in entries if e["name"] == "train_batch"]
+    assert step["parent"] is None and step["args"] == {"batch": 8}
+    assert [e["name"] for e in _children(entries, step)] == [
+        "rollout", "td_update", "metrics"]
+    (td,) = _children(entries, step, "td_update")
+    assert [e["args"]["site"] for e in _children(entries, td, "sync")] == [
+        "valid_cells", "valid_td", "unique_cells", "cell_width"]
+
+
+def test_adaptive_chunk_reads_are_counted():
+    from repro_torch.core.scan_backends import adaptive_chunk_blocks
+
+    n = host_syncs()
+    assert adaptive_chunk_blocks(16, torch.tensor([8, 4]), torch.tensor(
+        [2, 1]), 512) == 4
+    assert host_syncs() - n == 2

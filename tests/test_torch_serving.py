@@ -800,6 +800,42 @@ def test_ticket_trace_chain(trained):
     assert all(not s for s in stacks.values())
 
 
+def test_engine_trace_nests_the_rule_loop_in_execute(trained):
+    """A traced engine runs its rollouts under its tracer: on the
+    micro-batch's thread track, inside its execute span, a rollout whose
+    steps hold rules and chunks, and the preparation's own rollout
+    inside the compile span."""
+    from repro_torch.obs import Tracer
+
+    sys_, policies = trained
+    tracer = Tracer()
+    engine = ServeEngine(sys_, policies, EngineConfig(
+        min_bucket=8, max_bucket=8, cache_capacity=16), tracer=tracer)
+    engine.serve([int(np.where(sys_.log.category == CAT1)[0][0])])
+    snap = tracer.log.snapshot()
+    by_id = {e["id"]: e for e in snap}
+
+    def path(e):
+        up = path(by_id[e["parent"]]) + "/" if e["parent"] else ""
+        return up + e["name"]
+
+    def inside(e, outer):
+        return (e["track"] == outer["track"]
+                and outer["t0"] <= e["t0"] <= e["t1"] <= outer["t1"])
+
+    (mb,) = [e for e in snap if e["name"] == "microbatch"]
+    (execute,) = [e for e in snap
+                  if e["name"] == "execute" and e["parent"] == mb["id"]]
+    (compile_,) = [e for e in snap if e["name"] == "compile"]
+    rollouts = [e for e in snap if e["name"] == "rollout"]
+    assert len(rollouts) == 2 and all(inside(r, execute) for r in rollouts)
+    assert sum(inside(r, compile_) for r in rollouts) == 1
+    paths = {path(e) for e in snap if e["name"] == "chunk"}
+    assert paths == {"rollout/step/rule/chunk"}
+    assert all(e["track"] == mb["track"] for e in snap
+               if path(e).startswith("rollout"))
+
+
 # ------------------------------------------------ concurrent hot swap
 def test_cache_flush_on_hot_swap_under_concurrent_submit(trained):
     """A publisher thread hot-swaps snapshots while the engine thread
