@@ -484,6 +484,7 @@ def path_kernels():
     each), the recsys path's embedding bag (both E = 1 routes; the
     column kernel also takes E > 1) and the GNN's segment gather-sum."""
     from repro_torch.kernels.block_scan import (BLOCK_SCAN_KERNEL,
+                                                BLOCK_SCAN_RULE_KERNEL,
                                                 BLOCK_SCAN_STATIC_KERNEL,
                                                 BLOCK_SCAN_TILE_KERNEL)
     from repro_torch.kernels.decode_attention import (
@@ -494,11 +495,16 @@ def path_kernels():
                                                      FLASH_ATTENTION_TC_KERNEL)
     from repro_torch.kernels.segment_gather import SEGMENT_GATHER_KERNEL
 
-    return [BLOCK_SCAN_KERNEL, BLOCK_SCAN_TILE_KERNEL,
+    return [BLOCK_SCAN_KERNEL, BLOCK_SCAN_RULE_KERNEL, BLOCK_SCAN_TILE_KERNEL,
             BLOCK_SCAN_STATIC_KERNEL, FLASH_ATTENTION_KERNEL,
             FLASH_ATTENTION_TC_KERNEL, DECODE_ATTENTION_KERNEL,
             DECODE_ATTENTION_TC_KERNEL, EMBEDDING_BAG_KERNEL,
             EMBEDDING_BAG_LANES_KERNEL, SEGMENT_GATHER_KERNEL]
+
+
+# The kernel the websearch paths launch on the card, a rule execution a
+# launch; the chunk kernel is left to phase 2's rows and its own tests.
+PATH_SCAN = "block_scan_pruned_chunk_rule"
 
 
 def reset_counts():
@@ -695,6 +701,157 @@ def kernel_phase(dev, flush, floor):
               f"({floor / ms:.0%} of the kernel's time)",
               flush=True)
     return rows
+
+
+# ------------------------------------------ phase 2, one rule a launch
+RULE_K, RULE_TOP, RULE_U_BUDGET = 512, 5, 65536     # the serve cells' own
+
+
+def rule_case(dev, b, nb, t, f, w, seed):
+    """One rule execution at the websearch cells' shapes, made on the
+    card: occupancy words each the AND of three draws, a score per
+    document and lane, random per-lane rules (with a lane of no plane,
+    one of no required term, one of no term present, one starting two
+    blocks from the end), random start blocks, Δu quotas of 8 to 64
+    blocks of the lane's rule and a Δv quota that fires in a quarter of
+    the lanes.  Returns (cfg, occ, scores, present, state, allowed,
+    required, du, dv)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.environment import EnvConfig, env_reset
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    occ = torch.empty((b, nb, t, f, w), dtype=torch.int32, device=dev)
+    scores = torch.empty((b, nb * 32 * w), dtype=torch.float32, device=dev)
+    for i in range(0, b, WHOLE_SLICE):
+        part = occ[i:i + WHOLE_SLICE]
+        part.copy_(torch.randint(-2**31, 2**31, part.shape, generator=gen,
+                                 device=dev, dtype=torch.int32))
+        for _ in range(2):
+            part &= torch.randint(-2**31, 2**31, part.shape, generator=gen,
+                                  device=dev, dtype=torch.int32)
+        scores[i:i + WHOLE_SLICE].normal_(generator=gen)
+    rng = np.random.default_rng(seed)
+    allowed = rng.random((b, t, f)) < 0.5
+    required = rng.random((b, t)) < 0.6
+    present = rng.random((b, t)) < 0.85
+    bp = rng.integers(0, nb, b).astype(np.int32)
+    allowed[0] = False
+    required[1] = False
+    present[2] = False
+    bp[3] = nb - 2
+    allowed[3], required[3], present[3] = True, True, True
+    n_active = (allowed & present[:, :, None]).sum(axis=(1, 2))
+    du = (n_active * rng.integers(8, 65, b)).astype(np.int32)
+    dv = np.where(rng.random(b) < 0.25, rng.integers(50, 500, b),
+                  10**6).astype(np.int32)
+
+    def tt(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cfg = EnvConfig(n_blocks=nb, block_docs=32 * w, k_rules=6,
+                    max_candidates=RULE_K, n_top=RULE_TOP,
+                    u_budget=RULE_U_BUDGET)
+    state = env_reset(cfg, b, dev)
+    state.block_ptr.copy_(tt(bp))
+    return (cfg, occ, scores, tt(present), state, tt(allowed), tt(required),
+            tt(du), tt(dv))
+
+
+def rule_bound_ms(case, out):
+    """Least time for the launch that took ``case`` to ``out``: the bytes
+    it must move (the active planes' words and the old and new matched
+    words of each block a lane scanned, a score read and a candidate
+    written per new document, cand and topn copied, the rule and the
+    lane's scalars) over the memory rate, against the 32-bit operations
+    of ``rule_cost`` over the op rate.  Returns (ms, what bounds it,
+    bytes, blocks scanned, new documents)."""
+    import torch
+
+    cfg, occ, _, present, state, allowed, *_ = case
+    b, nb, t, f, w = occ.shape
+    n_active = (allowed & present[:, :, None]).sum((1, 2))
+    scanned = torch.where(n_active > 0, out.block_ptr - state.block_ptr, 0)
+    plane_words = int((n_active * scanned).sum()) * w
+    block_words = int(scanned.sum()) * w
+    # the new bits, popcounted by a byte table a slice of lanes at a time
+    bits = torch.tensor([bin(i).count("1") for i in range(256)],
+                        dtype=torch.int32, device=occ.device)
+    new_docs = sum(
+        int(bits[(out.matched[i:i + WHOLE_SLICE]
+                  ^ state.matched[i:i + WHOLE_SLICE]).view(torch.uint8)
+                 .int()].sum()) for i in range(0, b, WHOLE_SLICE))
+    written = int((out.cand_cnt - state.cand_cnt).sum())
+    moved = (4 * (plane_words + 2 * block_words + new_docs + written
+                  + 2 * b * (cfg.max_candidates + cfg.n_top) + 10 * b)
+             + b * (t * f + 2 * t + 1))
+    ops = plane_words + block_words * (3 * t + 2)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            moved, int(scanned.sum()), new_docs)
+
+
+def rule_phase(dev, flush, floor):
+    """The rule kernel (``block_scan_rule``: a rule execution a launch)
+    at the websearch cells' shapes, B=256 lanes over 4096 blocks of
+    4096 documents, T*F=16: every EnvState field held to its plain
+    version, the backend's host loop on the same card tensors; the
+    launch timed by CUDA events with matched restored outside them, the
+    host loop (its chunk launches, its ops and reads) timed the same."""
+    import torch
+
+    from repro_torch.core.scan_backends import BlockScanBackend
+    from repro_torch.kernels.block_scan import block_scan_rule
+
+    b, nb, t, f, w = QUERY_BATCH, FULL_BLOCKS, 4, 4, BLOCK_DOCS // 32
+    case = rule_case(dev, b, nb, t, f, w, SEED + 41)
+    cfg, occ, scores, present, state, allowed, required, du, dv = case
+    args = case[:4]
+    rest = (allowed, required, du, dv)
+    got = block_scan_rule(*args, state, *rest)
+    want = BlockScanBackend().host_loop(*args, state, *rest)
+    torch.cuda.synchronize()
+    for name in ("block_ptr", "u", "v", "matched", "cand", "cand_cnt", "topn",
+                 "done"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"block_scan_rule: {name} != the host loop's")
+    matched0 = state.matched.clone()
+    work = dataclasses.replace(state, matched=state.matched.clone())
+    times = []
+    for _ in range(22):                 # the first two warm up
+        work.matched.copy_(matched0)
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        block_scan_rule(*args, work, *rest, inplace=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = sum(times[2:]) / len(times[2:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        block_scan_rule(*args, work, *rest, inplace=True)
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    plain_ms = time_cuda(lambda: BlockScanBackend().host_loop(
+        *args, state, *rest), 5, flush)
+    bound, bound_by, moved, blocks, new_docs = rule_bound_ms(case, want)
+    print(f"[kernel] block_scan_pruned_chunk_rule B={b} nb={nb} T*F={t * f} "
+          f"W={w} K={cfg.max_candidates} n_top={cfg.n_top}: every field "
+          f"bit-equal to the host loop; kernel {ms:.6f} ms (cold L2; host "
+          f"{host_us:.1f} us to enqueue one call), host loop {plain_ms:.6f} "
+          f"ms, bound {bound:.6f} ms ({bound_by}; {blocks} lane-blocks "
+          f"scanned, {new_docs} new documents, {moved / 1e6:.2f} MB); "
+          f"kernel/bound {ms / bound:.2f}x; {rate_text(ms, bound, moved)}; "
+          f"launch floor {floor:.6f} ms", flush=True)
+    del case, args, rest, got, want, work, matched0, occ, scores, state
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, blocks_scanned=blocks, new_docs=new_docs)
 
 
 # ---------------------------------------------- phase 2, whole-index scans
@@ -1607,7 +1764,7 @@ def serve_phase(dev, cfg, batch=QUERY_BATCH, batches_per_cat=BATCHES_PER_CATEGOR
         print(f"[serve] batch inputs (cat {cat}, {len(qids)} queries): "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL as counter
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_RULE_KERNEL as counter
 
     # Each (bucket, policy structure) serve step is prepared (run once on
     # a zero-occupancy batch) at its first use; do that before the reset.
@@ -1820,7 +1977,7 @@ def train_step_check(dev, sys_, batch):
 
     from repro_torch.core.qlearning import _epsilon_rollout, td_update, train_batch
     from repro_torch.data.querylog import CAT1
-    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL as counter
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_RULE_KERNEL as counter
     from repro_torch.policies import EpsilonGreedy, TabularQPolicy
 
     qcfg = sys_.qcfg
@@ -1883,7 +2040,7 @@ def train_step_check(dev, sys_, batch):
           f"Q bit-equal twice on 'block_scan' and to 'reference' "
           f"(transitions, final state, Q); td_update vs float64 "
           f"scatter-mean max |dq| {err.max():.3e} (tol {TD_TOL} x (1+|q|)); "
-          f"{step_launches} block_scan_pruned_chunk launches a step; "
+          f"{step_launches} block_scan_pruned_chunk_rule launches a step; "
           f"mean_u {float(m_a['mean_u']):.1f}, mean_reward "
           f"{float(m_a['mean_reward']):.6f}", flush=True)
     print(f"[train] one step's stages: batch_inputs "
@@ -1995,8 +2152,8 @@ def train_phase(dev, sys_, batch=QUERY_BATCH, train_seconds=TRAIN_SECONDS):
     launches = read_counts()
     n_steps = 2 * iters
     print(f"[train] main path launches ({n_steps} steps): {launches}; "
-          f"{launches['block_scan_pruned_chunk'] / n_steps:.1f} "
-          f"block_scan_pruned_chunk launches a step", flush=True)
+          f"{launches[PATH_SCAN] / n_steps:.1f} "
+          f"block_scan_pruned_chunk_rule launches a step", flush=True)
 
     split = split_steps(dev, sys_, CAT1, trained[CAT1], batch)
     print("[train] step split (mean of %d, each stage synchronized): %s; "
@@ -2028,7 +2185,7 @@ def train_phase(dev, sys_, batch=QUERY_BATCH, train_seconds=TRAIN_SECONDS):
         gen = torch.Generator(device=dev).manual_seed(SEED + 5)
         qids = sys_.sample_train_qids(CAT2, batch, np.random.default_rng(SEED + 5))
         profile_device("train step", lambda: sys_.policy_train_step(
-            CAT2, trained[CAT2], gen, EPS_END, qids), "block_scan_pruned_chunk")
+            CAT2, trained[CAT2], gen, EPS_END, qids), PATH_SCAN)
     return launches, trained
 
 
@@ -2112,7 +2269,7 @@ def engine_phase(dev, sys_, trained):
     if engine.compile_count != n_warm:
         raise AssertionError(f"compile count {n_warm} -> {engine.compile_count} "
                              f"after warmup")
-    if dev.type == "cuda" and launches["block_scan_pruned_chunk"] <= 0:
+    if dev.type == "cuda" and launches[PATH_SCAN] <= 0:
         raise AssertionError("the engine launched no block_scan kernel")
     n_docs = sys_.index.n_docs
     responses = [r for part in parts.values() for r in part]
@@ -2168,8 +2325,8 @@ def engine_phase(dev, sys_, trained):
               f"ms (means)", flush=True)
     n_batches = len(engine.telemetry.batches)
     print(f"[engine] main path launches: {launches}; "
-          f"{launches['block_scan_pruned_chunk'] / n_batches:.1f} "
-          f"block_scan_pruned_chunk launches per micro-batch", flush=True)
+          f"{launches[PATH_SCAN] / n_batches:.1f} "
+          f"block_scan_pruned_chunk_rule launches per micro-batch", flush=True)
 
     # The same stream on the reference backend: every field but the
     # host-clock latency bit-equal.
@@ -2200,7 +2357,7 @@ def engine_phase(dev, sys_, trained):
         cold = cold[log.category[cold] == cat][:ENGINE_CFG["max_bucket"]]
         profile_device(f"engine drain (cat {cat}, {len(cold)} cold arrivals)",
                        lambda: engine.serve_many(cold),
-                       "block_scan_pruned_chunk")
+                       PATH_SCAN)
     return launches
 
 
@@ -2441,7 +2598,7 @@ def cluster_phase(dev, sys_, trained):
             _, busy_us, wall_us = profile_device(
                 f"cluster wave ({CLUSTER_WAVE} arrivals, {CLUSTER_REPLICAS} "
                 f"replicas)", lambda: box.append(serve_wave(cluster, last)),
-                "block_scan_pruned_chunk")
+                PATH_SCAN)
             final = box[0]
         else:
             final = serve_wave(cluster, last)
@@ -2488,7 +2645,7 @@ def cluster_phase(dev, sys_, trained):
                              f"{wave_sheds[:3]}")
     if trainer_error is not None:
         raise AssertionError(f"the trainer raised {trainer_error!r}")
-    if dev.type == "cuda" and launches["block_scan_pruned_chunk"] <= 0:
+    if dev.type == "cuda" and launches[PATH_SCAN] <= 0:
         raise AssertionError("the cluster launched no block_scan kernel")
     if store.version < 3 or trainer.versions_published != [2, 3]:
         raise AssertionError(f"versions: head v{store.version}, trainer "
@@ -2815,7 +2972,7 @@ def live_phase(dev, cfg):
             profile_device(f"live settle wave ({LIVE_WAVE} arrivals, "
                            f"{LIVE_REPLICAS} replicas)",
                            lambda: box.append(serve_wave(cluster, settle)),
-                           "block_scan_pruned_chunk")
+                           PATH_SCAN)
             waves.append(box[0])
         else:
             waves.append(serve_wave(cluster, settle))
@@ -2843,7 +3000,7 @@ def live_phase(dev, cfg):
     if stats["n_submitted"] != len(tickets) or \
             stats["n_submitted"] != stats["n_responses"]:
         raise AssertionError("dropped tickets")
-    if dev.type == "cuda" and launches["block_scan_pruned_chunk"] <= 0:
+    if dev.type == "cuda" and launches[PATH_SCAN] <= 0:
         raise AssertionError("the live fleet launched no block_scan kernel")
     if istats["merges"] < 2 or istats["generation"] < 2:
         raise AssertionError(f"merges {istats['merges']}, generation "
@@ -2865,7 +3022,7 @@ def live_phase(dev, cfg):
 
     # Parity at every recorded epoch, on both backends.
     prng = np.random.default_rng(SEED + 19)
-    before = read_counts()["block_scan_pruned_chunk"]
+    before = read_counts()[PATH_SCAN]
     t1 = time.perf_counter()
     for version in sorted(epochs):
         qids = prng.choice(sys_.log.n_queries, size=LIVE_PARITY_QUERIES,
@@ -2874,7 +3031,7 @@ def live_phase(dev, cfg):
         if not rep["ok"]:
             raise AssertionError(f"parity failed at epoch v{version}")
     t_parity = time.perf_counter() - t1
-    parity_launches = read_counts()["block_scan_pruned_chunk"] - before
+    parity_launches = read_counts()[PATH_SCAN] - before
 
     # Prints.
     n_arrivals = len(tickets)
@@ -3160,7 +3317,7 @@ def proc_phase(dev, sys_, storage):
         ab = ab_process_thread(sys_, store, cluster, workload)
     unsub_p()
     unsub_e()
-    proc_launches = sum(c.get("block_scan_pruned_chunk", 0)
+    proc_launches = sum(c.get(PATH_SCAN, 0)
                         for c in per_replica)
 
     # Checks: hazards first.
@@ -3182,8 +3339,8 @@ def proc_phase(dev, sys_, storage):
             {s["device"] for s in summaries} != {dev.type}:
         raise AssertionError(f"workers on {[s['device'] for s in summaries]}")
     if dev.type == "cuda" and not all(
-            c.get("block_scan_pruned_chunk", 0) > 0 for c in per_replica):
-        raise AssertionError(f"a worker launched no chunk kernel: "
+            c.get(PATH_SCAN, 0) > 0 for c in per_replica):
+        raise AssertionError(f"a worker launched no rule kernel: "
                              f"{per_replica}")
     if any(v for v in parent_launches.values()):
         raise AssertionError(f"the parent launched kernels: {parent_launches}")
@@ -4867,7 +5024,7 @@ def websearch_phase(dev, reduced=False):
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_RULE_KERNEL
     from repro_torch.launch.steps import REDUCED_SHAPES, build_cell
 
     t_phase = time.perf_counter()
@@ -4899,7 +5056,7 @@ def websearch_phase(dev, reduced=False):
         outs.append(serve(q, bins, occ, scores, tp))
         sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
-    serve_launches = BLOCK_SCAN_KERNEL.launches
+    serve_launches = BLOCK_SCAN_RULE_KERNEL.launches
     cand, u, cand_cnt = outs[0]
     for other in outs[1:]:
         if not all(torch.equal(x, y) for x, y in zip(outs[0], other)):
@@ -4913,7 +5070,7 @@ def websearch_phase(dev, reduced=False):
     print(f"[websearch] serve_queries: ms per call {[round(t, 1) for t in times]}"
           f" (median {ms:.1f}), {b / (ms / 1e3):.0f} queries/s; mean u "
           f"{float(u.float().mean()):.1f} plane-blocks, mean cand_cnt "
-          f"{float(cand_cnt.float().mean()):.1f}; block_scan_pruned_chunk "
+          f"{float(cand_cnt.float().mean()):.1f}; block_scan_pruned_chunk_rule "
           f"{serve_launches / WS_REPS:g} launches a call; peak device memory "
           f"{peak_text(dev)}", flush=True)
     print(f"[websearch] serve_queries: mean blocks scanned per query "
@@ -4940,8 +5097,8 @@ def websearch_phase(dev, reduced=False):
     if on_card:
         profile_device("websearch serve_queries",
                        lambda: serve(q, bins, occ, scores, tp),
-                       "block_scan_pruned_chunk")
-    before = BLOCK_SCAN_KERNEL.launches
+                       PATH_SCAN)
+    before = BLOCK_SCAN_RULE_KERNEL.launches
     times, runs = [], []
     for _ in range(WS_REPS):
         t0 = time.perf_counter()
@@ -4957,14 +5114,14 @@ def websearch_phase(dev, reduced=False):
     if not (bool(torch.isfinite(q_new).all()) and not torch.equal(q_new, q)):
         raise AssertionError("websearch rl_rollout: q_new not finite or "
                              "unchanged")
-    train_launches = BLOCK_SCAN_KERNEL.launches - before
+    train_launches = BLOCK_SCAN_RULE_KERNEL.launches - before
     launches = read_counts()
     print(f"[websearch] rl_rollout: ms/step {[round(t, 1) for t in times]} "
           f"(the cell's ε 0.1, {b} queries), {WS_REPS} runs from one q and draws "
           f"bit-equal; metrics "
           f"{ {k: round(float(v), 4) for k, v in metrics.items()} }; "
-          f"{train_launches / WS_REPS:g} chunk launches a step; peak device "
-          f"memory {peak_text(dev)}", flush=True)
+          f"{train_launches / WS_REPS:g} rule-kernel launches a step; peak "
+          f"device memory {peak_text(dev)}", flush=True)
     print(f"[websearch] main path launches: {launches}; phase 6 in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del q, bins, occ, scores, tp, prod_r, draws, outs, runs, want
@@ -6286,10 +6443,10 @@ def examples_phase(dev):
         out = ex.main(["--device", dev.type])
         sync(dev)
         secs = time.perf_counter() - t0
-        launches[name] = read_counts()["block_scan_pruned_chunk"]
+        launches[name] = read_counts()[PATH_SCAN]
         out = {k: v for k, v in out.items() if k != "summary"}
         print(f"[examples] {name} {json.dumps(out)} wall {secs:.1f} s, "
-              f"block_scan_pruned_chunk launches {launches[name]}", flush=True)
+              f"block_scan_pruned_chunk_rule launches {launches[name]}", flush=True)
         if dev.type == "cuda" and launches[name] <= 0:
             raise AssertionError(f"examples/{name}_torch.py launched no "
                                  "block_scan kernel")
@@ -6315,7 +6472,7 @@ def examples_phase(dev):
 def profile_batch(exe, name, policy, inp):
     """One served batch under torch.profiler."""
     profile_device(name, lambda: exe.execute(policy, *inp),
-                   "block_scan_pruned_chunk")
+                   PATH_SCAN)
 
 
 def profile_device(name, fn, kernel, host=True, shares=()):
@@ -6402,6 +6559,7 @@ def main() -> int:
     print(f"[kernel] launch floor: one launch of a one-element add_ "
           f"{floor:.6f} ms (cold L2, as the rows below)", flush=True)
     rows = kernel_phase(dev, flush, floor)
+    rule_row = rule_phase(dev, flush, floor)
     whole_launches, whole_rows = whole_index_phase(dev, flush, floor=floor)
     for name in ("block_scan_tile", "block_scan_static"):
         if whole_launches[name] <= 0:
@@ -6419,21 +6577,21 @@ def main() -> int:
           f"quotas scaled du x{RULE_DU_SCALE}, dv x{RULE_DV_SCALE} so that "
           f"rules span several chunks (one batch at x1 follows)", flush=True)
     launches, sys_ = serve_phase(dev, cfg)
-    if launches["block_scan_pruned_chunk"] <= 0:
+    if launches[PATH_SCAN] <= 0:
         raise AssertionError("the serve path launched no block_scan kernel")
     train_launches, trained = train_phase(dev, sys_)
-    if train_launches["block_scan_pruned_chunk"] <= 0:
+    if train_launches[PATH_SCAN] <= 0:
         raise AssertionError("the training path launched no block_scan kernel")
     engine_launches = engine_phase(dev, sys_, trained)
-    if engine_launches["block_scan_pruned_chunk"] <= 0:
+    if engine_launches[PATH_SCAN] <= 0:
         raise AssertionError("the engine launched no block_scan kernel")
     cluster_launches = cluster_phase(dev, sys_, trained)
-    if cluster_launches["block_scan_pruned_chunk"] <= 0:
+    if cluster_launches[PATH_SCAN] <= 0:
         raise AssertionError("the cluster launched no block_scan kernel")
     del sys_, trained
     torch.cuda.empty_cache()
     live_launches, live_sys, storage = live_phase(dev, cfg)
-    if live_launches["block_scan_pruned_chunk"] <= 0:
+    if live_launches[PATH_SCAN] <= 0:
         raise AssertionError("the live fleet launched no block_scan kernel")
     torch.cuda.empty_cache()
     proc_launches = proc_phase(dev, live_sys, storage)
@@ -6463,7 +6621,7 @@ def main() -> int:
                              "kernel")
     torch.cuda.empty_cache()
     ws_launches = websearch_phase(dev)
-    if ws_launches["block_scan_pruned_chunk"] <= 0:
+    if ws_launches[PATH_SCAN] <= 0:
         raise AssertionError("the websearch cells launched no block_scan kernel")
     torch.cuda.empty_cache()
     gnn_launches, gnn_row = gnn_phase(dev)
@@ -6474,8 +6632,8 @@ def main() -> int:
     for name in ("flash_attention_tc", "decode_attention_tc", "segment_gather"):
         if mesh_lm_launches[name] <= 0:
             raise AssertionError(f"phase 8b's sharded paths launched no {name}")
-    if mesh_launches["block_scan_pruned_chunk"] <= 0:
-        raise AssertionError("the sharded websearch cells launched no chunk kernel")
+    if mesh_launches[PATH_SCAN] <= 0:
+        raise AssertionError("the sharded websearch cells launched no rule kernel")
     if mesh_launches["embedding_bag"] + mesh_launches["embedding_bag_lanes"] <= 0:
         raise AssertionError("the sharded wide-deep cells launched no bag kernel")
     torch.cuda.empty_cache()
@@ -6502,7 +6660,11 @@ def main() -> int:
         row("block_scan_pruned_chunk", "block_scan.cu",
             "src/repro/kernels/block_scan/block_scan_pruned.py:222",
             launches["block_scan_pruned_chunk"],
-            rows[4], worst(rows)),      # C=4: the serve path's chunk
+            rows[4], worst(rows)),      # C=4: the host loop's chunk
+        row(PATH_SCAN, "block_scan_rule.cu",
+            "src/repro/kernels/block_scan/block_scan_pruned.py:222 and the "
+            "rule loop around it (src/repro/core/environment.py)",
+            launches[PATH_SCAN], rule_row, rule_row["max_abs_err"]),
         # (its "train_launches", "engine_launches", "cluster_launches",
         # "live_launches", "proc_launches", "websearch_launches",
         # "mesh_launches" and "examples_launches" keys are added below)
@@ -6549,15 +6711,17 @@ def main() -> int:
             "replaces no TPU kernel (src/repro/models/gnn.py:52 _aggregate: "
             "jnp.take + jax.ops.segment_sum)",
             gnn_launches["segment_gather"], gnn_row, gnn_row["max_abs_err"])]
-    kernels[0]["train_launches"] = train_launches["block_scan_pruned_chunk"]
-    kernels[0]["engine_launches"] = engine_launches["block_scan_pruned_chunk"]
-    kernels[0]["cluster_launches"] = cluster_launches["block_scan_pruned_chunk"]
-    kernels[0]["live_launches"] = live_launches["block_scan_pruned_chunk"]
-    kernels[0]["proc_launches"] = proc_launches
-    kernels[0]["websearch_launches"] = ws_launches["block_scan_pruned_chunk"]
-    kernels[0]["mesh_launches"] = mesh_launches["block_scan_pruned_chunk"]
-    kernels[0]["examples_launches"] = sum(examples_launches.values())
     by_name = {r["name"]: r for r in kernels}
+    by_name[PATH_SCAN].update(
+        train_launches=train_launches[PATH_SCAN],
+        engine_launches=engine_launches[PATH_SCAN],
+        cluster_launches=cluster_launches[PATH_SCAN],
+        live_launches=live_launches[PATH_SCAN], proc_launches=proc_launches,
+        websearch_launches=ws_launches[PATH_SCAN],
+        mesh_launches=mesh_launches[PATH_SCAN],
+        examples_launches=sum(examples_launches.values()),
+        blocks_scanned=rule_row["blocks_scanned"],
+        new_docs=rule_row["new_docs"])
     for name in ("flash_attention_tc", "decode_attention_tc"):
         by_name[name]["moe_lm_launches"] = moe_launches[name]
     by_name["embedding_bag"]["train_launches"] = (

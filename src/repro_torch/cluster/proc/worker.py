@@ -38,7 +38,7 @@ ship as deltas piggybacked on stats replies (and a periodic
 unsolicited stats message, which doubles as the freshness feed for
 postmortem bundles); the parent rebases them with the clock offset it
 measured from the ``ping``→``pong`` handshake at startup.  Each stats
-reply also carries the worker's device, its chunk-kernel launch count
+reply also carries the worker's device, its rule-kernel launch count
 (``kernel_launches``, set to 0 after a reply whose request asked for
 a reset), its micro-batches' mean
 ``batch_inputs``/``execute`` times and, on a live cell, the generation
@@ -162,7 +162,7 @@ def _build_system(spec: WorkerSpec):
 
 def _serve(spec: WorkerSpec, conn) -> None:
     from repro_torch.core.versioned import StaleVersionError
-    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_RULE_KERNEL
     from repro_torch.obs import NULL_TRACER, TraceLog, Tracer
     from repro_torch.policies import PolicyStore
     from repro_torch.serving import AdmissionError, CacheOnlyMiss, ServeEngine
@@ -201,7 +201,7 @@ def _serve(spec: WorkerSpec, conn) -> None:
         return entries
 
     def stats_msg(seq: int = 0, reset: bool = False) -> tuple:
-        summary = _summary(engine, system, BLOCK_SCAN_KERNEL, reset)
+        summary = _summary(engine, system, BLOCK_SCAN_RULE_KERNEL, reset)
         return ("stats", summary, _metrics_with_rings(engine, req, resp),
                 trace_delta(), seq)
 
@@ -423,7 +423,7 @@ def _mk_shed(qid: int, category: int, reason: str):
 def _summary(engine, system, kernel, reset: bool = False) -> dict:
     """The engine's summary plus what the parent cannot see from its
     side of the boundary: the device, the L1 scoring sub-batch (sized by
-    the device memory free in this process), the chunk kernel's
+    the device memory free in this process), the rule kernel's
     launches in this process (read, and with ``reset`` set to 0,
     between two tickets' work), the micro-batches' mean
     ``batch_inputs`` and ``execute`` times and, on a live cell, the

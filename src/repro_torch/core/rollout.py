@@ -63,9 +63,12 @@ class RolloutResult(NamedTuple):
 
 def policy_env_step(cfg: EnvConfig, ruleset: RuleSet, occ, scores,
                     term_present, state: EnvState, pa: PolicyAction,
-                    backend: Union[str, ScanBackend] = "reference") -> EnvState:
+                    backend: Union[str, ScanBackend] = "reference", *,
+                    owned: bool = False) -> EnvState:
     """One agent step under a structured action (batched over queries).
-    Reset-before is applied unconditionally (plan semantics)."""
+    Reset-before is applied unconditionally (plan semantics).  With
+    ``owned`` the caller gives ``state`` up: the step may update its
+    ``matched`` in place (``ScanBackend.run_rule``'s ``inplace``)."""
     scan = get_scan_backend(backend) if isinstance(backend, str) else backend
     action = pa.action
     is_rule = action < cfg.k_rules
@@ -85,7 +88,7 @@ def policy_env_step(cfg: EnvConfig, ruleset: RuleSet, occ, scores,
     dv_q = torch.where(live, dv_q, 0)
 
     nstate = scan.run_rule(cfg, occ, scores, term_present, state,
-                           allowed, required, du_q, dv_q)
+                           allowed, required, du_q, dv_q, inplace=owned)
 
     block_ptr = torch.where(is_reset & ~state.done, 0, nstate.block_ptr)
     done = state.done | is_stop | (nstate.u >= cfg.u_budget)
@@ -109,7 +112,9 @@ def unified_rollout(
     recorded reward at step t is Eq. 4 against
     ``prod_rewards[:, min(t, Lp - 1)]``, the production plan's reward at
     that step (``Lp`` is the plan's length); without ``prod_rewards``,
-    against 0, as in the reference."""
+    against 0, as in the reference.  The rollout owns its states, so
+    each step may update ``matched`` in place: only the final state's
+    is returned."""
     batch, dev = occ.shape[0], occ.device
     scan = get_scan_backend(backend) if isinstance(backend, str) else backend
     with scope("rollout", batch=batch, t_max=t_max, backend=scan.name):
@@ -128,7 +133,8 @@ def unified_rollout(
                 with scope("act"):
                     pa = policy.act(s_bin, state, t)
                 new_state = policy_env_step(cfg, ruleset, occ, scores,
-                                            term_present, state, pa, scan)
+                                            term_present, state, pa, scan,
+                                            owned=True)
                 with scope("reward"):
                     r_prod_t = (0.0 if prod_rewards is None else prod_rewards[
                         :, min(t, prod_rewards.shape[1] - 1)])

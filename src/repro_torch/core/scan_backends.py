@@ -10,27 +10,39 @@ port            reference               how a rule scans
 ==============  ======================  ==================================
 ``reference``   ``xla``                 one block per step, each on the
                                         full (T·F, W) tile (``scan_block``)
-``block_scan``  ``pallas_block_scan``   chunks of C blocks per launch of
-                                        the hand-written CUDA kernel
-                                        (``kernels/block_scan``), only the
-                                        rule's active planes read
+``block_scan``  ``pallas_block_scan``   on the card, one launch of the
+                                        hand-written rule kernel
+                                        (``kernels/block_scan``
+                                        ``block_scan_rule``); on the CPU
+                                        chunks of C blocks a round of a
+                                        host loop; only the rule's active
+                                        planes read
 ==============  ======================  ==================================
 
-``block_scan`` SPECULATIVELY evaluates C consecutive blocks per lane,
-locates the quota-crossing block by cumulative sums of the per-block
-(u_inc, v_inc) increments and masks every update past it, so its final
-:class:`EnvState` equals the ``reference`` loop's bit for bit.  Its
-loop over chunks runs on the host: before each chunk, and once more
-after the last, one device-to-host read tests whether any lane still
-scans (``_again``; counted by ``obs.trace.host_sync``).
+``block_scan`` splits by device.  On CUDA tensors each lane's whole chunk
+loop runs inside one kernel launch: no value goes to the host, and only
+the scanned blocks' words of ``matched`` are touched (the launches are
+counted by ``BLOCK_SCAN_RULE_KERNEL.launches``); on ``meta`` (a dry run)
+the same wrapper reports the launch's worst-case cost.  On the CPU (the
+plain version, the tests' bridge to the JAX reference) the loop runs
+on the host: each round SPECULATIVELY evaluates C consecutive blocks per
+lane through ``block_scan_pruned_chunk``, locates the quota-crossing
+block by cumulative sums of the per-block (u_inc, v_inc) increments and
+masks every update past it; before each round, and once more after the
+last, one device-to-host read tests whether any lane still scans
+(``_again``; counted by ``obs.trace.host_sync``).  Both end at the
+``reference`` loop's final :class:`EnvState`, bit for bit.
 
 Under an active tracer (``obs.trace.tracing``) a rule execution is a
-``rule`` span (args ``chunk``, ``rounds``) holding a ``chunk`` span per
-round and a ``sync`` span per read.
+``rule`` span: on the card with the arg ``route="kernel"`` and no
+child; on the host loop with args ``chunk``, ``rounds``, holding a
+``chunk`` span per round and a ``sync`` span per read.
 
 A backend's ``run_rule`` is BATCHED: every tensor argument carries a
 leading query-batch axis, and lanes never couple (a lane whose stopping
-condition fired is masked to a no-op).
+condition fired is masked to a no-op).  With ``inplace`` the caller owns
+``state`` (``unified_rollout``'s own states): the rule execution may
+write its ``matched`` in place.  Every other field is a new tensor.
 """
 from __future__ import annotations
 
@@ -42,7 +54,7 @@ import torch
 from repro_torch.index.blocks import unpack_words
 from repro_torch.kernels.block_scan import (META_BP_COL,
                                             block_scan_pruned_chunk,
-                                            build_rule_meta)
+                                            block_scan_rule, build_rule_meta)
 from repro_torch.kernels.cost import note
 from repro_torch.obs.trace import host_sync, scope
 
@@ -63,10 +75,12 @@ class ScanBackend:
     """Protocol: one rule execution over a BATCH of queries.
 
     ``run_rule(cfg, occ, scores, term_present, state, allowed, required,
-    du_quota, dv_quota) -> EnvState`` with occ (B, n_blocks, T, F, W)
-    int32, scores (B, n_docs_padded) float32, term_present (B, T) bool,
-    a batched :class:`EnvState`, allowed (B, T, F) bool, required (B, T)
-    bool, du_quota / dv_quota (B,) int32.
+    du_quota, dv_quota, *, inplace=False) -> EnvState`` with occ (B,
+    n_blocks, T, F, W) int32, scores (B, n_docs_padded) float32,
+    term_present (B, T) bool, a batched :class:`EnvState`, allowed (B, T,
+    F) bool, required (B, T) bool, du_quota / dv_quota (B,) int32;
+    ``inplace``: the caller owns ``state``, whose ``matched`` the
+    backend may then update in place.
 
     Scan block j iff, with the state BEFORE block j,
     ``u - u0 < du_quota`` ∧ ``v - v0 < dv_quota`` ∧
@@ -76,7 +90,8 @@ class ScanBackend:
     name: str = ""
 
     def run_rule(self, cfg: EnvConfig, occ, scores, term_present, state,
-                 allowed, required, du_quota, dv_quota) -> EnvState:
+                 allowed, required, du_quota, dv_quota, *,
+                 inplace: bool = False) -> EnvState:
         raise NotImplementedError
 
 
@@ -136,10 +151,9 @@ def _apply_chunk(
         max=total - 1)
     old = torch.gather(state.matched, 1, widx)
     new_words = mwords & ~old
-    # In-range positions are distinct and clamped ones add 0, so a
-    # scatter-add places each word's update exactly.
-    matched = state.matched | torch.zeros_like(state.matched).scatter_add(
-        1, widx, mwords)
+    # In-range positions are distinct and clamped ones add 0; new_words
+    # holds only bits that matched lacks, so adding them is the OR.
+    matched = state.matched.scatter_add(1, widx, new_words)
 
     new_bits = unpack_words(new_words)                               # (B, C*D)
     didx = bp[:, None] * D + torch.arange(chunk * D, device=dev)[None, :]
@@ -199,7 +213,8 @@ class ReferenceScanBackend(ScanBackend):
     name = "reference"
 
     def run_rule(self, cfg, occ, scores, term_present, state,
-                 allowed, required, du_quota, dv_quota) -> EnvState:
+                 allowed, required, du_quota, dv_quota, *,
+                 inplace: bool = False) -> EnvState:
         b, nb = occ.shape[:2]
         with scope("rule") as span:
             lanes = torch.arange(b, device=occ.device)
@@ -242,36 +257,45 @@ def adaptive_chunk_blocks(n_blocks: int, du_quota, u_inc,
 
 
 class BlockScanBackend(ScanBackend):
-    """Chunked plane-pruned rule execution through the CUDA kernel
-    (bytes read ∝ u).  ``chunk`` is the speculation depth C (blocks per
-    kernel launch); ``chunk=None`` picks C per rule execution with
-    :func:`adaptive_chunk_blocks`.  The final state is C-invariant."""
+    """Plane-pruned rule execution (bytes read ∝ u): on CPU tensors the
+    host loop over chunks of C blocks (``host_loop``); on CUDA and meta
+    tensors one launch of ``block_scan_rule``.  ``chunk`` is the host loop's
+    speculation depth C (blocks per round); ``chunk=None`` picks C per
+    rule execution with :func:`adaptive_chunk_blocks`; ``last_chunk`` is
+    the C of its last rule execution.  The final state is C-invariant."""
 
     name = "block_scan"
 
     def __init__(self, chunk: int | None = DEFAULT_CHUNK_BLOCKS):
         self.chunk = chunk
-        self.last_chunk: int | None = None   # the C of the last run_rule
+        self.last_chunk: int | None = None   # the C of the last host loop
 
     def run_rule(self, cfg, occ, scores, term_present, state,
-                 allowed, required, du_quota, dv_quota) -> EnvState:
-        with scope("rule") as span:
-            return self._run_rule(span, cfg, occ, scores, term_present,
-                                  state, allowed, required, du_quota,
-                                  dv_quota)
+                 allowed, required, du_quota, dv_quota, *,
+                 inplace: bool = False) -> EnvState:
+        if occ.device.type == "cpu":
+            return self.host_loop(cfg, occ, scores, term_present, state,
+                                  allowed, required, du_quota, dv_quota)
+        with scope("rule", route="kernel"):
+            return block_scan_rule(cfg, occ, scores, term_present, state,
+                                   allowed, required, du_quota, dv_quota,
+                                   inplace=inplace)
 
-    def _run_rule(self, span, cfg, occ, scores, term_present, state,
+    def host_loop(self, cfg, occ, scores, term_present, state,
                   allowed, required, du_quota, dv_quota) -> EnvState:
+        """The rule execution as a loop of chunk rounds on the host (the
+        CPU's route; ``block_scan_rule``'s plain version)."""
+        with scope("rule") as span:
+            return self._host_loop(span, cfg, occ, scores, term_present,
+                                   state, allowed, required, du_quota,
+                                   dv_quota)
+
+    def _host_loop(self, span, cfg, occ, scores, term_present, state,
+                   allowed, required, du_quota, dv_quota) -> EnvState:
         b, nb, t, f, w = occ.shape
         dev = occ.device
         u_inc = block_cost(allowed, term_present)                  # (B,)
-        if self.chunk is None and dev.type == "meta":
-            # the adaptive depth reads the quotas; a dry run takes the
-            # default depth
-            note("BlockScanBackend.run_rule: adaptive chunk read no quota, "
-                 f"took DEFAULT_CHUNK_BLOCKS = {DEFAULT_CHUNK_BLOCKS}")
-            chunk = DEFAULT_CHUNK_BLOCKS
-        elif self.chunk is None:
+        if self.chunk is None:
             chunk = adaptive_chunk_blocks(nb, du_quota, u_inc, cfg.u_budget)
         else:
             chunk = self.chunk

@@ -30,7 +30,7 @@ while documents commit (two index epochs) and the trainer publishes
 (three policy versions) mid-stream; asserts zero dropped tickets, that
 every worker applied >= 3 policy versions and >= 2 index epochs (via
 its control-channel acks), that no worker restarted, on CUDA that the
-chunk kernel launched inside the workers, and — from
+rule kernel (a rule execution a launch) launched inside the workers, and — from
 /proc/<pid>/smaps — that the workers' mappings of the cell's files
 hold ZERO private-dirty pages and, where the host's smaps divides
 shared pages among their mappers (a probe tells), that their summed Pss
@@ -209,7 +209,7 @@ def main(argv=None) -> None:
                                      Shed, TrainerConfig, TrainerLoop)
     from repro_torch.data.querylog import CAT1, CAT2, QueryLogConfig
     from repro_torch.index.corpus import CorpusConfig
-    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_RULE_KERNEL
     from repro_torch.obs import NULL_TRACER, SLOConfig, SLOMonitor, Tracer
     from repro_torch.policies import PolicyStore
     from repro_torch.serving import EngineConfig
@@ -263,7 +263,7 @@ def main(argv=None) -> None:
         tracer=tracer)
     trainer.source = cluster.tap          # train on served traffic only
     cluster.warmup()
-    BLOCK_SCAN_KERNEL.launches = 0        # count the run, not the warmup
+    BLOCK_SCAN_RULE_KERNEL.launches = 0   # count the run, not the warmup
 
     slo_mon = None
     if args.slo_target is not None:
@@ -377,7 +377,8 @@ def main(argv=None) -> None:
     # The serving kernels launch in the workers on the process backend
     # (the parent's count is the trainer's alone there).
     chunk_launches = (proc_stats["worker_kernel_launches"].get(
-        BLOCK_SCAN_KERNEL.name, 0) if proc else BLOCK_SCAN_KERNEL.launches)
+        BLOCK_SCAN_RULE_KERNEL.name, 0) if proc
+        else BLOCK_SCAN_RULE_KERNEL.launches)
 
     stats = cluster.stats()
     n_shed = sum(isinstance(r, Shed) for r in results)

@@ -22,8 +22,8 @@ mmapped.  A replica turns any exception into a Shed with the reason
 ``replica_error:<type>`` and keeps serving, and the merge daemon keeps
 its exception in ``last_error``, so a fault could read as load or pass
 unseen: the smoke also fails on any ``replica_error`` shed, on a
-``MergeDaemon.last_error``, and, on CUDA, if the chunk kernel did not
-launch.  Output goes to ``results/live_index_torch.json`` by default,
+``MergeDaemon.last_error``, and, on CUDA, if the rule kernel (a rule
+execution a launch) did not launch.  Output goes to ``results/live_index_torch.json`` by default,
 so that it never overwrites the reference's.
 """
 from __future__ import annotations
@@ -86,7 +86,7 @@ def main(argv=None) -> None:
     from repro_torch.index.live import (LiveRetrievalSystem, MergeConfig,
                                         MergeDaemon, check_epoch_parity)
     from repro_torch.index.live.live_index import MERGE_MS_EDGES
-    from repro_torch.kernels.block_scan import BLOCK_SCAN_KERNEL
+    from repro_torch.kernels.block_scan import BLOCK_SCAN_RULE_KERNEL
     from repro_torch.obs import NULL_TRACER, Tracer, merge_snapshots
     from repro_torch.policies import PolicyStore
     from repro_torch.serving import EngineConfig
@@ -137,7 +137,7 @@ def main(argv=None) -> None:
                                       backend=args.backend),
                          tracer=tracer)
     cluster.warmup()
-    BLOCK_SCAN_KERNEL.launches = 0        # count the run, not the warmup
+    BLOCK_SCAN_RULE_KERNEL.launches = 0   # count the run, not the warmup
 
     results, t0 = [], time.time()
     daemon = MergeDaemon(live, MergeConfig(
@@ -158,7 +158,7 @@ def main(argv=None) -> None:
     if daemon.last_error is not None:
         raise daemon.last_error
     wall = time.time() - t0
-    chunk_launches = BLOCK_SCAN_KERNEL.launches
+    chunk_launches = BLOCK_SCAN_RULE_KERNEL.launches
     unsubscribe()
 
     stats = cluster.stats()

@@ -48,9 +48,9 @@ What must hold, and why:
   ref <= port <= L x ref; GNN (the node-wise dense layers run whole on
   every rank, only the edges are split): ref <= port <= 8 x ref; recsys
   (matmuls and the bag's multiply-adds, without the activations):
-  0.8 x ref <= port <= ref; websearch (only the chunk kernel's reported
-  ops, the rule loop's body once; XLA counts every elementwise op of
-  that body): 0 < port <= ref.
+  0.8 x ref <= port <= ref; websearch (only the rule kernel's reported
+  ops, a launch a rule execution at its worst case; XLA counts every
+  elementwise op of the rule loop's body once): 0 < port <= ref.
 
 About a minute on one worker, the two subprocesses in parallel.
 """
@@ -118,8 +118,10 @@ def _kernel_spies():
 
     from repro_torch.kernels import cost as kcost
 
-    bsp, bag, sg = (importlib.import_module(f"repro_torch.kernels.{m}") for m in (
-        "block_scan.block_scan_pruned", "embedding_bag.ops", "segment_gather.ops"))
+    bsp, bsr, bag, sg = (
+        importlib.import_module(f"repro_torch.kernels.{m}") for m in (
+            "block_scan.block_scan_pruned", "block_scan.block_scan_rule",
+            "embedding_bag.ops", "segment_gather.ops"))
 
     seen = {}
 
@@ -129,6 +131,11 @@ def _kernel_spies():
         if module is bag:
             _, table, indices, weights, _ = args
             return bag.cost(table, indices, weights is not None)
+        if module is bsr:
+            cfg, occ = args[:2]
+            b, nb, t, f, w = occ.shape
+            return bsr.rule_cost(np.full(b, t * f), np.full(b, nb), nb, t, f,
+                                 w, cfg.max_candidates, cfg.n_top)
         occ, meta, chunk, n_terms = args
         b, nb, tf, w = occ.shape
         return bsp.chunk_cost(np.full(b, tf), np.zeros(b), nb, chunk, w,
@@ -144,7 +151,7 @@ def _kernel_spies():
             return kcost.run(name, cost, fn, *args)
         return mock.patch.object(module, "run", run)
 
-    return seen, [spy(m) for m in (sg, bag, bsp)]
+    return seen, [spy(m) for m in (sg, bag, bsp, bsr)]
 
 
 def _real_args(cell, arch, seed):
@@ -310,7 +317,7 @@ def test_lm_meta_count_equals_cpu_count(records, key):
 @pytest.mark.parametrize("key,kernel", [
     ("graphsage-reddit/ogb_products", "segment_gather"),
     ("wide-deep/serve_bulk", "embedding_bag_lanes"),
-    ("websearch-rl/serve_queries", "block_scan_pruned_chunk")])
+    ("websearch-rl/serve_queries", "block_scan_pruned_chunk_rule")])
 def test_kernel_costs_are_their_cost_functions(records, key, kernel):
     rec = records[1][key]
     k, spied = rec["kernels"], rec["spied"]
@@ -324,8 +331,7 @@ def test_kernel_costs_are_their_cost_functions(records, key, kernel):
     assert (c["bytes_accessed_per_device"]
             == c["aten_bytes_per_device"] + k[kernel]["bytes"])
     if key.startswith("websearch"):
-        assert rec["notes"] == ["BlockScanBackend.run_rule: data-dependent "
-                                "loop, body counted once"]
+        assert rec["notes"] == []   # a rule execution is one launch
 
 
 @pytest.mark.parametrize("key", IDS)

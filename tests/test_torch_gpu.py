@@ -25,7 +25,8 @@ from repro_torch.configs import get_arch
 from repro_torch.core.environment import EnvConfig, env_reset
 from repro_torch.core.scan_backends import BlockScanBackend, get_scan_backend
 from repro_torch.kernels.block_scan import (
-    BLOCK_SCAN_KERNEL, BLOCK_SCAN_STATIC_KERNEL, BLOCK_SCAN_TILE_KERNEL,
+    BLOCK_SCAN_KERNEL, BLOCK_SCAN_RULE_KERNEL, BLOCK_SCAN_STATIC_KERNEL,
+    BLOCK_SCAN_TILE_KERNEL,
     block_scan, block_scan_batched, block_scan_pruned,
     block_scan_pruned_chunk, block_scan_pruned_chunk_ref, block_scan_reference,
     build_rule_meta)
@@ -232,8 +233,9 @@ def test_cuda_whole_index_wrappers_reject_non_contiguous(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("du,dv", [(40, 10**6), (1000, 150), (10**4, 10**6)])
 def test_cuda_block_scan_backend_matches_reference(cuda, du, dv):
-    """One rule execution on the card: the kernel backend (C=3, so a
-    chunk window runs past the end of the index) against the
+    """One rule execution on the card: the kernel backend (one launch of
+    the rule kernel) and its host loop on the card (the chunk kernel at
+    C=3, so a chunk window runs past the end of the index) against the
     block-at-a-time reference backend, every EnvState field."""
     b, nb, d = 8, 16, 256
     w = d // 32
@@ -250,24 +252,27 @@ def test_cuda_block_scan_backend_matches_reference(cuda, du, dv):
     required = torch.from_numpy(rng.random((b, T)) < 0.7).to(cuda)
     du_q = torch.full((b,), du, dtype=torch.int32, device=cuda)
     dv_q = torch.full((b,), dv, dtype=torch.int32, device=cuda)
-    before = BLOCK_SCAN_KERNEL.launches
-    states = [backend.run_rule(
-        cfg, occ, scores, tp, env_reset(cfg, b, cuda), allowed, required,
-        du_q, dv_q)
-        for backend in (get_scan_backend("reference"), BlockScanBackend(3))]
-    assert BLOCK_SCAN_KERNEL.launches > before
-    for f in ("block_ptr", "u", "v", "matched", "cand", "cand_cnt", "topn",
-              "done"):
-        assert torch.equal(getattr(states[0], f), getattr(states[1], f)), f
+    before = (BLOCK_SCAN_RULE_KERNEL.launches, BLOCK_SCAN_KERNEL.launches)
+    args = (cfg, occ, scores, tp, env_reset(cfg, b, cuda), allowed, required,
+            du_q, dv_q)
+    states = [get_scan_backend("reference").run_rule(*args),
+              BlockScanBackend(3).run_rule(*args),
+              BlockScanBackend(3).host_loop(*args)]
+    assert BLOCK_SCAN_RULE_KERNEL.launches == before[0] + 1
+    assert BLOCK_SCAN_KERNEL.launches > before[1]
+    for got in states[1:]:
+        for f in ("block_ptr", "u", "v", "matched", "cand", "cand_cnt",
+                  "topn", "done"):
+            assert torch.equal(getattr(states[0], f), getattr(got, f)), f
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("action", range(8))
 def test_cuda_env_step_matches_cpu(cuda, action):
     """The single-step API on one query: ``env_step`` (rule 1, then the
-    action twice) on CUDA tensors through the chunk kernel equals it on
-    CPU tensors through the kernel's plain version, every field; each
-    rule alone through ``execute_rule`` too."""
+    action twice) on CUDA tensors through the rule kernel equals it on
+    CPU tensors through the host loop over the chunk kernel's plain
+    version, every field; each rule alone through ``execute_rule`` too."""
     from repro_torch.core import default_rule_library, env_step, execute_rule
 
     nb, d = 16, 256
@@ -284,7 +289,7 @@ def test_cuda_env_step_matches_cpu(cuda, action):
     for dev in ("cpu", cuda):
         rs = default_rule_library(device=dev)
         args = [x.to(dev) for x in (occ, scores, tp)]
-        before = BLOCK_SCAN_KERNEL.launches
+        before = BLOCK_SCAN_RULE_KERNEL.launches
         s, states = env_reset(cfg, device=dev), []
         for a in (1, action, action):
             s = env_step(cfg, rs, *args, s, a)
@@ -294,7 +299,7 @@ def test_cuda_env_step_matches_cpu(cuda, action):
                                        *rs.gather(torch.tensor(action, device=dev))))
         out[str(dev)] = states
         if dev == cuda:
-            assert BLOCK_SCAN_KERNEL.launches > before
+            assert BLOCK_SCAN_RULE_KERNEL.launches > before
     for i, (c, g) in enumerate(zip(out["cpu"], out[str(cuda)])):
         for f in ("block_ptr", "u", "v", "matched", "cand", "cand_cnt", "topn",
                   "done"):
@@ -995,11 +1000,11 @@ def test_cuda_training_step_and_policy(cuda):
              torch.rand((cfg.t_max, 32), generator=g))
     q = torch.from_numpy(np.random.default_rng(4).normal(
         scale=0.05, size=(host.qcfg.p, host.qcfg.n_actions)).astype(np.float32))
-    before = BLOCK_SCAN_KERNEL.launches
+    before = BLOCK_SCAN_RULE_KERNEL.launches
     got, m = card.policy_train_step(CAT1, q.to(cuda), tuple(d.to(cuda) for d in draws),
                                     0.3, qids)
     torch.cuda.synchronize()
-    assert BLOCK_SCAN_KERNEL.launches > before
+    assert BLOCK_SCAN_RULE_KERNEL.launches > before
     want, wm = host.policy_train_step(CAT1, q, draws, 0.3, qids)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
     for k in wm:
@@ -1051,9 +1056,9 @@ def test_cuda_engine_matches_executor_and_holds_compile_count(cuda):
         inputs = sys_.batch_inputs(padded)
         for level, policy in ((ServiceLevel.FULL, policies[cat]),
                               (ServiceLevel.SHALLOW, fallbacks[cat])):
-            before = BLOCK_SCAN_KERNEL.launches
+            before = BLOCK_SCAN_RULE_KERNEL.launches
             got = engine.serve(qids, level)
-            assert BLOCK_SCAN_KERNEL.launches > before
+            assert BLOCK_SCAN_RULE_KERNEL.launches > before
             ids, sc, u, cnt = exe.execute(policy, *inputs)
             for lane, r in enumerate(got):
                 assert r.level == level and not r.cached
@@ -1102,13 +1107,13 @@ def test_cuda_cluster_matches_reference_engine(cuda):
     rng = np.random.default_rng(6)
     waves = [rng.integers(0, sys_.log.n_queries, size=n) for n in (24, 9, 40)]
     waves.append(waves[0][:12])                      # repeats: cache hits
-    before = BLOCK_SCAN_KERNEL.launches
+    before = BLOCK_SCAN_RULE_KERNEL.launches
     got = []
     with cluster:
         for i, wave in enumerate(waves):
             serve = cluster.serve if i % 2 else cluster.serve_many
             got += serve(wave, timeout_s=120.0)
-    assert BLOCK_SCAN_KERNEL.launches > before
+    assert BLOCK_SCAN_RULE_KERNEL.launches > before
     assert sum(r.engine.compile_count for r in cluster.replicas) == n_warm
     assert not any(isinstance(r, Shed) for r in got)
     assert any(r.cached for r in got)
@@ -1167,13 +1172,13 @@ def test_cuda_live_system_parity_through_add_update_commit_merge(cuda,
     sys_.merge_index()
     assert len(epochs) == 4 and epochs[-1].generation == 1
     assert sys_.live.stats()["base_mmapped"]
-    before = BLOCK_SCAN_KERNEL.launches
+    before = BLOCK_SCAN_RULE_KERNEL.launches
     for ep in epochs:
         assert check_epoch_parity(sys_, ep, qids)["ok"]
         sr, dl = sys_._epoch_planes(ep)
         assert sr.device.type == dl.device.type == "cuda"
         assert sr.shape == (4096,) and dl.shape[0] == 4096
-    assert BLOCK_SCAN_KERNEL.launches > before
+    assert BLOCK_SCAN_RULE_KERNEL.launches > before
     occ, scores, _ = sys_.batch_inputs(qids, epoch=epochs[1])
     assert occ.device.type == "cuda" and occ.shape[1] == 16
     assert scores.shape == (12, 4096)
@@ -1205,9 +1210,9 @@ def test_cuda_engine_epoch_swap_answers_at_the_new_epoch(cuda, tmp_path):
     [fresh] = sys_.append_queries([docs[0][3][:2]], [CAT2],
                                   judged_ids=[[ids[0]]], judged_gains=[[4]])
     sys_.commit_index()
-    before = BLOCK_SCAN_KERNEL.launches
+    before = BLOCK_SCAN_RULE_KERNEL.launches
     after = engine.serve(qids + [int(fresh)])
-    assert BLOCK_SCAN_KERNEL.launches > before
+    assert BLOCK_SCAN_RULE_KERNEL.launches > before
     assert all(r.index_epoch == e0 + 1 and not r.cached for r in after)
     assert engine.summary()["index_epoch_swaps"] == 1
     ref = ServeEngine(sys_, store, EngineConfig(backend="reference", **ecfg))
@@ -1264,7 +1269,7 @@ def test_cuda_process_cell_matches_thread_cell(cuda, tmp_path):
             time.sleep(0.01)
         for name, c in (("proc", proc), ("thread", thread)):
             got[name] += c.serve(qids[:24], timeout_s=300.0)
-        launches = [r.kernel_launches()["block_scan_pruned_chunk"]
+        launches = [r.kernel_launches()["block_scan_pruned_chunk_rule"]
                     for r in proc.replicas]
         summaries = proc.stats()["replicas"]
     assert all(n > 0 for n in launches), launches
@@ -1642,11 +1647,268 @@ def test_cuda_websearch_serve_cell_matches_cpu(cuda):
                                          t(occ.view(np.int32)), t(scores), t(tp))]
 
     want = run(torch.device("cpu"))
-    before = BLOCK_SCAN_KERNEL.launches
+    before = BLOCK_SCAN_RULE_KERNEL.launches
     got = run(cuda)
-    assert BLOCK_SCAN_KERNEL.launches > before
+    assert BLOCK_SCAN_RULE_KERNEL.launches > before
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+
+
+# ------------------------------------------- one rule execution a launch
+_STATE_FIELDS = ("block_ptr", "u", "v", "matched", "cand", "cand_cnt", "topn",
+                 "done")
+
+
+def _rule_cases():
+    """The rule kernel's cases: ``tests/test_torch_block_scan_rule.py``'s
+    (each stop of §3, per-lane rules, a midway state, K and top-n edges,
+    32 and 64 planes) and ``tests/test_torch_scan_backends.py``'s (its
+    six rules over B=4, 8 blocks of 64 docs, a midway state, the u
+    budget, per-lane rules), built on the CPU."""
+    from test_torch_block_scan_rule import CASES, _base, _per_lane
+
+    cases = dict(CASES)
+    for w in (2, 8, 33, 256):
+        cases[f"w{w}"] = (lambda w=w: _base(20 + w, w=w, du=40, dv=w * 40,
+                                            ands=3))
+    planes = [(t, f) for t in range(T) for f in range(F)]
+    rules = {"shallow_2plane": ([(0, 1), (0, 3)], [0], 1000, 10**6),
+             "deep_full": (planes, range(T), 1000, 10**6),
+             "mid_chunk_du": (planes, range(T), 40, 10**6),
+             "mid_chunk_dv": (planes, range(T), 1000, 150),
+             "no_required": (planes[:4], [], 1000, 10**6),
+             "zero_active": ([], [0], 1000, 10**6)}
+    for name, (pl, req, du, dv) in rules.items():
+        cases[f"scan_backends_{name}"] = (
+            lambda pl=pl, req=req, du=du, dv=dv: _base(
+                7, b=4, nb=8, w=2, k=48, planes=pl, req=req, du=du, dv=dv))
+    cases["scan_backends_u_budget"] = lambda: _base(7, b=4, nb=8, w=2, k=48,
+                                                    u_budget=40)
+    cases["scan_backends_per_lane"] = lambda: _per_lane(7)
+    return cases
+
+
+_RULE_CASES = _rule_cases()
+
+
+def _on(c, dev):
+    """A rule case with every tensor on ``dev``."""
+    from repro_torch.core.environment import EnvState
+
+    moved = {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
+    for k, v in moved.items():
+        if isinstance(v, torch.Tensor):
+            moved[k] = v.to(dev)
+    moved["state"] = EnvState(*(getattr(c.state, f).to(dev)
+                                for f in _STATE_FIELDS))
+    return type(c)(**moved)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_RULE_CASES))
+def test_cuda_run_rule_kernel_matches_cpu_host_loop(cuda, case):
+    """``BlockScanBackend.run_rule`` on CUDA tensors (one launch of the
+    rule kernel) equals the host loop on CPU tensors, every EnvState
+    field bit for bit; exactly one launch of the rule kernel, none of
+    the chunk kernel and no host sync; the caller's state is left as it was unless it
+    is given up (``inplace``), and then its matched is the result's."""
+    from test_torch_block_scan_rule import _host_loop
+
+    from repro_torch.obs import host_syncs
+
+    c = _RULE_CASES[case]()
+    want = _host_loop(c)
+    g = _on(c, cuda)
+    args = (g.cfg, g.occ, g.scores, g.tp, g.state, g.allowed, g.required,
+            g.du, g.dv)
+    kept = {f: getattr(g.state, f).clone() for f in _STATE_FIELDS}
+    torch.cuda.synchronize()
+    before = (BLOCK_SCAN_RULE_KERNEL.launches, BLOCK_SCAN_KERNEL.launches,
+              host_syncs())
+    got = BlockScanBackend().run_rule(*args)
+    assert (BLOCK_SCAN_RULE_KERNEL.launches, BLOCK_SCAN_KERNEL.launches,
+            host_syncs()) == (before[0] + 1, before[1], before[2])
+    torch.cuda.synchronize()
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        assert torch.equal(getattr(g.state, f), kept[f]), f
+    again = BlockScanBackend().run_rule(*args, inplace=True)
+    assert again.matched is g.state.matched
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(again, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.gpu
+def test_cuda_rule_kernel_scalar_path_and_trace(cuda):
+    """The rule kernel on its scalar path (matched one word off 16-byte
+    alignment) equals the host loop; under a tracer the rule execution
+    is one ``rule`` span with ``route="kernel"`` and no child."""
+    from test_torch_block_scan_rule import _host_loop
+
+    from repro_torch.core.environment import EnvState
+    from repro_torch.obs import Tracer, tracing
+
+    c = _RULE_CASES["midway_matched_bits_set"]()
+    want = _host_loop(c)
+    g = _on(c, cuda)
+    state = EnvState(*(_at_offset(x, 1) if f == "matched" else x
+                       for f, x in zip(_STATE_FIELDS,
+                                       (getattr(g.state, f)
+                                        for f in _STATE_FIELDS))))
+    tracer = Tracer()
+    with tracing(tracer):
+        got = BlockScanBackend().run_rule(g.cfg, g.occ, g.scores, g.tp, state,
+                                          g.allowed, g.required, g.du, g.dv,
+                                          inplace=True)
+    torch.cuda.synchronize()
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    spans = tracer.log.snapshot()
+    assert [e["name"] for e in spans] == ["rule"]
+    assert spans[0]["args"]["route"] == "kernel"
+
+
+def _rollout_setup(dev):
+    """test_torch_scan_backends.py's rollout inputs (B=4, 8 blocks of 64
+    docs), its rule library at du x2, dv x8, state bins and a seeded
+    random Q, on ``dev``."""
+    from repro_torch.core.match_rules import default_rule_library
+    from repro_torch.core.state_bins import fit_bins
+
+    b, nb, d = 4, 8, 64
+    rng = np.random.default_rng(7)
+    occ = (rng.integers(0, 2**32, (b, nb, T, F, d // 32), dtype=np.uint32)
+           & rng.integers(0, 2**32, (b, nb, T, F, d // 32), dtype=np.uint32))
+    scores = rng.normal(size=(b, nb * d)).astype(np.float32)
+    cfg = EnvConfig(n_blocks=nb, block_docs=d, k_rules=6, max_candidates=48,
+                    n_top=5, u_budget=4096)
+    bins = fit_bins(np.linspace(0, 200, 64), np.linspace(0, 4000, 64), p=16,
+                    device=dev)
+    q = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(16, cfg.n_actions)).astype(np.float32)).to(dev)
+    return (cfg, default_rule_library(2, 8, device=dev), bins, q,
+            torch.from_numpy(occ.view(np.int32)).to(dev),
+            torch.from_numpy(scores).to(dev),
+            torch.ones((b, T), dtype=torch.bool, device=dev))
+
+
+def _assert_trees_equal(got, want):
+    """States and integer tensors bit for bit; a float tensor (a reward,
+    a top-n sum, Q, a metric) is a sum that the card reduces in another
+    order than the CPU, so within test_cuda_training_step_and_policy's
+    1e-6."""
+    if isinstance(want, dict):
+        for k in want:
+            _assert_trees_equal(got[k], want[k])
+    elif isinstance(want, (tuple, list)):
+        for g_, w_ in zip(got, want, strict=True):
+            _assert_trees_equal(g_, w_)
+    elif isinstance(want, torch.Tensor) and want.is_floating_point():
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    elif isinstance(want, torch.Tensor):
+        assert torch.equal(got.cpu(), want), (got, want)
+    else:
+        for f in _STATE_FIELDS:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["greedy_tabular", "epsilon_train_batch",
+                                   "static_plan_reset_and_quotas"])
+def test_cuda_rollouts_through_the_rule_kernel_equal_cpu(cuda, which):
+    """Whole rollouts whose states the rollout owns (matched updated in
+    place on the card): a greedy tabular rollout, an ε-greedy
+    ``train_batch`` (its new Q and metrics) and a static plan with a
+    reset-before entry and per-entry quota overrides, on the card equal
+    to the CPU's, with a rule-kernel launch and no chunk-kernel launch
+    per rule execution."""
+    from repro_torch.core.match_plan import production_plans
+    from repro_torch.core.qlearning import QConfig, train_batch
+    from repro_torch.core.rollout import unified_rollout
+    from repro_torch.policies import StaticPlanPolicy, TabularQPolicy
+
+    def run(dev):
+        cfg, rules, bins, q, occ, scores, tp = _rollout_setup(dev)
+        if which == "greedy_tabular":
+            r = unified_rollout(cfg, rules, bins, TabularQPolicy(q), 6, occ,
+                                scores, tp, backend="block_scan")
+            return r.final_state, r.transitions, r.trajectory
+        if which == "epsilon_train_batch":
+            qcfg = QConfig(p=16, n_actions=cfg.n_actions, t_max=6)
+            gen = torch.Generator().manual_seed(3)
+            draws = (torch.randint(0, cfg.n_actions, (6, 4), generator=gen,
+                                   dtype=torch.int32).to(dev),
+                     torch.rand((6, 4), generator=gen).to(dev))
+            prod = torch.zeros((4, 6), device=dev)
+            return train_batch(cfg, qcfg, rules, bins, q, occ, scores, tp,
+                               prod, 0.3, draws, backend="block_scan")
+        plan = production_plans(rules)["CAT1"]
+        plan = dataclasses.replace(
+            plan, du_quota=plan.du_quota * 3 // 2,
+            dv_quota=torch.where(torch.arange(plan.length, device=dev) % 2 == 0,
+                                 plan.dv_quota // 4, plan.dv_quota))
+        assert bool(plan.reset_before.any())
+        r = unified_rollout(cfg, rules, None,
+                            StaticPlanPolicy(plan, cfg.n_actions), plan.length,
+                            occ, scores, tp, backend="block_scan")
+        return r.final_state, r.transitions, r.trajectory
+
+    want = run(torch.device("cpu"))
+    before = (BLOCK_SCAN_RULE_KERNEL.launches, BLOCK_SCAN_KERNEL.launches)
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert BLOCK_SCAN_RULE_KERNEL.launches > before[0]
+    assert BLOCK_SCAN_KERNEL.launches == before[1]
+    _assert_trees_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_execute_rule_and_env_step_leave_the_callers_state(cuda):
+    """``execute_rule``, ``env_step`` and ``policy_env_step`` called
+    directly keep value semantics on the card: the state they were given
+    is unchanged, matched included, and the result is the CPU's."""
+    from repro_torch.core import (default_rule_library, env_step,
+                                  execute_rule)
+    from repro_torch.core.rollout import PolicyAction, policy_env_step
+
+    cfg, rules, _, _, occ, scores, tp = _rollout_setup(cuda)
+    first = env_step(cfg, rules, occ[0], scores[0], tp[0],
+                     env_reset(cfg, device=cuda), 0)
+    assert int(first.cand_cnt) > 0
+    kept = {f: getattr(first, f).clone() for f in _STATE_FIELDS}
+    outs = [execute_rule(cfg, occ[0], scores[0], tp[0], first,
+                         *rules.gather(torch.tensor(2, device=cuda))),
+            env_step(cfg, rules, occ[0], scores[0], tp[0], first, 3)]
+    batch = env_reset(cfg, 4, cuda)
+    batch = policy_env_step(cfg, rules, occ, scores, tp, batch,
+                            PolicyAction.plain(torch.zeros(4, dtype=torch.int32,
+                                                           device=cuda)),
+                            "block_scan")
+    kept_b = {f: getattr(batch, f).clone() for f in _STATE_FIELDS}
+    outs.append(policy_env_step(cfg, rules, occ, scores, tp, batch,
+                                PolicyAction.plain(torch.full(
+                                    (4,), 3, dtype=torch.int32, device=cuda)),
+                                "block_scan"))
+    torch.cuda.synchronize()
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(first, f), kept[f]), f
+        assert torch.equal(getattr(batch, f), kept_b[f]), f
+    cpu = _rollout_setup(torch.device("cpu"))
+    cfg_c, rules_c, _, _, occ_c, scores_c, tp_c = cpu
+    first_c = env_step(cfg_c, rules_c, occ_c[0], scores_c[0], tp_c[0],
+                       env_reset(cfg_c, device="cpu"), 0)
+    batch_c = policy_env_step(
+        cfg_c, rules_c, occ_c, scores_c, tp_c, env_reset(cfg_c, 4, "cpu"),
+        PolicyAction.plain(torch.zeros(4, dtype=torch.int32)), "block_scan")
+    wants = [execute_rule(cfg_c, occ_c[0], scores_c[0], tp_c[0], first_c,
+                          *rules_c.gather(torch.tensor(2))),
+             env_step(cfg_c, rules_c, occ_c[0], scores_c[0], tp_c[0],
+                      first_c, 3),
+             policy_env_step(cfg_c, rules_c, occ_c, scores_c, tp_c, batch_c,
+                             PolicyAction.plain(torch.full(
+                                 (4,), 3, dtype=torch.int32)), "block_scan")]
+    for got, want in zip(outs, wants):
+        _assert_trees_equal(got, want)
 
 
 # ------------------------------------------------------------- the mesh
@@ -1704,9 +1966,9 @@ def test_cuda_mesh_websearch_equals_unsharded(nccl_mesh, shape):
     cell = build_cell("websearch-rl", shape, mesh=nccl_mesh, reduced=True)
     placed = args[:2] + [place_tree(a, s) for a, s in
                          zip(args[2:5], cell.in_shardings[2:5])] + args[5:]
-    before = BLOCK_SCAN_KERNEL.launches
+    before = BLOCK_SCAN_RULE_KERNEL.launches
     got = cell.fn(*placed)
-    assert BLOCK_SCAN_KERNEL.launches > before
+    assert BLOCK_SCAN_RULE_KERNEL.launches > before
     if shape == "rl_rollout":
         got = [got[0]] + [got[1][k] for k in sorted(got[1])]
         want = [want[0]] + [want[1][k] for k in sorted(want[1])]

@@ -12,12 +12,15 @@ benchmark makes them (``perfbench.generate``), its warm calls, then:
    runner's reads of its answers) under
    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising calls
    that torch reports, by source line, against the increase of the
-   program's host-sync count (``repro_torch.obs.host_syncs``);
+   program's host-sync count (``repro_torch.obs.host_syncs``), beside
+   the rule executions that ran as one kernel (the launches of
+   ``BLOCK_SCAN_RULE_KERNEL``);
 2. two profiled slices of the traffic's ``trace_calls`` calls, made as
    the benchmark's traced slice is (``perfbench.trace.TraceSlice``), the
    first under no tracer, the second under ``tracing(Tracer(clock=
    perfbench.spans.profiler_clock))``.  Of each: launches a query, the
-   device's idle share, host syncs a call.  Of the traced one: the
+   device's idle share, host syncs and one-kernel rule executions a
+   call.  Of the traced one: the
    kernel-launch API calls inside a program span, the chunk kernel's
    launches inside a ``chunk`` span (by the profiler's correlation ids),
    the ``sync`` spans over a device-to-host copy or a synchronise call;
@@ -50,6 +53,8 @@ import torch  # noqa: E402
 
 from perfbench import generate, harness, spans, trace  # noqa: E402
 from perfbench.runners import websearch as ws  # noqa: E402
+from repro_torch.kernels.block_scan import (  # noqa: E402
+    BLOCK_SCAN_RULE_KERNEL)
 from repro_torch.obs import (NULL_SPAN, Tracer, host_sync,  # noqa: E402
                              host_syncs, scope, tracing)
 
@@ -95,7 +100,7 @@ def sync_check(step, k: int, device) -> dict:
     """The synchronising calls that torch reports for one step, by
     source line, against the program's count."""
     ws.sync(device)
-    n0 = host_syncs()
+    n0, r0 = host_syncs(), BLOCK_SCAN_RULE_KERNEL.launches
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -104,12 +109,14 @@ def sync_check(step, k: int, device) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     counted = host_syncs() - n0
+    rules = BLOCK_SCAN_RULE_KERNEL.launches - r0
     ws.sync(device)
     synced = [w for w in caught
               if "called a synchronizing" in str(w.message)]
     sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in synced)
     return {"torch_reports": len(synced), "program_counts": counted,
-            "equal": len(synced) == counted, "sites": dict(sites),
+            "equal": len(synced) == counted, "kernel_rules": rules,
+            "sites": dict(sites),
             "messages": sorted({str(w.message)[:200] for w in caught})}
 
 
@@ -138,17 +145,18 @@ def profiled(call, ks, device, tracer=None) -> dict:
     ``tracer`` if given."""
     tslice = trace.TraceSlice(device)
     tslice.start()
-    n0 = host_syncs()
+    n0, r0 = host_syncs(), BLOCK_SCAN_RULE_KERNEL.launches
     with tracing(tracer) if tracer else contextlib.nullcontext():
         for k in ks:
             call(k)
     tslice.stop()
     syncs = host_syncs() - n0
+    rules = BLOCK_SCAN_RULE_KERNEL.launches - r0
     events = trace._raw_events(tslice.prof)
     ops = correlated(tslice.prof)
     summary = tslice.summary()
     return {"events": events, "summary": summary, "syncs": syncs,
-            "ops": ops}
+            "rules": rules, "ops": ops}
 
 
 def slice_numbers(got: dict, calls: int, queries: int) -> dict:
@@ -158,6 +166,7 @@ def slice_numbers(got: dict, calls: int, queries: int) -> dict:
             "device_idle_share": (100.0 * (1.0 - tr.busy_s / tr.window_s)
                                   if tr.busy_s > 0 else None),
             "host_syncs_per_call": got["syncs"] / calls,
+            "kernel_rules_per_call": got["rules"] / calls,
             "chunk_kernel_s": tr.device_seconds(CHUNK_KERNEL),
             "idle_gaps": tr.idle_gaps}
 
