@@ -41,6 +41,11 @@ Megatron):
   then a left fold over the ranks), the same bits on every run; its
   backward passes the cotangent through, as ``psum``'s.
 
+Every all-reduce, all-gather and reduce-scatter here, forward or
+backward, goes through ``obs.trace.collective``: it adds one to
+``collectives()`` and, under an active tracer, opens a ``collective``
+span (``op``, ``axis``, the bytes this rank puts in).
+
 Which sum is which.  NCCL's and gloo's all-reduce fix no order of the
 additions, so a float sum that must come out the same on every run goes
 through ``psum_ordered`` (or ``copy_to(ordered=True)``): the GNN's
@@ -59,6 +64,7 @@ from typing import Any, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.obs.trace import collective
 from repro_torch.train.tree import tree_map
 
 from .sharding_rules import PartitionSpec, mesh_shape, to_placements
@@ -122,24 +128,35 @@ def shard_out(local: torch.Tensor, mesh, spec: PartitionSpec):
                               run_check=False)
 
 
-def _all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, axis: str,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced in place over ``group``, the mesh axis ``axis``."""
+    name = "all_reduce" if op == dist.ReduceOp.SUM else "all_reduce_max"
+    with collective(name, axis, x.nbytes):
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def _all_gather_dim(x: torch.Tensor, group, dim: int, axis: str) -> torch.Tensor:
     """The ranks' blocks joined along ``dim``, contiguous: a strided view
     would send the next GEMM down another cuBLAS path than the unsharded
     layout's (float32 results 4e-6 apart on the H100 at world size 1)."""
     n = dist.get_world_size(group)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
-    dist.all_gather_into_tensor(out, xt, group=group)
+    with collective("all_gather", axis, xt.nbytes):
+        dist.all_gather_into_tensor(out, xt, group=group)
     return out.movedim(0, dim).contiguous()
 
 
-def _reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _reduce_scatter_dim(x: torch.Tensor, group, dim: int, axis: str) -> torch.Tensor:
     n = dist.get_world_size(group)
     xt = x.movedim(dim, 0).contiguous()
     if xt.shape[0] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide by {n}")
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
-    dist.reduce_scatter_tensor(out, xt, group=group)
+    with collective("reduce_scatter", axis, xt.nbytes):
+        dist.reduce_scatter_tensor(out, xt, group=group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -151,65 +168,66 @@ def _own_block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, group, axis):
+        return _all_reduce(x.contiguous().clone(), group, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _all_gather_dim(x, group, dim)
+    def forward(ctx, x, group, dim, axis):
+        ctx.group, ctx.dim, ctx.axis = group, dim, axis
+        return _all_gather_dim(x, group, dim, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduce_scatter_dim(grad, ctx.group, ctx.dim), None, None
+        return (_reduce_scatter_dim(grad, ctx.group, ctx.dim, ctx.axis),
+                None, None, None)
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _reduce_scatter_dim(x, group, dim)
+    def forward(ctx, x, group, dim, axis):
+        ctx.group, ctx.dim, ctx.axis = group, dim, axis
+        return _reduce_scatter_dim(x, group, dim, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_gather_dim(grad, ctx.group, ctx.dim), None, None
+        return (_all_gather_dim(grad, ctx.group, ctx.dim, ctx.axis),
+                None, None, None)
 
 
 class _Scatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(ctx, x, group, dim, axis):
+        ctx.group, ctx.dim, ctx.axis = group, dim, axis
         return _own_block(x, group, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_gather_dim(grad, ctx.group, ctx.dim), None, None
+        return (_all_gather_dim(grad, ctx.group, ctx.dim, ctx.axis),
+                None, None, None)
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
+    def forward(ctx, x, group, dim, axis):
         ctx.group, ctx.dim = group, dim
-        return _all_gather_dim(x, group, dim)
+        return _all_gather_dim(x, group, dim, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return _own_block(grad, ctx.group, ctx.dim), None, None
+        return _own_block(grad, ctx.group, ctx.dim), None, None, None
 
 
-def _sum_in_rank_order(x: torch.Tensor, group) -> torch.Tensor:
+def _sum_in_rank_order(x: torch.Tensor, group, axis: str) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
         return x.clone()
-    parts = _all_gather_dim(x.contiguous()[None], group, 0)
+    parts = _all_gather_dim(x.contiguous()[None], group, 0, axis)
     out = parts[0].clone()
     for i in range(1, n):
         out += parts[i]
@@ -218,35 +236,35 @@ def _sum_in_rank_order(x: torch.Tensor, group) -> torch.Tensor:
 
 class _PSumOrdered(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _sum_in_rank_order(x, group)
+    def forward(ctx, x, group, axis):
+        return _sum_in_rank_order(x, group, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, ordered):
-        ctx.group, ctx.ordered = group, ordered
+    def forward(ctx, x, group, ordered, axis):
+        ctx.group, ctx.ordered, ctx.axis = group, ordered, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
         if ctx.ordered:
-            return _sum_in_rank_order(grad, ctx.group), None, None
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None, None
+            return (_sum_in_rank_order(grad, ctx.group, ctx.axis),
+                    None, None, None)
+        return (_all_reduce(grad.contiguous().clone(), ctx.group, ctx.axis),
+                None, None, None)
 
 
 class _PMax(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
-        ctx.group = group
+    def forward(ctx, x, group, axis):
+        out = _all_reduce(x.contiguous().clone(), group, axis,
+                          op=dist.ReduceOp.MAX)
+        ctx.group, ctx.axis = group, axis
         ctx.save_for_backward(x, out)
         return out
 
@@ -254,15 +272,14 @@ class _PMax(torch.autograd.Function):
     def backward(ctx, grad):
         x, out = ctx.saved_tensors
         hit = (x == out).to(grad.dtype)
-        ties = hit.clone()
-        dist.all_reduce(ties, group=ctx.group)     # small integers: exact
-        return grad * hit / ties.clamp_min(1), None
+        ties = _all_reduce(hit.clone(), ctx.group, ctx.axis)  # small integers: exact
+        return grad * hit / ties.clamp_min(1), None, None
 
 
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum over ``axes``; the backward passes the cotangent through."""
     for a in _axes(axes):
-        x = _PSum.apply(x, mesh.get_group(a))
+        x = _PSum.apply(x, mesh.get_group(a), a)
     return x
 
 
@@ -276,13 +293,13 @@ def pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """The blocks of ``axis``'s ranks concatenated along ``dim`` (tiled);
     backward: a reduce-scatter."""
-    return _AllGather.apply(x, mesh.get_group(axis), dim)
+    return _AllGather.apply(x, mesh.get_group(axis), dim, axis)
 
 
 def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """Sum over ``axis``, this rank keeping its block of ``dim`` (tiled);
     backward: an all-gather."""
-    return _ReduceScatter.apply(x, mesh.get_group(axis), dim)
+    return _ReduceScatter.apply(x, mesh.get_group(axis), dim, axis)
 
 
 def psum_ordered(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -291,7 +308,7 @@ def psum_ordered(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     the same bits on every run.  It gathers the axis size times ``x``'s
     memory.  Backward: the cotangent passes through."""
     for a in _axes(axes):
-        x = _PSumOrdered.apply(x, mesh.get_group(a))
+        x = _PSumOrdered.apply(x, mesh.get_group(a), a)
     return x
 
 
@@ -299,7 +316,7 @@ def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The elementwise maximum over ``axes``; backward: the cotangent to
     the ranks whose element is the maximum, split evenly over them."""
     for a in _axes(axes):
-        x = _PMax.apply(x, mesh.get_group(a))
+        x = _PMax.apply(x, mesh.get_group(a), a)
     return x
 
 
@@ -308,14 +325,14 @@ def copy_to(x: torch.Tensor, mesh, axes, ordered: bool = False) -> torch.Tensor:
     rank order with ``ordered``).  Put it where a tensor replicated over
     ``axes`` feeds work split over them."""
     for a in _axes(axes):
-        x = _CopyTo.apply(x, mesh.get_group(a), ordered)
+        x = _CopyTo.apply(x, mesh.get_group(a), ordered, a)
     return x
 
 
 def scatter_replicated(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of a tensor replicated over
     ``axis``; backward: an all-gather."""
-    return _Scatter.apply(x, mesh.get_group(axis), dim)
+    return _Scatter.apply(x, mesh.get_group(axis), dim, axis)
 
 
 def gather_replicated(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -323,7 +340,7 @@ def gather_replicated(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tenso
     every rank then does whole (the inverse of ``scatter_replicated``);
     backward: this rank's own block of the cotangent, which every rank
     holds whole."""
-    return _Gather.apply(x, mesh.get_group(axis), dim)
+    return _Gather.apply(x, mesh.get_group(axis), dim, axis)
 
 
 # ------------------------------------------------ gradient compression
@@ -350,9 +367,7 @@ def compressed_psum_grads(grads: PyTree, residual: PyTree, mesh,
     n = mesh_shape(mesh)[axis]
 
     def mean(p):
-        p = p.contiguous().clone()
-        dist.all_reduce(p, group=mesh.get_group(axis))
-        return p / n
+        return _all_reduce(p.contiguous().clone(), mesh.get_group(axis), axis) / n
 
     return decompress_accumulate(tree_map(mean, payload)), new_res
 

@@ -755,10 +755,14 @@ def _build_websearch(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> Cel
     n_blocks / model blocks (the paper's machines).  Serve gathers the
     ranks' candidate ids (offset to global ids) over ``model``, merges
     them by static rank (``merge_shard_candidates``) and sums u and
-    cand_cnt; train averages q_new and the metrics over ``model``, then
-    over the data axes ("the same policy on every machine").  Each rank
-    takes the same draws, (t_max, B / data) (the reference's shards draw
-    from one replicated key at their local batch)."""
+    cand_cnt, in a ``shard_serve`` span (``gather``, ``merge``, ``reduce``)
+    under the active tracer; a rank's blocks may come as DTensors placed
+    by ``in_shardings`` (rank-local, ``DTensor.from_local``), which it
+    reads without a copy, or as global tensors that it slices.  Train
+    averages q_new and the metrics over ``model``, then over the data
+    axes ("the same policy on every machine").  Each rank takes the same
+    draws, (t_max, B / data) (the reference's shards draw from one
+    replicated key at their local batch)."""
     from repro_torch.core.environment import EnvConfig
     from repro_torch.core.match_rules import default_rule_library
     from repro_torch.core.qlearning import QConfig, train_batch
@@ -770,6 +774,7 @@ def _build_websearch(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> Cel
                                                      shard_out)
     from repro_torch.index.builder import MAX_QUERY_TERMS
     from repro_torch.index.corpus import N_FIELDS
+    from repro_torch.obs.trace import scope
     from repro_torch.policies import TabularQPolicy
 
     wcfg = arch.model_cfg(reduced)
@@ -828,14 +833,20 @@ def _build_websearch(arch: ArchDef, shape_name: str, mesh, reduced: bool) -> Cel
                                     scores, tp, backend=wcfg.backend).final_state
             if mesh is None:
                 return final.cand, final.u, final.cand_cnt
-            shard = axis_index(mesh, "model")
-            cand = torch.where(final.cand >= 0,
-                               final.cand + shard * n_pad_local, -1)
-            gathered = all_gather(cand[None], mesh, "model", 0)  # (S, Qloc, K)
-            merged = merge_shard_candidates(gathered, keep=wcfg.max_candidates)
-            return (shard_out(merged, mesh, P(dpn, None)),
-                    shard_out(psum(final.u, mesh, "model"), mesh, P(dpn)),
-                    shard_out(psum(final.cand_cnt, mesh, "model"), mesh, P(dpn)))
+            with scope("shard_serve"):
+                with scope("gather"):
+                    shard = axis_index(mesh, "model")
+                    cand = torch.where(final.cand >= 0,
+                                       final.cand + shard * n_pad_local, -1)
+                    gathered = all_gather(cand[None], mesh, "model", 0)  # (S, Qloc, K)
+                with scope("merge"):
+                    merged = merge_shard_candidates(gathered,
+                                                    keep=wcfg.max_candidates)
+                with scope("reduce"):
+                    u = psum(final.u, mesh, "model")
+                    cand_cnt = psum(final.cand_cnt, mesh, "model")
+            return (shard_out(merged, mesh, P(dpn, None)), shard_out(u, mesh, P(dpn)),
+                    shard_out(cand_cnt, mesh, P(dpn)))
 
         args = (q_abs, bins_abs, occ_abs, scores_abs, tp_abs)
         out_sh = (P(dpn, None), P(dpn), P(dpn))

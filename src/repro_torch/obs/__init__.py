@@ -32,6 +32,8 @@ from .trace import (
     Tracer,
     active,
     adjust_remote_entries,
+    collective,
+    collectives,
     export_chrome_entries,
     host_sync,
     host_syncs,
@@ -57,6 +59,8 @@ __all__ = [
     "Tracer",
     "active",
     "adjust_remote_entries",
+    "collective",
+    "collectives",
     "export_chrome_entries",
     "fold_snapshot",
     "host_sync",

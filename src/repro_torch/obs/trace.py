@@ -25,7 +25,11 @@ under the *active* tracer: a caller sets one for a block with
 open one there.  The state is a ``contextvar``, so each thread sees only
 the tracer its own caller set.  :func:`host_sync` marks a blocking
 device→host read: it counts it (:func:`host_syncs`, always on) and,
-under an active tracer, times it as a ``sync`` span.
+under an active tracer, times it as a ``sync`` span.  :func:`collective`
+marks one collective of ``distributed/collectives.py`` the same way: a
+count (:func:`collectives`, always on) and, under an active tracer, a
+``collective`` span with the op, the mesh axis and the bytes this rank
+puts in.
 
 Multi-process cells merge several logs into one timeline: each worker
 ships entry deltas (:meth:`TraceLog.drain_since`) over its control
@@ -67,6 +71,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["Span", "TraceLog", "Tracer", "NULL_SPAN", "NULL_TRACER",
            "active", "tracing", "scope", "host_sync", "host_syncs",
+           "collective", "collectives",
            "adjust_remote_entries", "export_chrome_entries",
            "write_chrome_entries"]
 
@@ -475,6 +480,8 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_active_tracer", default=(NULL_TRACER, None))
 _host_syncs = 0
 _host_syncs_lock = threading.Lock()
+_collectives = 0
+_collectives_lock = threading.Lock()
 
 
 def active() -> Tracer:
@@ -541,3 +548,21 @@ def host_syncs() -> int:
     """The device→host reads marked with :func:`host_sync` in this
     process so far."""
     return _host_syncs
+
+
+def collective(op: str, axis: str, nbytes: int):
+    """Mark one collective over the mesh axis ``axis``: ``with
+    collective("all_gather", "model", x.nbytes): dist.all_gather_into_tensor(
+    ...)``.  Counts it in a plain process-wide count (:func:`collectives`)
+    and, under an active tracer, times its host call as a ``collective``
+    span (``op``, ``axis``, ``bytes``: what this rank puts in)."""
+    global _collectives
+    with _collectives_lock:
+        _collectives += 1
+    return scope("collective", op=op, axis=axis, bytes=int(nbytes))
+
+
+def collectives() -> int:
+    """The collectives marked with :func:`collective` in this process so
+    far."""
+    return _collectives
